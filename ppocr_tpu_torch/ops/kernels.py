@@ -10,13 +10,27 @@ blob_stats  ppocr_tpu/ops/pallas_kernels.py      csrc/blob_stats.cu
             ``blob_stats_pallas``
 ==========  ===================================  ==========================
 
-Each source note says what bounds the kernel on an H100 and what its
-design does about it. The sources are compiled with ``nvcc`` for
-``sm_90a`` at first use, one process per source started together, into
-one shared library with a plain C interface under ``_build/`` (listed in
-``.gitignore``) and loaded with ``ctypes``. Each kernel returns
-``cudaGetLastError()`` after its launch and the wrapper raises on a
-non-zero code.
+Both are bound by bytes on an H100, and at the serving shapes by the cost
+of a launch (``csrc/noop.cu`` measures that floor; the path never calls
+it). Each source note gives the numbers and the design:
+
+* ``ctc_topk``: the first design, one warp per row, filled under half the
+  card at a request's 512 rows (0.41 TB/s). Now one 128-thread block per
+  row with four 16-byte loads in flight per thread, a scalar head and
+  tail per row, so any V and any 4-byte aligned base pointer are served
+  without a copy.
+* ``blob_stats``: the first design voted once per slot for every 32
+  pixels and needed about fourteen PyTorch launches around it to
+  initialise and convert. Now one launch: a pass per distinct label of a
+  warp's pixels, background warps skipped, and the last block to finish
+  writes the six f32 outputs and re-zeroes the scratch, so the wrapper
+  queues nothing but ``torch.empty``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+process per source started together, into one shared library with a plain
+C interface under ``_build/`` (listed in ``.gitignore``) and loaded with
+``ctypes``. Each launch function returns ``cudaGetLastError()`` and the
+wrapper raises on a non-zero code.
 
 A wrapper sends CPU tensors to the plain version and launches the kernel
 for CUDA tensors; there is no fallback from one to the other. Each
@@ -36,15 +50,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("ctc_topk.cu", "blob_stats.cu")
+SOURCES = ("ctc_topk.cu", "blob_stats.cu", "noop.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BIG = 1e9  # empty-root sentinel of blob_stats (x0/y0 = +BIG, x1/y1 = -BIG)
-INT_MAX = 2**31 - 1
-INT_MIN = -(2**31)
-BLOB_CHUNK = 1024  # pixels per blob_stats block
+BLOB_ACC_WORDS = 6  # scratch words per slot (count, mass, x0, x1, y0, y1)
 
 _lib = None
 build_log = ""  # nvcc's output of the last build (registers, smem, spills)
@@ -109,6 +121,8 @@ def load_library() -> ctypes.CDLL:
         lib.ctc_topk_launch.restype = i
         lib.blob_stats_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
         lib.blob_stats_launch.restype = i
+        lib.noop_launch.argtypes = [p]
+        lib.noop_launch.restype = i
         _lib = lib
     return _lib
 
@@ -120,6 +134,11 @@ def _check(rc: int, name: str):
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _launch_noop(lib):
+    """An empty kernel of one thread: the cost of a launch on the card."""
+    _check(lib.noop_launch(_stream()), "noop")
 
 
 # ---------------------------------------------------------------------------
@@ -196,13 +215,29 @@ def blob_stats_plain(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tens
     return area, psum, x0, x1, y0, y1
 
 
-def _launch_blob_stats(lib, lab, pr, rt, acc, psum):
-    """The bare kernel launch on prepared int32/f32 contiguous tensors."""
+_blob_scratch = {}  # (device index, stream) → zeroed int32 scratch
+
+
+def _scratch_for(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The kernel's global accumulators: zeroed once here, left zeroed by
+    every launch, one per stream so that two streams never share it."""
+    key = (device.index, stream)
+    buf = _blob_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int32, device=device)
+        _blob_scratch[key] = buf
+    return buf
+
+
+def _launch_blob_stats(lib, lab, pr, rt, scratch, out):
+    """The bare kernel launch on int32/f32 contiguous tensors, a zeroed
+    scratch of 1 + 6·B·K int32 words and an f32 [6, B, K] output. The
+    background label is H·W, as the connected components leave it."""
     b, h, w = lab.shape
     _check(
         lib.blob_stats_launch(
             lab.data_ptr(), pr.data_ptr(), rt.data_ptr(), b, h, w, rt.shape[1],
-            BLOB_CHUNK, acc.data_ptr(), psum.data_ptr(), _stream(),
+            h * w, scratch.data_ptr(), out.data_ptr(), _stream(),
         ),
         "blob_stats",
     )
@@ -211,7 +246,9 @@ def _launch_blob_stats(lib, lab, pr, rt, acc, psum):
 def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
     """Blob stats of a batch of label maps: the kernel for CUDA tensors,
     :func:`blob_stats_plain` for CPU tensors. Same outputs as the plain
-    version; psum agrees to rtol 1e-5 (float atomics sum in any order)."""
+    version (views of one [6, B, K] allocation); psum agrees to rtol 1e-5
+    (float atomics sum in any order). For int32/f32 contiguous inputs the
+    kernel is the only work queued on the device."""
     if labels.dim() != 3 or prob.shape != labels.shape or roots.dim() != 2:
         raise ValueError(
             f"blob_stats wants labels/prob [B, H, W] and roots [B, K], got "
@@ -225,25 +262,16 @@ def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
     if devices != {"cuda"}:
         raise ValueError(f"blob_stats: tensors on {sorted(devices)}")
     lib = load_library()
-    b, h, w = labels.shape
-    k = roots.shape[1]
+    b, k = roots.shape
     lab = labels.to(torch.int32).contiguous()
     pr = prob.float().contiguous()
     rt = roots.to(torch.int32).contiguous()
-    # accumulators (count, x0, x1, y0, y1) and mass, filled on the device
-    acc = torch.full((b, k, 5), INT_MAX, dtype=torch.int32, device=lab.device)
-    acc[..., 0] = 0
-    acc[..., 2::2] = INT_MIN
-    psum = torch.zeros((b, k), dtype=torch.float32, device=lab.device)
-    _launch_blob_stats(lib, lab, pr, rt, acc, psum)
-    blob_stats.launches += 1
-    area = acc[..., 0].float()
-    hit = acc[..., 0] > 0
-    x0, x1, y0, y1 = (
-        torch.where(hit, acc[..., i].float(), empty)
-        for i, empty in ((1, BIG), (2, -BIG), (3, BIG), (4, -BIG))
-    )
-    return area, psum, x0, x1, y0, y1
+    out = torch.empty((6, b, k), dtype=torch.float32, device=lab.device)
+    if b * k > 0:
+        scratch = _scratch_for(lab.device, _stream(), 1 + BLOB_ACC_WORDS * b * k)
+        _launch_blob_stats(lib, lab, pr, rt, scratch, out)
+        blob_stats.launches += 1
+    return tuple(out.unbind(0))
 
 
 blob_stats.launches = 0
