@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's fused OCR request on one NVIDIA card and check it.
+"""Drive the PyTorch port's fused OCR request and its IPC service on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,38 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 4. serving-jumbo in bf16 through ``OCRWorker.process`` (8 requests) and
    one 4-image ``process_batch`` with buckets (1, 4), then again with
    ``fused_blob_kernel=True`` (same words required). The kernels' launch
-   counters are zeroed just before this phase and must be > 0 after it.
+   counters are zeroed just before this phase and must be > 0 after it;
+5. the fused path's options, one engine per config: the "small" config
+   plus one of ``enable_cls`` (an untrained classifier from a seed,
+   written to ``cls/weights.npz``), ``det.use_dilation``,
+   ``fused_rotated_boxes``, ``fused_crop_src_mult=2``,
+   ``rec.decode="beam"``, f32 with TF32 off, words held against the JAX
+   goldens of that config as in phase 3. ``ctc_topk``'s launch counter is
+   zeroed before each config and must rise in every greedy one and stay
+   at 0 in the beam one (the JAX package uses ``lax.top_k`` there). Then
+   each option at full width (serving-jumbo, bf16, 768×1024 requests):
+   its request p50 beside the base config's, three rounds in turns, as
+   wall time of the call (host decode included) and as the response's
+   ``processing_time_ms`` (which ends before the host decode);
+6. the service: ``python3 -m ppocr_tpu_torch.cli.service_main`` as a
+   subprocess on the jumbo bundle, serving profile in bf16 (det 512,
+   K = 32, rec 48×256), ``--batch-requests 4 --warmup full``, driven
+   through ``OCRIPCClient``: ``recognize`` by ``image_path`` and by
+   ``image_data`` (PNGs written by ``encode_png``), 8 concurrent requests
+   from threads (the batcher must coalesce: ``batched_steps`` ≥ 1 in
+   ``status``), a malformed JSON line, a JPEG payload (error response),
+   ``status`` (total = successful + failed; the kernels' launch counts
+   rise over the requests), phase 4's eight single requests twice over
+   for the service's request p50 (client wall time, PNG decode and IPC
+   included) in turns with the same requests in process, ``shutdown``
+   (exit code 0). Single requests must give the words
+   phase 4 got in process for the same scene (texts exact, boxes ≤ 2 px,
+   confidence ≤ 2e-3); a request served in a batch of another size may
+   round differently in bf16, so the coalesced ones are held to the same
+   word count, boxes ≤ 2 px and ≥ 0.9 of the texts. Then a second service
+   with ``--cpu-workers 2 --warmup incremental`` and the blob-stats
+   kernel on: 8 concurrent requests through two worker threads that share
+   the stream, the modules and the kernel's scratch.
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -35,11 +67,15 @@ It then prints the ``kernels`` JSON line, the card line, and
 
 from __future__ import annotations
 
+import base64
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -50,6 +86,19 @@ F32_OPS_PER_S = 67e12  # H100 SXM non-tensor f32 peak (also used for int32 compa
 BOX_TOL = 2  # px; det conv summation order can flip a threshold pixel
 CONF_TOL = 2e-3
 PSUM_RTOL = 1e-5
+REPO = pathlib.Path(__file__).resolve().parent
+
+
+class f32_exact:
+    """TF32 off inside the block (cuDNN convs default to TF32 on Hopper)."""
+
+    def __enter__(self):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def card_line() -> str:
@@ -107,7 +156,13 @@ class Smoke:
         self.scenes = assets.load_scenes()
         self.goldens = assets.load_goldens()
         self.tmp = tempfile.TemporaryDirectory()
-        self.model_dir = str(assets.make_jumbo_model_dir(self.tmp.name))
+        self.model_dir = str(assets.make_jumbo_model_dir(self.tmp.name + "/jumbo"))
+        self.cls_model_dir = str(
+            assets.make_jumbo_model_dir(self.tmp.name + "/jumbo_cls", cls_seed=assets.CLS_SEED)
+        )
+        self.launches = {}  # main path → launch counts of that run
+        self.served = {}  # scene key → words phase 4 served in process
+        self.serving_worker = None  # phase 4's worker, flag off
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -384,9 +439,7 @@ class Smoke:
     def parity(self):
         from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
 
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with f32_exact():
             for name, scenes in (("small", "parity"), ("serving", "serving")):
                 cfg = PipelineConfig.from_dict(self.goldens["configs"][name])
                 worker = OCRWorker(OCREngine(self.model_dir, cfg), 0)
@@ -401,9 +454,6 @@ class Smoke:
                     n_words += len(want)
                 print(f"parity f32 (TF32 off) {name}: {n_words} words match the JAX goldens "
                       f"(texts exact, boxes <= {BOX_TOL} px, conf <= {CONF_TOL})")
-        finally:
-            torch.backends.cudnn.allow_tf32 = True
-            torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- 4 ---------------------------------------------------------------
     def serving(self):
@@ -433,6 +483,8 @@ class Smoke:
                 raise AssertionError(f"failed requests: {bad[:2]}")
             ms = sorted(r["processing_time_ms"] for r in resp[:8])
             runs[blob_kernel] = [r["words"] for r in resp]
+            if not blob_kernel:
+                self.serving_worker = worker
             print(json.dumps({
                 "serving": "serving-jumbo bf16", "fused_blob_kernel": blob_kernel,
                 "warmup_s": round(warm, 3), "requests": len(singles),
@@ -440,13 +492,17 @@ class Smoke:
                 "batch4_ms": resp[8]["processing_time_ms"], "card": card_line(),
             }), flush=True)
         counts = K.launch_counts()
-        for name, n in counts.items():
-            self.kernels.setdefault(name, {"name": name})["launches"] = n
+        self.launches["bf16 serving"] = counts
         print(f"launches on the main path: {counts}")
         if min(counts.values()) <= 0:
             raise AssertionError(f"a kernel of the path never launched: {counts}")
         if runs[True] != runs[False]:
             raise AssertionError("fused_blob_kernel=True changed the served words")
+        # what the service phase must serve for the same scenes
+        for i in range(len(self.scenes["serving"])):
+            self.served[f"serving{i}"] = runs[False][i]
+        for i in range(len(self.scenes["parity"])):
+            self.served[f"parity{i}"] = runs[False][len(self.scenes["serving"]) + i]
         n_words = sum(len(w) for w in runs[False])
         golden = [w["text"] for ws in self.goldens["words"]["serving"] for w in ws]
         served = [w["text"] for ws in runs[False][:2] for w in ws]
@@ -456,8 +512,282 @@ class Smoke:
         if n_words == 0 or agree < 0.5:
             raise AssertionError("bf16 serving output disagrees with the f32 goldens")
 
+    # -- 5 ---------------------------------------------------------------
+    def serving_config(self):
+        from ppocr_tpu_torch.pipeline import PipelineConfig
+
+        cfg = PipelineConfig.from_dict(self.goldens["configs"]["serving"])
+        cfg.dtype = "bfloat16"
+        return cfg
+
+    def options(self):
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
+
+        totals = {"ctc_topk": 0, "blob_stats": 0}
+        with f32_exact():
+            for opt in self.assets.OPTIONS:
+                name = f"small+{opt}"
+                cfg = PipelineConfig.from_dict(self.goldens["configs"][name])
+                md = self.cls_model_dir if cfg.enable_cls else self.model_dir
+                worker = OCRWorker(OCREngine(md, cfg), 0)
+                torch.cuda.synchronize()
+                K.reset_launch_counts()  # this config's run starts here
+                n_words = 0
+                for i, (scene, want) in enumerate(
+                    zip(self.scenes["parity"], self.goldens["words"][name])
+                ):
+                    resp = worker.process(scene, i)
+                    if not resp["success"]:
+                        raise AssertionError(f"{name} scene {i}: {resp.get('error')}")
+                    check_words(resp["words"], want, f"{name} scene {i}")
+                    n_words += len(want)
+                counts = K.launch_counts()
+                for k, n in counts.items():
+                    totals[k] += n
+                greedy = opt != "beam"
+                if (counts["ctc_topk"] > 0) != greedy:
+                    raise AssertionError(f"{name}: ctc_topk launched {counts['ctc_topk']} times")
+                print(f"options f32 (TF32 off) {name}: {n_words} words match the JAX goldens; "
+                      f"launches {counts}")
+        self.launches["fused options"] = totals
+        # each option's cost at full width beside the base config: every
+        # engine is built and warmed first, then the configs take turns,
+        # three rounds of 8 requests each (host times: ±20 % between runs)
+        scenes = list(self.scenes["serving"])
+        workers = {}
+        for opt in (None, *self.assets.OPTIONS):
+            cfg = self.serving_config()
+            if opt is not None:
+                self.assets.apply_option(cfg, opt)
+            md = self.cls_model_dir if cfg.enable_cls else self.model_dir
+            workers[opt or "base"] = OCRWorker(OCREngine(md, cfg), 0)
+            for s in scenes * 2:  # untimed: the shapes' first calls
+                workers[opt or "base"].process(s, 0)
+        # wall: around the whole call, host decode included (the beam
+        # search runs there); processing: the response's own stamp, which
+        # ends when the step's outputs reach the host, as in the JAX package
+        p50 = {name: {"wall": [], "processing": []} for name in workers}
+        for _ in range(3):
+            for name, worker in workers.items():
+                walls, resp = [], []
+                for i in range(8):
+                    t0 = time.perf_counter()
+                    resp.append(worker.process(scenes[i % 2], i))
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                if not all(r["success"] and r["words"] for r in resp):
+                    raise AssertionError(f"serving + {name}: a request failed or read nothing")
+                p50[name]["wall"].append(statistics.median(walls))
+                p50[name]["processing"].append(
+                    statistics.median(r["processing_time_ms"] for r in resp))
+        print(json.dumps({
+            "option_cost": "serving-jumbo bf16, 768x1024 requests; p50 of 8 requests, three "
+            "rounds in turns after 4 warm requests", "p50_ms": p50, "card": card_line()}), flush=True)
+
+    # -- 6 ---------------------------------------------------------------
+    def start_service(self, sock, extra):
+        """The service as a user starts it; returns (process, its output
+        lines so far) once it prints its "listening" line."""
+        cfg_path = os.path.join(self.tmp.name, "service.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"rec": {"img_h": 48, "img_w": 256}, **extra.pop("config", {})}, f)
+        argv = [sys.executable, "-m", "ppocr_tpu_torch.cli.service_main",
+                "--model-dir", self.model_dir, "--socket", sock, "--config", cfg_path,
+                "--status-interval", "600"]
+        for k, v in extra.items():
+            argv += [k, str(v)]
+        proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines, listening = [], threading.Event()
+
+        def pump():
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if "listening" in line:
+                    listening.set()
+            listening.set()  # the process ended
+
+        threading.Thread(target=pump, daemon=True).start()
+        if not listening.wait(timeout=300) or proc.poll() is not None:
+            proc.kill()
+            raise AssertionError("the service did not come up:\n" + "\n".join(lines[-30:]))
+        return proc, lines
+
+    def concurrent(self, client_cls, sock, payloads):
+        """One ``recognize`` per payload, each from a thread of its own."""
+        out = {}
+
+        def one(i, req):
+            with client_cls(sock, timeout_ms=120000) as c:
+                out[i] = c.send_request(req)
+
+        threads = [threading.Thread(target=one, args=(i, r)) for i, r in enumerate(payloads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        if len(out) != len(payloads):
+            raise AssertionError(f"{len(payloads) - len(out)} concurrent requests got no answer")
+        return [out[i] for i in range(len(payloads))]
+
+    def check_coalesced(self, resp, key):
+        """A request that may have been served in a batch of another size
+        than phase 4's: bf16 may round differently there."""
+        want = self.served[key]
+        if not resp.get("success") or len(resp["words"]) != len(want):
+            raise AssertionError(f"concurrent {key}: {str(resp)[:300]}")
+        same = 0
+        for g, w in zip(resp["words"], want):
+            d = max(abs(a - b) for p, q in zip(g["box"], w["box"]) for a, b in zip(p, q))
+            if d > BOX_TOL:
+                raise AssertionError(f"concurrent {key}: box {g['box']} vs {w['box']}")
+            same += g["text"] == w["text"]
+        return same, len(want)
+
+    def service(self):
+        from ppocr_tpu_torch.serve import OCRIPCClient
+        from ppocr_tpu_torch.utils.imcodec import encode_png
+
+        keys = [f"serving{i}" for i in range(len(self.scenes["serving"]))]
+        keys += [f"parity{i}" for i in range(len(self.scenes["parity"]))]
+        images = [*self.scenes["serving"], *self.scenes["parity"]]
+        pngs = {k: encode_png(img) for k, img in zip(keys, images)}
+        paths = {}
+        for k, data in pngs.items():
+            paths[k] = os.path.join(self.tmp.name, f"{k}.png")
+            pathlib.Path(paths[k]).write_bytes(data)
+        by_data = {k: {"command": "recognize",
+                       "image_data": base64.b64encode(d).decode()} for k, d in pngs.items()}
+        eight = (keys * 2)[:8]
+
+        def status(c):
+            st = json.loads(c.get_service_status()["status"])
+            if st["total_requests"] != st["successful_requests"] + st["failed_requests"]:
+                raise AssertionError(f"status counters do not add up: {st}")
+            return st
+
+        def shutdown(c, proc, lines):
+            if c.send_shutdown_command().get("success") is not True:
+                raise AssertionError("shutdown was not acknowledged")
+            c.disconnect()
+            rc = proc.wait(timeout=20)
+            if rc != 0:
+                raise AssertionError(f"the service exited with {rc}:\n" + "\n".join(lines[-20:]))
+
+        # -- the batching service
+        sock = os.path.join(self.tmp.name, "svc.sock")
+        t0 = time.perf_counter()
+        proc, lines = self.start_service(sock, {"--batch-requests": 4, "--warmup": "full"})
+        try:
+            boot_s = time.perf_counter() - t0
+            warm = [ln for ln in lines if ln.startswith("Warmup")]
+            c = OCRIPCClient(sock, timeout_ms=120000)
+            if not c.connect():
+                raise AssertionError("cannot connect to the service")
+            before = status(c)
+            r = c.send_request({"command": "recognize", "image_path": paths["serving0"]})
+            check_words(r.get("words"), self.served["serving0"], "service image_path")
+            r = c.send_request(by_data["serving1"])
+            check_words(r.get("words"), self.served["serving1"], "service image_data")
+            if (r["width"], r["height"]) != (1024, 768) or r["request_id"] != 1:
+                raise AssertionError(f"service response header: {str(r)[:200]}")
+            answers = self.concurrent(OCRIPCClient, sock, [by_data[k] for k in eight])
+            agree = [self.check_coalesced(r, k) for r, k in zip(answers, eight)]
+            c._sock.sendall(b"this is not json\n")
+            bad = json.loads(c._file.readline())
+            if bad.get("success") is not False or not bad["error"].startswith("Invalid JSON"):
+                raise AssertionError(f"malformed JSON answered with {bad}")
+            jpeg = base64.b64encode(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)).decode()
+            bad = c.send_request({"command": "recognize", "image_data": jpeg})
+            if bad != {"success": False, "error": "Failed to decode base64 image data"}:
+                raise AssertionError(f"JPEG payload answered with {bad}")
+            # phase 4's sequence of single requests through the service and
+            # in process, in turns: service, in process, in process, service
+            by_key = dict(zip(keys, images))
+            walls, inner, direct, direct_walls = [], [], [], []
+
+            def through_service():
+                for k in eight:
+                    t1 = time.perf_counter()
+                    r = c.send_request(by_data[k])
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                    inner.append(r["processing_time_ms"])
+                    check_words(r.get("words"), self.served[k], "service sequential")
+
+            def in_process():
+                for i, k in enumerate(eight):
+                    t1 = time.perf_counter()
+                    r = self.serving_worker.process(by_key[k], i)
+                    direct_walls.append((time.perf_counter() - t1) * 1e3)
+                    direct.append(r["processing_time_ms"])
+
+            for turn in (through_service, in_process, in_process, through_service):
+                turn()
+            after = status(c)
+            n_req = after["total_requests"] - before["total_requests"]
+            stats = after["workers"][0]
+            delta = {k: after["kernel_launches"][k] - before["kernel_launches"][k]
+                     for k in after["kernel_launches"]}
+            self.launches["service"] = delta
+            if n_req != 2 + 8 + 16 or after["failed_requests"] != 0:
+                raise AssertionError(f"service counters: {after}")
+            if stats["batched_steps"] < 1:
+                raise AssertionError(f"8 concurrent requests were never coalesced: {stats}")
+            if delta["ctc_topk"] < 1:
+                raise AssertionError(f"the service's requests never launched ctc_topk: {delta}")
+            shutdown(c, proc, lines)
+            print(json.dumps({
+                "service": "serving-jumbo bf16, --batch-requests 4 --warmup full",
+                "boot_s": round(boot_s, 2), "warmup": warm[-1] if warm else None,
+                "request_p50_ms": statistics.median(walls),
+                "request_p90_ms": sorted(walls)[int(0.9 * (len(walls) - 1))],
+                "processing_p50_ms": statistics.median(inner),
+                "in_process_p50_ms": statistics.median(direct),
+                "in_process_wall_p50_ms": statistics.median(direct_walls),
+                "coalesced": {"steps": stats["steps"], "batched_steps": stats["batched_steps"]},
+                "concurrent_texts_same": f"{sum(a for a, _ in agree)}/{sum(n for _, n in agree)}",
+                "launches": delta, "card": card_line()}), flush=True)
+            if sum(a for a, _ in agree) < 0.9 * sum(n for _, n in agree):
+                raise AssertionError(f"coalesced requests read other texts: {agree}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+        # -- two worker threads, no batching, the blob-stats kernel on
+        sock = os.path.join(self.tmp.name, "svc2.sock")
+        proc, lines = self.start_service(sock, {
+            "--cpu-workers": 2, "--warmup": "incremental", "config": {"fused_blob_kernel": True}})
+        try:
+            c = OCRIPCClient(sock, timeout_ms=120000)
+            if not c.connect():
+                raise AssertionError("cannot connect to the second service")
+            launched = status(c)["kernel_launches"]
+            for round_ in range(2):  # the first round meets cold shapes during the warmup
+                answers = self.concurrent(OCRIPCClient, sock, [by_data[k] for k in eight])
+                for r, k in zip(answers, eight):
+                    check_words(r.get("words"), self.served[k], f"two workers, round {round_}, {k}")
+            st = status(c)
+            workers = {w["worker_id"]: w["requests"] for w in st["workers"]}
+            if st["total_requests"] != 16 or st["failed_requests"] or min(workers.values()) < 1:
+                raise AssertionError(f"second service counters: {st}")
+            delta = {k: n - launched[k] for k, n in st["kernel_launches"].items()}
+            self.launches["service, two workers"] = delta
+            if min(delta.values()) < 16:
+                raise AssertionError(f"second service launches: {delta}")
+            shutdown(c, proc, lines)
+            print(f"service with --cpu-workers 2 --warmup incremental, fused_blob_kernel: 16 requests "
+                  f"over workers {workers}, words as in process; launches {delta}; "
+                  f"warmup_progress {st['warmup_progress']}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
 
 def check_words(got, want, where):
+    if got is None:
+        raise AssertionError(f"{where}: no words in the response")
     if len(got) != len(want):
         raise AssertionError(f"{where}: {len(got)} words, golden has {len(want)}")
     for g, w in zip(got, want):
@@ -483,14 +813,20 @@ def main() -> int:
     smoke.phase("blob_stats vs plain", smoke.check_blob_stats)
     smoke.phase("f32 parity", smoke.parity)
     smoke.phase("bf16 serving", smoke.serving)
+    smoke.phase("fused options", smoke.options)
+    smoke.phase("service", smoke.service)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: failed phases: {smoke.failures}", file=sys.stderr)
         return 1
+    # launches: the sum over the main paths' runs, each counted from 0
+    for name, kern in smoke.kernels.items():
+        kern["launches_by_path"] = {path: c.get(name, 0) for path, c in smoke.launches.items()}
+        kern["launches"] = sum(kern["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "wrapper_ms",
-            "warm_ms", "shape")
+            "warm_ms", "shape", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in smoke.kernels.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,17 @@
 ``serving``: 768×1024 scenes), so no renderer is needed where the port
 runs. ``goldens.json`` holds the configs they are served with and the
 JAX package's f32 fused responses (words: text, confidence, box) for
-each. ``tests/test_torch_goldens.py --write`` regenerates both.
+each: the base configs and ``small`` with each of ``OPTIONS`` changed.
+``tests/test_torch_goldens.py --write`` regenerates both.
 
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
-5,008-way head) and ``weights/jumbo_keys.txt``.
+5,008-way head) and ``weights/jumbo_keys.txt``. It has no orientation
+classifier; the checks that need one use ``init_cls_params(CLS_SEED)``, an
+untrained net. Such a net's two probabilities sit near 0.5 on most seeds;
+seed 4 was picked because they are at least 0.2 apart on every crop of the
+committed parity scenes. It calls every crop rotated (label 1), so every
+crop takes the mirrored sampling grid.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ from pathlib import Path
 
 import numpy as np
 
+from ..models.cls_mv3 import init_cls_params
+from ..utils.checkpoint import save_params_npz
+
 ASSETS = Path(__file__).resolve().parent
 SCENES = ASSETS / "scenes.npz"
 GOLDENS = ASSETS / "goldens.json"
@@ -29,14 +38,38 @@ JUMBO_BUNDLE = {
     "rec/weights.npz": WEIGHTS / "rec_scene_jumbo.npz",
     "rec/ppocr_keys_v1.txt": WEIGHTS / "jumbo_keys.txt",
 }
+CLS_SEED = 4  # seed of the stand-in classifier of the ``enable_cls`` checks
+# the fused path's options; goldens.json holds a config "small+<option>" each
+OPTIONS = ("cls", "dilation", "rotated", "srcx2", "beam")
 
 
-def make_jumbo_model_dir(dst) -> Path:
-    """Lay the jumbo bundle out as a model dir under ``dst``."""
+def apply_option(cfg, name: str):
+    """``cfg`` (a ``PipelineConfig`` of this package or of the JAX one: the
+    fields are the same) with the one option ``name`` changed."""
+    if name == "cls":
+        cfg.enable_cls = True
+    elif name == "dilation":
+        cfg.det.use_dilation = True
+    elif name == "rotated":
+        cfg.fused_rotated_boxes = True
+    elif name == "srcx2":
+        cfg.fused_crop_src_mult = 2
+    elif name == "beam":
+        cfg.rec.decode = "beam"
+    else:
+        raise ValueError(f"unknown option {name!r}; one of {OPTIONS}")
+    return cfg
+
+
+def make_jumbo_model_dir(dst, cls_seed=None) -> Path:
+    """Lay the jumbo bundle out as a model dir under ``dst``; with
+    ``cls_seed`` also ``cls/weights.npz`` from ``init_cls_params(cls_seed)``."""
     dst = Path(dst)
     for rel, src in JUMBO_BUNDLE.items():
         (dst / rel).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(src, dst / rel)
+    if cls_seed is not None:
+        save_params_npz(str(dst / "cls" / "weights.npz"), init_cls_params(cls_seed))
     return dst
 
 

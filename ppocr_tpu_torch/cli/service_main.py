@@ -1,0 +1,410 @@
+"""ocr-service: start the OCR IPC service.
+
+Counterpart of ``ppocr_tpu/cli/service_main.py``, with the same flags.
+Flag-compatible with the reference service CLI (ocr_service_main.cpp:89-110
+— defaults ./models, pipe ocr_service, gpu-workers 0, cpu-workers 1), plus
+extras (--profile, --dtype, --warmup, --device). Ctrl-C stops the service
+cleanly (the reference's ConsoleHandler); a status line is printed every
+30 s like the reference's status loop (ocr_service_main.cpp:134-148).
+
+The service runs on the card (``--device cuda``, the default; it exits
+when there is none) or, on request, on the CPU (``--device cpu``).
+
+Flags whose feature is not ported yet are parsed and refused with exit
+code 2 and the ROADMAP item that will bring them: ``--staged`` and
+``--profile defaults`` without ``--fast-path`` (A7, the staged pipeline),
+``--mesh N > 1`` and ``--cross-chip`` (A10), ``--processes N > 1`` (A8,
+balancer and supervisor), ``--system-info`` (A7, sysinfo).
+
+Usage:
+    python -m ppocr_tpu_torch.cli.service_main --model-dir ./models \
+        --socket /tmp/ocr_service.sock --cpu-workers 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import signal
+import sys
+
+from .common import resolve_socket_path
+
+# flag → (what, ROADMAP item) of the features this package does not have yet
+UNPORTED = {
+    "staged": ("the staged pipeline (--staged, or --profile defaults without --fast-path)", "A7"),
+    "mesh": ("serving over a device mesh (--mesh > 1)", "A10"),
+    "cross_chip": ("det and rec on two devices (--cross-chip)", "A10"),
+    "processes": ("the multi-process balancer and supervisor (--processes > 1)", "A8"),
+    "system_info": ("worker sizing recommendation (--system-info)", "A7"),
+}
+
+
+def refuse(flag: str) -> int:
+    what, item = UNPORTED[flag]
+    print(f"{what} is not ported to ppocr_tpu_torch yet (ROADMAP {item})", flush=True)
+    return 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ocr-service",
+        description="PP-OCR IPC service (PyTorch, one NVIDIA card)",
+        # no abbreviations: a supervisor strips flags from worker argv by
+        # exact name, as the JAX package's does
+        allow_abbrev=False,
+    )
+    p.add_argument("--model-dir", default="./models", help="model directory (det/ cls/ rec/)")
+    p.add_argument(
+        "--socket",
+        "--pipe-name",
+        dest="socket",
+        default="/tmp/ocr_service.sock",
+        help=r"unix socket path (reference pipe names \\.\pipe\NAME are mapped to /tmp/NAME.sock)",
+    )
+    p.add_argument("--gpu-workers", type=int, default=0, help="accepted for flag parity; >0 selects the device pool")
+    p.add_argument("--cpu-workers", type=int, default=1, help="number of logical workers")
+    p.add_argument("--profile", choices=["serving", "defaults"], default="serving")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument(
+        "--cls",
+        action="store_true",
+        help="enable orientation classification (off by default, like the reference)",
+    )
+    p.add_argument(
+        "--fast-path",
+        action="store_true",
+        help="single-dispatch fused det→(cls)→rec pipeline (the default "
+        "for --profile serving since round 3; kept for compatibility)",
+    )
+    p.add_argument(
+        "--staged",
+        action="store_true",
+        help="serve the staged exact-parity pipeline (det → contours → "
+        "crop → rec, one dispatch per stage) instead of the default fused "
+        "single-dispatch path (not ported yet: ROADMAP A7)",
+    )
+    p.add_argument("--no-warmup", action="store_true", help="alias for --warmup off")
+    p.add_argument(
+        "--warmup",
+        choices=["auto", "full", "incremental", "off"],
+        default="auto",
+        help="when every fused step shape runs once on blank input (cuDNN's "
+        "algorithm search and the kernel build happen on a shape's first "
+        "call): full = before accepting connections; incremental = start "
+        "serving immediately and warm one shape at a time on the event "
+        "loop between requests (a request for a cold shape warms it on "
+        "demand, jumping the queue); auto (default) = incremental; off = "
+        "only on demand. --no-warmup is an alias for off",
+    )
+    p.add_argument("--status-interval", type=float, default=30.0)
+    p.add_argument(
+        "--batch-requests",
+        type=int,
+        default=1,
+        help="fast-path only: coalesce up to N concurrent requests into one "
+        "fused step (adds warmup steps per batch bucket)",
+    )
+    p.add_argument(
+        "--batch-buckets",
+        choices=["pow2", "single"],
+        default="pow2",
+        help="batch-size buckets for --batch-requests N: pow2 = 1,2,4,...,N "
+        "(least padded compute per request, more shapes to warm); "
+        "single = N only (partial batches pad up)",
+    )
+    p.add_argument(
+        "--det-buckets",
+        default=None,
+        help="comma-separated det shape buckets (e.g. 192,384,512); "
+        "fewer buckets = fewer shapes to warm, more input padding",
+    )
+    p.add_argument(
+        "--rec-decode",
+        choices=["greedy", "beam"],
+        default="greedy",
+        help="CTC decode: greedy (reference parity) or "
+        "prefix beam search (recovers labelings greedy misses)",
+    )
+    p.add_argument(
+        "--beam-size", type=int, default=10, help="beam width for --rec-decode beam"
+    )
+    p.add_argument(
+        "--max-boxes",
+        type=int,
+        default=None,
+        help="fast-path only: top-K blob candidates per image (default 32); "
+        "lower = less padded rec compute per request",
+    )
+    p.add_argument(
+        "--cross-chip",
+        action="store_true",
+        help="fast-path only: stage det/geometry on device 0 and rec on "
+        "device 1 (not ported yet: ROADMAP A10)",
+    )
+    p.add_argument(
+        "--rotated-boxes",
+        action="store_true",
+        help="fast-path only: emit min-area rotated rect quads "
+        "(angle sweep on the device) instead of axis-aligned boxes",
+    )
+    p.add_argument(
+        "--crop-src-mult",
+        type=int,
+        default=None,
+        help="fast-path only: sample rec/cls crops from an N×-resolution "
+        "resize of the source image instead of the det-scale canvas "
+        "(default 1). Recovers staged-path crop sharpness when det "
+        "downscales (large inputs, small --det-buckets) at N² the image "
+        "upload bytes per request",
+    )
+    p.add_argument(
+        "--mesh",
+        type=int,
+        default=1,
+        help="shard fused request batches over the data axis of an N-device "
+        "mesh (not ported yet: ROADMAP A10)",
+    )
+    p.add_argument(
+        "--request-timeout",
+        type=float,
+        default=30000.0,
+        help="per-request wall-clock ceiling in ms; 0 disables it "
+        "(reference clients honor --timeout; the service enforces it too "
+        "so a wedged request cannot pin a connection forever)",
+    )
+    p.add_argument(
+        "--system-info",
+        action="store_true",
+        help="print worker sizing recommendation and exit (getWorkerRecommendation analog)",
+    )
+    p.add_argument(
+        "--processes",
+        type=int,
+        default=1,
+        help="multi-process serving: N worker service processes behind a "
+        "request-level balancer on the public socket (not ported yet: "
+        "ROADMAP A8)",
+    )
+    p.add_argument(
+        "--recycle-after",
+        type=int,
+        default=0,
+        help="self-recycle the service process after N recognize requests "
+        "(graceful drain, exit code 3), for a supervisor that restarts it",
+    )
+    p.add_argument(
+        "--boot-timeout",
+        type=float,
+        default=3600.0,
+        help="--processes mode: seconds to wait for each worker's socket "
+        "(accepted; unused until the balancer is ported)",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device the engine runs on: cuda (default; the service "
+        "exits when no card is available) or cpu",
+    )
+    p.add_argument(
+        "--config",
+        default=None,
+        help="JSON file with PipelineConfig field overrides applied on top "
+        "of --profile (nested keys mirror the dataclasses, e.g. "
+        '{"det": {"shape_buckets": [64, 96]}, "rec": {"img_w": 256}})',
+    )
+    return p
+
+
+def apply_config_overrides(config, data: dict):
+    """Recursively apply a JSON override dict onto the nested dataclass
+    config (lists become tuples to match the bucket fields; *bucket* lists
+    are sorted ascending — pick_bucket and the det_fit_cap downscale both
+    assume it, and the flag path sorts for the same reason)."""
+    for k, v in data.items():
+        if not hasattr(config, k):
+            raise ValueError(f"unknown config field: {k}")
+        cur = getattr(config, k)
+        if isinstance(v, dict):
+            apply_config_overrides(cur, v)
+        elif isinstance(v, list):
+            setattr(config, k, tuple(sorted(v) if "buckets" in k else v))
+        else:
+            setattr(config, k, v)
+
+
+def batch_bucket_list(max_batch: int, mode: str = "pow2") -> tuple:
+    """Batch-bucket list for cross-request batching: "pow2" = 1,2,4,…,N;
+    "single" = (N,) — partial batches pad up, trading a little padded
+    compute for ~N/log2(N)× fewer step shapes to warm."""
+    if mode == "single":
+        return (max_batch,)
+    bb, b = [], 1
+    while b < max_batch:
+        bb.append(b)
+        b *= 2
+    return tuple(bb + [max_batch])
+
+
+def resolve_service_config(args):
+    """Flags → profile + overrides → validated PipelineConfig.
+
+    Returns (config, None) or (None, exit_code). Split from _amain so the
+    flag/file precedence rules are testable without booting a service. A
+    final config that needs a feature not ported yet is refused here."""
+    from ..pipeline import PipelineConfig
+
+    config = (
+        PipelineConfig.serving()
+        if args.profile == "serving"
+        else PipelineConfig.defaults()
+    )
+    config.dtype = args.dtype
+    config.enable_cls = bool(args.cls)
+    # the serving profile defaults to the fused path; --staged selects the
+    # staged pipeline, --fast-path forces fused for the defaults profile
+    if args.staged and args.fast_path:
+        print("--staged and --fast-path are mutually exclusive", flush=True)
+        return None, 2
+    if args.staged:
+        config.fast_path = False
+    elif args.fast_path:
+        config.fast_path = True
+    if args.det_buckets:
+        config.det.shape_buckets = tuple(
+            sorted(int(v) for v in args.det_buckets.split(","))
+        )
+    if args.max_boxes:
+        config.fused_max_boxes = args.max_boxes
+    if args.crop_src_mult is not None:
+        if args.crop_src_mult < 1:
+            print("--crop-src-mult must be >= 1", flush=True)
+            return None, 2
+        config.fused_crop_src_mult = args.crop_src_mult
+    config.fused_rotated_boxes = bool(args.rotated_boxes)
+    config.cross_chip = bool(args.cross_chip)
+    config.rec.decode = args.rec_decode
+    config.rec.beam_size = args.beam_size
+    if args.config:
+        # config file wins over flags (applied last): the precise typed
+        # surface for fields the flag set doesn't reach
+        with open(args.config) as f:
+            apply_config_overrides(config, json.load(f))
+    # --batch-requests is evaluated on the FINAL fast_path state (a config
+    # file may be what enables the fused path); an explicit
+    # request_batch_buckets from the file still wins over the flag
+    if (
+        args.batch_requests > 1
+        and config.fast_path
+        and config.request_batch_buckets == (1,)
+    ):
+        config.request_batch_buckets = batch_bucket_list(
+            args.batch_requests, args.batch_buckets
+        )
+
+    # checked on the FINAL config state, after the config-file overrides,
+    # which could otherwise bring back exactly what these guards refuse
+    if config.cross_chip:
+        return None, refuse("cross_chip")
+    if not config.fast_path:
+        return None, refuse("staged")
+    return config, None
+
+
+async def _amain(args) -> int:
+    from ..serve import OCRIPCService
+
+    config, err = resolve_service_config(args)
+    if err is not None:
+        return err
+
+    print(f"Loading models from {args.model_dir} on {args.device} ...", flush=True)
+    service = OCRIPCService(
+        model_dir=args.model_dir,
+        socket_path=resolve_socket_path(args.socket),
+        cpu_workers=args.cpu_workers,
+        gpu_workers=args.gpu_workers,
+        config=config,
+        request_timeout_ms=args.request_timeout,
+        recycle_after=args.recycle_after,
+        device=args.device,
+    )
+    warmup_mode = "off" if args.no_warmup else args.warmup
+    if warmup_mode == "auto":
+        warmup_mode = "incremental"
+    if warmup_mode == "full":
+        secs = service.engine.warmup()
+        print(f"Warmup ran every step shape in {secs:.1f}s", flush=True)
+
+    await service.start_async()
+    print(
+        f"OCR service listening on {service.socket_path} "
+        f"({service.num_workers} workers)",
+        flush=True,
+    )
+
+    loop = asyncio.get_running_loop()
+    warmup_task = None
+    if warmup_mode == "incremental":
+        n = len(service.engine.fused_ocr().variant_keys())
+        print(
+            f"Incremental warmup: serving now; warming {n} fused step "
+            "shapes in the background (status shows warmup_progress)",
+            flush=True,
+        )
+
+        async def _warm():
+            secs = await service.incremental_warmup()
+            print(
+                f"Incremental warmup finished: {n} variants in {secs:.1f}s",
+                flush=True,
+            )
+
+        warmup_task = loop.create_task(_warm())
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, lambda: asyncio.ensure_future(service.stop_async()))
+
+    async def status_loop():
+        while service.running:
+            await asyncio.sleep(args.status_interval)
+            if service.running:
+                print(f"[status] {service.get_status_info()}", flush=True)
+
+    status_task = loop.create_task(status_loop())
+    await service._stopped.wait()
+    for task in (status_task, warmup_task):
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+    if service.recycled:
+        print(
+            f"Service recycled after {service.total_requests} requests.",
+            flush=True,
+        )
+        return 3  # the recycle exit code: a supervisor relaunches
+    print("Service stopped.", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, refused in (
+        ("system_info", args.system_info),
+        ("processes", args.processes > 1),
+        ("mesh", args.mesh > 1),
+    ):
+        if refused:
+            return refuse(flag)
+    try:
+        return asyncio.run(_amain(args))
+    except KeyboardInterrupt:
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

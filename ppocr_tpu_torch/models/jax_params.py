@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from . import layers as L
+from .cls_mv3 import ClsMV3
 from .det_db import DetDB
 from .rec_svtr import RecSVTR
 
@@ -154,4 +155,29 @@ def rec_from_jax(tree: Dict) -> RecSVTR:
             ld.linear(getattr(mod, name), p[name])
     ld.ln(m.norm, head["norm"])
     ld.linear(m.fc, head["fc"])
+    return ld.finish(tree)
+
+
+def cls_from_jax(tree: Dict) -> ClsMV3:
+    """JAX cls pytree (``init_cls_params`` layout) → :class:`ClsMV3`."""
+    ld = _Loader(ClsMV3())
+    m = ld.module
+
+    def conv_bn(mod, p):
+        ld.conv(mod.conv, p)
+        ld.bn(mod.bn, p["bn"])
+
+    conv_bn(m.stem, tree["stem"])
+    if len(m.blocks) != len(tree["blocks"]):
+        raise ValueError(
+            f"{len(tree['blocks'])} blocks in the tree, {len(m.blocks)} in the module"
+        )
+    for mod, p in zip(m.blocks, tree["blocks"]):
+        conv_bn(mod.expand, p["expand"])
+        conv_bn(mod.dw, p["dw"])
+        if mod.se is not None:
+            ld.se(mod.se, p["se"])
+        conv_bn(mod.project, p["project"])
+    conv_bn(m.last_conv, tree["last_conv"])
+    ld.linear(m.fc, tree["fc"])
     return ld.finish(tree)

@@ -44,6 +44,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -60,6 +61,9 @@ BLOB_ACC_WORDS = 6  # scratch words per slot (count, mass, x0, x1, y0, y1)
 
 _lib = None
 build_log = ""  # nvcc's output of the last build (registers, smem, spills)
+# a service calls the wrappers from several threads: the library handle,
+# the scratch table and the launch counts are filled under this lock
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -114,16 +118,17 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; returns the ctypes handle."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ctc_topk_launch.argtypes = [p, i, i, p, p, p]
-        lib.ctc_topk_launch.restype = i
-        lib.blob_stats_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
-        lib.blob_stats_launch.restype = i
-        lib.noop_launch.argtypes = [p]
-        lib.noop_launch.restype = i
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.ctc_topk_launch.argtypes = [p, i, i, p, p, p]
+            lib.ctc_topk_launch.restype = i
+            lib.blob_stats_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+            lib.blob_stats_launch.restype = i
+            lib.noop_launch.argtypes = [p]
+            lib.noop_launch.restype = i
+            _lib = lib
     return _lib
 
 
@@ -181,7 +186,8 @@ def ctc_topk(probs: torch.Tensor):
     idx = torch.empty((n, t), dtype=torch.int32, device=x.device)
     val = torch.empty((n, t), dtype=torch.float32, device=x.device)
     _launch_ctc_topk(lib, x, idx, val)
-    ctc_topk.launches += 1
+    with _lock:
+        ctc_topk.launches += 1
     return idx, val
 
 
@@ -222,11 +228,12 @@ def _scratch_for(device: torch.device, stream: int, words: int) -> torch.Tensor:
     """The kernel's global accumulators: zeroed once here, left zeroed by
     every launch, one per stream so that two streams never share it."""
     key = (device.index, stream)
-    buf = _blob_scratch.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(max(words, 1024), dtype=torch.int32, device=device)
-        _blob_scratch[key] = buf
-    return buf
+    with _lock:
+        buf = _blob_scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(max(words, 1024), dtype=torch.int32, device=device)
+            _blob_scratch[key] = buf
+        return buf
 
 
 def _launch_blob_stats(lib, lab, pr, rt, scratch, out):
@@ -270,7 +277,8 @@ def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
     if b * k > 0:
         scratch = _scratch_for(lab.device, _stream(), 1 + BLOB_ACC_WORDS * b * k)
         _launch_blob_stats(lib, lab, pr, rt, scratch, out)
-        blob_stats.launches += 1
+        with _lock:
+            blob_stats.launches += 1
     return tuple(out.unbind(0))
 
 

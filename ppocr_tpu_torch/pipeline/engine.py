@@ -1,10 +1,12 @@
-"""OCR engine: the det and rec modules on one device, plus the charset.
+"""OCR engine: the det, rec and (optional) cls modules on one device, plus
+the charset.
 
-Counterpart of ``ppocr_tpu/pipeline/engine.py`` for the fused serving
-slice. A model dir holds ``det/weights.npz``, ``rec/weights.npz`` (the
-JAX package's npz pytrees, carried over by ``models.jax_params``) and
-``rec/ppocr_keys_v1.txt``. Importing Paddle's ``inference.pdiparams`` is
-not ported yet (ROADMAP A9), nor is the staged pipeline (A7).
+Counterpart of ``ppocr_tpu/pipeline/engine.py`` for the fused path. A
+model dir holds ``det/weights.npz``, ``rec/weights.npz``, with
+``enable_cls`` also ``cls/weights.npz`` (the JAX package's npz pytrees,
+carried over by ``models.jax_params``), and ``rec/ppocr_keys_v1.txt``.
+Importing Paddle's ``inference.pdiparams`` is not ported yet (ROADMAP A9),
+nor is the staged pipeline (A7), nor serving over several devices (A10).
 
 The engine runs on ``device="cuda"`` unless the caller passes another
 device; with no card and no explicit device it raises.
@@ -18,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from ..models.jax_params import det_from_jax, rec_from_jax
+from ..models.jax_params import cls_from_jax, det_from_jax, rec_from_jax
 from ..utils.checkpoint import load_params_npz
 from .charset import load_charset
 from .config import PipelineConfig
@@ -32,11 +34,6 @@ def check_slice(config: PipelineConfig, mesh=None) -> None:
     c = config
     unported = [
         (not c.fast_path, "the staged pipeline (fast_path=False)", "A7"),
-        (c.enable_cls, "cls (enable_cls=True)", "A5"),
-        (c.det.use_dilation, "det.use_dilation", "A5"),
-        (c.rec.decode != "greedy", f"rec.decode={c.rec.decode!r}", "A4"),
-        (c.fused_rotated_boxes, "fused_rotated_boxes", "A5"),
-        (c.fused_crop_src_mult != 1, f"fused_crop_src_mult={c.fused_crop_src_mult}", "A5"),
         (c.cross_chip, "cross_chip", "A10"),
         (mesh is not None, "a device mesh", "A10"),
     ]
@@ -60,7 +57,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class OCREngine:
-    """Owns the det and rec modules on one device."""
+    """Owns the det, rec and (with ``enable_cls``) cls modules on one
+    device."""
 
     def __init__(
         self,
@@ -94,6 +92,10 @@ class OCREngine:
         rec = rec_from_jax(self._load_tree("rec"))
         self.det_model = det.to(device=self.device, dtype=self.dtype)
         self.rec_model = rec.to(device=self.device, dtype=self.dtype)
+        self.cls_model = None
+        if self.config.enable_cls:
+            cls = cls_from_jax(self._load_tree("cls"))
+            self.cls_model = cls.to(device=self.device, dtype=self.dtype)
         head = self.rec_model.fc.bias.shape[0]
         if head == len(self.charset) - 1:
             # a use_space_char=False export: every emitted index still maps
@@ -119,6 +121,18 @@ class OCREngine:
 
             self._fused_ocr = FusedOCR(self, max_boxes=self.config.fused_max_boxes)
         return self._fused_ocr
+
+    def reload(self, warmup: bool = False) -> None:
+        """Rebuild the device state after a (transient) device failure: load
+        the weights and the charset again (a bundle swapped on disk is
+        picked up whole) and drop the cached FusedOCR with its record of
+        warmed step shapes. Workers hold the old FusedOCR and must be
+        rebuilt by their owner (the serving dispatchers do so)."""
+        self._load_params()
+        if hasattr(self, "_fused_ocr"):
+            del self._fused_ocr
+        if warmup:
+            self.warmup()
 
     def warmup(self) -> float:
         """One blank request per fused step shape; returns seconds."""

@@ -1,4 +1,4 @@
-"""Load the npz parameter pytrees that ``ppocr_tpu`` saves.
+"""Load and save the npz parameter pytrees that ``ppocr_tpu`` uses.
 
 A copy of the numpy half of ``ppocr_tpu/utils/checkpoint.py``: keys are
 ``/``-joined pytree paths, list levels have keys ``0..n-1``, and an empty
@@ -7,11 +7,29 @@ subtree is stored as a ``__empty__`` marker array.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 
 _EMPTY = "__empty__"  # marker array for empty dict/list subtrees
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        if not tree:
+            out[f"{prefix}{_EMPTY}"] = np.array("dict")
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        if not tree:
+            out[f"{prefix}{_EMPTY}"] = np.array("list")
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
@@ -44,3 +62,21 @@ def load_params_npz(path: str):
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return _unflatten(flat)
+
+
+def save_params_npz(path: str, params) -> str:
+    """Save a nested param pytree of numpy arrays to one compressed .npz at
+    exactly ``path``, atomically (temp file in the same directory, then
+    ``os.replace``). Returns the path."""
+    flat = _flatten(params)
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, **flat)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path

@@ -1,11 +1,14 @@
 """Where a serving request's time goes in the PyTorch port, on one card.
 
     python3 scripts/profile_torch_request.py [--requests 8] [--blob-kernel]
+        [--option cls|dilation|rotated|srcx2|beam]
 
 Serves the committed scenes (``ppocr_tpu_torch/assets``: two 768×1024 and
 four 192×192) one request at a time through ``OCRWorker.process`` in the
 serving-jumbo config (``PipelineConfig.serving()`` with the jumbo bundle's
-rec 48×256) in bf16, after ``warmup()``. It prints one JSON object:
+rec 48×256) in bf16, after ``warmup()``; ``--option`` changes one option
+of the fused path (``cls`` uses an untrained classifier made from a seed).
+It prints one JSON object:
 
 * ``wall_ms``: per-request host wall time without the profiler, p50 per
   scene size, ending in ``torch.cuda.synchronize()``, after one untimed
@@ -43,8 +46,8 @@ from ppocr_tpu_torch import assets  # noqa: E402
 from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig  # noqa: E402
 
 SPANS = (
-    "fused.host_resize", "fused.det", "fused.cc", "fused.blob_stats",
-    "fused.crops", "fused.rec", "fused.ctc_topk", "fused.host_decode",
+    "fused.host_resize", "fused.det", "fused.cc", "fused.blob_stats", "fused.cls",
+    "fused.crops", "fused.rec", "fused.ctc_topk", "fused.beam_topk", "fused.host_decode",
 )
 
 
@@ -64,6 +67,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--blob-kernel", action="store_true")
+    ap.add_argument("--option", choices=assets.OPTIONS, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device available", file=sys.stderr)
@@ -72,9 +76,12 @@ def main() -> int:
     cfg = PipelineConfig.from_dict(assets.load_goldens()["configs"]["serving"])
     cfg.dtype = "bfloat16"
     cfg.fused_blob_kernel = args.blob_kernel
+    if args.option:
+        assets.apply_option(cfg, args.option)
     sizes = {"768x1024": list(scenes["serving"]), "192x192": list(scenes["parity"])}
     with tempfile.TemporaryDirectory() as md:
-        eng = OCREngine(str(assets.make_jumbo_model_dir(md)), cfg)
+        cls_seed = assets.CLS_SEED if cfg.enable_cls else None
+        eng = OCREngine(str(assets.make_jumbo_model_dir(md, cls_seed=cls_seed)), cfg)
         eng.warmup()
         worker = OCRWorker(eng, 0)
         for imgs in sizes.values():  # first real requests: rec tiers warm up
@@ -111,6 +118,7 @@ def main() -> int:
     print(json.dumps({
         "card": card(),
         "config": "serving-jumbo bf16", "fused_blob_kernel": args.blob_kernel,
+        "option": args.option,
         "wall_ms": {k: {"p50": statistics.median(v), "n": len(v)} for k, v in walls.items()},
         "profiled_768x1024": {
             "requests": n,

@@ -3,7 +3,8 @@
 Each test feeds the same seeded numpy inputs to the JAX function and its
 port. Tolerances: labels, boxes, roots, indices and texts exact; scores
 and CTC probs rtol 1e-5; crop pixels atol 1e-3 (0..255 scale); resize
-within 1 grey level of cv2; response confidence within 2e-3.
+within 1 grey level of cv2; response confidence within 2e-3. The options
+of the fused path have their own file, ``test_torch_fused_options.py``.
 """
 
 import dataclasses
@@ -25,7 +26,7 @@ from ppocr_tpu_torch.ops import resize as torch_resize
 from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
 from ppocr_tpu_torch.pipeline import fused as TF
 
-from test_torch_goldens import assert_words_match, jax_config
+from test_torch_goldens import apply_option, assert_words_match, jax_config, model_dir_for
 
 CONF_TOL = 2e-3
 PROB_RTOL = 1e-5
@@ -52,6 +53,26 @@ def engines(model_dir, goldens):
     jax_eng = JaxEngine(model_dir, jax_config(d))
     torch_eng = OCREngine(model_dir, PipelineConfig.from_dict(d), device="cpu")
     return jax_eng, torch_eng
+
+
+@pytest.fixture(scope="module")
+def option_engines(tmp_path_factory, goldens):
+    """(JAX engine, port engine) for a set of options on top of ``small``,
+    built once per set."""
+    built = {}
+
+    def get(options):
+        if options not in built:
+            jcfg = jax_config(goldens["configs"]["small"])
+            tcfg = PipelineConfig.from_dict(goldens["configs"]["small"])
+            for o in options:
+                apply_option(jcfg, o)
+                apply_option(tcfg, o)
+            md = model_dir_for(tcfg, tmp_path_factory.mktemp("opt"))
+            built[options] = (JaxEngine(md, jcfg), OCREngine(md, tcfg, device="cpu"))
+        return built[options]
+
+    return get
 
 
 # -- connected components ----------------------------------------------------
@@ -230,22 +251,11 @@ def test_empty_image_gives_the_error_response(engines):
     "change,item",
     [
         (dict(fast_path=False), "A7"),
-        (dict(enable_cls=True), "A5"),
-        ("dilation", "A5"),
-        (dict(fused_rotated_boxes=True), "A5"),
-        (dict(fused_crop_src_mult=2), "A5"),
         (dict(cross_chip=True), "A10"),
-        ("beam", "A4"),
     ],
 )
 def test_flags_outside_the_slice_raise(model_dir, change, item):
-    cfg = PipelineConfig.serving()
-    if change == "beam":
-        cfg.rec.decode = "beam"
-    elif change == "dilation":
-        cfg.det.use_dilation = True
-    else:
-        cfg = dataclasses.replace(cfg, **change)
+    cfg = dataclasses.replace(PipelineConfig.serving(), **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         OCREngine(model_dir, cfg, device="cpu")
 
@@ -255,17 +265,94 @@ def test_a_mesh_raises(model_dir):
         OCREngine(model_dir, PipelineConfig.serving(), device="cpu", mesh=object())
 
 
-def test_warmup_runs_every_step_shape(engines, monkeypatch):
-    fused = engines[1].fused_ocr()
+def test_warmup_runs_every_step_shape(model_dir, goldens, monkeypatch):
+    cfg = PipelineConfig.from_dict(goldens["configs"]["small"])
+    fused = OCREngine(model_dir, cfg, device="cpu").fused_ocr()
     seen = []
     run_step = fused.run_step
 
-    def record(batch, content):
+    def record(batch, content, src=None):
         seen.append(batch.shape[:3])
-        return run_step(batch, content)
+        return run_step(batch, content, src)
 
     monkeypatch.setattr(fused, "run_step", record)
     assert fused.warmup(batch_buckets=(1, 2)) >= 0.0
     assert sorted(seen) == sorted(
         (nb, h, w) for nb in (1, 2) for h in (64, 96) for w in (64, 96)
     )
+
+
+# -- variant bookkeeping (the serving dispatchers' contract) ---------------------
+
+
+@pytest.fixture()
+def fresh_fused(model_dir, goldens):
+    cfg = PipelineConfig.from_dict(goldens["configs"]["small"])
+    cfg.request_batch_buckets = (1, 2)
+    return TF.FusedOCR(OCREngine(model_dir, cfg, device="cpu"), max_boxes=8)
+
+
+def test_variant_keys_priority_order(fresh_fused):
+    assert fresh_fused.variant_keys() == [
+        (1, 64, 64), (1, 64, 96), (1, 96, 64), (1, 96, 96),
+        (2, 64, 64), (2, 64, 96), (2, 96, 64), (2, 96, 96),
+    ]
+
+
+def test_variant_keys_equal_the_jax_package(engines):
+    jax_eng, torch_eng = engines
+    for buckets in (None, (1, 4), (4, 1, 2)):
+        assert torch_eng.fused_ocr().variant_keys(buckets) == jax_eng.fused_ocr().variant_keys(buckets)
+
+
+def test_required_variants_matches_process_batch_exactly(fresh_fused, parity_scenes):
+    """The shape-only predictor names exactly the step shapes a real
+    process_batch dispatches: mixed det buckets and a group larger than a
+    batch bucket."""
+    assert fresh_fused._compiled == set()
+    small = np.full((50, 50, 3), 255, np.uint8)
+    imgs = [parity_scenes[0], parity_scenes[1], parity_scenes[2], small]
+    predicted = fresh_fused.required_variants(imgs)
+    assert predicted == [(2, 96, 96), (1, 96, 96), (1, 64, 64)]
+    fresh_fused.process_batch(imgs, [1, 2, 3, 4])
+    assert fresh_fused._compiled == set(predicted)
+    assert fresh_fused.required_variants(imgs) == []
+    assert (fresh_fused.steps_run, fresh_fused.batched_steps) == (3, 1)
+
+
+def test_required_variants_equal_the_jax_package(engines):
+    jax_eng, torch_eng = engines
+    rng = np.random.default_rng(13)
+    imgs = [np.zeros((int(h), int(w), 3), np.uint8) for h, w in rng.integers(20, 400, (9, 2))]
+    jf = JF.FusedOCR(jax_eng, max_boxes=8)
+    tf = TF.FusedOCR(torch_eng, max_boxes=8)
+    for buckets in ((1,), (1, 2, 4)):
+        assert tf.required_variants(imgs, buckets) == jf.required_variants(imgs, buckets)
+
+
+def test_compile_variant_records_and_dedupes(fresh_fused):
+    key = fresh_fused.variant_keys()[0]
+    assert fresh_fused.compile_variant(key) is True
+    assert fresh_fused.compile_variant(key) is False
+    assert fresh_fused._compiled == {key}
+
+
+def test_full_warmup_covers_variant_keys(fresh_fused):
+    fresh_fused.warmup()
+    assert fresh_fused._compiled == set(fresh_fused.variant_keys())
+
+
+def test_reload_drops_the_cached_fused_and_reloads_the_charset(tmp_path, goldens):
+    cfg = PipelineConfig.from_dict(goldens["configs"]["small"])
+    md = assets.make_jumbo_model_dir(tmp_path)
+    eng = OCREngine(str(md), cfg, device="cpu")
+    fused = eng.fused_ocr()
+    fused.compile_variant((1, 64, 64))
+    keys = (md / "rec" / "ppocr_keys_v1.txt").read_text(encoding="utf-8").splitlines()
+    keys[0] = "Ω" if keys[0] != "Ω" else "ω"
+    (md / "rec" / "ppocr_keys_v1.txt").write_text("\n".join(keys) + "\n", encoding="utf-8")
+    eng.reload()
+    assert eng.charset[1] == keys[0]
+    assert eng.fused_ocr() is not fused and eng.fused_ocr()._compiled == set()
+    eng.reload(warmup=True)
+    assert eng.fused_ocr()._compiled == set(eng.fused_ocr().variant_keys())

@@ -59,6 +59,14 @@ def small_config() -> PipelineConfig:
     )
 
 
+OPTIONS, apply_option = assets.OPTIONS, assets.apply_option
+MIN_CLS_MARGIN = 0.02  # the smallest |p1 − p0| the goldens may hold
+
+
+def option_configs() -> dict:
+    return {f"small+{name}": apply_option(small_config(), name) for name in OPTIONS}
+
+
 def serving_config() -> PipelineConfig:
     cfg = PipelineConfig.serving()
     cfg.rec.img_h = 48
@@ -83,10 +91,63 @@ def jax_config(d: dict) -> PipelineConfig:
     )
 
 
+def model_dir_for(cfg, dst) -> str:
+    """The jumbo bundle under ``dst``, with the stand-in classifier when
+    ``cfg`` (of either package) enables cls."""
+    return str(
+        assets.make_jumbo_model_dir(dst, cls_seed=assets.CLS_SEED if cfg.enable_cls else None)
+    )
+
+
 def jax_responses(cfg: PipelineConfig, scenes) -> list:
     with tempfile.TemporaryDirectory() as md:
-        worker = OCRWorker(OCREngine(str(assets.make_jumbo_model_dir(md)), cfg), 0)
+        worker = OCRWorker(OCREngine(model_dir_for(cfg, md), cfg), 0)
         return [worker.process(s, i) for i, s in enumerate(scenes)]
+
+
+def jax_cls_margins(cfg: PipelineConfig, scenes) -> list:
+    """|p1 − p0| of the JAX package's in-graph cls for every valid crop of
+    each scene, in slot order (the fused prep with ``cls_forward`` wrapped
+    to hand its output to the host through ``jax.debug.callback``)."""
+    import jax
+
+    from ppocr_tpu.models import cls_mv3
+    from ppocr_tpu.ops import det_resize
+    from ppocr_tpu.pipeline import fused as JF
+    from ppocr_tpu.pipeline.config import pick_bucket
+
+    kept = []
+    forward = cls_mv3.cls_forward
+
+    def keeping(params, x):
+        probs = forward(params, x)
+        jax.debug.callback(lambda p: kept.append(np.asarray(p)), probs)
+        return probs
+
+    margins = []
+    with tempfile.TemporaryDirectory() as md:
+        eng = OCREngine(model_dir_for(cfg, md), cfg)
+        prep = jax.jit(
+            JF.build_fused_parts(**JF.fused_part_kwargs(eng, cfg.fused_max_boxes))[0]
+        )
+        cls_mv3.cls_forward = keeping
+        try:
+            for scene in scenes:
+                r, _, _ = det_resize(scene, cfg.det.limit_type, cfg.det.limit_side_len)
+                bh = pick_bucket(cfg.det.shape_buckets, r.shape[0])
+                bw = pick_bucket(cfg.det.shape_buckets, r.shape[1])
+                canvas = np.zeros((1, bh, bw, 3), np.uint8)
+                canvas[0, : r.shape[0], : r.shape[1]] = r
+                out = prep(
+                    eng.det_params, eng.cls_params, canvas, np.array([r.shape[:2]], np.int32)
+                )
+                valid = np.asarray(out[3])[0]
+                jax.effects_barrier()
+                probs = kept.pop()
+                margins.append([float(abs(p[1] - p[0])) for p in probs[valid]])
+        finally:
+            cls_mv3.cls_forward = forward
+    return margins
 
 
 def assert_words_match(got, want, conf_tol, box_tol=0):
@@ -114,14 +175,16 @@ def write():
         ]
     )
     goldens = {"configs": {}, "words": {}}
-    for name, cfg, scenes, floor in (
-        ("small", small_config(), parity, 3),
-        ("serving", serving_config(), serving, 5),
-    ):
+    cases = [("small", small_config(), parity, 3), ("serving", serving_config(), serving, 5)]
+    cases += [(name, cfg, parity, 2) for name, cfg in option_configs().items()]
+    for name, cfg, scenes, floor in cases:
         words = [r["words"] for r in jax_responses(cfg, scenes)]
-        assert min(len(w) for w in words) >= floor, [len(w) for w in words]
+        assert min(len(w) for w in words) >= floor, (name, [len(w) for w in words])
         goldens["configs"][name] = dataclasses.asdict(cfg)
         goldens["words"][name] = words
+    margins = jax_cls_margins(option_configs()["small+cls"], parity)
+    assert min(min(m) for m in margins) >= MIN_CLS_MARGIN, margins
+    goldens["cls_margins"] = margins
     np.savez_compressed(
         assets.SCENES,
         parity=parity,
@@ -141,7 +204,9 @@ def goldens():
 
 
 def test_golden_configs_are_the_documented_ones(goldens):
-    for name, cfg in (("small", small_config()), ("serving", serving_config())):
+    cases = {"small": small_config(), "serving": serving_config(), **option_configs()}
+    assert set(goldens["configs"]) == set(goldens["words"]) == set(cases)
+    for name, cfg in cases.items():
         assert goldens["configs"][name] == json.loads(json.dumps(dataclasses.asdict(cfg)))
 
 
@@ -158,6 +223,27 @@ def test_jax_package_reproduces_small_golden(goldens):
     for resp, want in zip(jax_responses(cfg, scenes), goldens["words"]["small"]):
         assert resp["success"], resp
         assert_words_match(resp["words"], want, CONF_TOL)
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_jax_package_reproduces_option_golden(goldens, option):
+    name = f"small+{option}"
+    scenes = assets.load_scenes()["parity"]
+    cfg = jax_config(goldens["configs"][name])
+    for resp, want in zip(jax_responses(cfg, scenes), goldens["words"][name]):
+        assert resp["success"], resp
+        assert_words_match(resp["words"], want, CONF_TOL)
+
+
+def test_golden_cls_margins_are_comfortable(goldens):
+    """Every orientation decision of the stand-in classifier is at least
+    ``MIN_CLS_MARGIN`` from flipping, and one margin is stored per word
+    candidate (valid crop) of each scene."""
+    margins = goldens["cls_margins"]
+    assert len(margins) == len(PARITY_SEEDS)
+    assert min(min(m) for m in margins) >= MIN_CLS_MARGIN
+    for m, words in zip(margins, goldens["words"]["small+cls"]):
+        assert len(m) >= len(words) > 0
 
 
 if __name__ == "__main__":

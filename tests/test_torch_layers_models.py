@@ -12,13 +12,18 @@ import pytest
 import torch
 
 from ppocr_tpu.models import layers as JL
+from ppocr_tpu.models.cls_mv3 import cls_forward as jax_cls_forward
+from ppocr_tpu.models.cls_mv3 import init_cls_params as jax_init_cls_params
 from ppocr_tpu.models.det_db import det_forward as jax_det_forward
 from ppocr_tpu.models.rec_svtr import rec_forward as jax_rec_forward
 from ppocr_tpu.models.rec_svtr import rec_forward_logits as jax_rec_logits
 from ppocr_tpu.utils.checkpoint import load_params_npz as jax_load_npz
 from ppocr_tpu_torch.models import (
+    cls_forward,
+    cls_from_jax,
     det_forward,
     det_from_jax,
+    init_cls_params,
     rec_forward,
     rec_forward_logits,
     rec_from_jax,
@@ -191,6 +196,43 @@ def test_rec_forward_matches_jax(rec_tree, shape):
     np.testing.assert_allclose(logits, want_logits, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 4])
+def test_cls_forward_matches_jax(seed):
+    tree = init_cls_params(seed)
+    x = np.random.default_rng(3).normal(size=(3, 48, 192, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jax_cls_forward)(jax_init_cls_params(seed), x))
+    with torch.no_grad():
+        got = cls_forward(cls_from_jax(tree), torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (3, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=OP_ATOL, rtol=0)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_init_cls_params_is_the_jax_tree(seed):
+    ours, theirs = init_cls_params(seed), jax_init_cls_params(seed)
+    assert jax.tree.structure(ours) == jax.tree.structure(theirs)
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)))
+
+
+def test_cls_blocks_keep_the_height_only_strides():
+    from ppocr_tpu.models.cls_mv3 import CLS_BLOCKS as JAX_BLOCKS
+    from ppocr_tpu_torch.models.cls_mv3 import CLS_BLOCKS
+
+    assert CLS_BLOCKS == JAX_BLOCKS
+    assert [b[4] for b in CLS_BLOCKS].count((2, 1)) == 4
+
+
+def test_npz_saver_round_trips_through_both_loaders(tmp_path):
+    from ppocr_tpu_torch.utils.checkpoint import save_params_npz
+
+    tree = init_cls_params(1)
+    path = save_params_npz(str(tmp_path / "cls" / "weights.npz"), tree)
+    for loaded in (load_params_npz(path), jax_load_npz(path)):
+        assert jax.tree.structure(loaded) == jax.tree.structure(tree)
+        assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(loaded), jax.tree.leaves(tree)))
+
+
 def _unique_tree(tree, start):
     """The tree with every leaf refilled by distinct values."""
     if isinstance(tree, dict):
@@ -203,12 +245,13 @@ def _unique_tree(tree, start):
     return vals.astype(np.float32)
 
 
-@pytest.mark.parametrize("which", ["det", "rec"])
+@pytest.mark.parametrize("which", ["det", "rec", "cls"])
 def test_weight_carry_over_round_trip(det_tree, rec_tree, which):
     """Every number of the JAX tree lands in exactly one module parameter:
     with distinct leaf values, the module holds the same multiset."""
-    tree = _unique_tree(det_tree if which == "det" else rec_tree, [0])
-    model = (det_from_jax if which == "det" else rec_from_jax)(tree)
+    source = {"det": det_tree, "rec": rec_tree, "cls": init_cls_params(0)}[which]
+    tree = _unique_tree(source, [0])
+    model = {"det": det_from_jax, "rec": rec_from_jax, "cls": cls_from_jax}[which](tree)
     got = np.sort(np.concatenate([p.detach().numpy().ravel() for p in model.parameters()]))
     want = np.sort(np.concatenate([np.ravel(x) for x in jax.tree.leaves(tree)]))
     np.testing.assert_array_equal(got, want)
@@ -219,3 +262,10 @@ def test_carry_over_rejects_a_wrong_layout(det_tree):
     bad["backbone"]["stem"]["w"] = np.transpose(bad["backbone"]["stem"]["w"], (3, 2, 1, 0))
     with pytest.raises(ValueError, match="stem"):
         det_from_jax(bad)
+
+
+def test_cls_carry_over_rejects_a_missing_leaf():
+    tree = init_cls_params(0)
+    del tree["blocks"][0]["se"]["conv2"]["b"]
+    with pytest.raises((ValueError, KeyError)):
+        cls_from_jax(tree)
