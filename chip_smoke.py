@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's fused OCR request and its IPC service on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's fused and staged OCR requests and its IPC
+service, single- and multi-process, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero without the final ``ok`` line):
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (``nvcc`` for sm_90a from ``ppocr_tpu_torch/csrc``);
+1. the card (``nvidia-smi`` name and power limit), the kernel build
+   (``nvcc`` for sm_90a from ``ppocr_tpu_torch/csrc``) and the build of
+   the host postprocess library (``csrc/dbpost.cpp``, host compiler);
 2. each hand-written kernel against its plain PyTorch version on the card
    (``ctc_topk``: index and value exact; ``blob_stats``: count and bbox
    exact, prob mass rtol 1e-5) at the serving shapes and at the edges of
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    ``plain_ms`` the plain version, ``library_ms`` one PyTorch call
    computing the same (``torch.max`` for ``ctc_topk``; none for
    ``blob_stats``), and ``warm_ms``, the bare kernel without the L2 flush
-   (on the path each kernel reads what the launch before it just wrote);
+   (on the path each kernel reads what the launch before it just wrote).
+   ``ctc_topk`` is also held exact and timed at the staged path's tiers
+   (rec batch bucket × width bucket / 8 timesteps);
 3. f32 parity, TF32 off, against the JAX package's committed goldens
    (``ppocr_tpu_torch/assets``): the 96 px "small" config and
    "serving-jumbo" (``PipelineConfig.serving()`` with rec 48×256);
@@ -60,6 +63,32 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    kernel on: 8 concurrent requests through two worker threads that share
    the stream, the modules and the kernel's scratch.
 
+7. staged parity: f32, TF32 off, ``fast_path`` off, against the JAX
+   package's staged goldens (made with its cv2 postprocess; the port has
+   the C++ core only): "small-staged", "small-staged+cls" and
+   "serving-staged". Per scene at most one word without a partner, every
+   partner's corners within 2 px, partners' texts identical, confidences
+   within 2e-3 where the boxes are equal and 0.05 where they differ;
+8. staged serving in bf16 at full width on the 768×1024 scenes, through
+   ``OCRWorker.process``: ``PipelineConfig.serving()`` staged and
+   ``PipelineConfig.defaults()`` (det limit 960), both with the jumbo
+   bundle's rec geometry (48×256), every staged step shape warmed first.
+   ``ctc_topk``'s launch counter is zeroed before the requests and must
+   be > 0 after; prints request p50/p90, the median of each stage's
+   [preprocess, inference, postprocess] ms, the rec step shapes met (a
+   shape at which phase 2 did not hold ``ctc_topk`` against its plain
+   version fails the phase) and the share of the golden texts read;
+9. processes: ``service_main --processes 2 --staged`` as a subprocess:
+   concurrent requests through the public socket are answered by both
+   workers (the merged ``status`` shows both), one worker is killed and
+   replaced while the other serves, ``shutdown`` fans out, the supervisor
+   exits 0 and no child process is left. The workers count their launches
+   from their start, warmup included, so the path's launches are the
+   difference of the merged ``status`` before and after 12 sequential
+   requests: at least one ``ctc_topk`` each, no ``blob_stats``. Prints
+   boot seconds and the request p50 beside a single-process staged
+   service's.
+
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
 (``weights/``); nothing is fetched.
@@ -71,6 +100,7 @@ import base64
 import json
 import os
 import pathlib
+import signal
 import statistics
 import subprocess
 import sys
@@ -85,6 +115,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM non-tensor f32 peak (also used for int32 compares)
 BOX_TOL = 2  # px; det conv summation order can flip a threshold pixel
 CONF_TOL = 2e-3
+MOVED_BOX_CONF_TOL = 0.05  # staged: a word whose box differs reads another crop
+# ctc_topk on the staged path: [rec batch bucket, width bucket / 8, V]. The
+# serving profile batches 16 crops (buckets 1, 2, 4, 8, 16), the defaults
+# profile 6 (1, 2, 4, 6); widths from 192 (T = 24) to 1280 (T = 160). The
+# committed 768x1024 scenes give the first three (with (16, 32, 5008), the
+# fused request's tier, which the serving profile's staged rec step shares);
+# "staged serving" fails on a rec step whose shape was not held against the
+# plain version. The others are further buckets of the two profiles.
+STAGED_TIERS = ((6, 40, 5008), (4, 40, 5008), (16, 40, 5008), (16, 24, 5008), (1, 40, 5008),
+                (6, 160, 5008))
 PSUM_RTOL = 1e-5
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -184,6 +224,14 @@ class Smoke:
         for line in K.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+        from ppocr_tpu_torch.ops import native
+
+        t0 = time.perf_counter()
+        native.load_library()
+        lib = native.build()
+        if lib.parent != K.BUILD_DIR or not lib.exists():
+            raise AssertionError(f"the host library is not under the build dir: {lib}")
+        print(f"host postprocess library build: {time.perf_counter() - t0:.2f} s ({lib.name})")
 
     # -- 2 ---------------------------------------------------------------
     def floor(self):
@@ -231,21 +279,24 @@ class Smoke:
         # dict; 6625, 5007 and 333 rows are not 16-byte aligned; 31 and 4
         # are less than one vector per thread; then single rows
         for shape in ((16, 32, 5008), (32, 64, 5008), (32, 48, 6625), (3, 7, 333),
-                      (8, 16, 5007), (3, 7, 31), (3, 7, 4), (1, 1, 5008), (1, 1, 6625)):
+                      (8, 16, 5007), (3, 7, 31), (3, 7, 4), (1, 1, 5008), (1, 1, 6625),
+                      *STAGED_TIERS):
             p = torch.rand(shape, generator=g)
             v = shape[2]
             p[0, 0, :] = 0.25  # whole-row tie
+            nan_n = min(1, shape[0] - 1)  # the NaN row's batch index
             if shape[1] > 2:
                 p[0, 1, min(3, v - 2)] = p[0, 1, v - 2] = 2.0  # two-way tie
-                p[1, 2, v // 2] = float("nan")  # NaN row
+                p[nan_n, 2, v // 2] = float("nan")  # NaN row
             p = p.to(self.dev)
             idx, err = compare(p, shape)
             if int(idx[0, 0]) != 0 or (shape[1] > 2 and (
-                    int(idx[1, 2]) != v - 1 or int(idx[0, 1]) != min(3, v - 2))):
+                    int(idx[nan_n, 2]) != v - 1 or int(idx[0, 1]) != min(3, v - 2))):
                 raise AssertionError(f"ctc_topk tie/NaN rule broken at {shape}")
             print(f"ctc_topk {shape}: exact")
             probs[shape] = p
             worst = max(worst, err)
+        self.ctc_shapes_checked = set(probs)
         # a base pointer that is only 4-byte aligned, odd V: every row has
         # another head and tail; served in place, without a copy
         for shape in ((8, 7, 6625), (2, 3, 31)):
@@ -284,8 +335,11 @@ class Smoke:
         print(f"ctc_topk ties and NaN by position ({len(spots)} patterns × 4 alignments): exact")
 
         lib = K.load_library()
-        # the last one is reported in the kernels line
-        for shape in ((32, 48, 6625), (32, 64, 5008), (16, 32, 5008)):
+        tiers = []
+        # the staged tiers first; the last one (a fused request's tier, also
+        # the staged serving profile's full batch at width 256) is reported
+        # in the kernels line
+        for shape in (*STAGED_TIERS, (32, 48, 6625), (32, 64, 5008), (16, 32, 5008)):
             p = probs[shape]
             rows, v = shape[0] * shape[1], shape[2]
             idx = torch.empty(shape[:2], dtype=torch.int32, device=self.dev)
@@ -304,6 +358,9 @@ class Smoke:
                 floor_ms=self.floor_ms,
             )
             print(json.dumps({"timing": self.kernels["ctc_topk"]}), flush=True)
+            tiers.append({k: self.kernels["ctc_topk"][k] for k in (
+                "shape", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        self.kernels["ctc_topk"]["tiers"] = tiers
 
     def serving_labels(self):
         """CC label maps and top-32 roots of the committed serving scenes at
@@ -585,9 +642,10 @@ class Smoke:
             "rounds in turns after 4 warm requests", "p50_ms": p50, "card": card_line()}), flush=True)
 
     # -- 6 ---------------------------------------------------------------
-    def start_service(self, sock, extra):
+    def start_service(self, sock, extra, ready="listening", own_group=False):
         """The service as a user starts it; returns (process, its output
-        lines so far) once it prints its "listening" line."""
+        lines so far) once it prints its ``ready`` line. A flag whose value
+        is None is passed bare."""
         cfg_path = os.path.join(self.tmp.name, "service.json")
         with open(cfg_path, "w") as f:
             json.dump({"rec": {"img_h": 48, "img_w": 256}, **extra.pop("config", {})}, f)
@@ -595,21 +653,25 @@ class Smoke:
                 "--model-dir", self.model_dir, "--socket", sock, "--config", cfg_path,
                 "--status-interval", "600"]
         for k, v in extra.items():
-            argv += [k, str(v)]
+            argv += [k] if v is None else [k, str(v)]
         proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+                                stderr=subprocess.STDOUT, text=True,
+                                process_group=0 if own_group else None)
         lines, listening = [], threading.Event()
 
         def pump():
             for line in proc.stdout:
                 lines.append(line.rstrip())
-                if "listening" in line:
+                if ready in line:
                     listening.set()
             listening.set()  # the process ended
 
         threading.Thread(target=pump, daemon=True).start()
         if not listening.wait(timeout=300) or proc.poll() is not None:
-            proc.kill()
+            if own_group:  # a supervisor: its workers go with its group
+                os.killpg(proc.pid, signal.SIGKILL)
+            else:
+                proc.kill()
             raise AssertionError("the service did not come up:\n" + "\n".join(lines[-30:]))
         return proc, lines
 
@@ -784,6 +846,267 @@ class Smoke:
                 proc.kill()
                 proc.wait(timeout=10)
 
+    # -- 7 ---------------------------------------------------------------
+    def staged_parity(self):
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
+
+        totals = {}
+        with f32_exact():
+            for name in ("small-staged", "small-staged+cls", "serving-staged"):
+                cfg = PipelineConfig.from_dict(self.goldens["configs"][name])
+                if cfg.fast_path:
+                    raise AssertionError(f"{name} is not a staged config")
+                md = self.cls_model_dir if cfg.enable_cls else self.model_dir
+                worker = OCRWorker(OCREngine(md, cfg), 0)
+                scenes = self.scenes["serving" if name.startswith("serving") else "parity"]
+                torch.cuda.synchronize()
+                K.reset_launch_counts()  # this config's run starts here
+                n_pairs = n_loose = 0
+                for i, (scene, want) in enumerate(zip(scenes, self.goldens["words"][name])):
+                    resp = worker.process(scene, i)
+                    if not resp["success"]:
+                        raise AssertionError(f"{name} scene {i}: {resp.get('error')}")
+                    if ("cls_ms" in resp["stage_times"]) != cfg.enable_cls:
+                        raise AssertionError(f"{name}: stage_times {list(resp['stage_times'])}")
+                    pairs, loose = check_staged_words(resp["words"], want, f"{name} scene {i}")
+                    n_pairs += pairs
+                    n_loose += loose
+                counts = K.launch_counts()
+                totals = {k: totals.get(k, 0) + n for k, n in counts.items()}
+                if counts["ctc_topk"] < len(scenes) or counts["blob_stats"] != 0:
+                    raise AssertionError(f"{name}: launches {counts}")
+                print(f"staged parity f32 (TF32 off) {name}: {n_pairs} words match the JAX "
+                      f"staged goldens (texts exact, boxes <= {BOX_TOL} px), {n_loose} without a "
+                      f"partner; launches {counts}")
+        self.launches["staged parity"] = totals
+
+    # -- 8 ---------------------------------------------------------------
+    def staged_config(self, profile):
+        """``profile`` ("serving" | "defaults") staged in bf16 with the
+        jumbo bundle's rec geometry."""
+        from ppocr_tpu_torch.pipeline import PipelineConfig
+
+        cfg = getattr(PipelineConfig, profile)()
+        cfg.fast_path = False
+        cfg.rec.img_h, cfg.rec.img_w = 48, 256
+        cfg.dtype = "bfloat16"
+        return cfg
+
+    def staged_serving(self):
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker
+
+        scenes = list(self.scenes["serving"])
+        golden = [w["text"] for ws in self.goldens["words"]["serving-staged"] for w in ws]
+        workers, warm = {}, {}
+        for profile in ("serving", "defaults"):
+            eng = OCREngine(self.model_dir, self.staged_config(profile))
+            warm[profile] = eng.warmup()
+            workers[profile] = OCRWorker(eng, 0)
+            for s in scenes:  # untimed: the request's own first pass
+                workers[profile].process(s, 0)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()  # the staged main path's run starts here
+        for profile, worker in workers.items():
+            eng = worker.engine
+            shapes = {}
+            rec_step = eng._rec_step
+
+            def counted(batch, rec_step=rec_step, shapes=shapes,
+                        v=eng.rec_model.fc.bias.shape[0]):
+                idx, prob = rec_step(batch)
+                if (*idx.shape, v) not in self.ctc_shapes_checked:
+                    raise AssertionError(
+                        f"rec step {tuple(batch.shape)}: ctc_topk was not held against its "
+                        f"plain version at {[*idx.shape, v]}")
+                key = f"{idx.shape[0]}x{idx.shape[1]}"
+                shapes[key] = shapes.get(key, 0) + 1
+                return idx, prob
+
+            eng._rec_step = counted
+            walls, resp = [], []
+            for i in range(8):
+                t0 = time.perf_counter()
+                resp.append(worker.process(scenes[i % len(scenes)], i))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            del eng._rec_step
+            bad = [r for r in resp if not r["success"]]
+            if bad:
+                raise AssertionError(f"staged {profile}: failed requests: {bad[:2]}")
+            stages = {
+                stage: [statistics.median(r["stage_times"][stage][j] for r in resp) for j in range(3)]
+                for stage in resp[0]["stage_times"]
+            }
+            served = [w["text"] for r in resp[: len(scenes)] for w in r["words"]]
+            agree = len(set(golden) & set(served)) / max(len(golden), 1)
+            if profile == "serving":
+                self.staged_served = [r["words"] for r in resp[: len(scenes)]]
+            print(json.dumps({
+                "staged_serving": f"PipelineConfig.{profile}() staged, bf16, rec 48x256, "
+                "768x1024 requests", "warmup_s": round(warm[profile], 3), "requests": len(resp),
+                "p50_ms": statistics.median(walls),
+                "p90_ms": sorted(walls)[int(0.9 * (len(walls) - 1))],
+                "stage_ms_median [pre, infer, post]": stages,
+                "words_per_request": statistics.median(len(r["words"]) for r in resp),
+                "rec_steps [batch x T]: count": shapes,
+                "golden_texts_read": round(agree, 3), "card": card_line()}), flush=True)
+            # the serving profile is the goldens' own config; the defaults
+            # profile (other thresholds, det at 960) is only required to read
+            if not served or (profile == "serving" and agree < 0.5):
+                raise AssertionError(f"staged {profile} bf16 disagrees with the f32 goldens")
+        counts = K.launch_counts()
+        self.launches["staged serving"] = counts
+        print(f"launches on the staged main path: {counts}")
+        if counts["ctc_topk"] <= 0:
+            raise AssertionError(f"the staged path never launched ctc_topk: {counts}")
+
+    # -- 9 ---------------------------------------------------------------
+    def processes(self):
+        from ppocr_tpu_torch.serve import OCRIPCClient
+        from ppocr_tpu_torch.utils.imcodec import encode_png
+
+        scenes = list(self.scenes["serving"])
+        payloads = [{"command": "recognize",
+                     "image_data": base64.b64encode(encode_png(s)).decode()} for s in scenes]
+        want = getattr(self, "staged_served", None)
+        if want is None:
+            raise AssertionError("needs the staged serving phase's words")
+
+        def status(c):
+            return json.loads(c.get_service_status()["status"])
+
+        def timed(c, n=8):
+            walls = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                r = c.send_request(payloads[i % len(payloads)])
+                walls.append((time.perf_counter() - t0) * 1e3)
+                check_staged_words(r.get("words") or [], want[i % len(payloads)], "processes")
+            return walls
+
+        def launches(st):
+            """Per kernel, summed over the worker processes (counted since
+            each one's start, its warmup included)."""
+            return {k: sum(p["kernel_launches"][k] for p in st["processes"])
+                    for k in st["processes"][0]["kernel_launches"]}
+
+        # a single-process staged service first, for the request p50 beside
+        sock1 = os.path.join(self.tmp.name, "one.sock")
+        proc1, lines1 = self.start_service(sock1, {"--staged": None, "--warmup": "full"})
+        try:
+            with OCRIPCClient(sock1, timeout_ms=120000) as c:
+                timed(c, 4)
+                single = timed(c)
+                c.send_shutdown_command()
+            proc1.wait(timeout=30)
+        finally:
+            if proc1.poll() is None:
+                proc1.kill()
+                proc1.wait(timeout=10)
+
+        sock = os.path.join(self.tmp.name, "pub.sock")
+        t0 = time.perf_counter()
+        proc, lines = self.start_service(
+            sock, {"--staged": None, "--warmup": "full", "--processes": 2, "--boot-timeout": 300},
+            ready="OCR balancer listening", own_group=True)
+        pids = []
+        try:
+            boot_s = time.perf_counter() - t0
+            ready = [ln for ln in lines if "ready in" in ln]
+            with OCRIPCClient(sock, timeout_ms=120000) as c:
+                answers = self.concurrent(OCRIPCClient, sock, [payloads[i % 2] for i in range(8)])
+                for i, r in enumerate(answers):
+                    check_staged_words(r.get("words") or [], want[i % 2], "processes, concurrent")
+                st = status(c)
+                per = st["processes"]
+                if len(per) != 2 or any("error" in p for p in per):
+                    raise AssertionError(f"merged status: {st}")
+                pids = [p["pid"] for p in per]
+                if st["total_requests"] != 8 or st["failed_requests"] != 0 or min(
+                        p["total_requests"] for p in per) < 1 or len(set(pids)) != 2:
+                    raise AssertionError(f"both workers must have served: {st}")
+                before = launches(status(c))  # the workers' warmup and the requests so far
+                timed(c, 4)
+                walls = timed(c)
+                after = launches(status(c))
+                delta = {k: after[k] - before[k] for k in after}
+                self.launches["processes"] = delta
+                # a staged request runs at least one rec step, never blob_stats
+                if delta["ctc_topk"] < 4 + len(walls) or delta["blob_stats"] != 0:
+                    raise AssertionError(f"{4 + len(walls)} requests through the balancer "
+                                         f"launched {delta}")
+                os.kill(pids[0], signal.SIGKILL)
+                timed(c, 4)  # the other worker serves meanwhile
+                deadline = time.monotonic() + 120
+                new_pids = []
+                while time.monotonic() < deadline:
+                    new_pids = [p.get("pid") for p in status(c)["processes"]]
+                    if None not in new_pids and pids[0] not in new_pids:
+                        break
+                    time.sleep(0.5)
+                if None in new_pids or pids[0] in new_pids or pids[1] not in new_pids:
+                    raise AssertionError(f"the killed worker was not replaced: {pids} -> {new_pids}")
+                replaced_s = time.monotonic() - (deadline - 120)
+                self.concurrent(OCRIPCClient, sock, [payloads[i % 2] for i in range(4)])
+                pids = sorted(set(pids + new_pids))
+                if c.send_shutdown_command().get("success") is not True:
+                    raise AssertionError("shutdown was not acknowledged")
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"the supervisor exited with {rc}:\n" + "\n".join(lines[-20:]))
+            time.sleep(0.5)
+            left = [pid for pid in pids if pid_alive(pid)]
+            if left:
+                raise AssertionError(f"worker processes outlived the supervisor: {left}")
+            print(json.dumps({
+                "processes": "service_main --processes 2 --staged --warmup full, serving-jumbo "
+                "bf16, 768x1024 requests", "boot_s": round(boot_s, 2), "workers_ready": ready,
+                "replaced_after_kill_s": round(replaced_s, 2),
+                "request_p50_ms": statistics.median(walls),
+                "request_p90_ms": sorted(walls)[int(0.9 * (len(walls) - 1))],
+                "single_process_request_p50_ms": statistics.median(single),
+                "launches_of_12_requests": delta, "launches_since_boot": after,
+                "card": card_line()}), flush=True)
+        finally:
+            # the supervisor leads a process group of its own: whatever is
+            # left of it and of its workers goes with the group
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            if proc.poll() is None:
+                proc.wait(timeout=10)
+
+
+def pid_alive(pid: int) -> bool:
+    """A process that runs (a zombie waiting for its parent does not count)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+
+
+def check_staged_words(got, want, where):
+    """Staged words against a reference made with another contour backend
+    (or in another dtype): at most one word without a partner, partners'
+    texts identical. Returns (pairs, words without a partner)."""
+    from ppocr_tpu_torch.assets import match_staged_words
+
+    pairs, extra, missing = match_staged_words(got, want, BOX_TOL)
+    loose = len(extra) + len(missing)
+    if loose > 1 or len(pairs) < 2:
+        raise AssertionError(f"{where}: {len(pairs)} words paired, without a partner: "
+                             f"{extra} / {missing}")
+    for g, w in pairs:
+        if g["text"] != w["text"]:
+            raise AssertionError(f"{where}: text {g['text']!r} vs {w['text']!r} at {g['box']}")
+        tol = CONF_TOL if g["box"] == w["box"] else MOVED_BOX_CONF_TOL
+        if abs(g["confidence"] - w["confidence"]) > tol:
+            raise AssertionError(f"{where}: conf {g['confidence']} vs {w['confidence']}")
+    return len(pairs), loose
+
 
 def check_words(got, want, where):
     if got is None:
@@ -815,6 +1138,9 @@ def main() -> int:
     smoke.phase("bf16 serving", smoke.serving)
     smoke.phase("fused options", smoke.options)
     smoke.phase("service", smoke.service)
+    smoke.phase("staged parity", smoke.staged_parity)
+    smoke.phase("staged serving", smoke.staged_serving)
+    smoke.phase("processes", smoke.processes)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:
@@ -826,7 +1152,7 @@ def main() -> int:
         kern["launches"] = sum(kern["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "wrapper_ms",
-            "warm_ms", "shape", "launches_by_path")
+            "warm_ms", "shape", "launches_by_path", "tiers")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in smoke.kernels.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

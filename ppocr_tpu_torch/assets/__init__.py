@@ -5,7 +5,9 @@
 ``serving``: 768×1024 scenes), so no renderer is needed where the port
 runs. ``goldens.json`` holds the configs they are served with and the
 JAX package's f32 fused responses (words: text, confidence, box) for
-each: the base configs and ``small`` with each of ``OPTIONS`` changed.
+each: the base configs, ``small`` with each of ``OPTIONS`` changed, and
+the staged configs (``small-staged``, ``small-staged+cls``,
+``serving-staged``: ``fast_path`` off, the JAX package's cv2 postprocess).
 ``tests/test_torch_goldens.py --write`` regenerates both.
 
 The "jumbo bundle" is the repo's self-contained trained model set:
@@ -82,3 +84,27 @@ def load_scenes() -> dict:
 
 def load_goldens() -> dict:
     return json.loads(GOLDENS.read_text(encoding="utf-8"))
+
+
+def match_staged_words(got, want, box_tol: int = 2):
+    """Pair the words of two staged responses by their boxes.
+
+    The staged path's contours come from the C++ core here and from cv2 in
+    the JAX package, so a box whose score sits on ``box_thresh`` may be in
+    one response and not in the other, and corners may differ by a pixel
+    or two. Each ``want`` word takes the first unused ``got`` word whose
+    every corner coordinate is within ``box_tol`` px. Returns (pairs of
+    (got word, want word), unmatched got words, unmatched want words)."""
+    free = list(got)
+    pairs, missing = [], []
+    for w in want:
+        wbox = np.asarray(w["box"])
+        hit = next(
+            (g for g in free if np.abs(np.asarray(g["box"]) - wbox).max() <= box_tol), None
+        )
+        if hit is None:
+            missing.append(w)
+        else:
+            free.remove(hit)
+            pairs.append((hit, w))
+    return pairs, free, missing

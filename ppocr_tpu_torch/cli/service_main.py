@@ -10,11 +10,14 @@ cleanly (the reference's ConsoleHandler); a status line is printed every
 The service runs on the card (``--device cuda``, the default; it exits
 when there is none) or, on request, on the CPU (``--device cpu``).
 
+``--staged`` (or ``--profile defaults`` without ``--fast-path``) serves the
+staged det → cls → rec pipeline; ``--processes N`` starts N worker
+services behind the request balancer (``serve.balancer``); ``--system-info``
+prints the worker sizing advice and exits.
+
 Flags whose feature is not ported yet are parsed and refused with exit
-code 2 and the ROADMAP item that will bring them: ``--staged`` and
-``--profile defaults`` without ``--fast-path`` (A7, the staged pipeline),
-``--mesh N > 1`` and ``--cross-chip`` (A10), ``--processes N > 1`` (A8,
-balancer and supervisor), ``--system-info`` (A7, sysinfo).
+code 2 and the ROADMAP item that will bring them: ``--mesh N > 1`` and
+``--cross-chip`` (A10).
 
 Usage:
     python -m ppocr_tpu_torch.cli.service_main --model-dir ./models \
@@ -33,11 +36,8 @@ from .common import resolve_socket_path
 
 # flag → (what, ROADMAP item) of the features this package does not have yet
 UNPORTED = {
-    "staged": ("the staged pipeline (--staged, or --profile defaults without --fast-path)", "A7"),
     "mesh": ("serving over a device mesh (--mesh > 1)", "A10"),
     "cross_chip": ("det and rec on two devices (--cross-chip)", "A10"),
-    "processes": ("the multi-process balancer and supervisor (--processes > 1)", "A8"),
-    "system_info": ("worker sizing recommendation (--system-info)", "A7"),
 }
 
 
@@ -51,8 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ocr-service",
         description="PP-OCR IPC service (PyTorch, one NVIDIA card)",
-        # no abbreviations: a supervisor strips flags from worker argv by
-        # exact name, as the JAX package's does
+        # abbreviations are forbidden: the supervisor strips flags from
+        # worker argv by EXACT name ('--processes', '--socket',
+        # '--recycle-after'); an accepted abbreviation like '--proc 4'
+        # would survive the strip and make every worker re-spawn its own
+        # supervisor (a fork bomb)
         allow_abbrev=False,
     )
     p.add_argument("--model-dir", default="./models", help="model directory (det/ cls/ rec/)")
@@ -82,21 +85,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--staged",
         action="store_true",
         help="serve the staged exact-parity pipeline (det → contours → "
-        "crop → rec, one dispatch per stage) instead of the default fused "
-        "single-dispatch path (not ported yet: ROADMAP A7)",
+        "crop → rec, one device step per stage) instead of the default "
+        "fused single-dispatch path: the reference's own contour, unclip "
+        "and crop semantics",
     )
     p.add_argument("--no-warmup", action="store_true", help="alias for --warmup off")
     p.add_argument(
         "--warmup",
         choices=["auto", "full", "incremental", "off"],
         default="auto",
-        help="when every fused step shape runs once on blank input (cuDNN's "
+        help="when every step shape runs once on blank input (cuDNN's "
         "algorithm search and the kernel build happen on a shape's first "
         "call): full = before accepting connections; incremental = start "
-        "serving immediately and warm one shape at a time on the event "
-        "loop between requests (a request for a cold shape warms it on "
-        "demand, jumping the queue); auto (default) = incremental; off = "
-        "only on demand. --no-warmup is an alias for off",
+        "serving immediately and warm one fused step shape at a time on "
+        "the event loop between requests (a request for a cold shape warms "
+        "it on demand, jumping the queue); auto (default) = incremental for "
+        "the fused path, full for --staged; off = only on demand. "
+        "--no-warmup is an alias for off",
     )
     p.add_argument("--status-interval", type=float, default=30.0)
     p.add_argument(
@@ -124,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--rec-decode",
         choices=["greedy", "beam"],
         default="greedy",
-        help="CTC decode: greedy (reference parity) or "
+        help="CTC decode (fused and staged): greedy (reference parity) or "
         "prefix beam search (recovers labelings greedy misses)",
     )
     p.add_argument(
@@ -184,22 +189,26 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=1,
         help="multi-process serving: N worker service processes behind a "
-        "request-level balancer on the public socket (not ported yet: "
-        "ROADMAP A8)",
+        "request-level balancer on the public socket (the GIL-proof "
+        "replacement for the reference's N worker threads). Workers boot "
+        "one after the other; each loads its own copy of the models.",
     )
     p.add_argument(
         "--recycle-after",
         type=int,
         default=0,
         help="self-recycle the service process after N recognize requests "
-        "(graceful drain, exit code 3), for a supervisor that restarts it",
+        "(graceful drain, exit code 3). Under --processes > 1 the "
+        "supervisor owns recycling instead: it boots a replacement first, "
+        "then retires the old worker.",
     )
     p.add_argument(
         "--boot-timeout",
         type=float,
         default=3600.0,
         help="--processes mode: seconds to wait for each worker's socket "
-        "(accepted; unused until the balancer is ported)",
+        "(a worker's boot is process start, weight load, kernel build "
+        "lookup and, with --warmup full, every step shape once)",
     )
     p.add_argument(
         "--device",
@@ -307,15 +316,33 @@ def resolve_service_config(args):
     # which could otherwise bring back exactly what these guards refuse
     if config.cross_chip:
         return None, refuse("cross_chip")
-    if not config.fast_path:
-        return None, refuse("staged")
     return config, None
+
+
+def resolve_warmup_mode(args, config):
+    """--warmup / --no-warmup → ("full" | "incremental" | "off", None) or
+    (None, exit_code): ``auto`` is incremental for the fused path and full
+    for the staged one, whose step shapes have no on-demand guard."""
+    mode = "off" if args.no_warmup else args.warmup
+    if mode == "auto":
+        return ("incremental" if config.fast_path else "full"), None
+    if mode == "incremental" and not config.fast_path:
+        print(
+            "--warmup incremental requires the fused path "
+            "(drop --staged or use --warmup full)",
+            flush=True,
+        )
+        return None, 2
+    return mode, None
 
 
 async def _amain(args) -> int:
     from ..serve import OCRIPCService
 
     config, err = resolve_service_config(args)
+    if err is not None:
+        return err
+    warmup_mode, err = resolve_warmup_mode(args, config)
     if err is not None:
         return err
 
@@ -330,9 +357,6 @@ async def _amain(args) -> int:
         recycle_after=args.recycle_after,
         device=args.device,
     )
-    warmup_mode = "off" if args.no_warmup else args.warmup
-    if warmup_mode == "auto":
-        warmup_mode = "incremental"
     if warmup_mode == "full":
         secs = service.engine.warmup()
         print(f"Warmup ran every step shape in {secs:.1f}s", flush=True)
@@ -391,16 +415,89 @@ async def _amain(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    for flag, refused in (
-        ("system_info", args.system_info),
-        ("processes", args.processes > 1),
-        ("mesh", args.mesh > 1),
-    ):
-        if refused:
-            return refuse(flag)
+def _strip_flag(argv, flag, has_value=True):
+    out, skip = [], 0
+    for a in argv:
+        if skip:
+            skip -= 1
+            continue
+        if a == flag:
+            skip = 1 if has_value else 0
+            continue
+        if a.startswith(flag + "="):
+            continue
+        out.append(a)
+    return out
+
+
+async def _supervisor_main(args, argv) -> int:
+    """--processes N: spawn N worker services + the request balancer
+    (serve.balancer) on the public socket."""
+    from ..serve.balancer import ServiceSupervisor
+
+    worker_args = _strip_flag(_strip_flag(list(argv), "--processes"), "--socket")
+    worker_args = _strip_flag(worker_args, "--pipe-name")
+    # the SUPERVISOR owns recycling in multi-process mode (rolling
+    # rotation, replacement-first); workers must not self-recycle
+    worker_args = _strip_flag(worker_args, "--recycle-after")
+    sup = ServiceSupervisor(
+        resolve_socket_path(args.socket),
+        args.processes,
+        worker_args,
+        boot_timeout=args.boot_timeout,
+        recycle_after=args.recycle_after,
+    )
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, lambda: asyncio.ensure_future(sup.stop_async()))
+    print(
+        f"Starting {args.processes} worker processes "
+        f"(recycle after {args.recycle_after or 'never'})...",
+        flush=True,
+    )
     try:
+        await sup.start_async()
+    except RuntimeError as e:
+        await sup.stop_async()
+        print(f"Supervisor failed to start: {e}", flush=True)
+        return 1
+    print(
+        f"OCR balancer listening on {sup.socket_path} "
+        f"({args.processes} worker processes)",
+        flush=True,
+    )
+    mon = loop.create_task(sup.monitor())
+    await sup.balancer._stopped.wait()
+    mon.cancel()
+    try:
+        await mon
+    except asyncio.CancelledError:
+        pass
+    await sup.stop_async()
+    print("Service stopped.", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    raw_argv = list(argv) if argv is not None else sys.argv[1:]
+    args = build_parser().parse_args(raw_argv)
+    if args.system_info:
+        from ..pipeline.sysinfo import worker_recommendation
+
+        print(worker_recommendation(enable_cls=args.cls).pretty())
+        return 0
+    if args.mesh > 1:
+        return refuse("mesh")
+    try:
+        if args.processes > 1:
+            # the flags are checked once here, so that a bad combination
+            # exits 2 and does not fail N worker boots one after the other
+            config, err = resolve_service_config(args)
+            if err is None:
+                _, err = resolve_warmup_mode(args, config)
+            if err is not None:
+                return err
+            return asyncio.run(_supervisor_main(args, raw_argv))
         return asyncio.run(_amain(args))
     except KeyboardInterrupt:
         return 0

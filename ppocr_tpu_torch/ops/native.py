@@ -1,0 +1,158 @@
+"""Build and ctypes bindings of the DB-postprocess core, ``csrc/dbpost.cpp``.
+
+Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
+contour half of the DB postprocess on cv2 and keeps the C++ core as an
+alternative; the machines that serve the port need not have cv2, so here
+the C++ core is the only backend. It is host code (border following,
+scanline polygon scoring, rotating-calipers min-area rects, closed-form
+unclip), not a GPU kernel.
+
+The source is compiled at first use with the host compiler into
+``_build/libdbpost-<hash>.so`` (``_build/`` is listed in ``.gitignore``),
+the hash taken over the source and the flags. There is no ``-march=native``
+among them, so a file built on one host loads on any other. Several worker
+processes may boot together: the build runs under a file lock and the
+library is written under another name and moved into place with
+``os.replace``, so no process can load a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Tuple
+
+import numpy as np
+
+from .kernels import BUILD_DIR, CSRC
+
+SOURCE = CSRC / "dbpost.cpp"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+
+_lib = None
+_lock = threading.Lock()  # detect runs in the service's worker threads
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        path = shutil.which(name) if name else None
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler (g++ or c++) found: csrc/dbpost.cpp cannot be built")
+
+
+def build() -> Path:
+    """Compile ``csrc/dbpost.cpp`` into ``_build/libdbpost-<hash>.so``
+    (skipped when that file exists) and return its path. Raises with the
+    compiler's output when the build fails."""
+    digest = hashlib.sha1(SOURCE.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    lib = BUILD_DIR / f"libdbpost-{digest.hexdigest()[:12]}.so"
+    if lib.exists():
+        return lib
+    cxx = _cxx()
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / "dbpost.lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
+        if lib.exists():  # another process built it while this one waited
+            return lib
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        run = subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        if run.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed on {SOURCE}:\n{run.stdout}")
+        os.replace(tmp, lib)
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the core; returns the ctypes handle."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fp = ctypes.POINTER(ctypes.c_float)
+            lib.dbpost_boxes_from_bitmap.restype = ctypes.c_int
+            lib.dbpost_boxes_from_bitmap.argtypes = [
+                fp,
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.c_float,
+                ctypes.c_float,
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int32),
+                fp,
+                ctypes.c_int,
+            ]
+            lib.dbpost_min_area_rect.restype = None
+            lib.dbpost_min_area_rect.argtypes = [fp, ctypes.c_int, fp]
+            _lib = lib
+    return _lib
+
+
+def boxes_from_bitmap(
+    pred: np.ndarray,
+    bitmap: np.ndarray,
+    box_thresh: float,
+    unclip_ratio: float,
+    score_mode: str = "slow",
+    max_candidates: int = 1000,
+) -> Tuple[List[np.ndarray], List[float]]:
+    """Bitmap → (int64 quads [4, 2] in pred-map coordinates, their scores)
+    (postprocess_op.cpp:255-331). The contours come in cv2's bottom-up
+    order and ``max_candidates`` cuts that order. ``bitmap`` must have
+    ``pred``'s shape: the core indexes both with the same dims."""
+    lib = load_library()
+    pred = np.ascontiguousarray(pred, np.float32)
+    bmp = np.ascontiguousarray((np.asarray(bitmap) > 0).astype(np.uint8))
+    if pred.ndim != 2 or bmp.shape != pred.shape:
+        raise ValueError(
+            f"bitmap shape {bmp.shape} != pred shape {pred.shape} "
+            "(the postprocess core requires same-resolution 2-D maps)"
+        )
+    h, w = pred.shape
+    max_boxes = max(int(max_candidates), 0)
+    out_boxes = np.zeros((max_boxes, 4, 2), np.int32)
+    out_scores = np.zeros((max_boxes,), np.float32)
+    n = lib.dbpost_boxes_from_bitmap(
+        pred.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        bmp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        w,
+        h,
+        ctypes.c_float(box_thresh),
+        ctypes.c_float(unclip_ratio),
+        1 if score_mode == "slow" else 0,
+        max_boxes,
+        out_boxes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_scores.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        max_boxes,
+    )
+    return [out_boxes[i].astype(np.int64) for i in range(n)], out_scores[:n].tolist()
+
+
+def min_area_rect(points: np.ndarray):
+    """Min-area rotated rect of a point set, as ``cv2.minAreaRect`` gives
+    it up to the choice of side order: ((cx, cy), (w, h), degrees)."""
+    lib = load_library()
+    pts = np.ascontiguousarray(points, np.float32).reshape(-1, 2)
+    out = np.zeros(5, np.float32)
+    lib.dbpost_min_area_rect(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(pts),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    cx, cy, w, h, ang = out
+    return (float(cx), float(cy)), (float(w), float(h)), float(np.degrees(ang))

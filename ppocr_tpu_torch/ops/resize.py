@@ -1,7 +1,9 @@
-"""Det-input resize with the reference's rounding, in numpy (no cv2).
+"""Det, rec and cls input resize with the reference's rounding, in numpy
+(no cv2).
 
 Counterpart of ``ppocr_tpu/ops/resize.py`` ``det_target_shape``,
-``det_resize``, ``det_cap_shape`` and ``det_fit_cap``. The JAX package
+``det_resize``, ``det_cap_shape``, ``det_fit_cap``, ``crnn_resize`` and
+``cls_resize``. The JAX package
 resizes with ``cv2.resize(INTER_LINEAR)``; the machines that serve the
 port need not have cv2, so :func:`resize_bilinear_u8` reproduces cv2's
 uint8 bilinear: half-pixel centres, 11-bit fixed-point weights rounded
@@ -12,6 +14,7 @@ ragged tail with a scalar rounding that can differ by 1.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -128,3 +131,36 @@ def det_fit_cap(
         return img, ratio_h, ratio_w
     out = resize_bilinear_u8(img, nw, nh)
     return out, ratio_h * nh / rh, ratio_w * nw / rw
+
+
+def _aspect_width(img: np.ndarray, img_h: int, img_w: int) -> int:
+    """Width of ``img`` scaled to height ``img_h`` (rounded up), capped at
+    ``img_w``."""
+    h, w = img.shape[:2]
+    scaled = math.ceil(img_h * (w / h))
+    return img_w if scaled > img_w else int(scaled)
+
+
+def crnn_resize(
+    img: np.ndarray, max_wh_ratio: float, rec_image_shape=(3, 48, 320)
+) -> np.ndarray:
+    """Resize a text-line crop to rec height, cap width at
+    ``img_h * max_wh_ratio``, right-pad with black to exactly that width
+    (CrnnResizeImg, preprocess_op.cpp:92-117)."""
+    _, img_h, _ = rec_image_shape
+    img_w = int(img_h * max_wh_ratio)
+    resize_w = _aspect_width(img, img_h, img_w)
+    resized = resize_bilinear_u8(img, resize_w, img_h)
+    if resize_w < img_w:
+        padded = np.zeros((img_h, img_w) + resized.shape[2:], np.uint8)
+        padded[:, :resize_w] = resized
+        return padded
+    return resized
+
+
+def cls_resize(img: np.ndarray, cls_image_shape=(3, 48, 192)) -> np.ndarray:
+    """Resize keeping aspect to cls height; the caller right-pads the batch
+    buffer with zeros (the reference pads implicitly via a zeroed input
+    tensor)."""
+    _, img_h, img_w = cls_image_shape
+    return resize_bilinear_u8(img, _aspect_width(img, img_h, img_w), img_h)

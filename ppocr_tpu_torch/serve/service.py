@@ -110,7 +110,7 @@ class OCRIPCService:
         )
         # self-recycle after N recognize requests (0 = never): a graceful
         # drain and exit code 3, for a supervisor that restarts the process
-        # (the multi-process balancer is not ported yet, ROADMAP A8)
+        # (under serve.balancer the supervisor recycles workers itself)
         self.recycle_after = int(recycle_after)
         self.recycled = False
         # 0-based like the reference: fetch_add(1) RETURNS the old value

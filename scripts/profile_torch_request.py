@@ -2,13 +2,18 @@
 
     python3 scripts/profile_torch_request.py [--requests 8] [--blob-kernel]
         [--option cls|dilation|rotated|srcx2|beam]
+        [--staged [--profile serving|defaults]]
 
 Serves the committed scenes (``ppocr_tpu_torch/assets``: two 768×1024 and
 four 192×192) one request at a time through ``OCRWorker.process`` in the
 serving-jumbo config (``PipelineConfig.serving()`` with the jumbo bundle's
 rec 48×256) in bf16, after ``warmup()``; ``--option`` changes one option
 of the fused path (``cls`` uses an untrained classifier made from a seed).
-It prints one JSON object:
+``--staged`` serves the staged pipeline instead (``fast_path`` off: det
+step, host postprocess, host crops, optional cls step, rec step, decode),
+with ``--profile defaults`` at the reference's header defaults (det limit
+960, rec batches of 6); ``--option`` then takes ``cls``, ``dilation`` or
+``beam``. It prints one JSON object:
 
 * ``wall_ms``: per-request host wall time without the profiler, p50 per
   scene size, ending in ``torch.cuda.synchronize()``, after one untimed
@@ -17,9 +22,9 @@ It prints one JSON object:
   scenes, per request: the device busy time (sum of kernel times; one
   stream, so kernels do not overlap), the idle share of the wall time, the
   kernel launch count, the connected-components iterations
-  (``fused.cc_iter`` spans), each ``fused.*`` span's host time and device
-  time (first kernel start to last kernel end, gaps included), and the
-  top kernels.
+  (``fused.cc_iter`` spans), each ``fused.*`` (or ``staged.*``) span's
+  host time and device time (first kernel start to last kernel end, gaps
+  included), and the top kernels.
 
 Needs a CUDA card; the card's name and power limit are printed with the
 numbers.
@@ -49,6 +54,11 @@ SPANS = (
     "fused.host_resize", "fused.det", "fused.cc", "fused.blob_stats", "fused.cls",
     "fused.crops", "fused.rec", "fused.ctc_topk", "fused.beam_topk", "fused.host_decode",
 )
+STAGED_SPANS = (
+    "staged.det_pre", "staged.det_step", "staged.det_post", "staged.crops", "staged.cls_pre",
+    "staged.cls_step", "staged.rec_pre", "staged.rec_step", "staged.ctc_topk",
+    "staged.rec_decode",
+)
 
 
 def card() -> str:
@@ -68,12 +78,23 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--blob-kernel", action="store_true")
     ap.add_argument("--option", choices=assets.OPTIONS, default=None)
+    ap.add_argument("--staged", action="store_true")
+    ap.add_argument("--profile", choices=["serving", "defaults"], default="serving")
     args = ap.parse_args()
+    if args.staged and (args.blob_kernel or args.option in ("rotated", "srcx2")):
+        ap.error("--blob-kernel, --option rotated and --option srcx2 belong to the fused path")
+    if args.profile != "serving" and not args.staged:
+        ap.error("--profile defaults is profiled with --staged")
     if not torch.cuda.is_available():
         print("profile_torch_request: no CUDA device available", file=sys.stderr)
         return 1
     scenes = assets.load_scenes()
-    cfg = PipelineConfig.from_dict(assets.load_goldens()["configs"]["serving"])
+    if args.staged:
+        cfg = getattr(PipelineConfig, args.profile)()
+        cfg.fast_path = False
+        cfg.rec.img_h, cfg.rec.img_w = 48, 256  # the jumbo bundle's rec geometry
+    else:
+        cfg = PipelineConfig.from_dict(assets.load_goldens()["configs"]["serving"])
     cfg.dtype = "bfloat16"
     cfg.fused_blob_kernel = args.blob_kernel
     if args.option:
@@ -104,9 +125,11 @@ def main() -> int:
             prof_wall = (time.perf_counter() - t0) * 1e3 / len(requests)
     n = len(requests)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in kernels if not e.key.startswith("fused.")]  # not annotations
+    kernels = [e for e in kernels if not e.key.startswith(("fused.", "staged."))]  # not annotations
     busy = sum(dev_ms(e) for e in kernels) / n
-    spans = {s: {"host_ms": 0.0, "device_ms": 0.0} for s in SPANS}
+    spans = {
+        s: {"host_ms": 0.0, "device_ms": 0.0} for s in (STAGED_SPANS if args.staged else SPANS)
+    }
     cc_iters = 0
     for e in prof.events():
         if e.name == "fused.cc_iter" and e.device_type == DeviceType.CPU:
@@ -117,8 +140,9 @@ def main() -> int:
     top = sorted(kernels, key=dev_ms, reverse=True)[:12]
     print(json.dumps({
         "card": card(),
-        "config": "serving-jumbo bf16", "fused_blob_kernel": args.blob_kernel,
-        "option": args.option,
+        "config": (f"PipelineConfig.{args.profile}() staged, rec 48x256, bf16" if args.staged
+                   else "serving-jumbo bf16"),
+        "fused_blob_kernel": args.blob_kernel, "option": args.option,
         "wall_ms": {k: {"p50": statistics.median(v), "n": len(v)} for k, v in walls.items()},
         "profiled_768x1024": {
             "requests": n,

@@ -26,7 +26,13 @@ from ppocr_tpu_torch.ops import resize as torch_resize
 from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
 from ppocr_tpu_torch.pipeline import fused as TF
 
-from test_torch_goldens import apply_option, assert_words_match, jax_config, model_dir_for
+from test_torch_goldens import (  # noqa: F401  (few_torch_threads: an autouse fixture)
+    apply_option,
+    assert_words_match,
+    few_torch_threads,
+    jax_config,
+    model_dir_for,
+)
 
 CONF_TOL = 2e-3
 PROB_RTOL = 1e-5
@@ -247,17 +253,17 @@ def test_empty_image_gives_the_error_response(engines):
     }
 
 
-@pytest.mark.parametrize(
-    "change,item",
-    [
-        (dict(fast_path=False), "A7"),
-        (dict(cross_chip=True), "A10"),
-    ],
-)
-def test_flags_outside_the_slice_raise(model_dir, change, item):
-    cfg = dataclasses.replace(PipelineConfig.serving(), **change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_flags_outside_the_slice_raise(model_dir):
+    """``cross_chip`` (A10) is outside the slice."""
+    cfg = dataclasses.replace(PipelineConfig.serving(), cross_chip=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         OCREngine(model_dir, cfg, device="cpu")
+
+
+def test_the_staged_pipeline_is_inside_the_slice(model_dir):
+    cfg = dataclasses.replace(PipelineConfig.serving(), fast_path=False)
+    eng = OCREngine(model_dir, cfg, device="cpu")
+    assert eng.config.fast_path is False and OCRWorker(eng, 0)._fused is None
 
 
 def test_a_mesh_raises(model_dir):

@@ -27,6 +27,7 @@ from ppocr_tpu_torch.pipeline import fused as TF
 from test_torch_fused import (  # noqa: F401  (fixtures)
     CONF_TOL,
     _canvas_batch,
+    few_torch_threads,
     goldens,
     model_dir,
     option_engines,

@@ -41,6 +41,19 @@ SERVING_SEEDS = (2, 3)  # 768×1024 scenes, max_lines=12, ≥ 5 words each
 CONF_TOL = 1e-4  # JAX CPU against its own committed output
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """The suite runs several test processes at once on one machine; with a
+    thread per core in each, PyTorch's CPU kernels spend their time waiting
+    for one another. The small shapes here need no more than two."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_config() -> PipelineConfig:
     return PipelineConfig(
         det=DetConfig(
@@ -75,6 +88,23 @@ def serving_config() -> PipelineConfig:
     return cfg
 
 
+def small_staged_config() -> PipelineConfig:
+    cfg = small_config()
+    cfg.fast_path = False
+    cfg.rec.width_buckets = (256, 384)
+    return cfg
+
+
+def staged_configs() -> dict:
+    serving = serving_config()
+    serving.fast_path = False
+    return {
+        "small-staged": small_staged_config(),
+        "small-staged+cls": apply_option(small_staged_config(), "cls"),
+        "serving-staged": serving,
+    }
+
+
 def jax_config(d: dict) -> PipelineConfig:
     """A JAX-package config from its ``dataclasses.asdict`` form."""
 
@@ -101,7 +131,9 @@ def model_dir_for(cfg, dst) -> str:
 
 def jax_responses(cfg: PipelineConfig, scenes) -> list:
     with tempfile.TemporaryDirectory() as md:
-        worker = OCRWorker(OCREngine(model_dir_for(cfg, md), cfg), 0)
+        engine = OCREngine(model_dir_for(cfg, md), cfg)
+        engine.post.backend = "cv2"  # the staged path's parity baseline
+        worker = OCRWorker(engine, 0)
         return [worker.process(s, i) for i, s in enumerate(scenes)]
 
 
@@ -177,6 +209,10 @@ def write():
     goldens = {"configs": {}, "words": {}}
     cases = [("small", small_config(), parity, 3), ("serving", serving_config(), serving, 5)]
     cases += [(name, cfg, parity, 2) for name, cfg in option_configs().items()]
+    cases += [
+        (name, cfg, serving if name.startswith("serving") else parity, 2)
+        for name, cfg in staged_configs().items()
+    ]
     for name, cfg, scenes, floor in cases:
         words = [r["words"] for r in jax_responses(cfg, scenes)]
         assert min(len(w) for w in words) >= floor, (name, [len(w) for w in words])
@@ -204,7 +240,12 @@ def goldens():
 
 
 def test_golden_configs_are_the_documented_ones(goldens):
-    cases = {"small": small_config(), "serving": serving_config(), **option_configs()}
+    cases = {
+        "small": small_config(),
+        "serving": serving_config(),
+        **option_configs(),
+        **staged_configs(),
+    }
     assert set(goldens["configs"]) == set(goldens["words"]) == set(cases)
     for name, cfg in cases.items():
         assert goldens["configs"][name] == json.loads(json.dumps(dataclasses.asdict(cfg)))
@@ -233,6 +274,24 @@ def test_jax_package_reproduces_option_golden(goldens, option):
     for resp, want in zip(jax_responses(cfg, scenes), goldens["words"][name]):
         assert resp["success"], resp
         assert_words_match(resp["words"], want, CONF_TOL)
+
+
+@pytest.mark.parametrize("name", ["small-staged", "small-staged+cls"])
+def test_jax_package_reproduces_staged_golden(goldens, name):
+    scenes = assets.load_scenes()["parity"]
+    cfg = jax_config(goldens["configs"][name])
+    assert cfg.fast_path is False
+    for resp, want in zip(jax_responses(cfg, scenes), goldens["words"][name]):
+        assert resp["success"] and set(resp["stage_times"]) >= {"det_ms", "rec_ms"}, resp
+        assert ("cls_ms" in resp["stage_times"]) == cfg.enable_cls
+        assert_words_match(resp["words"], want, CONF_TOL)
+
+
+def test_staged_goldens_hold_words_for_every_scene(goldens):
+    for name in staged_configs():
+        words = goldens["words"][name]
+        assert len(words) == (len(SERVING_SEEDS) if name.startswith("serving") else len(PARITY_SEEDS))
+        assert min(len(w) for w in words) >= 2, name
 
 
 def test_golden_cls_margins_are_comfortable(goldens):

@@ -737,29 +737,36 @@ class TestServiceConfig:
         assert service_main.batch_bucket_list(8, "single") == (8,)
 
     @pytest.mark.parametrize(
-        "argv,item",
-        [
-            (["--staged"], "A7"),
-            (["--profile", "defaults"], "A7"),
-            (["--mesh", "2"], "A10"),
-            (["--cross-chip"], "A10"),
-            (["--processes", "2"], "A8"),
-            (["--system-info"], "A7"),
-        ],
-        ids=["staged", "defaults-profile", "mesh", "cross-chip", "processes", "system-info"],
+        "argv,item", [(["--mesh", "2"], "A10"), (["--cross-chip"], "A10")], ids=["mesh", "cross-chip"]
     )
     def test_unported_flags_exit_2_naming_their_roadmap_item(self, argv, item, capsys):
         assert service_main.main(argv + ["--model-dir", "/nonexistent"]) == 2
         out = capsys.readouterr().out
         assert f"ROADMAP {item}" in out and "not ported" in out
+        assert set(service_main.UNPORTED) == {"mesh", "cross_chip"}
 
     @pytest.mark.parametrize(
-        "overrides,item", [({"cross_chip": True}, "A10"), ({"fast_path": False}, "A7")]
+        "argv,fast_path,processes",
+        [(["--staged"], False, 1), (["--profile", "defaults"], False, 1), (["--processes", "2"], True, 2)],
+        ids=["staged", "defaults-profile", "processes"],
     )
-    def test_a_config_file_cannot_bring_back_an_unported_feature(self, tmp_path, overrides, item, capsys):
-        cfg, err = resolve([], tmp_path, overrides)
-        assert (cfg, err) == (None, 2)
-        assert f"ROADMAP {item}" in capsys.readouterr().out
+    def test_staged_and_processes_flags_resolve(self, argv, fast_path, processes, capsys):
+        args = service_main.build_parser().parse_args(argv)
+        cfg, err = service_main.resolve_service_config(args)
+        assert err is None and "not ported" not in capsys.readouterr().out
+        assert cfg.fast_path is fast_path and args.processes == processes
+
+    def test_system_info_prints_and_exits_0(self, capsys):
+        assert service_main.main(["--system-info"]) == 0
+        assert "Recommended workers" in capsys.readouterr().out
+
+    def test_a_config_file_cannot_bring_back_an_unported_feature(self, tmp_path, capsys):
+        assert resolve([], tmp_path, {"cross_chip": True}) == (None, 2)
+        assert "ROADMAP A10" in capsys.readouterr().out
+
+    def test_a_config_file_can_ask_for_the_staged_pipeline(self, tmp_path):
+        cfg, err = resolve([], tmp_path, {"fast_path": False})
+        assert err is None and cfg.fast_path is False
 
     def test_bad_flag_combinations_exit_2(self):
         assert resolve(["--staged", "--fast-path"]) == (None, 2)
