@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's fused and staged OCR requests and its IPC
-service, single- and multi-process, on one NVIDIA card and check them.
+"""Drive the PyTorch port's fused and staged OCR requests, its IPC service
+(single- and multi-process, PNG and JPEG payloads) and its training path
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    through ``OCRIPCClient``: ``recognize`` by ``image_path`` and by
    ``image_data`` (PNGs written by ``encode_png``), 8 concurrent requests
    from threads (the batcher must coalesce: ``batched_steps`` ≥ 1 in
-   ``status``), a malformed JSON line, a JPEG payload (error response),
+   ``status``), a malformed JSON line, a corrupt JPEG payload (error response),
    ``status`` (total = successful + failed; the kernels' launch counts
    rise over the requests), phase 4's eight single requests twice over
    for the service's request p50 (client wall time, PNG decode and IPC
@@ -87,7 +88,44 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    difference of the merged ``status`` before and after 12 sequential
    requests: at least one ``ctc_topk`` each, no ``blob_stats``. Prints
    boot seconds and the request p50 beside a single-process staged
-   service's.
+   service's;
+10. jpeg vs cv2: the baseline JPEG decoder (``csrc/jpeg.cpp``, host
+    compiler) on the committed cases (``assets/jpeg_cases.npz``: the
+    serving scenes, golden-word crops, every sampling, grey, 1×1, a
+    restart interval, EXIF orientations 1–8), each equal to the cv2
+    decode stored beside it; the host ms to decode the 768×1024 4:2:0 q95
+    scene (median of 25);
+11. jpeg service: the two serving scenes as JPEG payloads through the
+    service (a subprocess as in phase 6) answer the words phase 4's
+    in-process worker gives on the port's decode of the same bytes (texts
+    exact, boxes ≤ 2 px); the client wall p50 of JPEG and PNG requests of
+    the same scenes, taken in turns;
+12. train parity: f32, TF32 off, from the same JAX-layout weights and
+    numpy batches, 3 rec CTC steps (the jumbo recognizer, 8 crops at
+    48×320, labels with a repeat and padding) and 3 det steps (the trained
+    detector, 2 × 256×256) on the card against the same steps on the CPU:
+    losses to rtol 1e-4, parameters as ``adam_close`` states. The det
+    steps start from trained weights: ``init_det_params`` saturates the
+    sigmoid, the clipped BCE then has gradients at few pixels, and Adam
+    turns the rest's rounding noise into ±lr steps, so two devices (or
+    the two packages on the CPU) part by 0.5 % in three steps. Then the
+    CTC loss alone, card against CPU, on [8, 40, 5008] logits with a row
+    of 44 labels that cannot be aligned (optax's finite value): values to
+    rtol 1e-5, gradients to rtol 1e-4 (2^-5 on that row: its forward
+    variables sit near −1e5, where f32 values are 2^-7 apart);
+13. finetune: ``finetune_rec`` on the card from the jumbo weights with the
+    jumbo charset (head kept) at 48×320, batch 32, on PNG crops of the
+    serving scenes' golden words plus the committed JPEG crops: step ms
+    (CUDA events between step ends, median after 10 warm steps), crops/s,
+    peak memory, the loss at the first and last step (it must fall). The
+    exported bundle is then served as the fused serving profile (bf16,
+    rec 48×256) with it as ``rec/``: ``ctc_topk``'s counter is zeroed
+    before and must rise, and the share of the scenes' golden texts read
+    is printed beside the jumbo bundle's under the same config;
+14. det train: ``make_det_train_step`` from ``init_det_params`` at batch
+    8 × 512×512, shrink masks filled from the golden boxes in numpy, 20
+    steps: step ms, peak memory, the losses (finite; from this saturated
+    init they wander instead of falling, in the JAX package too).
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -184,6 +222,11 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 class Smoke:
+    # the training phases: finetune_rec steps (the first FT_WARM untimed),
+    # batch and crop width; det steps, batch and image side
+    FT_STEPS, FT_WARM, FT_BATCH, FT_WIDTH = 120, 10, 32, 320
+    DET_STEPS, DET_BATCH, DET_SIZE = 20, 8, 512
+
     def __init__(self):
         self.failures = []
         self.kernels = {}
@@ -762,7 +805,7 @@ class Smoke:
             jpeg = base64.b64encode(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)).decode()
             bad = c.send_request({"command": "recognize", "image_data": jpeg})
             if bad != {"success": False, "error": "Failed to decode base64 image data"}:
-                raise AssertionError(f"JPEG payload answered with {bad}")
+                raise AssertionError(f"a corrupt JPEG payload answered with {bad}")
             # phase 4's sequence of single requests through the service and
             # in process, in turns: service, in process, in process, service
             by_key = dict(zip(keys, images))
@@ -961,6 +1004,309 @@ class Smoke:
         if counts["ctc_topk"] <= 0:
             raise AssertionError(f"the staged path never launched ctc_topk: {counts}")
 
+    # -- 10 --------------------------------------------------------------
+    def jpeg_vs_cv2(self):
+        from ppocr_tpu_torch.ops import native
+        from ppocr_tpu_torch.utils.imcodec import decode_image
+
+        t0 = time.perf_counter()
+        lib = native.build(native.JPEG_SOURCE)
+        print(f"jpeg decoder build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+        cases, texts = self.assets.load_jpeg_cases()
+        for name, (data, want) in cases.items():
+            got = decode_image(data)
+            if got is None or got.shape != want.shape or not (got == want).all():
+                raise AssertionError(f"jpeg case {name}: the decode differs from cv2's")
+        data = cases["scene0"][0]
+        ms = []
+        for _ in range(26):
+            t1 = time.perf_counter()
+            decode_image(data)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        print(json.dumps({
+            "jpeg_vs_cv2": f"{len(cases)} committed cases equal cv2's decode",
+            "decode_ms_768x1024_420_q95": statistics.median(ms[1:]), "bytes": len(data),
+            "what": "host wall ms, median of 25 after one untimed", "card": card_line()}), flush=True)
+
+    # -- 11 --------------------------------------------------------------
+    def jpeg_service(self):
+        from ppocr_tpu_torch.serve import OCRIPCClient
+        from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png
+
+        if self.serving_worker is None:
+            raise AssertionError("needs the bf16 serving phase's worker")
+        cases, _ = self.assets.load_jpeg_cases()
+        jpegs = [cases["scene0"][0], cases["scene1"][0]]
+        want = [self.serving_worker.process(decode_image(j), i)["words"] for i, j in enumerate(jpegs)]
+        pngs = [encode_png(s) for s in self.scenes["serving"]]
+        req = lambda data: {"command": "recognize",  # noqa: E731
+                            "image_data": base64.b64encode(data).decode()}
+        sock = os.path.join(self.tmp.name, "jpeg.sock")
+        proc, lines = self.start_service(sock, {"--warmup": "full"})
+        try:
+            walls = {"jpeg": [], "png": []}
+            with OCRIPCClient(sock, timeout_ms=120000) as c:
+                for i, data in enumerate(jpegs):
+                    check_words(c.send_request(req(data)).get("words"), want[i], f"jpeg scene {i}")
+
+                def timed(kind):
+                    for i in range(8):
+                        data = (jpegs if kind == "jpeg" else pngs)[i % 2]
+                        t0 = time.perf_counter()
+                        r = c.send_request(req(data))
+                        walls[kind].append((time.perf_counter() - t0) * 1e3)
+                        if not r.get("success"):
+                            raise AssertionError(f"{kind} request: {str(r)[:200]}")
+                        if kind == "jpeg":
+                            check_words(r["words"], want[i % 2], "jpeg, timed")
+
+                for kind in ("jpeg", "png", "png", "jpeg"):
+                    timed(kind)
+                if c.send_shutdown_command().get("success") is not True:
+                    raise AssertionError("shutdown was not acknowledged")
+            if proc.wait(timeout=30) != 0:
+                raise AssertionError("the service exited with an error:\n" + "\n".join(lines[-20:]))
+            print(json.dumps({
+                "jpeg_service": "serving-jumbo bf16, 768x1024 scenes as JPEG (q95 4:2:0, q90 "
+                "4:2:2) and as PNG, 16 requests each in turns",
+                "jpeg_bytes": [len(j) for j in jpegs], "png_bytes": [len(p) for p in pngs],
+                "jpeg_request_p50_ms": statistics.median(walls["jpeg"]),
+                "png_request_p50_ms": statistics.median(walls["png"]), "card": card_line()}),
+                flush=True)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+    # -- 12 --------------------------------------------------------------
+    def train_batches(self):
+        """Numpy rec batches (8 crops of the golden words at 48×320, T = 40)
+        and det batches (2 × 256×256 scene cuts with box masks)."""
+        import numpy as np
+
+        from ppocr_tpu_torch.ops.resize import crnn_resize
+        from ppocr_tpu_torch.utils.imcodec import decode_image
+
+        cases, texts = self.assets.load_jpeg_cases()
+        crops = [decode_image(cases[f"crop{i}"][0]) for i in range(len(texts))]
+        x = np.stack([crnn_resize(crops[i % len(crops)], 320 / 48, (3, 48, 320)) for i in range(8)])
+        x = (x.astype(np.float32) / 255.0 - 0.5) * 2.0
+        rec = []
+        for seed in range(3):
+            rng = np.random.default_rng(seed)
+            labels = rng.integers(1, 5008, (8, 44)).astype(np.int32)
+            lens = np.array([5, 9, 3, 12, 1, 7, 20, 30])
+            labels[0, 1] = labels[0, 2]
+            pads = (np.arange(44)[None, :] >= lens[:, None]).astype(np.float32)
+            rec.append({"images": x, "labels": np.where(pads > 0, 0, labels).astype(np.int32),
+                        "label_paddings": pads})
+        det = []
+        for seed in range(3):
+            imgs, masks = self.det_images(2, 256, seed)
+            det.append({"images": imgs, "masks": masks})
+        return rec, det
+
+    def det_images(self, n, size, seed):
+        """``n`` normalized ``size``×``size`` cuts of the serving scenes
+        (det-normalized, as the serving det step normalizes) and masks
+        that are 1 inside the golden boxes."""
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        mean = np.array([0.485, 0.456, 0.406], np.float32)
+        std = np.array([0.229, 0.224, 0.225], np.float32)
+        imgs, masks = [], []
+        for i in range(n):
+            k = i % len(self.scenes["serving"])
+            scene = self.scenes["serving"][k]
+            y0 = int(rng.integers(0, scene.shape[0] - size + 1))
+            x0 = int(rng.integers(0, scene.shape[1] - size + 1))
+            cut = scene[y0 : y0 + size, x0 : x0 + size]
+            m = np.zeros(scene.shape[:2], np.float32)
+            for w in self.goldens["words"]["serving"][k]:
+                b = np.asarray(w["box"])
+                m[b[:, 1].min() : b[:, 1].max() + 1, b[:, 0].min() : b[:, 0].max() + 1] = 1.0
+            imgs.append((cut.astype(np.float32) / 255.0 - mean) / std)
+            masks.append(m[y0 : y0 + size, x0 : x0 + size])
+        return np.stack(imgs).astype(np.float32), np.stack(masks)
+
+    def train_parity(self):
+        from ppocr_tpu_torch.models import det_to_jax, rec_to_jax
+        from ppocr_tpu_torch.train import trainer as TT
+        from ppocr_tpu_torch.utils.checkpoint import load_params_npz
+
+        rec_batches, det_batches = self.train_batches()
+        jumbo = load_params_npz(str(self.assets.WEIGHTS / "rec_scene_jumbo.npz"))
+        det = load_params_npz(str(self.assets.WEIGHTS / "det_synthetic_text.npz"))
+        runs = (("rec", TT.make_train_step, jumbo, rec_batches, rec_to_jax, 1e-4),
+                ("det", TT.make_det_train_step, det, det_batches, det_to_jax, 1e-3))
+        with f32_exact():
+            for name, make, params, batches, to_jax, lr in runs:
+                trees, losses = {}, {}
+                for dev in ("cuda", "cpu"):
+                    _, init_fn, step_fn = make(dev, learning_rate=lr)
+                    state = init_fn(params)
+                    losses[dev] = []
+                    for b in batches:
+                        state, loss = step_fn(state, b)
+                        losses[dev].append(float(loss))
+                    trees[dev] = to_jax(state.model)
+                for a, b in zip(losses["cuda"], losses["cpu"]):
+                    if not abs(a - b) <= 1e-4 * abs(b):
+                        raise AssertionError(f"{name} train losses: card {losses['cuda']} vs cpu "
+                                             f"{losses['cpu']}")
+                worst, off, n = adam_close(trees["cuda"], trees["cpu"], 3 * lr)
+                print(json.dumps({
+                    "train_parity": f"{name}, 3 steps, f32 TF32 off, card vs CPU",
+                    "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+                    "params_max_abs_diff": worst, "params_off_tight": f"{off}/{n}"}), flush=True)
+            self.ctc_parity()
+
+    def ctc_parity(self):
+        """``ctc_loss`` on the card against the CPU, both routes: rows
+        that align (``F.ctc_loss``) and one that cannot (optax's
+        recursion)."""
+        import numpy as np
+
+        from ppocr_tpu_torch.train.trainer import ctc_loss
+
+        rng = np.random.default_rng(5)
+        logits = torch.from_numpy(rng.normal(size=(8, 40, 5008)).astype(np.float32) * 3)
+        lens = np.array([5, 9, 3, 12, 1, 7, 40, 44])  # 44 labels: no alignment in 40 frames
+        labels = rng.integers(1, 5008, (8, 44)).astype(np.int32)
+        labels[0, 1] = labels[0, 2]
+        pads = (np.arange(44)[None, :] >= lens[:, None]).astype(np.float32)
+        labels = np.where(pads > 0, 0, labels).astype(np.int32)
+        out = []
+        for dev in (self.dev, "cpu"):
+            x = logits.to(dev).requires_grad_(True)
+            per_seq = ctc_loss(x, labels, pads)
+            per_seq.mean().backward()
+            out.append((per_seq.detach().cpu(), x.grad.cpu()))
+        (v, g), (vc, gc) = out
+        torch.testing.assert_close(v, vc, rtol=1e-5, atol=0)
+        if not 9e4 < float(vc[-1]) < float("inf"):
+            raise AssertionError(f"the row without an alignment: {float(vc[-1])}")
+        torch.testing.assert_close(g[:-1], gc[:-1], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(g[-1], gc[-1], rtol=2.0**-5, atol=1e-6)
+        print(json.dumps({"ctc_parity": "ctc_loss [8, 40, 5008], card vs CPU",
+                          "per_seq_card": v.tolist(),
+                          "grad_max_abs_diff": float((g - gc).abs().max())}), flush=True)
+
+    # -- 13 --------------------------------------------------------------
+    def finetune(self):
+        import numpy as np
+
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker
+        from ppocr_tpu_torch.train.finetune import finetune_rec
+        from ppocr_tpu_torch.utils.imcodec import encode_png
+
+        root = pathlib.Path(self.tmp.name) / "ft_data"
+        root.mkdir()
+        lines = []
+        for k, (scene, words) in enumerate(zip(self.scenes["serving"],
+                                               self.goldens["words"]["serving"])):
+            for j, w in enumerate(words):
+                b = np.asarray(w["box"])
+                x0, y0 = np.maximum(b.min(axis=0), 0)
+                x1, y1 = b.max(axis=0)
+                (root / f"s{k}_{j}.png").write_bytes(encode_png(scene[y0 : y1 + 1, x0 : x1 + 1]))
+                lines.append(f"s{k}_{j}.png\t{w['text']}")
+        cases, texts = self.assets.load_jpeg_cases()
+        for i, text in enumerate(texts):
+            (root / f"crop{i}.jpg").write_bytes(cases[f"crop{i}"][0])
+            lines.append(f"crop{i}.jpg\t{text}")
+        (root / "rec_gt.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+        steps, warm, batch = self.FT_STEPS, self.FT_WARM, self.FT_BATCH
+        ends, losses = [], []
+
+        def on_step(step, loss):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            losses.append(loss)
+
+        out = pathlib.Path(self.tmp.name) / "ft_out"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        weights = finetune_rec(str(root / "rec_gt.txt"), str(out),
+                               init_weights=str(self.assets.WEIGHTS / "rec_scene_jumbo.npz"),
+                               charset_file=str(self.assets.WEIGHTS / "jumbo_keys.txt"),
+                               steps=steps, batch_size=batch, img_h=48, img_w=self.FT_WIDTH,
+                               log_every=40, on_step=on_step)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(ends[warm:], ends[warm + 1:]))
+        losses = [float(x) for x in losses]
+        k = max(1, steps // 10)  # one batch's loss is noisy: compare the first and last tenths
+        head, tail = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+        if not tail < head:
+            raise AssertionError(f"finetune loss did not fall: {head} -> {tail}")
+
+        # the exported bundle served as rec/, beside the jumbo bundle
+        tuned_dir = self.assets.make_jumbo_model_dir(pathlib.Path(self.tmp.name) / "tuned")
+        for name in ("weights.npz", "ppocr_keys_v1.txt"):
+            (tuned_dir / "rec" / name).write_bytes((out / name).read_bytes())
+        golden = [w["text"] for ws in self.goldens["words"]["serving"] for w in ws]
+        read, counts = {}, None
+        for label, md in (("jumbo", self.model_dir), ("fine-tuned", str(tuned_dir))):
+            worker = OCRWorker(OCREngine(md, self.serving_config()), 0)
+            for s in self.scenes["serving"]:  # untimed: the shapes' first calls
+                worker.process(s, 0)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()  # this bundle's served run starts here
+            served = [w["text"] for i, s in enumerate(self.scenes["serving"])
+                      for w in worker.process(s, i)["words"]]
+            read[label] = len(set(golden) & set(served)) / max(len(golden), 1)
+            if label == "fine-tuned":
+                counts = K.launch_counts()
+        self.launches["finetuned bundle serving"] = counts
+        if counts["ctc_topk"] <= 0:
+            raise AssertionError(f"serving the fine-tuned bundle never launched ctc_topk: {counts}")
+        print(json.dumps({
+            "finetune": f"finetune_rec, jumbo init, {len(lines)} crops, 48x{self.FT_WIDTH}, batch "
+            f"{batch}, {steps} steps, f32 (cuDNN TF32 on, the default)",
+            "weights": pathlib.Path(weights).name, "step_ms": step_ms,
+            "crops_per_s": batch / step_ms * 1e3, "wall_s": round(wall_s, 2),
+            "max_memory_allocated_bytes": peak, "loss_first_step": losses[0], "loss_last_step": losses[-1],
+            "loss_mean_first_tenth": head, "loss_mean_last_tenth": tail,
+            "golden_texts_read": read, "launches_serving_tuned": counts, "card": card_line()}),
+            flush=True)
+
+    # -- 14 --------------------------------------------------------------
+    def det_train(self):
+        from ppocr_tpu_torch.models import init_det_params
+        from ppocr_tpu_torch.train import make_det_train_step
+
+        _, init_fn, step_fn = make_det_train_step(learning_rate=1e-3)
+        state = init_fn(init_det_params(0))
+        n, size = self.DET_BATCH, self.DET_SIZE
+        batches = [dict(zip(("images", "masks"), self.det_images(n, size, seed))) for seed in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ends, losses = [], []
+        for i in range(self.DET_STEPS):
+            state, loss = step_fn(state, batches[i % len(batches)])
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        losses = [float(x) for x in losses]
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(ends[4:], ends[5:]))
+        if not all(0 < x < 14 for x in losses):  # the clipped BCE is at most −log(1e-6) ≈ 13.8
+            raise AssertionError(f"det train losses: {losses}")
+        print(json.dumps({
+            "det_train": f"make_det_train_step, init_det_params(0), batch {n} x {size}x{size}, "
+            f"{self.DET_STEPS} steps, f32 (cuDNN TF32 on, the default)", "step_ms": step_ms,
+            "images_per_s": n / step_ms * 1e3,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses, "card": card_line()}), flush=True)
+
     # -- 9 ---------------------------------------------------------------
     def processes(self):
         from ppocr_tpu_torch.serve import OCRIPCClient
@@ -1079,6 +1425,35 @@ class Smoke:
                 proc.wait(timeout=10)
 
 
+def adam_close(got, want, lr_sum):
+    """Two parameter trees after AdamW updates whose rates sum to
+    ``lr_sum``, made on two devices. Adam divides each gradient element
+    by its own running magnitude, so an element whose gradient is rounding
+    noise moves by up to the rate per update in either direction on each
+    device: every element must be within 2·``lr_sum``, and all but 1 in
+    10^3 within 2e-6 + 1e-4·|w|. Returns (max abs diff, elements off the
+    tight bound, elements)."""
+    import numpy as np
+
+    def flat(tree, out):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                flat(tree[k], out)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                flat(v, out)
+        else:
+            out.append(np.asarray(tree, np.float32).ravel())
+        return out
+
+    g, w = np.concatenate(flat(got, [])), np.concatenate(flat(want, []))
+    d = np.abs(g - w)
+    off = int((d > 2e-6 + 1e-4 * np.abs(w)).sum())
+    if d.max() > 2 * lr_sum or off > 1e-3 * d.size:
+        raise AssertionError(f"parameters differ: max {d.max()}, {off} of {d.size} off")
+    return float(d.max()), off, int(d.size)
+
+
 def pid_alive(pid: int) -> bool:
     """A process that runs (a zombie waiting for its parent does not count)."""
     try:
@@ -1141,6 +1516,11 @@ def main() -> int:
     smoke.phase("staged parity", smoke.staged_parity)
     smoke.phase("staged serving", smoke.staged_serving)
     smoke.phase("processes", smoke.processes)
+    smoke.phase("jpeg vs cv2", smoke.jpeg_vs_cv2)
+    smoke.phase("jpeg service", smoke.jpeg_service)
+    smoke.phase("train parity", smoke.train_parity)
+    smoke.phase("finetune", smoke.finetune)
+    smoke.phase("det train", smoke.det_train)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:

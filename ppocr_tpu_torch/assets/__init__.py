@@ -10,6 +10,12 @@ the staged configs (``small-staged``, ``small-staged+cls``,
 ``serving-staged``: ``fast_path`` off, the JAX package's cv2 postprocess).
 ``tests/test_torch_goldens.py --write`` regenerates both.
 
+``jpeg_cases.npz`` holds JPEGs written by cv2 (the two serving scenes,
+crops of their golden words with the golden texts, and the sampling,
+restart, size and EXIF-orientation cases) beside cv2's own decode of
+each, for the places that have no cv2 to make or decode a JPEG.
+``tests/test_torch_jpeg.py --write`` regenerates it.
+
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
 5,008-way head) and ``weights/jumbo_keys.txt``. It has no orientation
@@ -34,6 +40,7 @@ from ..utils.checkpoint import save_params_npz
 ASSETS = Path(__file__).resolve().parent
 SCENES = ASSETS / "scenes.npz"
 GOLDENS = ASSETS / "goldens.json"
+JPEG_CASES = ASSETS / "jpeg_cases.npz"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
@@ -84,6 +91,16 @@ def load_scenes() -> dict:
 
 def load_goldens() -> dict:
     return json.loads(GOLDENS.read_text(encoding="utf-8"))
+
+
+def load_jpeg_cases():
+    """({case name: (JPEG bytes, cv2's [H, W, 3] BGR decode)}, the golden
+    texts of the crops ``crop0``, ``crop1``, ... in order)."""
+    with np.load(JPEG_CASES) as data:
+        names = sorted({k.rsplit("/", 1)[0] for k in data.files if k.endswith("/jpeg")})
+        cases = {n: (data[f"{n}/jpeg"].tobytes(), data[f"{n}/cv2"]) for n in names}
+        texts = [str(t) for t in data["crop_texts"]]
+    return cases, texts
 
 
 def match_staged_words(got, want, box_tol: int = 2):

@@ -6,13 +6,15 @@ reduction widths are the exported graph's pruned ones, nearest ×2 is a
 repeat, and the DB head ends in an f32 sigmoid.
 
 ``det_forward(model, x[N, H, W, 3]) -> [N, H, W]`` keeps the JAX layout at
-the public boundary; the module itself is NCHW.
+the public boundary; the module itself is NCHW. ``init_det_params`` is the
+JAX package's numpy init, draw for draw.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -134,3 +136,113 @@ class DetDB(nn.Module):
 def det_forward(model: DetDB, x: torch.Tensor) -> torch.Tensor:
     """[N, H, W, 3] normalized → [N, H, W] f32 probability map."""
     return model(x.permute(0, 3, 1, 2).contiguous())
+
+
+# -- parameter construction (numpy, the JAX package's layout) -----------------
+
+
+def _conv_init(rng, k, cin, cout, groups=1, bias=True, lab2=False):
+    fan_in = k * k * (cin // groups)
+    p = {
+        "w": rng.normal(0, (2.0 / fan_in) ** 0.5, (k, k, cin // groups, cout)).astype(
+            np.float32
+        ),
+        "b": np.zeros((cout,), np.float32),
+        "lab1": {"s": np.ones((1,), np.float32), "b": np.zeros((1,), np.float32)},
+    }
+    if lab2:
+        p["lab2"] = {"s": np.ones((1,), np.float32), "b": np.zeros((1,), np.float32)}
+    if not bias:
+        del p["b"]
+    return p
+
+
+def _bn_init(c):
+    return {
+        "scale": np.ones((c,), np.float32),
+        "bias": np.zeros((c,), np.float32),
+        "mean": np.zeros((c,), np.float32),
+        "var": np.ones((c,), np.float32),
+    }
+
+
+def _se_init(rng, c, reduction=SE_REDUCTION):
+    mid = c // reduction
+    return {
+        "conv1": {
+            "w": rng.normal(0, (2.0 / c) ** 0.5, (1, 1, c, mid)).astype(np.float32),
+            "b": np.zeros((mid,), np.float32),
+        },
+        "conv2": {
+            "w": rng.normal(0, (2.0 / mid) ** 0.5, (1, 1, mid, c)).astype(np.float32),
+            "b": np.zeros((c,), np.float32),
+        },
+    }
+
+
+def init_det_params(seed: int = 0) -> Dict:
+    """Random parameter tree in the JAX package's layout, equal to
+    ``ppocr_tpu.models.det_db.init_det_params(seed)``: the same numpy draws
+    in the same order. The starting point of det training."""
+    rng = np.random.default_rng(seed)
+    backbone = {
+        "stem": {
+            "w": rng.normal(0, (2.0 / 27) ** 0.5, (3, 3, 3, 16)).astype(np.float32),
+            "bn": _bn_init(16),
+        },
+        "blocks": [],
+    }
+    for cin, cout, k, s, has_se in DET_BLOCKS:
+        blk = {
+            "dw": _conv_init(rng, k, cin, cin, groups=cin, lab2=(s == 1)),
+            "pw": _conv_init(rng, 1, cin, cout, lab2=True),
+        }
+        if has_se:
+            blk["se"] = _se_init(rng, cin)
+        backbone["blocks"].append(blk)
+
+    fpn = {
+        "reduce": [
+            {
+                "w": rng.normal(0, (2.0 / c) ** 0.5, (1, 1, c, r)).astype(np.float32),
+                "b": np.zeros((r,), np.float32),
+            }
+            for c, r in zip(FPN_IN_CHANNELS, FPN_REDUCED)
+        ],
+        "rse_in": [
+            {
+                "conv": {
+                    "w": rng.normal(0, (2.0 / r) ** 0.5, (1, 1, r, FPN_CH)).astype(np.float32)
+                },
+                "se": _se_init(rng, FPN_CH),
+            }
+            for r in FPN_REDUCED
+        ],
+        "rse_out": [
+            {
+                "conv": {
+                    "w": rng.normal(
+                        0, (2.0 / (9 * FPN_CH)) ** 0.5, (3, 3, FPN_CH, FPN_OUT_CH)
+                    ).astype(np.float32)
+                },
+                "se": _se_init(rng, FPN_OUT_CH),
+            }
+            for _ in range(4)
+        ],
+    }
+    head = {
+        "conv": {
+            "w": rng.normal(0, (2.0 / (9 * 96)) ** 0.5, (3, 3, 96, 24)).astype(np.float32),
+            "bn": _bn_init(24),
+        },
+        "up1": {
+            "w": rng.normal(0, 0.2, (24, 2, 2, 24)).astype(np.float32),
+            "b": np.zeros((24,), np.float32),
+            "bn": _bn_init(24),
+        },
+        "up2": {
+            "w": rng.normal(0, 0.2, (24, 2, 2, 1)).astype(np.float32),
+            "b": np.zeros((1,), np.float32),
+        },
+    }
+    return {"backbone": backbone, "fpn": fpn, "head": head}

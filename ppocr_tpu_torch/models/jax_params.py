@@ -13,6 +13,10 @@ transposed to PyTorch's layouts:
 
 Every module parameter must be set exactly once and every tree leaf used
 exactly once; anything else raises, so a layout slip cannot load silently.
+
+``rec_to_jax`` and ``det_to_jax`` go the other way: a trained module back
+to the JAX layout (what ``save_params_npz`` writes and either package
+loads), each parameter read exactly once.
 """
 
 from __future__ import annotations
@@ -181,3 +185,111 @@ def cls_from_jax(tree: Dict) -> ClsMV3:
     conv_bn(m.last_conv, tree["last_conv"])
     ld.linear(m.fc, tree["fc"])
     return ld.finish(tree)
+
+
+class _Saver:
+    """The inverse of :class:`_Loader`: module parameters → tree leaves in
+    the JAX layout, each parameter read exactly once."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+        self.pending = {id(p): n for n, p in module.named_parameters()}
+
+    def get(self, param: nn.Parameter) -> np.ndarray:
+        if id(param) not in self.pending:
+            raise ValueError("parameter read twice or not in the module")
+        del self.pending[id(param)]
+        return param.detach().to("cpu", torch.float32).numpy().copy()
+
+    def conv(self, m: L.Conv, **extra) -> Dict:
+        p = {"w": np.ascontiguousarray(np.transpose(self.get(m.weight), (2, 3, 1, 0)))}
+        if m.bias is not None:
+            p["b"] = self.get(m.bias)
+        p.update(extra)
+        return p
+
+    def bn(self, m: L.BatchNorm) -> Dict:
+        return {k: self.get(getattr(m, k)) for k in ("scale", "bias", "mean", "var")}
+
+    def ln(self, m: L.LayerNorm) -> Dict:
+        return {"scale": self.get(m.scale), "bias": self.get(m.bias)}
+
+    def lab(self, m: L.Lab) -> Dict:
+        return {"s": self.get(m.s), "b": self.get(m.b)}
+
+    def linear(self, m: L.Linear) -> Dict:
+        return {"w": np.ascontiguousarray(self.get(m.weight).T), "b": self.get(m.bias)}
+
+    def se(self, m: L.SE) -> Dict:
+        return {"conv1": self.conv(m.conv1), "conv2": self.conv(m.conv2)}
+
+    def lcnet(self, m) -> Dict:
+        p = self.conv(m.conv, lab1=self.lab(m.lab1))
+        if m.lab2 is not None:
+            p["lab2"] = self.lab(m.lab2)
+        return p
+
+    def convt(self, m: L.ConvTranspose2x2, **extra) -> Dict:
+        w = self.get(m.weight)  # [cout·4, cin, 1, 1], channels (o, a, b)
+        cout, cin = w.shape[0] // 4, w.shape[1]
+        w = np.transpose(w.reshape(cout, 2, 2, cin), (3, 1, 2, 0))
+        return {"w": np.ascontiguousarray(w), "b": self.get(m.bias), **extra}
+
+    def blocks(self, mods) -> list:
+        out = []
+        for m in mods:
+            blk = {"dw": self.lcnet(m.dw), "pw": self.lcnet(m.pw)}
+            if m.se is not None:
+                blk["se"] = self.se(m.se)
+            out.append(blk)
+        return out
+
+    def finish(self, tree: Dict) -> Dict:
+        if self.pending:
+            raise ValueError(f"parameters not carried out: {sorted(self.pending.values())}")
+        return tree
+
+
+def rec_to_jax(model: RecSVTR) -> Dict:
+    """:class:`RecSVTR` → JAX rec pytree (``init_rec_params`` layout)."""
+    sv = _Saver(model)
+    m = model
+    backbone = {"stem": sv.conv(m.stem, bn=sv.bn(m.stem_bn)), "blocks": sv.blocks(m.blocks)}
+
+    def cbn(mod):
+        return sv.conv(mod.conv, bn=sv.bn(mod.bn))
+
+    head = {"conv1": cbn(m.conv1), "conv2": cbn(m.conv2), "blocks": []}
+    for mod in m.svtr:
+        head["blocks"].append({
+            "norm1": sv.ln(mod.norm1),
+            "qkv": sv.linear(mod.qkv),
+            "proj": sv.linear(mod.proj),
+            "norm2": sv.ln(mod.norm2),
+            "fc1": sv.linear(mod.fc1),
+            "fc2": sv.linear(mod.fc2),
+        })
+    head["norm"] = sv.ln(m.norm)
+    head["conv3"] = cbn(m.conv3)
+    head["conv4"] = cbn(m.conv4)
+    head["conv1x1"] = cbn(m.conv1x1)
+    head["fc"] = sv.linear(m.fc)
+    return sv.finish({"backbone": backbone, "head": head})
+
+
+def det_to_jax(model: DetDB) -> Dict:
+    """:class:`DetDB` → JAX det pytree (``init_det_params`` layout)."""
+    sv = _Saver(model)
+    m = model
+    backbone = {"stem": sv.conv(m.stem, bn=sv.bn(m.stem_bn)), "blocks": sv.blocks(m.blocks)}
+    fpn = {
+        "reduce": [sv.conv(mod) for mod in m.reduce],
+        "rse_in": [{"conv": sv.conv(mod.conv), "se": sv.se(mod.se)} for mod in m.rse_in],
+        "rse_out": [{"conv": sv.conv(mod.conv), "se": sv.se(mod.se)} for mod in m.rse_out],
+    }
+    head = {
+        "conv": sv.conv(m.head_conv, bn=sv.bn(m.head_bn)),
+        "up1": sv.convt(m.up1, bn=sv.bn(m.up1_bn)),
+        "up2": sv.convt(m.up2),
+    }
+    return sv.finish({"backbone": backbone, "fpn": fpn, "head": head})

@@ -66,6 +66,18 @@ def _param(shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape), requires_grad=False)
 
 
+def set_trainable(module: nn.Module, on: bool = True) -> nn.Module:
+    """Switch ``requires_grad`` on (or off) for every parameter of
+    ``module``. Modules are built frozen for serving. Training takes every
+    leaf, as the JAX package's optimizer does over the whole pytree: BN's
+    mean and var and ``Lab``'s scalars get gradients and weight decay like
+    any weight (BN stays in its inference form, with no batch
+    statistics)."""
+    for p in module.parameters():
+        p.requires_grad_(on)
+    return module
+
+
 class Conv(nn.Module):
     """Conv2d with explicit stride/padding/groups and an optional bias."""
 

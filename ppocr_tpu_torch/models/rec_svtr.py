@@ -8,13 +8,15 @@ projection whose width comes from the weights (6,625 for the reference
 dict, 5,008 for the jumbo bundle).
 
 ``rec_forward(model, x[N, H, W, 3]) -> [N, W//8, V]`` f32 probabilities;
-``rec_forward_logits`` returns the pre-softmax logits.
+``rec_forward_logits`` returns the pre-softmax logits. ``init_rec_params``
+is the JAX package's numpy init, draw for draw.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,6 +43,7 @@ REC_DIM = 120  # SVTR embedding dim
 REC_HEADS = 8
 REC_MLP_RATIO = 2
 REC_FEAT = 480
+REC_NUM_CLASSES = 6625  # the reference dict: 6,623 chars + blank '#' + trailing space
 
 
 def rec_timesteps(width: int) -> int:
@@ -165,3 +168,95 @@ def rec_forward_logits(model: RecSVTR, x: torch.Tensor) -> torch.Tensor:
 def rec_forward(model: RecSVTR, x: torch.Tensor) -> torch.Tensor:
     """[N, H, W, 3] normalized → [N, W//8, V] f32 probabilities."""
     return torch.softmax(rec_forward_logits(model, x), dim=-1)
+
+
+def init_rec_params(seed: int = 0) -> Dict:
+    """Random parameter tree in the JAX package's layout (HWIO convs,
+    [in, out] linears, 6,625-way head), equal to
+    ``ppocr_tpu.models.rec_svtr.init_rec_params(seed)``: the same numpy
+    draws in the same order."""
+    rng = np.random.default_rng(seed)
+
+    def lconv(k, cin, cout, groups=1):
+        fan = k * k * (cin // groups)
+        return {
+            "w": rng.normal(0, (2.0 / fan) ** 0.5, (k, k, cin // groups, cout)).astype(
+                np.float32
+            ),
+            "b": np.zeros((cout,), np.float32),
+            "lab1": {"s": np.ones((1,), np.float32), "b": np.zeros((1,), np.float32)},
+            "lab2": {"s": np.ones((1,), np.float32), "b": np.zeros((1,), np.float32)},
+        }
+
+    def bn(c):
+        return {
+            "scale": np.ones((c,), np.float32),
+            "bias": np.zeros((c,), np.float32),
+            "mean": np.zeros((c,), np.float32),
+            "var": np.ones((c,), np.float32),
+        }
+
+    def cbn(kh, kw, cin, cout):
+        fan = kh * kw * cin
+        return {
+            "w": rng.normal(0, (2.0 / fan) ** 0.5, (kh, kw, cin, cout)).astype(np.float32),
+            "bn": bn(cout),
+        }
+
+    def se(c):
+        mid = c // 4
+        return {
+            "conv1": {
+                "w": rng.normal(0, 0.05, (1, 1, c, mid)).astype(np.float32),
+                "b": np.zeros((mid,), np.float32),
+            },
+            "conv2": {
+                "w": rng.normal(0, 0.05, (1, 1, mid, c)).astype(np.float32),
+                "b": np.zeros((c,), np.float32),
+            },
+        }
+
+    def fc(cin, cout):
+        return {
+            "w": rng.normal(0, cin**-0.5, (cin, cout)).astype(np.float32),
+            "b": np.zeros((cout,), np.float32),
+        }
+
+    def ln(c):
+        return {"scale": np.ones((c,), np.float32), "bias": np.zeros((c,), np.float32)}
+
+    backbone = {
+        "stem": {
+            "w": rng.normal(0, (2.0 / 27) ** 0.5, (3, 3, 3, 16)).astype(np.float32),
+            "bn": bn(16),
+        },
+        "blocks": [],
+    }
+    for cin, cout, k, s, has_se in REC_BLOCKS:
+        blk = {"dw": lconv(k, cin, cin, groups=cin), "pw": lconv(1, cin, cout)}
+        if has_se:
+            blk["se"] = se(cin)
+        backbone["blocks"].append(blk)
+
+    d = REC_DIM
+    head = {
+        "conv1": cbn(1, 3, REC_FEAT, 60),
+        "conv2": cbn(1, 1, 60, d),
+        "blocks": [
+            {
+                "norm1": ln(d),
+                "qkv": fc(d, 3 * d),
+                "proj": fc(d, d),
+                "norm2": ln(d),
+                "fc1": fc(d, REC_MLP_RATIO * d),
+                "fc2": fc(REC_MLP_RATIO * d, d),
+            }
+            for _ in range(2)
+        ],
+        "norm": ln(d),
+        "conv3": cbn(1, 1, d, REC_FEAT),
+        "conv4": cbn(1, 3, 2 * REC_FEAT, 60),
+        "conv1x1": cbn(1, 1, 60, d),
+        "fc": fc(d, REC_NUM_CLASSES),
+    }
+    return {"backbone": backbone, "head": head}

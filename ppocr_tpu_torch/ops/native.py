@@ -1,4 +1,5 @@
-"""Build and ctypes bindings of the DB-postprocess core, ``csrc/dbpost.cpp``.
+"""Build and ctypes bindings of the port's host C++: the DB-postprocess
+core, ``csrc/dbpost.cpp``, and the baseline JPEG decoder, ``csrc/jpeg.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -7,8 +8,8 @@ the C++ core is the only backend. It is host code (border following,
 scanline polygon scoring, rotating-calipers min-area rects, closed-form
 unclip), not a GPU kernel.
 
-The source is compiled at first use with the host compiler into
-``_build/libdbpost-<hash>.so`` (``_build/`` is listed in ``.gitignore``),
+Each source is compiled at first use with the host compiler into
+``_build/lib<name>-<hash>.so`` (``_build/`` is listed in ``.gitignore``),
 the hash taken over the source and the flags. There is no ``-march=native``
 among them, so a file built on one host loads on any other. Several worker
 processes may boot together: the build runs under a file lock and the
@@ -26,16 +27,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from .kernels import BUILD_DIR, CSRC
 
 SOURCE = CSRC / "dbpost.cpp"
+JPEG_SOURCE = CSRC / "jpeg.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
+_jpeg_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -44,34 +47,36 @@ def _cxx() -> str:
         path = shutil.which(name) if name else None
         if path:
             return path
-    raise RuntimeError("no C++ compiler (g++ or c++) found: csrc/dbpost.cpp cannot be built")
+    raise RuntimeError("no C++ compiler (g++ or c++) found: the port's host C++ cannot be built")
 
 
-def build() -> Path:
-    """Compile ``csrc/dbpost.cpp`` into ``_build/libdbpost-<hash>.so``
-    (skipped when that file exists) and return its path. Raises with the
-    compiler's output when the build fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes())
+def build(source: Optional[Path] = None) -> Path:
+    """Compile ``source`` (``csrc/<name>.cpp``, default ``SOURCE``) into
+    ``_build/lib<name>-<hash>.so`` (skipped when that file exists) and
+    return its path. Raises with the compiler's output when the build
+    fails."""
+    source = source or SOURCE
+    digest = hashlib.sha1(source.read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    lib = BUILD_DIR / f"libdbpost-{digest.hexdigest()[:12]}.so"
+    lib = BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
     cxx = _cxx()
     BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / "dbpost.lock", "w") as lock_file:
+    with open(BUILD_DIR / f"{source.stem}.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
         if lib.exists():  # another process built it while this one waited
             return lib
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         run = subprocess.run(
-            [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
         )
         if run.returncode:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"{cxx} failed on {SOURCE}:\n{run.stdout}")
+            raise RuntimeError(f"{cxx} failed on {source}:\n{run.stdout}")
         os.replace(tmp, lib)
     return lib
 
@@ -156,3 +161,48 @@ def min_area_rect(points: np.ndarray):
     )
     cx, cy, w, h, ang = out
     return (float(cx), float(cy)), (float(w), float(h)), float(np.degrees(ang))
+
+
+def load_jpeg_library() -> ctypes.CDLL:
+    """Build (if needed) and load the JPEG decoder; returns the handle."""
+    global _jpeg_lib
+    with _lock:
+        if _jpeg_lib is None:
+            lib = ctypes.CDLL(str(build(JPEG_SOURCE)))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.jpeg_header.restype = ctypes.c_int
+            lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32p]
+            lib.jpeg_decode.restype = ctypes.c_int
+            lib.jpeg_decode.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int64,
+                i32p,
+            ]
+            _jpeg_lib = lib
+    return _jpeg_lib
+
+
+def jpeg_decode(data: bytes) -> Tuple[int, Optional[np.ndarray], int]:
+    """JPEG bytes → (status, [H, W, 3] BGR uint8 or None, EXIF orientation
+    1..8 or 0). Status 0 is success; the others are ``csrc/jpeg.cpp``'s
+    ``Status`` codes. The orientation is not applied here."""
+    lib = load_jpeg_library()
+    data = bytes(data)
+    info = np.zeros(3, np.int32)
+    status = lib.jpeg_header(data, len(data), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if status:
+        return status, None, 0
+    w, h = int(info[0]), int(info[1])
+    out = np.empty((h, w, 3), np.uint8)
+    status = lib.jpeg_decode(
+        data,
+        len(data),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        out.size,
+        info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if status:
+        return status, None, 0
+    return 0, out, int(info[2])

@@ -23,7 +23,7 @@ Counters: total_requests / successful_requests / average_processing_time_ms
 are all real here — the reference declares but never increments the latter
 two (latent bug, ocr_ipc_service.h:91-93).
 
-Images are decoded by ``utils.imcodec`` (PNG and BMP; no JPEG yet): a
+Images are decoded by ``utils.imcodec`` (PNG, BMP and baseline JPEG): a
 payload it cannot decode gets the reference's own error response.
 """
 

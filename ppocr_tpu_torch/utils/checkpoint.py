@@ -1,13 +1,24 @@
-"""Load and save the npz parameter pytrees that ``ppocr_tpu`` uses.
+"""Load and save the npz parameter pytrees that ``ppocr_tpu`` uses, and the
+port's train checkpoints.
 
-A copy of the numpy half of ``ppocr_tpu/utils/checkpoint.py``: keys are
+The npz half is a copy of ``ppocr_tpu/utils/checkpoint.py``'s: keys are
 ``/``-joined pytree paths, list levels have keys ``0..n-1``, and an empty
 subtree is stored as a ``__empty__`` marker array.
+
+``save_train_state`` / ``restore_train_state`` keep a ``train.TrainState``
+under ``step_N/``: ``params.npz`` (the module's parameters in the JAX
+layout, loadable by either package), ``optimizer.pt`` (the AdamW
+``state_dict``) and ``state.json`` (the model kind and the count of
+updates made, which the learning-rate schedule reads). These are not the
+JAX package's orbax checkpoints and neither package reads the other's;
+``params.npz`` and an exported ``weights.npz`` are what cross over.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 from typing import Dict
 
 import numpy as np
@@ -80,3 +91,52 @@ def save_params_npz(path: str, params) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def save_train_state(ckpt_dir: str, state, step: int | None = None) -> str:
+    """Write ``state`` (a ``train.TrainState``) to ``ckpt_dir/step_N``
+    (N = ``step``, default the state's update count), replacing any
+    earlier one of that name: the files go to a temporary directory first,
+    which is renamed into place. Returns the checkpoint's path."""
+    import torch
+
+    from ..models.jax_params import det_to_jax, rec_to_jax
+    from ..models.rec_svtr import RecSVTR
+
+    step = int(step if step is not None else state.step)
+    kind = "rec" if isinstance(state.model, RecSVTR) else "det"
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    tmp = f"{path}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        tree = rec_to_jax(state.model) if kind == "rec" else det_to_jax(state.model)
+        save_params_npz(os.path.join(tmp, "params.npz"), tree)
+        torch.save(state.optimizer.state_dict(), os.path.join(tmp, "optimizer.pt"))
+        with open(os.path.join(tmp, "state.json"), "w") as f:
+            json.dump({"kind": kind, "updates": int(state.step)}, f)
+        shutil.rmtree(path, ignore_errors=True)
+        os.rename(tmp, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path
+
+
+def restore_train_state(path: str, template):
+    """Load a checkpoint written by :func:`save_train_state` into
+    ``template`` (a ``TrainState`` of the same model kind and head width,
+    e.g. from the trainer's ``init_fn``): its module's parameters and its
+    optimizer's state are overwritten in place. Returns the restored
+    ``TrainState``; further steps continue the saved run exactly."""
+    import torch
+
+    from ..models.jax_params import det_from_jax, rec_from_jax
+
+    with open(os.path.join(path, "state.json")) as f:
+        meta = json.load(f)
+    tree = load_params_npz(os.path.join(path, "params.npz"))
+    loaded = rec_from_jax(tree) if meta["kind"] == "rec" else det_from_jax(tree)
+    template.model.load_state_dict(loaded.state_dict())
+    opt = torch.load(os.path.join(path, "optimizer.pt"), map_location="cpu", weights_only=True)
+    template.optimizer.load_state_dict(opt)
+    return type(template)(template.model, template.optimizer, int(meta["updates"]))

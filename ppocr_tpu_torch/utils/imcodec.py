@@ -1,17 +1,27 @@
-"""Image bytes → BGR uint8, with ``zlib`` and numpy only.
+"""Image bytes → BGR uint8, without cv2 or PIL.
 
 The service's stand-in for ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` and
 ``cv2.imread``: the machines that serve the port need have neither cv2
 nor PIL. Decoded:
 
-* **PNG**, non-interlaced: grey, grey + alpha, RGB, RGBA and palette, bit
-  depths 1–8 (and 16, reduced to its high byte), all five filter types.
-  Alpha is dropped, as ``IMREAD_COLOR`` does.
-* **BMP**, uncompressed: 24- and 32-bit, and 8-bit with a palette.
+* **PNG** (``zlib`` + numpy), non-interlaced: grey, grey + alpha, RGB,
+  RGBA and palette, bit depths 1–8 (and 16, reduced to its high byte), all
+  five filter types. Alpha is dropped, as ``IMREAD_COLOR`` does.
+* **BMP** (numpy), uncompressed: 24- and 32-bit, and 8-bit with a palette.
+* **JPEG**, baseline and extended sequential 8-bit Huffman (SOF0, SOF1),
+  one or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
+  4:4:0, 4:1:1), restart intervals: ``csrc/jpeg.cpp``, host C++ built at
+  first use by ``ops.native``, with libjpeg-turbo's islow IDCT, "fancy"
+  upsampling and fixed-point colour conversion, so the pixels equal
+  cv2's. The EXIF orientation is applied as ``cv2.imdecode`` applies it;
+  grey comes out as three equal channels.
 
 Anything else gives ``None``, which the service turns into the
-reference's own error response. **JPEG is not decoded** (ROADMAP A8,
-"baseline JPEG decoder"); a JPEG payload is logged by its format.
+reference's own error response, and is logged by its format: progressive,
+arithmetic-coded, lossless, hierarchical and 12-bit JPEGs, 4-component
+(CMYK / Adobe) JPEGs, and truncated or corrupt data (where libjpeg would
+warn and fill in grey). A JPEG decode raises when the decoder cannot be
+built: a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -273,14 +283,60 @@ def _decode_bmp(data: bytes) -> Optional[np.ndarray]:
     return np.ascontiguousarray(bgr)
 
 
+# -- JPEG ---------------------------------------------------------------------
+
+# csrc/jpeg.cpp's Status codes other than success
+_JPEG_REFUSED = {
+    1: "corrupt data",
+    2: "truncated data",
+    3: "progressive (SOF2)",
+    4: "arithmetic coding",
+    5: "lossless",
+    6: "hierarchical",
+    7: "a sample precision other than 8 bits",
+    8: "a component count other than 1 or 3 (CMYK / Adobe)",
+    9: "non-integral sampling factors",
+    10: "the height given by a DNL marker",
+    11: "too large",
+    12: "no frame header",
+    13: "an output buffer too small",
+}
+
+# EXIF orientation → the flips and transposes of OpenCV's
+# ApplyExifOrientation, in its order
+_ORIENT = {
+    2: lambda a: a[:, ::-1],
+    3: lambda a: a[::-1, ::-1],
+    4: lambda a: a[::-1],
+    5: lambda a: a.transpose(1, 0, 2),
+    6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
+    7: lambda a: a[::-1, ::-1].transpose(1, 0, 2),
+    8: lambda a: a.transpose(1, 0, 2)[::-1],
+}
+
+
+def _decode_jpeg(data: bytes) -> Optional[np.ndarray]:
+    from ..ops import native  # builds csrc/jpeg.cpp at first use; raises if it cannot
+
+    status, img, orientation = native.jpeg_decode(data)
+    if status:
+        log.warning("JPEG payload not decoded: %s", _JPEG_REFUSED.get(status, f"status {status}"))
+        return None
+    if orientation in _ORIENT:
+        img = np.ascontiguousarray(_ORIENT[orientation](img))
+    return img
+
+
 # -- entry points -------------------------------------------------------------
 
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
     """Encoded image bytes → [H, W, 3] BGR uint8, or ``None`` when the
-    bytes are no PNG or BMP this module decodes."""
+    bytes are no PNG, BMP or JPEG this module decodes."""
     data = bytes(data)
     fmt = sniff_format(data)
+    if fmt == "jpeg":
+        return _decode_jpeg(data)
     try:
         if fmt == "png":
             return _decode_png(data)
@@ -291,7 +347,7 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     if fmt == "unknown":
         log.warning("image payload of unknown format: not decoded")
     else:
-        log.warning("%s payload: the format is not decoded (PNG and BMP are)", fmt.upper())
+        log.warning("%s payload: the format is not decoded (PNG, BMP and JPEG are)", fmt.upper())
     return None
 
 

@@ -1,6 +1,6 @@
 """The port's image decoder (``utils/imcodec.py``: zlib + numpy) against
 ``cv2.imdecode(..., IMREAD_COLOR)`` on PNGs and BMPs written by cv2 and
-PIL, on PNGs whose every row uses one given filter type, and on what it
+PIL (JPEG: ``tests/test_torch_jpeg.py``), on PNGs whose every row uses one given filter type, and on what it
 must refuse. All comparisons are exact."""
 
 import io
@@ -199,11 +199,13 @@ def test_bmp_top_down_rows():
 
 
 def test_jpeg_is_not_decoded_and_is_logged_by_format(caplog):
-    ok, enc = cv2.imencode(".jpg", smooth())
+    """A progressive JPEG, which the baseline decoder refuses (the ones it
+    decodes: ``tests/test_torch_jpeg.py``)."""
+    ok, enc = cv2.imencode(".jpg", smooth(), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     assert imcodec.sniff_format(enc.tobytes()) == "jpeg"
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(enc.tobytes()) is None
-    assert "JPEG" in caplog.text
+    assert "JPEG" in caplog.text and "progressive" in caplog.text
 
 
 @pytest.mark.parametrize(
@@ -246,4 +248,8 @@ def test_read_image_reads_files_and_survives_missing_ones(tmp_path):
     np.testing.assert_array_equal(imcodec.read_image(str(path)), cv2.imread(str(path)))
     assert imcodec.read_image(str(tmp_path / "missing.png")) is None
     (tmp_path / "b.jpg").write_bytes(cv2.imencode(".jpg", img)[1].tobytes())
-    assert imcodec.read_image(str(tmp_path / "b.jpg")) is None
+    np.testing.assert_array_equal(imcodec.read_image(str(tmp_path / "b.jpg")),
+                                  cv2.imread(str(tmp_path / "b.jpg")))
+    (tmp_path / "c.jpg").write_bytes(
+        cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
+    assert imcodec.read_image(str(tmp_path / "c.jpg")) is None

@@ -3,7 +3,7 @@
 Mirrors ``tests/test_serve.py`` and ``tests/test_warmup.py`` with the
 PyTorch engine on ``device="cpu"``, the jumbo bundle and the 96 px
 ``small`` config of the goldens. Payloads are PNGs of the committed parity
-scenes (the port decodes PNG and BMP, no JPEG). The served words are held
+scenes (JPEG requests: ``tests/test_torch_jpeg.py``). The served words are held
 to ``OCRWorker.process`` on the same image, which the other test files
 hold to the JAX package.
 """
@@ -182,7 +182,9 @@ class TestProtocol:
         assert r == {"success": False, "error": "Failed to decode base64 image data"}
 
     def test_jpeg_gets_the_decode_error(self, client, scenes, tmp_path):
-        ok, enc = cv2.imencode(".jpg", scenes[0])
+        """A progressive JPEG, which the baseline decoder refuses (a
+        baseline one is answered: ``tests/test_torch_jpeg.py``)."""
+        ok, enc = cv2.imencode(".jpg", scenes[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
         data = base64.b64encode(enc.tobytes()).decode()
         r = client.send_request({"command": "recognize", "image_data": data})
         assert r == {"success": False, "error": "Failed to decode base64 image data"}
