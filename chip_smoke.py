@@ -89,17 +89,21 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    requests: at least one ``ctc_topk`` each, no ``blob_stats``. Prints
    boot seconds and the request p50 beside a single-process staged
    service's;
-10. jpeg vs cv2: the baseline JPEG decoder (``csrc/jpeg.cpp``, host
-    compiler) on the committed cases (``assets/jpeg_cases.npz``: the
-    serving scenes, golden-word crops, every sampling, grey, 1×1, a
-    restart interval, EXIF orientations 1–8), each equal to the cv2
-    decode stored beside it; the host ms to decode the 768×1024 4:2:0 q95
-    scene (median of 25);
-11. jpeg service: the two serving scenes as JPEG payloads through the
-    service (a subprocess as in phase 6) answer the words phase 4's
-    in-process worker gives on the port's decode of the same bytes (texts
-    exact, boxes ≤ 2 px); the client wall p50 of JPEG and PNG requests of
-    the same scenes, taken in turns;
+10. jpeg vs cv2: the image decoders (``csrc/jpeg.cpp`` built with the
+    host compiler, ``utils/imcodec.py``) on every committed case
+    (``assets/jpeg_cases.npz``: the serving scenes, one also progressive,
+    golden-word crops, every sampling, grey, 1×1, a restart interval,
+    EXIF orientations 1–8, progressive, CMYK / YCCK and arithmetic-coded
+    JPEGs, Adam7 PNGs, cut and garbled JPEGs), each equal to the cv2
+    decode stored beside it, or ``None`` where cv2 gave ``None``; the
+    host ms to decode the 768×1024 4:2:0 q95 scene, baseline and
+    progressive, in turns (median of 25 each);
+11. jpeg service: the two serving scenes as JPEG payloads, the first also
+    progressive, and a CMYK crop of it through the service (a subprocess
+    as in phase 6) answer the words phase 4's in-process worker gives on
+    the port's decode of the same bytes (texts exact, boxes ≤ 2 px); the
+    client wall p50 of JPEG and PNG requests of the same scenes, taken in
+    turns;
 12. train parity: f32, TF32 off, from the same JAX-layout weights and
     numpy batches, 3 rec CTC steps (the jumbo recognizer, 8 crops at
     48×320, labels with a repeat and padding) and 3 det steps (the trained
@@ -1013,20 +1017,28 @@ class Smoke:
         lib = native.build(native.JPEG_SOURCE)
         print(f"jpeg decoder build: {time.perf_counter() - t0:.2f} s ({lib.name})")
         cases, texts = self.assets.load_jpeg_cases()
+        refused = 0
         for name, (data, want) in cases.items():
             got = decode_image(data)
-            if got is None or got.shape != want.shape or not (got == want).all():
-                raise AssertionError(f"jpeg case {name}: the decode differs from cv2's")
-        data = cases["scene0"][0]
-        ms = []
+            if want is None:
+                if got is not None:
+                    raise AssertionError(f"case {name}: decoded where cv2 gives None")
+                refused += 1
+            elif got is None or got.shape != want.shape or not (got == want).all():
+                raise AssertionError(f"case {name}: the decode differs from cv2's")
+        ms = {"scene0": [], "progressive_scene0": []}
         for _ in range(26):
-            t1 = time.perf_counter()
-            decode_image(data)
-            ms.append((time.perf_counter() - t1) * 1e3)
+            for name in ms:  # in turns
+                t1 = time.perf_counter()
+                decode_image(cases[name][0])
+                ms[name].append((time.perf_counter() - t1) * 1e3)
         print(json.dumps({
-            "jpeg_vs_cv2": f"{len(cases)} committed cases equal cv2's decode",
-            "decode_ms_768x1024_420_q95": statistics.median(ms[1:]), "bytes": len(data),
-            "what": "host wall ms, median of 25 after one untimed", "card": card_line()}), flush=True)
+            "jpeg_vs_cv2": f"{len(cases)} committed cases equal cv2's answer, {refused} of them None",
+            "decode_ms_768x1024_420_q95": statistics.median(ms["scene0"][1:]),
+            "decode_ms_768x1024_420_q95_progressive": statistics.median(ms["progressive_scene0"][1:]),
+            "bytes": len(cases["scene0"][0]), "bytes_progressive": len(cases["progressive_scene0"][0]),
+            "what": "host wall ms, median of 25 after one untimed, baseline and progressive in turns",
+            "card": card_line()}), flush=True)
 
     # -- 11 --------------------------------------------------------------
     def jpeg_service(self):
@@ -1038,6 +1050,11 @@ class Smoke:
         cases, _ = self.assets.load_jpeg_cases()
         jpegs = [cases["scene0"][0], cases["scene1"][0]]
         want = [self.serving_worker.process(decode_image(j), i)["words"] for i, j in enumerate(jpegs)]
+        # the progressive scene0 and a CMYK crop of it, held the same way
+        others = {n: cases[n][0] for n in ("progressive_scene0", "cmyk_scene0_crop")}
+        want_others = {n: self.serving_worker.process(decode_image(j), 0)["words"] for n, j in others.items()}
+        if not want_others["progressive_scene0"] or not want_others["cmyk_scene0_crop"]:
+            raise AssertionError(f"no words in process: {want_others}")
         pngs = [encode_png(s) for s in self.scenes["serving"]]
         req = lambda data: {"command": "recognize",  # noqa: E731
                             "image_data": base64.b64encode(data).decode()}
@@ -1048,6 +1065,8 @@ class Smoke:
             with OCRIPCClient(sock, timeout_ms=120000) as c:
                 for i, data in enumerate(jpegs):
                     check_words(c.send_request(req(data)).get("words"), want[i], f"jpeg scene {i}")
+                for name, data in others.items():
+                    check_words(c.send_request(req(data)).get("words"), want_others[name], name)
 
                 def timed(kind):
                     for i in range(8):
@@ -1068,7 +1087,9 @@ class Smoke:
                 raise AssertionError("the service exited with an error:\n" + "\n".join(lines[-20:]))
             print(json.dumps({
                 "jpeg_service": "serving-jumbo bf16, 768x1024 scenes as JPEG (q95 4:2:0, q90 "
-                "4:2:2) and as PNG, 16 requests each in turns",
+                "4:2:2) and as PNG, 16 requests each in turns; the progressive scene0 and a "
+                "CMYK crop of it answered as in process",
+                "words_progressive_cmyk": [len(w) for w in want_others.values()],
                 "jpeg_bytes": [len(j) for j in jpegs], "png_bytes": [len(p) for p in pngs],
                 "jpeg_request_p50_ms": statistics.median(walls["jpeg"]),
                 "png_request_p50_ms": statistics.median(walls["png"]), "card": card_line()}),

@@ -10,11 +10,14 @@ the staged configs (``small-staged``, ``small-staged+cls``,
 ``serving-staged``: ``fast_path`` off, the JAX package's cv2 postprocess).
 ``tests/test_torch_goldens.py --write`` regenerates both.
 
-``jpeg_cases.npz`` holds JPEGs written by cv2 (the two serving scenes,
-crops of their golden words with the golden texts, and the sampling,
-restart, size and EXIF-orientation cases) beside cv2's own decode of
-each, for the places that have no cv2 to make or decode a JPEG.
-``tests/test_torch_jpeg.py --write`` regenerates it.
+``jpeg_cases.npz`` holds image payloads beside cv2's own decode of each,
+or a flag where cv2 returns ``None``, for the places that have no cv2 to
+make or decode them: JPEGs written by cv2 (the two serving scenes, one
+of them also progressive, crops of their golden words with the golden
+texts, and the sampling, restart, size and EXIF-orientation cases),
+progressive, CMYK / YCCK and arithmetic-coded JPEGs, Adam7 PNGs, and
+cut and garbled JPEGs. ``tests/test_torch_jpeg.py --write`` regenerates
+it.
 
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
@@ -94,11 +97,17 @@ def load_goldens() -> dict:
 
 
 def load_jpeg_cases():
-    """({case name: (JPEG bytes, cv2's [H, W, 3] BGR decode)}, the golden
-    texts of the crops ``crop0``, ``crop1``, ... in order)."""
+    """({case name: (payload bytes, cv2's [H, W, 3] BGR decode, or None
+    where cv2 returns None)}, the golden texts of the crops ``crop0``,
+    ``crop1``, ... in order)."""
     with np.load(JPEG_CASES) as data:
-        names = sorted({k.rsplit("/", 1)[0] for k in data.files if k.endswith("/jpeg")})
-        cases = {n: (data[f"{n}/jpeg"].tobytes(), data[f"{n}/cv2"]) for n in names}
+        def decode_of(n):  # a case may share another's decode ("same_as")
+            if f"{n}/none" in data.files:
+                return None
+            return data[f"{data[f'{n}/same_as']}/cv2" if f"{n}/same_as" in data.files else f"{n}/cv2"]
+
+        names = sorted({k.rsplit("/", 1)[0] for k in data.files if k.endswith("/bytes")})
+        cases = {n: (data[f"{n}/bytes"].tobytes(), decode_of(n)) for n in names}
         texts = [str(t) for t in data["crop_texts"]]
     return cases, texts
 

@@ -1,5 +1,5 @@
 """Build and ctypes bindings of the port's host C++: the DB-postprocess
-core, ``csrc/dbpost.cpp``, and the baseline JPEG decoder, ``csrc/jpeg.cpp``.
+core, ``csrc/dbpost.cpp``, and the JPEG decoder, ``csrc/jpeg.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an

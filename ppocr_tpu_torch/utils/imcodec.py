@@ -2,26 +2,36 @@
 
 The service's stand-in for ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` and
 ``cv2.imread``: the machines that serve the port need have neither cv2
-nor PIL. Decoded:
+nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
 
-* **PNG** (``zlib`` + numpy), non-interlaced: grey, grey + alpha, RGB,
-  RGBA and palette, bit depths 1–8 (and 16, reduced to its high byte), all
-  five filter types. Alpha is dropped, as ``IMREAD_COLOR`` does.
+* **PNG** (``zlib`` + numpy), plain or Adam7-interlaced: grey, grey +
+  alpha, RGB, RGBA and palette, bit depths 1–8 (and 16, reduced to its
+  high byte), all five filter types. Alpha is dropped, as
+  ``IMREAD_COLOR`` does. The chunks are read as cv2 reads them: the data
+  must run to a whole IEND chunk, a critical chunk with a bad CRC or an
+  unknown critical chunk refuses the image, an ancillary chunk with a bad
+  CRC is dropped.
 * **BMP** (numpy), uncompressed: 24- and 32-bit, and 8-bit with a palette.
-* **JPEG**, baseline and extended sequential 8-bit Huffman (SOF0, SOF1),
-  one or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
-  4:4:0, 4:1:1), restart intervals: ``csrc/jpeg.cpp``, host C++ built at
-  first use by ``ops.native``, with libjpeg-turbo's islow IDCT, "fancy"
-  upsampling and fixed-point colour conversion, so the pixels equal
-  cv2's. The EXIF orientation is applied as ``cv2.imdecode`` applies it;
-  grey comes out as three equal channels.
+* **JPEG**, 8-bit sequential and progressive, Huffman or arithmetic coded
+  (SOF0, SOF1, SOF2, SOF9, SOF10), one, three or four (CMYK / YCCK)
+  components, any integral sampling, restart intervals:
+  ``csrc/jpeg.cpp``, host C++ built at first use by ``ops.native``,
+  libjpeg-turbo 3.1's decoder as OpenCV drives it, so the pixels equal
+  cv2's, on corrupt data too. Corrupt entropy data decodes as libjpeg
+  decodes it with a warning. What refuses a JPEG is libjpeg's errors and
+  the end of the data: OpenCV's memory source cannot refill, so a
+  sequential image whose MCUs (the Huffman look-ahead included) need a
+  byte past the end, or a progressive or multi-scan image that does not
+  reach EOI, gives ``None``. The EXIF orientation is applied as
+  ``cv2.imdecode`` applies it; grey comes out as three equal channels.
 
-Anything else gives ``None``, which the service turns into the
-reference's own error response, and is logged by its format: progressive,
-arithmetic-coded, lossless, hierarchical and 12-bit JPEGs, 4-component
-(CMYK / Adobe) JPEGs, and truncated or corrupt data (where libjpeg would
-warn and fill in grey). A JPEG decode raises when the decoder cannot be
-built: a missing compiler is not a bad image.
+Refused with ``None`` and a log line naming the reason, as cv2 refuses
+them on the repo's cases: lossless, hierarchical and 12-bit JPEGs. And,
+named by their sniffed format, what cv2 decodes and this module does not
+(``FORMAT_NAMES``): GIF, WebP, TIFF, JPEG 2000, PPM/PGM/PBM, Sun raster,
+AVIF, PFM and Radiance HDR. ``None`` becomes the reference's own error response in the
+service. A JPEG decode raises when the decoder cannot be built: a missing
+compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -43,8 +53,8 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type → samples per pi
 
 
 def sniff_format(data: bytes) -> str:
-    """Name of the container by its magic bytes ("png", "bmp", "jpeg",
-    "gif", "webp", "tiff") or "unknown"."""
+    """Name of the container by its magic bytes: one of ``FORMAT_NAMES``'
+    keys or "unknown"."""
     if data[:8] == PNG_MAGIC:
         return "png"
     if data[:2] == b"BM":
@@ -57,7 +67,33 @@ def sniff_format(data: bytes) -> str:
         return "webp"
     if data[:4] in (b"II*\x00", b"MM\x00*"):
         return "tiff"
+    if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        return "jpeg2000"
+    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7") and data[2:3].isspace():
+        return "pnm"
+    if data[:4] == b"\x59\xa6\x6a\x95":
+        return "sunraster"
+    if data[4:12] in (b"ftypavif", b"ftypavis"):
+        return "avif"
+    if data[:3] in (b"PF\n", b"Pf\n"):
+        return "pfm"
+    if data[:10] == b"#?RADIANCE" or data[:6] == b"#?RGBE":
+        return "hdr"
     return "unknown"
+
+
+# the formats that cv2 decodes and this module does not, by their sniffed name
+FORMAT_NAMES = {
+    "gif": "GIF",
+    "webp": "WebP",
+    "tiff": "TIFF",
+    "jpeg2000": "JPEG 2000",
+    "pnm": "PPM/PGM/PBM",
+    "sunraster": "Sun raster",
+    "avif": "AVIF",
+    "pfm": "PFM",
+    "hdr": "Radiance HDR",
+}
 
 
 # -- PNG ----------------------------------------------------------------------
@@ -129,34 +165,94 @@ def _unfilter_wavefront(raw: np.ndarray, ftypes: np.ndarray, bpp: int) -> np.nda
     return out.reshape(h, stride)
 
 
-def _decode_png(data: bytes) -> Optional[np.ndarray]:
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunks(data: bytes):
+    """(IHDR fields, palette or None, the IDAT data) as cv2 5.0 reads the
+    chunk stream, or ``None``. IHDR comes first; every chunk up to and
+    including IEND is whole (IEND's CRC is not checked); a critical chunk
+    with a bad CRC, an unknown critical chunk or IDATs that are not
+    consecutive refuse the image; an ancillary chunk with a bad CRC is
+    dropped."""
     pos = 8
     ihdr = palette = None
     idat = []
-    while pos + 8 <= len(data):
+    idat_closed = False
+    while True:
+        if pos + 8 > len(data):
+            return None  # the data ends before IEND
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
-        body = data[pos + 8 : pos + 8 + length]
-        crc = data[pos + 8 + length : pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            return None  # truncated
-        if struct.unpack(">I", crc)[0] != zlib.crc32(ctype + body) & 0xFFFFFFFF:
+        end = pos + 12 + length
+        if end > len(data):
             return None
-        pos += 12 + length
+        body = data[pos + 8 : end - 4]
+        crc_ok = struct.unpack(">I", data[end - 4 : end])[0] == zlib.crc32(ctype + body) & 0xFFFFFFFF
+        first, pos = pos == 8, end
+        if first != (ctype == b"IHDR"):
+            return None
+        if ctype == b"IEND":
+            break
+        critical = not ctype[0] & 0x20
+        if not crc_ok:
+            if critical:
+                return None
+            continue
+        if idat and ctype != b"IDAT":
+            idat_closed = True
         if ctype == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
+            if idat_closed:
+                return None
             idat.append(body)
-        elif ctype == b"IEND":
-            break
+        elif critical:
+            return None
+    return ihdr, palette, b"".join(idat)
+
+
+def _unfilter(lines: np.ndarray, bpp: int) -> Optional[np.ndarray]:
+    """[h, 1 + stride] filtered lines → [h, stride] bytes, or ``None`` on
+    a filter type above 4."""
+    ftypes, raw = lines[:, 0], lines[:, 1:]
+    if ftypes.max() > 4:
+        return None
+    if ftypes.max() <= 2:
+        return _unfilter_rows(raw, ftypes, bpp)
+    return _unfilter_wavefront(raw, ftypes, bpp)
+
+
+def _unpack(rows: np.ndarray, w: int, nch: int, depth: int, ctype: int) -> np.ndarray:
+    """[h, stride] bytes → [h, w, nch] uint8 samples: 16-bit samples by
+    their high byte, grey below 8 bits scaled to 0–255, palette indices as
+    they are."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, w, nch, 2)[..., 0]  # big-endian: the high byte
+    if depth == 8:
+        return rows.reshape(h, w, nch)
+    # 1, 2 or 4 bits per sample, one sample per pixel
+    unpacked = np.unpackbits(rows, axis=1)[:, : w * depth].reshape(h, w, depth)
+    values = unpacked.dot(1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    if ctype == 0:
+        values = (values * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    return values[..., None]
+
+
+def _decode_png(data: bytes) -> Optional[np.ndarray]:
+    chunks = _png_chunks(data)
+    if chunks is None:
+        return None
+    ihdr, palette, idat = chunks
     if ihdr is None or not idat:
         return None
     w, h, depth, ctype, comp, filt, interlace = ihdr
-    if w == 0 or h == 0 or comp != 0 or filt != 0 or ctype not in _CHANNELS:
+    if w == 0 or h == 0 or comp != 0 or filt != 0 or ctype not in _CHANNELS or interlace > 1:
         return None
-    if interlace != 0:
-        log.warning("interlaced PNG: not decoded")
+    if w > 1_000_000 or h > 1_000_000 or w * h > 1 << 30:  # libpng's user limits, OpenCV's pixel limit
         return None
     if depth not in ((1, 2, 4, 8) if ctype == 3 else (1, 2, 4, 8, 16) if ctype == 0 else (8, 16)):
         return None
@@ -164,36 +260,34 @@ def _decode_png(data: bytes) -> Optional[np.ndarray]:
         return None
     nch = _CHANNELS[ctype]
     bits = nch * depth
-    stride = (w * bits + 7) // 8
     bpp = max(1, bits // 8)  # the filters' byte distance to the "left" pixel
     try:
-        flat = zlib.decompress(b"".join(idat))
+        flat = zlib.decompress(idat)
     except zlib.error:
         return None
-    if len(flat) < h * (stride + 1):
+    # each pass: (its pixels' place in the image, its width and height);
+    # a pass with no columns or no rows has no bytes, not even filter bytes
+    passes = [((slice(None), slice(None)), w, h)]
+    if interlace:
+        passes = [((slice(y0, None, dy), slice(x0, None, dx)), (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy)
+                  for x0, y0, dx, dy in _ADAM7]
+        passes = [p for p in passes if p[1] > 0 and p[2] > 0]
+    if len(flat) < sum(ph * ((pw * bits + 7) // 8 + 1) for _, pw, ph in passes):
         return None
-    lines = np.frombuffer(flat, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
-    ftypes, raw = lines[:, 0], lines[:, 1:]
-    if ftypes.max() > 4:
-        return None
-    if ftypes.max() <= 2:
-        rows = _unfilter_rows(raw, ftypes, bpp)
-    else:
-        rows = _unfilter_wavefront(raw, ftypes, bpp)
-    if depth == 16:
-        samples = rows.reshape(h, w, nch, 2)[..., 0]  # big-endian: the high byte
-    elif depth == 8:
-        samples = rows.reshape(h, w, nch)
-    else:  # 1, 2 or 4 bits per sample, one sample per pixel
-        unpacked = np.unpackbits(rows, axis=1)[:, : w * depth].reshape(h, w, depth)
-        values = unpacked.dot(1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        if ctype == 0:
-            values = (values * (255 // ((1 << depth) - 1))).astype(np.uint8)
-        samples = values[..., None]
-    if ctype == 3:
-        if int(samples.max()) >= len(palette):
+    samples = np.empty((h, w, nch), np.uint8)
+    at = 0
+    for where, pw, ph in passes:
+        stride = (pw * bits + 7) // 8
+        lines = np.frombuffer(flat, np.uint8, ph * (stride + 1), at).reshape(ph, stride + 1)
+        at += ph * (stride + 1)
+        rows = _unfilter(lines, bpp)
+        if rows is None:
             return None
-        rgb = palette[samples[..., 0]]
+        samples[where] = _unpack(rows, pw, nch, depth, ctype)
+    if ctype == 3:  # libpng keeps 256 entries, zero past the PLTE's: black
+        full = np.zeros((256, 3), np.uint8)
+        full[: min(len(palette), 256)] = palette[:256]
+        rgb = full[samples[..., 0]]
     elif ctype in (0, 4):
         rgb = np.repeat(samples[..., :1], 3, axis=2)
     else:
@@ -288,15 +382,14 @@ def _decode_bmp(data: bytes) -> Optional[np.ndarray]:
 # csrc/jpeg.cpp's Status codes other than success
 _JPEG_REFUSED = {
     1: "corrupt data",
-    2: "truncated data",
-    3: "progressive (SOF2)",
-    4: "arithmetic coding",
+    2: "the data ends before the image does",
+    3: "a frame header without a scan",
     5: "lossless",
     6: "hierarchical",
     7: "a sample precision other than 8 bits",
-    8: "a component count other than 1 or 3 (CMYK / Adobe)",
-    9: "non-integral sampling factors",
-    10: "the height given by a DNL marker",
+    8: "a component count other than 1, 3 or 4",
+    9: "sampling factors libjpeg does not take",
+    10: "a zero width, height or component count",
     11: "too large",
     12: "no frame header",
     13: "an output buffer too small",
@@ -347,7 +440,7 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     if fmt == "unknown":
         log.warning("image payload of unknown format: not decoded")
     else:
-        log.warning("%s payload: the format is not decoded (PNG, BMP and JPEG are)", fmt.upper())
+        log.warning("%s payload: the format is not decoded (PNG, BMP and JPEG are)", FORMAT_NAMES[fmt])
     return None
 
 

@@ -199,13 +199,15 @@ def test_bmp_top_down_rows():
 
 
 def test_jpeg_is_not_decoded_and_is_logged_by_format(caplog):
-    """A progressive JPEG, which the baseline decoder refuses (the ones it
-    decodes: ``tests/test_torch_jpeg.py``)."""
-    ok, enc = cv2.imencode(".jpg", smooth(), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    assert imcodec.sniff_format(enc.tobytes()) == "jpeg"
+    """A lossless JPEG (SOF3), which the decoder refuses by name (the ones
+    it decodes: ``tests/test_torch_jpeg.py``)."""
+    ok, enc = cv2.imencode(".jpg", smooth())
+    data = bytearray(enc.tobytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC3
+    assert imcodec.sniff_format(bytes(data)) == "jpeg"
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
-        assert imcodec.decode_image(enc.tobytes()) is None
-    assert "JPEG" in caplog.text and "progressive" in caplog.text
+        assert imcodec.decode_image(bytes(data)) is None
+    assert "JPEG" in caplog.text and "lossless" in caplog.text
 
 
 @pytest.mark.parametrize(
@@ -233,10 +235,14 @@ def test_png_with_a_bad_crc_or_a_cut_stream_gives_none():
 
 
 def test_interlaced_png_is_refused():
+    """The Adam7 flag over rows laid out without interlacing: the first
+    pass's filter bytes are pixel bytes, and cv2 refuses it as well
+    (Adam7 PNGs themselves: ``tests/test_torch_decode_parity.py``)."""
     data = bytearray(png_with_filter(smooth(8, 8, 3), 0, 2))
     at = data.index(b"IHDR")
     data[at + 4 + 12] = 1  # interlace method: Adam7
     data[at + 4 + 13 : at + 4 + 17] = struct.pack(">I", zlib.crc32(bytes(data[at : at + 4 + 13])))
+    assert cv2_decode(bytes(data)) is None
     assert imcodec.decode_image(bytes(data)) is None
 
 
@@ -252,4 +258,9 @@ def test_read_image_reads_files_and_survives_missing_ones(tmp_path):
                                   cv2.imread(str(tmp_path / "b.jpg")))
     (tmp_path / "c.jpg").write_bytes(
         cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
-    assert imcodec.read_image(str(tmp_path / "c.jpg")) is None
+    np.testing.assert_array_equal(imcodec.read_image(str(tmp_path / "c.jpg")),
+                                  cv2.imread(str(tmp_path / "c.jpg")))
+    lossless = bytearray(cv2.imencode(".jpg", img)[1].tobytes())
+    lossless[lossless.index(b"\xff\xc0") + 1] = 0xC3
+    (tmp_path / "d.jpg").write_bytes(bytes(lossless))
+    assert imcodec.read_image(str(tmp_path / "d.jpg")) is None

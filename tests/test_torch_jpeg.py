@@ -7,16 +7,19 @@ JPEGs are written by ``cv2.imencode`` at qualities 50/75/95 with 4:4:4,
 multiples of the MCU, restart intervals, and EXIF orientations 1–8 in an
 APP1 segment put in front of the file. Every decode must equal cv2's
 exactly: the decoder repeats libjpeg-turbo's integer arithmetic. What it
-refuses (progressive, arithmetic, lossless, 12-bit, 4 components,
-truncated or corrupt data) gives ``None`` and a log line, never a crash.
+refuses (lossless, 12-bit, a frame without a scan, data that ends too
+soon) gives ``None`` and a log line, never a crash. Progressive,
+arithmetic, CMYK, cut and corrupt files against cv2:
+``tests/test_torch_decode_parity.py``.
 
 ``python tests/test_torch_jpeg.py --write`` rewrites the committed cases
 (``ppocr_tpu_torch/assets/jpeg_cases.npz``) that the card's smoke run
-decodes: it has no cv2 to make JPEGs.
+decodes: it has no cv2 to make or decode images.
 """
 
 import base64
 import dataclasses
+import io
 import os
 import pathlib
 import struct
@@ -29,6 +32,7 @@ if __name__ == "__main__":
 import cv2
 import numpy as np
 import pytest
+from PIL import Image
 
 from ppocr_tpu_torch import assets
 from ppocr_tpu_torch.ops import native
@@ -146,8 +150,15 @@ def test_the_committed_cases_equal_cv2_today_and_the_port():
     assert os.path.getsize(assets.JPEG_CASES) < 400_000
     crops = [n for n in cases if n.startswith("crop")]
     assert len(crops) == len(texts) >= 6 and all(texts)
-    assert {"scene0", "scene1", "exif6", "rst2", "grey"} <= set(cases)
+    assert {"scene0", "scene1", "exif6", "rst2", "grey", "progressive_scene0", "cmyk_ycck",
+            "arith_sof10_420", "adam7_type2_8bit_33x17"} <= set(cases)
+    refused = [n for n, (_, stored) in cases.items() if stored is None]
+    assert 20 <= len(refused) <= 50 and all(n.startswith(("cut", "garbled")) for n in refused)
     for name, (data, stored) in cases.items():
+        if stored is None:
+            assert cv2_decode(data) is None, name
+            assert imcodec.decode_image(data) is None, name
+            continue
         np.testing.assert_array_equal(cv2_decode(data), stored, err_msg=name)
         np.testing.assert_array_equal(imcodec.decode_image(data), stored, err_msg=name)
     scenes = assets.load_scenes()["serving"]
@@ -169,21 +180,37 @@ def refused_cases():
     four = (b"\xff\xd8\xff\xc0\x00\x14\x08\x00\x10\x00\x10\x04"
             + b"".join(bytes([i, 0x11, 0]) for i in range(1, 5)) + b"\xff\xd9")
     return {
-        "progressive": (encode(image(16, 16, seed=7), 75, "420", progressive=True), "progressive"),
-        "arithmetic": (patched(base, sof, 0xC9), "arithmetic"),
+        "progressive": (encode(image(16, 16, seed=7), 75, "420", progressive=True), None),
+        "arithmetic": (patched(base, sof, 0xC9), None),
         "lossless": (patched(base, sof, 0xC3), "lossless"),
         "12-bit": (patched(base, sof + 3, 12), "precision"),
-        "cmyk": (four, "component count"),
+        "cmyk": (four, "a frame header without a scan"),
     }
 
 
 @pytest.mark.parametrize("name", ["progressive", "arithmetic", "lossless", "12-bit", "cmyk"])
 def test_unsupported_jpegs_give_none_and_a_log_line(name, caplog):
+    """The five files this decoder once refused. cv2 decodes the
+    progressive one and the arithmetic-coded one (SOF9 over Huffman data),
+    and so does the port, pixel for pixel. cv2 refuses the lossless and
+    the 12-bit file and a 4-component header without a scan, and the port
+    gives ``None`` and a log line naming the reason; a real CMYK file
+    (PIL's) decodes as cv2 decodes it."""
     data, reason = refused_cases()[name]
     assert imcodec.sniff_format(data) == "jpeg"
+    if reason is None:
+        assert_equals_cv2(data)
+        return
+    assert cv2_decode(data) is None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     assert "JPEG payload not decoded" in caplog.text and reason in caplog.text
+    if name == "cmyk":
+        from test_torch_decode_parity import cmyk_jpeg
+
+        real = cmyk_jpeg(40, 56, seed=0)
+        assert cv2_decode(real).shape == (40, 56, 3)
+        assert_equals_cv2(real)
 
 
 def test_truncated_jpegs_give_none():
@@ -224,8 +251,9 @@ def test_a_jpeg_raises_when_the_decoder_cannot_be_built(monkeypatch):
 
 
 def test_a_jpeg_request_answers_the_jax_engines_words(tmp_path):
-    """A parity scene sent as JPEG to the port's service gets the words
-    the JAX engine gives on ``cv2.imdecode`` of the same bytes."""
+    """A parity scene sent as JPEG (baseline and progressive) to the
+    port's service gets the words the JAX engine gives on
+    ``cv2.imdecode`` of the same bytes."""
     from ppocr_tpu.pipeline import OCREngine as JaxEngine
     from ppocr_tpu.pipeline import OCRWorker as JaxWorker
     from ppocr_tpu_torch.serve import OCRIPCClient, OCRIPCService
@@ -242,13 +270,13 @@ def test_a_jpeg_request_answers_the_jax_engines_words(tmp_path):
     try:
         with OCRIPCClient(svc.socket_path, timeout_ms=120000) as c:
             for i, scene in enumerate(scenes):
-                data = encode(scene, 95, "444")
-                got = c.send_request({"command": "recognize",
-                                      "image_data": base64.b64encode(data).decode()})
-                want = jax_worker.process(cv2_decode(data), i)
-                assert got["success"] and want["success"], (got, want)
-                assert len(got["words"]) >= 2
-                assert_words_match(got["words"], want["words"], 2e-3)
+                for data in (encode(scene, 95, "444"), encode(scene, 90, "420", progressive=True)):
+                    got = c.send_request({"command": "recognize",
+                                          "image_data": base64.b64encode(data).decode()})
+                    want = jax_worker.process(cv2_decode(data), i)
+                    assert got["success"] and want["success"], (got, want)
+                    assert len(got["words"]) >= 2
+                    assert_words_match(got["words"], want["words"], 2e-3)
             path = tmp_path / "scene.jpg"
             path.write_bytes(encode(scenes[0], 95, "444"))
             by_path = c.send_request({"command": "recognize", "image_path": str(path)})
@@ -262,12 +290,18 @@ def test_a_jpeg_request_answers_the_jax_engines_words(tmp_path):
 
 def write():
     """Rewrite ``jpeg_cases.npz``: the serving scenes, crops of their
-    golden words, and the decoder's edge cases, each beside cv2's decode."""
+    golden words, the baseline decoder's edge cases, and (each with its
+    name's prefix) progressive, CMYK / YCCK, arithmetic-coded, Adam7 PNG,
+    cut and garbled payloads, each beside cv2's decode or a flag that cv2
+    gave ``None``."""
+    from test_torch_decode_parity import adobe_variants, cmyk_jpeg, garbled, patch_sof, png_case
+
     scenes = assets.load_scenes()["serving"]
     words = assets.load_goldens()["words"]["serving"]
     cases = {
         "scene0": encode(scenes[0], 95, "420"),  # the smoke run's timing input
         "scene1": encode(scenes[1], 90, "422"),
+        "progressive_scene0": encode(scenes[0], 95, "420", progressive=True),
     }
     texts = []
     samplings = ["444", "422", "420", "440"]
@@ -291,13 +325,52 @@ def write():
     cases["rst2"] = encode(image(33, 65, seed=16), 75, "420", restart=2)
     for o in range(1, 9):
         cases[f"exif{o}"] = with_exif(encode(small, 90, "420"), o, big_endian=o % 2 == 0)
+    for name in ("420", "444"):
+        for q in (50, 95):
+            cases[f"progressive_{name}_q{q}"] = encode(image(17, 33, seed=q), q, name, progressive=True)
+    cases["progressive_rst1"] = encode(image(24, 40, seed=17), 75, "444", restart=1, progressive=True)
+    for name, data in adobe_variants(cmyk_jpeg(40, 56, seed=0)).items():
+        cases[f"cmyk_{name}"] = data
+    cases["cmyk_progressive_420"] = cmyk_jpeg(17, 33, seed=1, subsampling=2, progressive=True)
+    buf = io.BytesIO()  # a golden-word crop as CMYK, for the smoke run's service check
+    Image.fromarray(np.ascontiguousarray(scenes[0][100:260, 0:400, ::-1])).convert("CMYK").save(
+        buf, "JPEG", quality=90)
+    cases["cmyk_scene0_crop"] = buf.getvalue()
+    cases["arith_sof9_420"] = patch_sof(encode(image(17, 33, seed=18), 75, "420"), 0xC9)
+    cases["arith_sof9_444_rst2"] = patch_sof(encode(image(17, 33, seed=19), 75, "444", restart=2), 0xC9)
+    cases["arith_sof10_420"] = patch_sof(encode(image(17, 33, seed=20), 75, "420", progressive=True), 0xCA)
+    for ctype, depth, size in [(0, 1, (3, 5)), (0, 16, (33, 17)), (2, 8, (33, 17)), (3, 4, (33, 17)),
+                               (4, 8, (1, 1)), (6, 16, (3, 5))]:
+        cases[f"adam7_type{ctype}_{depth}bit_{size[0]}x{size[1]}"] = png_case(ctype, depth, *size)
+    # a small corrupt set, 16 cuts and 48 garbled files, about half
+    # refused; 16×24, since the decode of corrupt data does not compress
+    yy, xx = np.mgrid[:16, :24]
+    quiet = ((yy * 5 + xx * 3)[..., None] + np.arange(3) * 70
+             + np.random.default_rng(23).integers(0, 6, (16, 24, 3))) % 256
+    base = encode(quiet.astype(np.uint8), 75, "420")
+    prog = encode(quiet[::-1].astype(np.uint8), 75, "444", restart=1, progressive=True)
+    for k, cut in enumerate(np.linspace(len(base) - 12, len(base), 8).astype(int)):
+        cases[f"cut_baseline_{k}"] = base[:cut]
+    for k, cut in enumerate(np.linspace(len(prog) // 2, len(prog), 8).astype(int)):
+        cases[f"cut_progressive_{k}"] = prog[:cut]
+    for k, data in enumerate(garbled(base, 24, seed=21) + garbled(prog, 24, seed=22)):
+        cases[f"garbled_{k}"] = data
     out = {"crop_texts": np.array(texts)}
     for name, data in cases.items():
-        out[f"{name}/jpeg"] = np.frombuffer(data, np.uint8)
-        out[f"{name}/cv2"] = cv2_decode(data)
+        out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if want is None:
+            out[f"{name}/none"] = np.array(True)
+        elif name == "progressive_scene0":
+            # the same quantized coefficients as scene0: the same pixels
+            assert (want == out["scene0/cv2"]).all()
+            out[f"{name}/same_as"] = np.array("scene0")
+        else:
+            out[f"{name}/cv2"] = want
     np.savez_compressed(assets.JPEG_CASES, **out)
+    refused = sum(f"{n}/none" in out for n in cases)
     print(f"wrote {assets.JPEG_CASES} ({os.path.getsize(assets.JPEG_CASES)} bytes, "
-          f"{len(cases)} cases, cv2 {cv2.__version__})")
+          f"{len(cases)} cases, {refused} refused by cv2, cv2 {cv2.__version__})")
 
 
 if __name__ == "__main__":

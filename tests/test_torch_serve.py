@@ -182,9 +182,13 @@ class TestProtocol:
         assert r == {"success": False, "error": "Failed to decode base64 image data"}
 
     def test_jpeg_gets_the_decode_error(self, client, scenes, tmp_path):
-        """A progressive JPEG, which the baseline decoder refuses (a
-        baseline one is answered: ``tests/test_torch_jpeg.py``)."""
-        ok, enc = cv2.imencode(".jpg", scenes[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        """A lossless JPEG (SOF3), which the decoder refuses as cv2 does
+        (the JPEGs it answers: ``tests/test_torch_jpeg.py``)."""
+        ok, enc = cv2.imencode(".jpg", scenes[0])
+        jpeg = bytearray(enc.tobytes())
+        jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC3
+        assert cv2.imdecode(np.frombuffer(bytes(jpeg), np.uint8), cv2.IMREAD_COLOR) is None
+        enc = np.frombuffer(bytes(jpeg), np.uint8)
         data = base64.b64encode(enc.tobytes()).decode()
         r = client.send_request({"command": "recognize", "image_data": data})
         assert r == {"success": False, "error": "Failed to decode base64 image data"}

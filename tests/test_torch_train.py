@@ -429,6 +429,43 @@ def test_the_dataset_skips_and_batches_as_the_jax_one(label_dir):
             np.testing.assert_array_equal(gb[k], wb[k], err_msg=k)
 
 
+def test_the_dataset_reads_the_crops_cv2_reads(tmp_path, crops):
+    """Crops stored as progressive, arithmetic-coded and CMYK JPEGs and as
+    Adam7 PNGs: the JAX dataset reads them with ``cv2.imread``, and the
+    port's reads the same pixels (it raised on each before the decoders
+    answered as cv2 does)."""
+    import io
+
+    import cv2
+    from PIL import Image
+    from test_torch_decode_parity import patch_sof, png_bytes
+
+    imgs, texts = crops
+    lines = []
+    for i, (img, text) in enumerate(zip(imgs, texts)):
+        kind = i % 4
+        if kind == 0:
+            data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+        elif kind == 1:
+            data = patch_sof(cv2.imencode(".jpg", img)[1].tobytes(), 0xC9)
+        elif kind == 2:
+            buf = io.BytesIO()
+            Image.fromarray(np.ascontiguousarray(img[..., ::-1])).convert("CMYK").save(buf, "JPEG")
+            data = buf.getvalue()
+        else:
+            data = png_bytes(np.ascontiguousarray(img[..., ::-1]), 2, 8, interlace=True, seed=i)
+        name = f"c{i}.{'png' if kind == 3 else 'jpg'}"
+        (tmp_path / name).write_bytes(data)
+        lines.append(f"{name}\t{text}")
+    (tmp_path / "gt.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    kw = dict(classes=TF.charset_classes(TF.build_charset(texts)), img_h=48, img_w=64, max_len=40)
+    got = TF.FinetuneDataset(str(tmp_path / "gt.txt"), **kw)
+    want = JF.FinetuneDataset(str(tmp_path / "gt.txt"), **kw)
+    assert got.texts == want.texts == texts
+    for a, b in zip(got.images, want.images):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_a_missing_image_on_a_kept_line_raises(tmp_path):
     (tmp_path / "gt.txt").write_text("nothere.png\tab\n")
     with pytest.raises(FileNotFoundError):
