@@ -32,7 +32,22 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    one 4-image ``process_batch`` with buckets (1, 4), then again with
    ``fused_blob_kernel=True`` (same words required). The kernels' launch
    counters are zeroed just before this phase and must be > 0 after it;
-5. the fused path's options, one engine per config: the "small" config
+5. devices (the fused path over several devices, on one card): an engine
+   over ``make_mesh(devices=["cuda:0", "cuda:0"])`` (two data shards on
+   card 0), serving-jumbo in bf16 with ``fused_blob_kernel``, runs phase
+   4's 8 single requests and its 4-image ``process_batch`` with buckets
+   (1, 4): the words equal phase 4's (texts exact, boxes <= 2 px,
+   confidence <= 2e-3). Then the same engine's ``cross_chip_ocr()``, both
+   stages on card 0: ``process_stream`` of the 8 requests gives phase 4's
+   words. The launch counters are zeroed just before these requests and
+   must then read 2 per data-parallel step (one per shard) plus 1 per
+   cross-chip request, for ``ctc_topk`` and for ``blob_stats`` alike.
+   Then, f32 with TF32 off, both paths on the serving scenes against the
+   JAX goldens as in phase 3, and ``sharded_rec_infer`` over the two
+   shards against one rec step at [32, 48, 256] (index and value exact).
+   Prints the request p50 of the single-device, data-parallel and
+   cross-chip paths, in turns; two cards were not measured;
+6. the fused path's options, one engine per config: the "small" config
    plus one of ``enable_cls`` (an untrained classifier from a seed,
    written to ``cls/weights.npz``), ``det.use_dilation``,
    ``fused_rotated_boxes``, ``fused_crop_src_mult=2``,
@@ -44,7 +59,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    its request p50 beside the base config's, three rounds in turns, as
    wall time of the call (host decode included) and as the response's
    ``processing_time_ms`` (which ends before the host decode);
-6. the service: ``python3 -m ppocr_tpu_torch.cli.service_main`` as a
+7. the service: ``python3 -m ppocr_tpu_torch.cli.service_main`` as a
    subprocess on the jumbo bundle, serving profile in bf16 (det 512,
    K = 32, rec 48×256), ``--batch-requests 4 --warmup full``, driven
    through ``OCRIPCClient``: ``recognize`` by ``image_path`` and by
@@ -64,13 +79,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    kernel on: 8 concurrent requests through two worker threads that share
    the stream, the modules and the kernel's scratch.
 
-7. staged parity: f32, TF32 off, ``fast_path`` off, against the JAX
+8. staged parity: f32, TF32 off, ``fast_path`` off, against the JAX
    package's staged goldens (made with its cv2 postprocess; the port has
    the C++ core only): "small-staged", "small-staged+cls" and
    "serving-staged". Per scene at most one word without a partner, every
    partner's corners within 2 px, partners' texts identical, confidences
    within 2e-3 where the boxes are equal and 0.05 where they differ;
-8. staged serving in bf16 at full width on the 768×1024 scenes, through
+9. staged serving in bf16 at full width on the 768×1024 scenes, through
    ``OCRWorker.process``: ``PipelineConfig.serving()`` staged and
    ``PipelineConfig.defaults()`` (det limit 960), both with the jumbo
    bundle's rec geometry (48×256), every staged step shape warmed first.
@@ -79,7 +94,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    [preprocess, inference, postprocess] ms, the rec step shapes met (a
    shape at which phase 2 did not hold ``ctc_topk`` against its plain
    version fails the phase) and the share of the golden texts read;
-9. processes: ``service_main --processes 2 --staged`` as a subprocess:
+10. processes: ``service_main --processes 2 --staged`` as a subprocess:
    concurrent requests through the public socket are answered by both
    workers (the merged ``status`` shows both), one worker is killed and
    replaced while the other serves, ``shutdown`` fans out, the supervisor
@@ -89,7 +104,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    requests: at least one ``ctc_topk`` each, no ``blob_stats``. Prints
    boot seconds and the request p50 beside a single-process staged
    service's;
-10. jpeg vs cv2: the image decoders (``csrc/jpeg.cpp`` built with the
+11. jpeg vs cv2: the image decoders (``csrc/jpeg.cpp`` built with the
     host compiler, ``utils/imcodec.py``) on every committed case
     (``assets/jpeg_cases.npz``: the serving scenes, one also progressive,
     golden-word crops, every sampling, grey, 1×1, a restart interval,
@@ -98,13 +113,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     decode stored beside it, or ``None`` where cv2 gave ``None``; the
     host ms to decode the 768×1024 4:2:0 q95 scene, baseline and
     progressive, in turns (median of 25 each);
-11. jpeg service: the two serving scenes as JPEG payloads, the first also
+12. jpeg service: the two serving scenes as JPEG payloads, the first also
     progressive, and a CMYK crop of it through the service (a subprocess
     as in phase 6) answer the words phase 4's in-process worker gives on
     the port's decode of the same bytes (texts exact, boxes ≤ 2 px); the
     client wall p50 of JPEG and PNG requests of the same scenes, taken in
     turns;
-12. train parity: f32, TF32 off, from the same JAX-layout weights and
+13. train parity: f32, TF32 off, from the same JAX-layout weights and
     numpy batches, 3 rec CTC steps (the jumbo recognizer, 8 crops at
     48×320, labels with a repeat and padding) and 3 det steps (the trained
     detector, 2 × 256×256) on the card against the same steps on the CPU:
@@ -117,7 +132,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     of 44 labels that cannot be aligned (optax's finite value): values to
     rtol 1e-5, gradients to rtol 1e-4 (2^-5 on that row: its forward
     variables sit near −1e5, where f32 values are 2^-7 apart);
-13. finetune: ``finetune_rec`` on the card from the jumbo weights with the
+14. finetune: ``finetune_rec`` on the card from the jumbo weights with the
     jumbo charset (head kept) at 48×320, batch 32, on PNG crops of the
     serving scenes' golden words plus the committed JPEG crops: step ms
     (CUDA events between step ends, median after 10 warm steps), crops/s,
@@ -126,7 +141,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     rec 48×256) with it as ``rec/``: ``ctc_topk``'s counter is zeroed
     before and must rise, and the share of the scenes' golden texts read
     is printed beside the jumbo bundle's under the same config;
-14. det train: ``make_det_train_step`` from ``init_det_params`` at batch
+15. det train: ``make_det_train_step`` from ``init_det_params`` at batch
     8 × 512×512, shrink masks filled from the golden boxes in numpy, 20
     steps: step ms, peak memory, the losses (finite; from this saturated
     init they wander instead of falling, in the JAX package too).
@@ -250,6 +265,8 @@ class Smoke:
         self.launches = {}  # main path → launch counts of that run
         self.served = {}  # scene key → words phase 4 served in process
         self.serving_worker = None  # phase 4's worker, flag off
+        self.serving_words = None  # phase 4's words: 8 singles, then the batch of 4
+        self.serving_engines = {}  # phase 4's engines by fused_blob_kernel
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -597,6 +614,8 @@ class Smoke:
             }), flush=True)
         counts = K.launch_counts()
         self.launches["bf16 serving"] = counts
+        self.serving_engines = {flag: eng for flag, (eng, _) in engines.items()}
+        self.serving_words = runs[False]
         print(f"launches on the main path: {counts}")
         if min(counts.values()) <= 0:
             raise AssertionError(f"a kernel of the path never launched: {counts}")
@@ -617,6 +636,102 @@ class Smoke:
             raise AssertionError("bf16 serving output disagrees with the f32 goldens")
 
     # -- 5 ---------------------------------------------------------------
+    def devices(self):
+        from ppocr_tpu_torch.models import rec_forward
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.parallel import make_mesh, sharded_rec_infer
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
+
+        if self.serving_words is None:
+            raise AssertionError("needs the bf16 serving phase's words")
+        singles = ((list(self.scenes["serving"]) + list(self.scenes["parity"])) * 2)[:8]
+        batch = list(self.scenes["parity"])
+        cfg = PipelineConfig.from_dict(self.goldens["configs"]["serving"])
+        cfg.dtype = "bfloat16"
+        cfg.request_batch_buckets = (1, 4)
+        cfg.fused_blob_kernel = True
+        mesh = make_mesh(devices=["cuda:0", "cuda:0"])  # two data shards on card 0
+        eng = OCREngine(self.model_dir, cfg, mesh=mesh)
+        dp = OCRWorker(eng, 0)
+        cc = eng.cross_chip_ocr()  # the mesh's first two devices: card 0 twice
+        warm = {"data_parallel_s": eng.warmup(), "cross_chip_s": cc.warmup()}
+        fused = eng.fused_ocr()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()  # the devices main path's run starts here
+        steps0 = fused.steps_run
+        resp = [dp.process(s, i) for i, s in enumerate(singles)]
+        resp += fused.process_batch(batch, list(range(100, 104)))
+        streamed = cc.process_stream(singles, list(range(200, 208)))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        self.launches["devices"] = counts
+        dp_steps = fused.steps_run - steps0
+        want = {k: 2 * dp_steps + len(streamed) for k in counts}
+        if dp_steps != len(singles) + 1 or counts != want:
+            raise AssertionError(f"devices: {dp_steps} data-parallel steps and "
+                                 f"{len(streamed)} cross-chip requests launched {counts}, "
+                                 f"want {want}")
+        for i, (r, w) in enumerate(zip(resp, self.serving_words)):
+            if not r["success"]:
+                raise AssertionError(f"data-parallel request {i}: {r.get('error')}")
+            check_words(r["words"], w, f"data-parallel request {i} vs one device")
+        for i, (r, w) in enumerate(zip(streamed, self.serving_words)):
+            if not r["success"] or r["request_id"] != 200 + i:
+                raise AssertionError(f"cross-chip request {i}: {str(r)[:200]}")
+            check_words(r["words"], w, f"cross-chip request {i} vs one device")
+        print(f"devices: {len(resp)} data-parallel and {len(streamed)} cross-chip requests give "
+              f"phase 4's words; launches {counts} ({dp_steps} data-parallel steps)")
+
+        # request p50 of the three paths, in turns (host wall of the call)
+        paths = {"single": OCRWorker(self.serving_engines[True], 0), "data_parallel": dp,
+                 "cross_chip": cc}
+        walls = {name: [] for name in paths}
+        for name in ("single", "data_parallel", "cross_chip", "cross_chip", "data_parallel",
+                     "single"):
+            for i, s in enumerate(singles):
+                t0 = time.perf_counter()
+                r = paths[name].process(s, i)
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+                if not r["success"]:
+                    raise AssertionError(f"{name}: {r.get('error')}")
+        t0 = time.perf_counter()
+        cc.process_stream(singles, list(range(8)))
+        stream_ms = (time.perf_counter() - t0) * 1e3 / len(singles)
+        print(json.dumps({
+            "devices": "serving-jumbo bf16, fused_blob_kernel, 768x1024 and 192x192 requests, "
+            "16 per path in turns; data_parallel = make_mesh(devices=['cuda:0', 'cuda:0']), "
+            "two shards on ONE card; cross_chip = both stages on the same card; two cards "
+            "were not measured",
+            "request_p50_ms": {k: statistics.median(v) for k, v in walls.items()},
+            "cross_chip_stream_ms_per_request": stream_ms, "warmup_s": warm,
+            "launches": counts, "card": card_line()}), flush=True)
+
+        # f32, TF32 off: both paths against the JAX goldens, and the
+        # data-parallel rec step against one rec step
+        with f32_exact():
+            fcfg = PipelineConfig.from_dict(self.goldens["configs"]["serving"])
+            feng = OCREngine(self.model_dir, fcfg, mesh=mesh)
+            fworker = OCRWorker(feng, 0)
+            scenes, golden = self.scenes["serving"], self.goldens["words"]["serving"]
+            for i, (scene, w) in enumerate(zip(scenes, golden)):
+                check_words(fworker.process(scene, i)["words"], w, f"data-parallel f32 scene {i}")
+            for i, r in enumerate(feng.cross_chip_ocr().process_stream(list(scenes), [0, 1])):
+                check_words(r["words"], golden[i], f"cross-chip f32 scene {i}")
+            g = torch.Generator(device="cpu").manual_seed(3)
+            x = torch.randn((32, 48, 256, 3), generator=g).to(self.dev)
+            idx, val = sharded_rec_infer(mesh)(feng.rec_model, x)
+            with torch.inference_mode():
+                one_idx, one_val = K.ctc_topk(rec_forward(feng.rec_model, x))
+            torch.cuda.synchronize()
+            if not torch.equal(idx, one_idx) or max_err(val, one_val) != 0.0:
+                raise AssertionError(
+                    f"sharded_rec_infer over 2 shards vs one step: index mismatches "
+                    f"{int((idx != one_idx).sum())}, value max err {max_err(val, one_val)}")
+        print(f"devices f32 (TF32 off): data-parallel and cross-chip words match the JAX "
+              f"serving goldens; sharded_rec_infer over 2 shards equals one rec step at "
+              f"{list(x.shape[:3])} exactly")
+
+    # -- 6 ---------------------------------------------------------------
     def serving_config(self):
         from ppocr_tpu_torch.pipeline import PipelineConfig
 
@@ -688,7 +803,7 @@ class Smoke:
             "option_cost": "serving-jumbo bf16, 768x1024 requests; p50 of 8 requests, three "
             "rounds in turns after 4 warm requests", "p50_ms": p50, "card": card_line()}), flush=True)
 
-    # -- 6 ---------------------------------------------------------------
+    # -- 7 ---------------------------------------------------------------
     def start_service(self, sock, extra, ready="listening", own_group=False):
         """The service as a user starts it; returns (process, its output
         lines so far) once it prints its ``ready`` line. A flag whose value
@@ -893,7 +1008,7 @@ class Smoke:
                 proc.kill()
                 proc.wait(timeout=10)
 
-    # -- 7 ---------------------------------------------------------------
+    # -- 8 ---------------------------------------------------------------
     def staged_parity(self):
         from ppocr_tpu_torch.ops import kernels as K
         from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
@@ -928,7 +1043,7 @@ class Smoke:
                       f"partner; launches {counts}")
         self.launches["staged parity"] = totals
 
-    # -- 8 ---------------------------------------------------------------
+    # -- 9 ---------------------------------------------------------------
     def staged_config(self, profile):
         """``profile`` ("serving" | "defaults") staged in bf16 with the
         jumbo bundle's rec geometry."""
@@ -1008,7 +1123,7 @@ class Smoke:
         if counts["ctc_topk"] <= 0:
             raise AssertionError(f"the staged path never launched ctc_topk: {counts}")
 
-    # -- 10 --------------------------------------------------------------
+    # -- 11 --------------------------------------------------------------
     def jpeg_vs_cv2(self):
         from ppocr_tpu_torch.ops import native
         from ppocr_tpu_torch.utils.imcodec import decode_image
@@ -1040,7 +1155,7 @@ class Smoke:
             "what": "host wall ms, median of 25 after one untimed, baseline and progressive in turns",
             "card": card_line()}), flush=True)
 
-    # -- 11 --------------------------------------------------------------
+    # -- 12 --------------------------------------------------------------
     def jpeg_service(self):
         from ppocr_tpu_torch.serve import OCRIPCClient
         from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png
@@ -1099,7 +1214,7 @@ class Smoke:
                 proc.kill()
                 proc.wait(timeout=10)
 
-    # -- 12 --------------------------------------------------------------
+    # -- 13 --------------------------------------------------------------
     def train_batches(self):
         """Numpy rec batches (8 crops of the golden words at 48×320, T = 40)
         and det batches (2 × 256×256 scene cuts with box masks)."""
@@ -1214,7 +1329,7 @@ class Smoke:
                           "per_seq_card": v.tolist(),
                           "grad_max_abs_diff": float((g - gc).abs().max())}), flush=True)
 
-    # -- 13 --------------------------------------------------------------
+    # -- 14 --------------------------------------------------------------
     def finetune(self):
         import numpy as np
 
@@ -1298,7 +1413,7 @@ class Smoke:
             "golden_texts_read": read, "launches_serving_tuned": counts, "card": card_line()}),
             flush=True)
 
-    # -- 14 --------------------------------------------------------------
+    # -- 15 --------------------------------------------------------------
     def det_train(self):
         from ppocr_tpu_torch.models import init_det_params
         from ppocr_tpu_torch.train import make_det_train_step
@@ -1328,7 +1443,7 @@ class Smoke:
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "losses": losses, "card": card_line()}), flush=True)
 
-    # -- 9 ---------------------------------------------------------------
+    # -- 10 --------------------------------------------------------------
     def processes(self):
         from ppocr_tpu_torch.serve import OCRIPCClient
         from ppocr_tpu_torch.utils.imcodec import encode_png
@@ -1532,6 +1647,7 @@ def main() -> int:
     smoke.phase("blob_stats vs plain", smoke.check_blob_stats)
     smoke.phase("f32 parity", smoke.parity)
     smoke.phase("bf16 serving", smoke.serving)
+    smoke.phase("devices", smoke.devices)
     smoke.phase("fused options", smoke.options)
     smoke.phase("service", smoke.service)
     smoke.phase("staged parity", smoke.staged_parity)

@@ -12,12 +12,14 @@ when there is none) or, on request, on the CPU (``--device cpu``).
 
 ``--staged`` (or ``--profile defaults`` without ``--fast-path``) serves the
 staged det → cls → rec pipeline; ``--processes N`` starts N worker
-services behind the request balancer (``serve.balancer``); ``--system-info``
-prints the worker sizing advice and exits.
+services behind the request balancer (``serve.balancer``), each with the
+same flags; ``--system-info`` prints the worker sizing advice and exits.
 
-Flags whose feature is not ported yet are parsed and refused with exit
-code 2 and the ROADMAP item that will bring them: ``--mesh N > 1`` and
-``--cross-chip`` (A10).
+Over several devices, on the fused path: ``--mesh N`` splits each fused
+step's batch over the first N visible cards (``--device cpu``: N shards
+on the CPU) and exits 2 when fewer cards are visible; ``--cross-chip``
+runs det and geometry on the first device and rec on the second (not
+with ``--batch-requests > 1``; ``--warmup auto`` is then ``full``).
 
 Usage:
     python -m ppocr_tpu_torch.cli.service_main --model-dir ./models \
@@ -33,18 +35,6 @@ import signal
 import sys
 
 from .common import resolve_socket_path
-
-# flag → (what, ROADMAP item) of the features this package does not have yet
-UNPORTED = {
-    "mesh": ("serving over a device mesh (--mesh > 1)", "A10"),
-    "cross_chip": ("det and rec on two devices (--cross-chip)", "A10"),
-}
-
-
-def refuse(flag: str) -> int:
-    what, item = UNPORTED[flag]
-    print(f"{what} is not ported to ppocr_tpu_torch yet (ROADMAP {item})", flush=True)
-    return 2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -146,7 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--cross-chip",
         action="store_true",
         help="fast-path only: stage det/geometry on device 0 and rec on "
-        "device 1 (not ported yet: ROADMAP A10)",
+        "device 1 (the mesh's first two devices with --mesh); not with "
+        "--batch-requests > 1",
     )
     p.add_argument(
         "--rotated-boxes",
@@ -168,8 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh",
         type=int,
         default=1,
-        help="shard fused request batches over the data axis of an N-device "
-        "mesh (not ported yet: ROADMAP A10)",
+        help="fast-path only: split each fused request batch over the data "
+        "axis of an N-device mesh (the first N visible cards; with --device "
+        "cpu, N shards on the CPU)",
     )
     p.add_argument(
         "--request-timeout",
@@ -260,8 +252,7 @@ def resolve_service_config(args):
     """Flags → profile + overrides → validated PipelineConfig.
 
     Returns (config, None) or (None, exit_code). Split from _amain so the
-    flag/file precedence rules are testable without booting a service. A
-    final config that needs a feature not ported yet is refused here."""
+    flag/file precedence rules are testable without booting a service."""
     from ..pipeline import PipelineConfig
 
     config = (
@@ -314,22 +305,59 @@ def resolve_service_config(args):
 
     # checked on the FINAL config state, after the config-file overrides,
     # which could otherwise bring back exactly what these guards refuse
-    if config.cross_chip:
-        return None, refuse("cross_chip")
+    if config.cross_chip and not config.fast_path:
+        print("--cross-chip requires the fused path (drop --staged)", flush=True)
+        return None, 2
+    if config.cross_chip and max(config.request_batch_buckets or (1,)) > 1:
+        # the batching dispatcher serves the single-chip fused step
+        print(
+            "--cross-chip is incompatible with --batch-requests > 1 "
+            "(cross-request batching uses the single-chip fused step)",
+            flush=True,
+        )
+        return None, 2
     return config, None
+
+
+def resolve_mesh(args, config):
+    """--mesh N → (DeviceMesh or None, None) or (None, exit_code): N > 1
+    needs the fused path and N visible cards (``--device cpu``: N shards
+    on the CPU)."""
+    if args.mesh <= 1:
+        return None, None
+    if not config.fast_path:
+        print(
+            "--mesh requires the fused path (the staged parity pipeline is "
+            "single-device — drop --staged)",
+            flush=True,
+        )
+        return None, 2
+    import torch
+
+    from ..parallel import make_mesh
+
+    if args.device == "cpu":
+        return make_mesh(devices=["cpu"] * args.mesh), None
+    n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_dev < args.mesh:
+        print(f"--mesh {args.mesh}: only {n_dev} devices visible", flush=True)
+        return None, 2
+    return make_mesh(args.mesh, model=1), None
 
 
 def resolve_warmup_mode(args, config):
     """--warmup / --no-warmup → ("full" | "incremental" | "off", None) or
-    (None, exit_code): ``auto`` is incremental for the fused path and full
-    for the staged one, whose step shapes have no on-demand guard."""
+    (None, exit_code): ``auto`` is incremental for the fused path on one
+    device or a mesh, and full for the staged and cross-chip ones, whose
+    step shapes have no on-demand guard."""
     mode = "off" if args.no_warmup else args.warmup
+    guarded = config.fast_path and not config.cross_chip
     if mode == "auto":
-        return ("incremental" if config.fast_path else "full"), None
-    if mode == "incremental" and not config.fast_path:
+        return ("incremental" if guarded else "full"), None
+    if mode == "incremental" and not guarded:
         print(
-            "--warmup incremental requires the fused path "
-            "(drop --staged or use --warmup full)",
+            "--warmup incremental requires the fused path on one device or a mesh "
+            "(drop --staged/--cross-chip or use --warmup full)",
             flush=True,
         )
         return None, 2
@@ -345,14 +373,28 @@ async def _amain(args) -> int:
     warmup_mode, err = resolve_warmup_mode(args, config)
     if err is not None:
         return err
+    mesh, err = resolve_mesh(args, config)
+    if err is not None:
+        return err
 
     print(f"Loading models from {args.model_dir} on {args.device} ...", flush=True)
+    engine = None
+    if mesh is not None:
+        from ..pipeline import OCREngine
+
+        engine = OCREngine(args.model_dir, config, mesh=mesh)
+        print(
+            f"Data-parallel fused serving over {args.mesh} devices "
+            f"({', '.join(str(d) for d in mesh.devices)})",
+            flush=True,
+        )
     service = OCRIPCService(
         model_dir=args.model_dir,
         socket_path=resolve_socket_path(args.socket),
         cpu_workers=args.cpu_workers,
         gpu_workers=args.gpu_workers,
         config=config,
+        engine=engine,
         request_timeout_ms=args.request_timeout,
         recycle_after=args.recycle_after,
         device=args.device,
@@ -486,15 +528,16 @@ def main(argv=None) -> int:
 
         print(worker_recommendation(enable_cls=args.cls).pretty())
         return 0
-    if args.mesh > 1:
-        return refuse("mesh")
     try:
         if args.processes > 1:
             # the flags are checked once here, so that a bad combination
-            # exits 2 and does not fail N worker boots one after the other
+            # exits 2 and does not fail N worker boots one after the other;
+            # the workers get every flag but the supervisor's own
             config, err = resolve_service_config(args)
             if err is None:
                 _, err = resolve_warmup_mode(args, config)
+            if err is None:
+                _, err = resolve_mesh(args, config)
             if err is not None:
                 return err
             return asyncio.run(_supervisor_main(args, raw_argv))

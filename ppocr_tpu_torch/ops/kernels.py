@@ -137,8 +137,9 @@ def _check(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device=None) -> int:
+    """The current stream of ``device`` (default: the current device)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch_noop(lib):
@@ -163,12 +164,15 @@ def ctc_topk_plain(probs: torch.Tensor):
 
 
 def _launch_ctc_topk(lib, x, idx, val):
-    """The bare kernel launch on a contiguous f32 [N, T, V] tensor."""
+    """The bare kernel launch on a contiguous f32 [N, T, V] tensor, on
+    ``x``'s card and its current stream whatever the calling thread's
+    current device is."""
     n, t, v = x.shape
-    _check(
-        lib.ctc_topk_launch(x.data_ptr(), n * t, v, idx.data_ptr(), val.data_ptr(), _stream()),
-        "ctc_topk",
-    )
+    with torch.cuda.device(x.device):
+        rc = lib.ctc_topk_launch(
+            x.data_ptr(), n * t, v, idx.data_ptr(), val.data_ptr(), _stream(x.device)
+        )
+    _check(rc, "ctc_topk")
 
 
 def ctc_topk(probs: torch.Tensor):
@@ -238,16 +242,17 @@ def _scratch_for(device: torch.device, stream: int, words: int) -> torch.Tensor:
 
 def _launch_blob_stats(lib, lab, pr, rt, scratch, out):
     """The bare kernel launch on int32/f32 contiguous tensors, a zeroed
-    scratch of 1 + 6·B·K int32 words and an f32 [6, B, K] output. The
-    background label is H·W, as the connected components leave it."""
+    scratch of 1 + 6·B·K int32 words and an f32 [6, B, K] output, on
+    ``lab``'s card and its current stream whatever the calling thread's
+    current device is. The background label is H·W, as the connected
+    components leave it."""
     b, h, w = lab.shape
-    _check(
-        lib.blob_stats_launch(
+    with torch.cuda.device(lab.device):
+        rc = lib.blob_stats_launch(
             lab.data_ptr(), pr.data_ptr(), rt.data_ptr(), b, h, w, rt.shape[1],
-            h * w, scratch.data_ptr(), out.data_ptr(), _stream(),
-        ),
-        "blob_stats",
-    )
+            h * w, scratch.data_ptr(), out.data_ptr(), _stream(lab.device),
+        )
+    _check(rc, "blob_stats")
 
 
 def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
@@ -268,6 +273,10 @@ def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
         return blob_stats_plain(labels, prob, roots)
     if devices != {"cuda"}:
         raise ValueError(f"blob_stats: tensors on {sorted(devices)}")
+    if not labels.device == prob.device == roots.device:
+        raise ValueError(
+            f"blob_stats: tensors on {labels.device}, {prob.device}, {roots.device}"
+        )
     lib = load_library()
     b, k = roots.shape
     lab = labels.to(torch.int32).contiguous()
@@ -275,7 +284,7 @@ def blob_stats(labels: torch.Tensor, prob: torch.Tensor, roots: torch.Tensor):
     rt = roots.to(torch.int32).contiguous()
     out = torch.empty((6, b, k), dtype=torch.float32, device=lab.device)
     if b * k > 0:
-        scratch = _scratch_for(lab.device, _stream(), 1 + BLOB_ACC_WORDS * b * k)
+        scratch = _scratch_for(lab.device, _stream(lab.device), 1 + BLOB_ACC_WORDS * b * k)
         _launch_blob_stats(lib, lab, pr, rt, scratch, out)
         with _lock:
             blob_stats.launches += 1

@@ -6,8 +6,7 @@ hard-codes hyperparameters in two places: the stage-class header defaults
 (ocr_det.h:108-123 etc.) and the serving profile the worker ctor passes
 (ocr_worker.cpp:14-63). Both are reproduced here as named constructors.
 
-The port serves only part of this surface so far; the engine raises
-``NotImplementedError`` for a field outside it (``engine.check_slice``).
+The port serves every field of this surface.
 """
 
 from __future__ import annotations

@@ -5,8 +5,13 @@ Counterpart of ``ppocr_tpu/pipeline/engine.py``. A model dir holds
 ``det/weights.npz``, ``rec/weights.npz``, with ``enable_cls`` also
 ``cls/weights.npz`` (the JAX package's npz pytrees, carried over by
 ``models.jax_params``), and ``rec/ppocr_keys_v1.txt``. Importing Paddle's
-``inference.pdiparams`` is not ported yet (ROADMAP A9), nor is serving
-over several devices (A10).
+``inference.pdiparams`` is not ported yet (ROADMAP A9).
+
+With ``mesh`` (a ``parallel.DeviceMesh``) the engine serves over several
+devices: ``self.device`` is the mesh's first device, each distinct device
+holds one replica of the modules (``models_on``), and the fused path
+splits a request batch over the mesh's data rows. ``cross_chip_ocr`` runs
+det and geometry on one device and rec on another.
 
 The staged pipeline is the reference's own: ``detect`` (det forward, host
 DB postprocess), ``classify`` and ``recognize`` (aspect-sorted
@@ -31,6 +36,7 @@ device; with no card and no explicit device it raises.
 from __future__ import annotations
 
 import os
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -59,6 +65,7 @@ from ..ops.normalize import (
     pack_batch,
 )
 from ..ops.resize import cls_resize, crnn_resize, det_resize
+from ..parallel.mesh import as_device, replicate
 from ..utils.checkpoint import load_params_npz
 from .charset import load_charset
 from .config import PipelineConfig, batch_buckets, pick_bucket
@@ -123,21 +130,6 @@ def rec_step(model, imgs_u8: torch.Tensor, consts, dtype, beam_candidates: int =
     return torch.stack([idx.float(), val])
 
 
-def check_slice(config: PipelineConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for any option the port does not serve
-    yet, naming its ROADMAP item, instead of ignoring it."""
-    c = config
-    unported = [
-        (c.cross_chip, "cross_chip", "A10"),
-        (mesh is not None, "a device mesh", "A10"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to ppocr_tpu_torch yet (ROADMAP {item})"
-            )
-
-
 def resolve_device(device=None) -> torch.device:
     """``device`` or the card; raises when the card is asked for (or
     defaulted to) and CUDA is not available."""
@@ -152,7 +144,7 @@ def resolve_device(device=None) -> torch.device:
 
 class OCREngine:
     """Owns the det, rec and (with ``enable_cls``) cls modules on one
-    device."""
+    device, or one replica per distinct device of ``mesh``."""
 
     def __init__(
         self,
@@ -162,10 +154,18 @@ class OCREngine:
         dtype: Optional[torch.dtype] = None,
         mesh=None,
     ):
+        """``mesh``: an optional ``parallel.DeviceMesh``. The modules are
+        replicated over its devices and the fused path shards request
+        batches over its "data" axis; ``device`` is then ignored."""
         self.config = config or PipelineConfig.serving()
-        check_slice(self.config, mesh)
         self.model_dir = model_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            for dev in mesh.distinct_devices:
+                resolve_device(dev)  # a mesh over absent cards raises here
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _DTYPES[self.config.dtype]
         det = self.config.det
         self.post = DBPostProcess(
@@ -208,6 +208,15 @@ class OCREngine:
         if self.config.enable_cls:
             cls = cls_from_jax(self._load_tree("cls"))
             self.cls_model = cls.to(device=self.device, dtype=self.dtype)
+        # device → (det, rec, cls) replica; the engine's own device holds
+        # the modules above, every other device a copy (``models_on``)
+        self._replicas = {
+            as_device(self.device): (self.det_model, self.rec_model, self.cls_model)
+        }
+        self._replicas_lock = threading.Lock()
+        if self.mesh is not None:
+            for dev in self.mesh.distinct_devices:
+                self.models_on(dev)
         head = self.rec_model.fc.bias.shape[0]
         if head == len(self.charset) - 1:
             # a use_space_char=False export: every emitted index still maps
@@ -225,6 +234,18 @@ class OCREngine:
                 "ocr_rec.h:82-84) — weights.npz and ppocr_keys_v1.txt in "
                 f"{self.model_dir}/rec are from different bundles"
             )
+
+    def models_on(self, device) -> Tuple:
+        """(det, rec, cls) modules on ``device``: the engine's own on its
+        device, elsewhere one copy per device, made at the first call."""
+        dev = as_device(device)
+        with self._replicas_lock:
+            if dev not in self._replicas:
+                self._replicas[dev] = tuple(
+                    replicate(m, dev) if m is not None else None
+                    for m in (self.det_model, self.rec_model, self.cls_model)
+                )
+            return self._replicas[dev]
 
     # -- staged steps: numpy in, numpy out ----------------------------------
 
@@ -385,15 +406,35 @@ class OCREngine:
             self._fused_ocr = FusedOCR(self, max_boxes=self.config.fused_max_boxes)
         return self._fused_ocr
 
+    def cross_chip_ocr(self):
+        """Lazy engine-owned CrossChipFusedOCR: det and geometry on the
+        first device, rec on the second; the devices are the mesh's, else
+        the visible cards, else (an engine on the CPU) the CPU twice."""
+        if not hasattr(self, "_cross_chip_ocr"):
+            from ..parallel.pipeline_stage import CrossChipFusedOCR
+
+            if self.mesh is not None:
+                devs = self.mesh.devices
+            elif self.device.type == "cuda":
+                devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            else:
+                devs = [self.device, self.device]
+            if len(devs) < 2:
+                raise RuntimeError("cross_chip staging needs >= 2 visible devices")
+            self._cross_chip_ocr = CrossChipFusedOCR(self, devs[0], devs[1])
+        return self._cross_chip_ocr
+
     def reload(self, warmup: bool = False) -> None:
         """Rebuild the device state after a (transient) device failure: load
         the weights and the charset again (a bundle swapped on disk is
-        picked up whole) and drop the cached FusedOCR with its record of
-        warmed step shapes. Workers hold the old FusedOCR and must be
-        rebuilt by their owner (the serving dispatchers do so)."""
+        picked up whole) and drop the cached FusedOCR and CrossChipFusedOCR
+        with their record of warmed step shapes. Workers hold the old ones
+        and must be rebuilt by their owner (the serving dispatchers do
+        so)."""
         self._load_params()
-        if hasattr(self, "_fused_ocr"):
-            del self._fused_ocr
+        for cached in ("_fused_ocr", "_cross_chip_ocr"):
+            if hasattr(self, cached):
+                delattr(self, cached)
         if warmup:
             self.warmup()
 
@@ -418,11 +459,15 @@ class OCREngine:
         """Run every step shape once on blank input, so that a shape's
         first call (cuDNN's choice of algorithm and, the very first time,
         the kernel build) is paid here and not under a request: the fused
-        step shapes with ``fast_path``, else every staged det, rec and cls
-        step shape. Returns seconds."""
+        step shapes with ``fast_path`` (the cross-chip stages' under
+        ``cross_chip``), else every staged det, rec and cls step shape.
+        Returns seconds."""
         t0 = time.perf_counter()
         if self.config.fast_path:
-            self.fused_ocr().warmup()
+            if self.config.cross_chip:
+                self.cross_chip_ocr().warmup()
+            else:
+                self.fused_ocr().warmup()
             return time.perf_counter() - t0
         shapes = self.staged_step_shapes(det_shapes)
         for h, w in shapes["det"]:

@@ -18,6 +18,15 @@ Where the JAX step vmaps over the request batch, every function here
 carries the batch as a leading dimension. ``lax.switch`` on the rec tier
 becomes one ``.tolist()`` on the host, and the connected-components
 ``while_loop`` a Python loop with one ``any()`` sync per iteration.
+
+On an engine with a mesh, the JAX step is one GSPMD program over the
+batch sharded on "data"; here a step splits the batch over the mesh's data
+rows and runs in three phases: ``prep`` of each shard on its device (a
+long-lived host thread per distinct device), the batch's rec tier merged on the host
+from the shards' own (:func:`merge_tiers`), then ``rec`` of each shard at
+that tier. So every shard's recognizer runs at the width and slot count
+the whole batch needs, as in the JAX step, whose SVTR mixes over every
+column of that width.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..ops.resize import (
     det_target_shape,
     resize_bilinear_u8,
 )
+from ..parallel.mesh import DeviceThreads
 from .config import pick_bucket
 
 N_COARSE = 48  # angle sweep: coarse angles over [0°, 90°)
@@ -573,17 +583,42 @@ def build_fused_parts(
     return prep, rec
 
 
-def build_fused_step(**kwargs):
+def merge_tiers(tiers, n_batch_tiers: int) -> int:
+    """The rec tier of a batch split into shards, from each shard's own
+    ``tier = width_tier · n_batch_tiers + batch_tier``. Each tier counts
+    the halvings that still hold the shard's widest valid crop (fullest
+    image), so the batch's is the minimum of the width tiers and, apart,
+    the minimum of the batch tiers; the minimum of the combined numbers
+    would mix them (with 2 batch tiers, (1, 0) = 2 and (0, 1) = 1 merge to
+    (0, 0) = 0, not 1). An all-pad shard has no valid crop and so the
+    widest tiers: it never narrows the result."""
+    kws, kbs = zip(*(divmod(int(t), n_batch_tiers) for t in tiers))
+    return min(kws) * n_batch_tiers + min(kbs)
+
+
+def _outputs(nb, max_boxes, boxes, quads, valid, score, roots, idx, val, blank):
+    """The step's outputs as a batch-leading FusedOutputs."""
+    return FusedOutputs(
+        boxes,
+        valid,
+        score,
+        idx.reshape((nb, max_boxes) + idx.shape[1:]),
+        val.reshape((nb, max_boxes) + val.shape[1:]),
+        roots,
+        blank.reshape(nb, max_boxes, -1) if blank is not None else None,
+        quads,
+    )
+
+
+def compose_step(prep, rec, max_boxes: int):
     """``step(det_model, rec_model, cls_model, img_u8[B, H, W, 3],
-    content_hw[B, 2], src_u8=None) -> FusedOutputs``: the composition of
-    :func:`build_fused_parts` (same keyword arguments), run under
+    content_hw[B, 2], src_u8=None) -> FusedOutputs``: ``prep`` then ``rec``
+    of :func:`build_fused_parts` on one device, run under
     ``torch.inference_mode`` (which is per thread, so it sits here and not
     around a service). With ``cls_shape`` the step classifies each crop's
     orientation and mirrors the rec sampling grid on label 1; with
     ``decode="beam"`` it returns the device-pruned top-k lattice and the
     blank probs instead of the greedy argmax."""
-    prep, rec = build_fused_parts(**kwargs)
-    max_boxes = kwargs["max_boxes"]
 
     @torch.inference_mode()
     def step(det_model, rec_model, cls_model, img_u8, content_hw, src_u8=None):
@@ -591,16 +626,8 @@ def build_fused_step(**kwargs):
             det_model, cls_model, img_u8, content_hw, src_u8
         )
         idx, val, blank = rec(rec_model, crops_n, tier)
-        nb = img_u8.shape[0]
-        return FusedOutputs(
-            boxes,
-            valid,
-            score,
-            idx.reshape((nb, max_boxes) + idx.shape[1:]),
-            val.reshape((nb, max_boxes) + val.shape[1:]),
-            roots,
-            blank.reshape(nb, max_boxes, -1) if blank is not None else None,
-            quads,
+        return _outputs(
+            img_u8.shape[0], max_boxes, boxes, quads, valid, score, roots, idx, val, blank
         )
 
     return step
@@ -650,6 +677,7 @@ class FusedOCR:
         self.beam_size = engine.config.rec.beam_size
         self.rotated = kw["rotated"]
         self.crop_src_mult = kw["crop_src_mult"]
+        self.n_batch_tiers = kw["n_batch_tiers"]
         # step shapes (nb, bh, bw) that have run once: warmup() and
         # compile_variant() fill it, and so does every process_batch
         # dispatch. Nothing is compiled for a shape on CUDA, but its first
@@ -660,7 +688,21 @@ class FusedOCR:
         self.steps_run = 0  # fused steps dispatched by process_batch
         self.batched_steps = 0  # ... of which held more than one request
         self._count_lock = threading.Lock()  # process_batch runs in threads
-        self._step = build_fused_step(**kw)
+        self._prep, self._rec = build_fused_parts(**kw)
+        self._step = compose_step(self._prep, self._rec, max_boxes)
+        self._threads = DeviceThreads()  # on a mesh: a host thread per device
+
+    def _n_data(self) -> int:
+        """Data-parallel width: batches split over the engine mesh's "data"
+        axis."""
+        mesh = self.engine.mesh
+        return int(mesh.shape["data"]) if mesh is not None else 1
+
+    def _pad_bucket(self, nb: int) -> int:
+        """A batch bucket rounded up to a multiple of the data-axis width,
+        so that the batch splits evenly."""
+        n = self._n_data()
+        return -(-nb // n) * n
 
     def _words_from_outputs(self, out, b, ratio_h, ratio_w, src_w, src_h):
         """Host decode of image ``b`` of numpy ``out`` into response words,
@@ -712,8 +754,11 @@ class FusedOCR:
         return words
 
     def _dispatch(self, batch: np.ndarray, content_hw: np.ndarray, src=None) -> FusedOutputs:
-        """Upload and run one fused step; the outputs stay on the device."""
+        """Upload and run one fused step; the outputs stay on the device
+        (on a mesh, on its first device)."""
         eng = self.engine
+        if eng.mesh is not None:
+            return self._dispatch_sharded(batch, content_hw, src)
         dev = eng.device
         return self._step(
             eng.det_model,
@@ -723,6 +768,59 @@ class FusedOCR:
             torch.from_numpy(content_hw).to(dev),
             torch.from_numpy(src).to(dev) if src is not None else None,
         )
+
+    def _dispatch_sharded(self, batch, content_hw, src=None) -> FusedOutputs:
+        """One step of a batch split over the mesh's data rows: ``prep`` of
+        each shard on its device, the batch's tier from the shards'
+        (:func:`merge_tiers`), ``rec`` of each shard at that tier, the
+        outputs gathered on the first device in shard order. Shards on one
+        device run in order on that device's thread."""
+        eng = self.engine
+        devs = eng.mesh.data_devices
+        n = len(devs)
+        if batch.shape[0] % n:
+            raise ValueError(f"a batch of {batch.shape[0]} does not split over data={n}")
+        per = batch.shape[0] // n
+
+        def prep_job(i, dev):
+            det_model, _, cls_model = eng.models_on(dev)
+            part = slice(i * per, (i + 1) * per)
+
+            def job():
+                up = lambda a: torch.from_numpy(a[part]).to(dev)  # noqa: E731
+                return self._prep(
+                    det_model,
+                    cls_model if self.with_cls else None,
+                    up(batch),
+                    up(content_hw),
+                    up(src) if src is not None else None,
+                )
+
+            return dev, job
+
+        preps = self._threads.run([prep_job(i, dev) for i, dev in enumerate(devs)])
+        tier = merge_tiers([p[6] for p in preps], self.n_batch_tiers)
+
+        def rec_job(crops_n, dev):
+            rec_model = eng.models_on(dev)[1]
+            return dev, lambda: self._rec(rec_model, crops_n, tier)
+
+        recs = self._threads.run([rec_job(p[0], dev) for p, dev in zip(preps, devs)])
+        first = devs[0]
+        with torch.inference_mode():
+
+            def cat(parts):
+                return torch.cat([t.to(first) for t in parts])
+
+            boxes, quads, valid, score, roots = (
+                cat([p[k] for p in preps]) for k in range(1, 6)
+            )
+            idx, val = cat([r[0] for r in recs]), cat([r[1] for r in recs])
+            blank = cat([r[2] for r in recs]) if recs[0][2] is not None else None
+            return _outputs(
+                batch.shape[0], self.max_boxes, boxes, quads, valid, score, roots,
+                idx, val, blank,
+            )
 
     @staticmethod
     def _fetch(out: FusedOutputs) -> FusedOutputs:
@@ -789,11 +887,11 @@ class FusedOCR:
 
         inflight = []  # (chunk, the step's outputs on the device)
         for (bh, bw), items in groups.items():
-            stride = pick_bucket(batch_buckets, len(items))
+            stride = self._pad_bucket(pick_bucket(batch_buckets, len(items)))
             for beg in range(0, len(items), stride):
                 chunk = items[beg : beg + stride]
                 # a trailing partial chunk picks its own batch bucket
-                nb = pick_bucket(batch_buckets, len(chunk))
+                nb = self._pad_bucket(pick_bucket(batch_buckets, len(chunk)))
                 batch = np.zeros((nb, bh, bw, 3), np.uint8)
                 content_hw = np.zeros((nb, 2), np.int32)  # pad slots: (0, 0)
                 src_batch = (
@@ -842,7 +940,7 @@ class FusedOCR:
         buckets = self.engine.config.det.shape_buckets
         return [
             (nb, h, w)
-            for nb in sorted(set(batch_buckets))
+            for nb in sorted({self._pad_bucket(b) for b in batch_buckets})
             for h, w in sorted(
                 ((h, w) for h in buckets for w in buckets),
                 key=lambda hw: (hw[0] * hw[1], hw),
@@ -852,8 +950,10 @@ class FusedOCR:
     def compile_variant(self, key) -> bool:
         """Run one blank step of shape ``key = (nb, bh, bw)`` and record it,
         so that cuDNN's algorithm search for the shape (and, the first
-        time, the kernel build) happen here and not under a request.
-        Returns True when a step actually ran (False: already recorded)."""
+        time, the kernel build) happen here and not under a request. On a
+        mesh the step's shards run on every device of its data rows: the
+        search is per device. Returns True when a step actually ran
+        (False: already recorded)."""
         if key in self._compiled:
             return False
         nb, h, w = key
@@ -886,9 +986,10 @@ class FusedOCR:
             groups[key] = groups.get(key, 0) + 1
         need = []
         for (bh, bw), count in groups.items():
-            stride = pick_bucket(batch_buckets, count)
+            stride = self._pad_bucket(pick_bucket(batch_buckets, count))
             for beg in range(0, count, stride):
-                k = (pick_bucket(batch_buckets, min(stride, count - beg)), bh, bw)
+                nb = self._pad_bucket(pick_bucket(batch_buckets, min(stride, count - beg)))
+                k = (nb, bh, bw)
                 if k not in self._compiled and k not in need:
                     need.append(k)
         return need

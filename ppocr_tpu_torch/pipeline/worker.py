@@ -8,9 +8,10 @@ OCRWorker::processRequest and its JSON serialization
      "worker_id", "words": [{"text", "confidence", "box": [[x,y]×4]}]}
     / {"request_id", "success": false, "error", "worker_id", ...}
 
-With ``fast_path`` a request is one fused step; otherwise it runs the
-staged pipeline det → crop → (cls) → rec and the response also carries
-``stage_times``. Preserved quirks of the staged path:
+With ``fast_path`` a request is one fused step (with ``cross_chip``, its
+two stages on two devices); otherwise it runs the staged pipeline det →
+crop → (cls) → rec and the response also carries ``stage_times``.
+Preserved quirks of the staged path:
 
 * crops are axis-aligned cv::boundingRect rects unless ``crop_mode`` is
   ``"perspective"``;
@@ -39,12 +40,18 @@ log = logging.getLogger(__name__)
 
 class OCRWorker:
     """A logical worker bound to an engine; workers share the engine's
-    modules and its FusedOCR."""
+    modules and its FusedOCR (or CrossChipFusedOCR)."""
 
     def __init__(self, engine: OCREngine, worker_id: int = 0):
         self.engine = engine
         self.worker_id = worker_id
-        self._fused = engine.fused_ocr() if engine.config.fast_path else None
+        cfg = engine.config
+        if not cfg.fast_path:
+            self._fused = None
+        elif cfg.cross_chip:
+            self._fused = engine.cross_chip_ocr()
+        else:
+            self._fused = engine.fused_ocr()
 
     def _staged(self, image_bgr: np.ndarray) -> Dict:
         """The staged request's ``words`` and ``stage_times``."""

@@ -183,6 +183,7 @@ class Dispatcher(EngineRecoveryMixin):
         cfg = self.engine.config
         if (
             cfg.fast_path
+            and not cfg.cross_chip
             and image is not None
             and image.size
         ):

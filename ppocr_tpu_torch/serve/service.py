@@ -95,6 +95,14 @@ class OCRIPCService:
         self.engine = engine or OCREngine(model_dir, config, device=device)
         cfg = self.engine.config
         if cfg.fast_path and max(cfg.request_batch_buckets) > 1:
+            if cfg.cross_chip:
+                # guarded here too, not only in the CLI: a direct caller
+                # would otherwise silently get the single-device batcher
+                raise ValueError(
+                    "cross_chip is incompatible with request batching "
+                    "(request_batch_buckets > 1): the batching dispatcher "
+                    "serves the single-chip fused step"
+                )
             from .batcher import BatchingDispatcher
 
             self.dispatcher = BatchingDispatcher(self.engine, self.num_workers)
@@ -144,10 +152,13 @@ class OCRIPCService:
         ocr_service_main.cpp:124-129). A request whose shape has not run
         yet is handled by the dispatchers' warm-before-dispatch guard (it
         effectively jumps the warmup queue); everything else proceeds on
-        shapes that have. Requires the fused path. Returns seconds."""
+        shapes that have. Requires the fused path on one device or a mesh
+        (cross-chip serving keeps the full warmup). Returns seconds."""
         cfg = self.engine.config
-        if not cfg.fast_path:
-            raise ValueError("incremental warmup requires the fused path")
+        if not cfg.fast_path or cfg.cross_chip:
+            raise ValueError(
+                "incremental warmup requires the fused path on one device or a mesh"
+            )
         fused = self.engine.fused_ocr()
         keys = fused.variant_keys()
         t0 = time.time()

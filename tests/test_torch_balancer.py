@@ -448,15 +448,21 @@ class TestReviewFixes:
 
     def test_bad_flags_exit_2_before_any_worker_is_spawned(self, tmp_path, capsys):
         """Under --processes the flags are resolved once in the supervisor
-        process: a config file that brings back an unported feature, or a
-        bad combination, exits 2 instead of failing N worker boots."""
+        process: a config file that asks for cross-chip with batching, a
+        mesh wider than the visible cards, or a bad combination, exits 2
+        instead of failing N worker boots."""
         from ppocr_tpu_torch.cli.service_main import main
 
+        import torch
+
         cfg = tmp_path / "cfg.json"
-        cfg.write_text('{"cross_chip": true}')
+        cfg.write_text('{"cross_chip": true, "request_batch_buckets": [1, 4]}')
         sock = str(tmp_path / "x.sock")
         assert main(["--processes", "2", "--config", str(cfg), "--socket", sock]) == 2
-        assert "ROADMAP A10" in capsys.readouterr().out
+        assert "incompatible with --batch-requests > 1" in capsys.readouterr().out
+        if not torch.cuda.is_available():
+            assert main(["--processes", "2", "--mesh", "2", "--socket", sock]) == 2
+            assert "only 0 devices visible" in capsys.readouterr().out
         assert main(["--processes", "2", "--staged", "--fast-path", "--socket", sock]) == 2
         assert main(["--processes", "2", "--staged", "--warmup", "incremental", "--socket", sock]) == 2
         assert not list(tmp_path.glob("x.sock*"))

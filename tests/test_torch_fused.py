@@ -254,10 +254,19 @@ def test_empty_image_gives_the_error_response(engines):
 
 
 def test_flags_outside_the_slice_raise(model_dir):
-    """``cross_chip`` (A10) is outside the slice."""
+    """``cross_chip`` (A10) is served now: an engine on the CPU takes the
+    CPU for both stages, and its worker serves through them. Below two
+    devices it raises the JAX package's error."""
+    from ppocr_tpu_torch.parallel import CrossChipFusedOCR, make_mesh
+
     cfg = dataclasses.replace(PipelineConfig.serving(), cross_chip=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        OCREngine(model_dir, cfg, device="cpu")
+    worker = OCRWorker(OCREngine(model_dir, cfg, device="cpu"), 0)
+    assert isinstance(worker._fused, CrossChipFusedOCR)
+    assert (worker._fused.det_device, worker._fused.rec_device) == (
+        torch.device("cpu"), torch.device("cpu"))
+    one = OCREngine(model_dir, cfg, mesh=make_mesh(devices=["cpu"]))
+    with pytest.raises(RuntimeError, match="needs >= 2 visible devices"):
+        OCRWorker(one, 0)
 
 
 def test_the_staged_pipeline_is_inside_the_slice(model_dir):
@@ -267,8 +276,19 @@ def test_the_staged_pipeline_is_inside_the_slice(model_dir):
 
 
 def test_a_mesh_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        OCREngine(model_dir, PipelineConfig.serving(), device="cpu", mesh=object())
+    """A mesh is served now (``tests/test_torch_parallel.py`` holds it to
+    the JAX mesh); a mesh over cards that are not there raises and does
+    not fall back to the CPU."""
+    from ppocr_tpu_torch.parallel import make_mesh
+
+    eng = OCREngine(model_dir, PipelineConfig.serving(), mesh=make_mesh(devices=["cpu"] * 2))
+    assert eng.fused_ocr()._n_data() == 2 and eng.device == torch.device("cpu")
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("needs a machine with fewer than two cards")
+    with pytest.raises(RuntimeError, match="no CUDA device|invalid device"):
+        OCREngine(
+            model_dir, PipelineConfig.serving(), mesh=make_mesh(devices=["cuda:0", "cuda:1"])
+        )
 
 
 def test_warmup_runs_every_step_shape(model_dir, goldens, monkeypatch):

@@ -38,7 +38,7 @@ from ppocr_tpu_torch import assets
 from ppocr_tpu_torch.cli import service_main
 from ppocr_tpu_torch.cli.client_main import main as client_main
 from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig, StageTimes
-from ppocr_tpu_torch.pipeline.engine import check_slice
+from ppocr_tpu_torch.parallel import make_mesh
 from ppocr_tpu_torch.serve import Dispatcher, OCRIPCClient, OCRIPCService
 from ppocr_tpu_torch.utils.imcodec import encode_png
 
@@ -312,16 +312,21 @@ def test_warmup_runs_every_staged_step_shape(engines):
     assert not hasattr(eng, "_fused_ocr")  # the fused path was never built
 
 
-def test_check_slice_refuses_only_cross_chip_and_a_mesh():
-    check_slice(PipelineConfig.defaults())
-    check_slice(PipelineConfig.serving())
-    for profile in (PipelineConfig.defaults, PipelineConfig.serving):
-        cfg = profile()
-        cfg.cross_chip = True
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            check_slice(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        check_slice(PipelineConfig.defaults(), mesh=object())
+def test_check_slice_refuses_only_cross_chip_and_a_mesh(model_dir, goldens, scenes):
+    """Nothing is refused any more: with a mesh (and ``cross_chip``, which
+    only the fused path reads) the staged steps run on the engine's own
+    device, the mesh's first, as in the JAX package, and answer as a
+    single-device engine does."""
+    cfg = PipelineConfig.from_dict(goldens["configs"]["small-staged"])
+    want = OCRWorker(OCREngine(model_dir, cfg, device="cpu"), 0).process(scenes[0], 0)
+    cfg.cross_chip = True
+    eng = OCREngine(model_dir, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+    worker = OCRWorker(eng, 0)
+    assert worker._fused is None and eng.device == torch.device("cpu")
+    got = worker.process(scenes[0], 0)
+    assert [(w["text"], w["box"]) for w in got["words"]] == [
+        (w["text"], w["box"]) for w in want["words"]
+    ]
 
 
 def test_the_staged_engine_wants_a_card_unless_the_cpu_is_asked_for(model_dir):
