@@ -1,6 +1,6 @@
 """Drive the PyTorch port's fused and staged OCR requests, its IPC service
-(single- and multi-process, PNG and JPEG payloads) and its training path
-on one NVIDIA card and check them.
+(single- and multi-process; PNG, JPEG and BMP payloads) and its training
+path on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -116,10 +116,24 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 12. jpeg service: the two serving scenes as JPEG payloads, the first also
     progressive, and a CMYK crop of it through the service (a subprocess
     as in phase 6) answer the words phase 4's in-process worker gives on
-    the port's decode of the same bytes (texts exact, boxes ≤ 2 px); the
-    client wall p50 of JPEG and PNG requests of the same scenes, taken in
-    turns;
-13. train parity: f32, TF32 off, from the same JAX-layout weights and
+    the port's decode of the same bytes (texts exact, boxes ≤ 2 px), and
+    the service's ``status`` shows ``ctc_topk`` launched by those four
+    requests; the client wall p50 of JPEG and PNG requests of the same
+    scenes, taken in turns;
+13. image formats vs cv2: every committed case of ``assets/image_cases.npz``
+    (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
+    raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
+    garbled and cut files among them) decoded with ``decode_image``
+    (``csrc/bmp_rle.cpp`` built with the host compiler), each equal to the cv2 decode stored beside it, or ``None``
+    where cv2 gave ``None``; the case counts by format; the host ms to
+    decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of
+    its grey, a binary PPM, a standard Sun raster and a byte-encoded one
+    (which cv2 5.0 refuses: the time of the refusal), in turns, median of
+    25 after one untimed; then the same 24-bit and RLE8 BMPs through the
+    service (a subprocess as in phase 7) answer the words of the PNG of the
+    same pixels (texts exact, boxes ≤ 2 px), and the service's ``status``
+    shows ``ctc_topk`` launched by the two BMP requests;
+14. train parity: f32, TF32 off, from the same JAX-layout weights and
     numpy batches, 3 rec CTC steps (the jumbo recognizer, 8 crops at
     48×320, labels with a repeat and padding) and 3 det steps (the trained
     detector, 2 × 256×256) on the card against the same steps on the CPU:
@@ -132,7 +146,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     of 44 labels that cannot be aligned (optax's finite value): values to
     rtol 1e-5, gradients to rtol 1e-4 (2^-5 on that row: its forward
     variables sit near −1e5, where f32 values are 2^-7 apart);
-14. finetune: ``finetune_rec`` on the card from the jumbo weights with the
+15. finetune: ``finetune_rec`` on the card from the jumbo weights with the
     jumbo charset (head kept) at 48×320, batch 32, on PNG crops of the
     serving scenes' golden words plus the committed JPEG crops: step ms
     (CUDA events between step ends, median after 10 warm steps), crops/s,
@@ -141,7 +155,7 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     rec 48×256) with it as ``rec/``: ``ctc_topk``'s counter is zeroed
     before and must rise, and the share of the scenes' golden texts read
     is printed beside the jumbo bundle's under the same config;
-15. det train: ``make_det_train_step`` from ``init_det_params`` at batch
+16. det train: ``make_det_train_step`` from ``init_det_params`` at batch
     8 × 512×512, shrink masks filled from the golden boxes in numpy, 20
     steps: step ms, peak memory, the losses (finite; from this saturated
     init they wander instead of falling, in the JAX package too).
@@ -155,6 +169,7 @@ from __future__ import annotations
 
 import base64
 import json
+import logging
 import os
 import pathlib
 import signal
@@ -232,6 +247,20 @@ def cuda_ms(fn, flush, reps: int = 25) -> float:
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def service_launches(client) -> dict:
+    """The kernels' launch counts of a service, from its ``status``."""
+    return json.loads(client.get_service_status()["status"])["kernel_launches"]
+
+
+def launches_since(client, before: dict, what: str) -> dict:
+    """The service's launches since ``before``; raises unless ``ctc_topk``,
+    which every recognize request of the fused path runs, rose."""
+    delta = {k: n - before[k] for k, n in service_launches(client).items()}
+    if delta["ctc_topk"] < 1:
+        raise AssertionError(f"the {what} requests never launched ctc_topk: {delta}")
+    return delta
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1178,10 +1207,12 @@ class Smoke:
         try:
             walls = {"jpeg": [], "png": []}
             with OCRIPCClient(sock, timeout_ms=120000) as c:
+                before = service_launches(c)
                 for i, data in enumerate(jpegs):
                     check_words(c.send_request(req(data)).get("words"), want[i], f"jpeg scene {i}")
                 for name, data in others.items():
                     check_words(c.send_request(req(data)).get("words"), want_others[name], name)
+                self.launches["jpeg service"] = launched = launches_since(c, before, "JPEG")
 
                 def timed(kind):
                     for i in range(8):
@@ -1205,6 +1236,7 @@ class Smoke:
                 "4:2:2) and as PNG, 16 requests each in turns; the progressive scene0 and a "
                 "CMYK crop of it answered as in process",
                 "words_progressive_cmyk": [len(w) for w in want_others.values()],
+                "launches_of_4_jpeg_requests": launched,
                 "jpeg_bytes": [len(j) for j in jpegs], "png_bytes": [len(p) for p in pngs],
                 "jpeg_request_p50_ms": statistics.median(walls["jpeg"]),
                 "png_request_p50_ms": statistics.median(walls["png"]), "card": card_line()}),
@@ -1215,6 +1247,84 @@ class Smoke:
                 proc.wait(timeout=10)
 
     # -- 13 --------------------------------------------------------------
+    def image_formats(self):
+        from ppocr_tpu_torch.ops import native
+        from ppocr_tpu_torch.serve import OCRIPCClient
+        from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png, sniff_format
+
+        t0 = time.perf_counter()
+        lib = native.build(native.BMP_RLE_SOURCE)
+        print(f"bmp rle decoder build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+        cases = self.assets.load_image_cases()
+        counts = {}  # format → [cases, of them None]
+        timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle")
+        ms = {n: [] for n in timed}
+        logging.disable(logging.WARNING)  # each refusal logs a line
+        try:
+            for name, (data, want) in cases.items():
+                got = decode_image(data)
+                count = counts.setdefault(sniff_format(data), [0, 0])
+                count[0] += 1
+                if want is None:
+                    if got is not None:
+                        raise AssertionError(f"case {name}: decoded where cv2 gives None")
+                    count[1] += 1
+                elif got is None or got.shape != want.shape or not (got == want).all():
+                    raise AssertionError(f"case {name}: the decode differs from cv2's")
+            for _ in range(26):
+                for name in timed:  # in turns
+                    t1 = time.perf_counter()
+                    decode_image(cases[name][0])
+                    ms[name].append((time.perf_counter() - t1) * 1e3)
+        finally:
+            logging.disable(logging.NOTSET)
+        # through the service: the scene as a 24-bit BMP (by path: 2.4 MB is
+        # over the 1 MB message limit) and its grey as an RLE8 BMP (as data),
+        # each beside the PNG of the same pixels
+        pairs = {n: (cases[n][0], encode_png(decode_image(cases[n][0]))) for n in timed[:2]}
+        bmp_path = os.path.join(self.tmp.name, "scene0.bmp")
+        with open(bmp_path, "wb") as f:
+            f.write(cases["scene0_bmp24"][0])
+
+        def req(data):
+            if data is cases["scene0_bmp24"][0]:
+                return {"command": "recognize", "image_path": bmp_path}
+            return {"command": "recognize", "image_data": base64.b64encode(data).decode()}
+
+        sock = os.path.join(self.tmp.name, "formats.sock")
+        proc, lines = self.start_service(sock, {"--warmup": "full"})
+        words = {}
+        try:
+            with OCRIPCClient(sock, timeout_ms=120000) as c:
+                before = service_launches(c)
+                got = {name: c.send_request(req(bmp)) for name, (bmp, _) in pairs.items()}
+                self.launches["bmp service"] = launched = launches_since(c, before, "BMP")
+                for name, (_, png) in pairs.items():
+                    want = c.send_request(req(png))
+                    if not got[name].get("success") or not want.get("words"):
+                        raise AssertionError(f"{name}: {str(got[name])[:200]} / {str(want)[:200]}")
+                    check_words(got[name]["words"], want["words"], f"{name} as BMP vs PNG")
+                    words[name] = len(got[name]["words"])
+                if c.send_shutdown_command().get("success") is not True:
+                    raise AssertionError("shutdown was not acknowledged")
+            if proc.wait(timeout=30) != 0:
+                raise AssertionError("the service exited with an error:\n" + "\n".join(lines[-20:]))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        print(json.dumps({
+            "image_formats_vs_cv2": f"{len(cases)} committed cases equal cv2's answer, "
+            f"{sum(c[1] for c in counts.values())} of them None",
+            "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
+            **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed},
+            "bytes": {n[len("scene0_"):]: len(cases[n][0]) for n in timed},
+            "bmp_service_words": words, "launches_of_2_bmp_requests": launched,
+            "what": "host wall ms, median of 25 after one untimed, the five payloads in turns; "
+            "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's",
+            "card": card_line()}), flush=True)
+
+    # -- 14 --------------------------------------------------------------
     def train_batches(self):
         """Numpy rec batches (8 crops of the golden words at 48×320, T = 40)
         and det batches (2 × 256×256 scene cuts with box masks)."""
@@ -1329,7 +1439,7 @@ class Smoke:
                           "per_seq_card": v.tolist(),
                           "grad_max_abs_diff": float((g - gc).abs().max())}), flush=True)
 
-    # -- 14 --------------------------------------------------------------
+    # -- 15 --------------------------------------------------------------
     def finetune(self):
         import numpy as np
 
@@ -1413,7 +1523,7 @@ class Smoke:
             "golden_texts_read": read, "launches_serving_tuned": counts, "card": card_line()}),
             flush=True)
 
-    # -- 15 --------------------------------------------------------------
+    # -- 16 --------------------------------------------------------------
     def det_train(self):
         from ppocr_tpu_torch.models import init_det_params
         from ppocr_tpu_torch.train import make_det_train_step
@@ -1655,6 +1765,7 @@ def main() -> int:
     smoke.phase("processes", smoke.processes)
     smoke.phase("jpeg vs cv2", smoke.jpeg_vs_cv2)
     smoke.phase("jpeg service", smoke.jpeg_service)
+    smoke.phase("image formats vs cv2", smoke.image_formats)
     smoke.phase("train parity", smoke.train_parity)
     smoke.phase("finetune", smoke.finetune)
     smoke.phase("det train", smoke.det_train)

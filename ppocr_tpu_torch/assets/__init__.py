@@ -19,6 +19,13 @@ progressive, CMYK / YCCK and arithmetic-coded JPEGs, Adam7 PNGs, and
 cut and garbled JPEGs. ``tests/test_torch_jpeg.py --write`` regenerates
 it.
 
+``image_cases.npz`` holds, in the same layout, the BMP (every depth,
+compression and header kind, garbled and cut files), PPM/PGM/PBM/PAM,
+Sun raster and damaged-zlib PNG payloads, and the first serving scene as
+a 24-bit BMP, an RLE8 BMP of its grey, a binary PPM and a standard and a
+byte-encoded Sun raster (the smoke run's timing inputs).
+``tests/test_torch_image_formats.py --write`` regenerates it.
+
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
 5,008-way head) and ``weights/jumbo_keys.txt``. It has no orientation
@@ -44,6 +51,7 @@ ASSETS = Path(__file__).resolve().parent
 SCENES = ASSETS / "scenes.npz"
 GOLDENS = ASSETS / "goldens.json"
 JPEG_CASES = ASSETS / "jpeg_cases.npz"
+IMAGE_CASES = ASSETS / "image_cases.npz"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
@@ -110,6 +118,19 @@ def load_jpeg_cases():
         cases = {n: (data[f"{n}/bytes"].tobytes(), decode_of(n)) for n in names}
         texts = [str(t) for t in data["crop_texts"]]
     return cases, texts
+
+
+def load_image_cases() -> dict:
+    """{case name: (payload bytes, cv2's [H, W, 3] BGR decode, or None
+    where cv2 returns None)} of ``image_cases.npz``."""
+    with np.load(IMAGE_CASES) as data:
+        def decode_of(n):  # a case may share another's decode ("same_as")
+            if f"{n}/none" in data.files:
+                return None
+            return data[f"{data[f'{n}/same_as']}/cv2" if f"{n}/same_as" in data.files else f"{n}/cv2"]
+
+        names = sorted({k.rsplit("/", 1)[0] for k in data.files if k.endswith("/bytes")})
+        return {n: (data[f"{n}/bytes"].tobytes(), decode_of(n)) for n in names}
 
 
 def match_staged_words(got, want, box_tol: int = 2):

@@ -1,5 +1,6 @@
 """Build and ctypes bindings of the port's host C++: the DB-postprocess
-core, ``csrc/dbpost.cpp``, and the JPEG decoder, ``csrc/jpeg.cpp``.
+core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, and the
+BMP run-length decoder, ``csrc/bmp_rle.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -35,10 +36,12 @@ from .kernels import BUILD_DIR, CSRC
 
 SOURCE = CSRC / "dbpost.cpp"
 JPEG_SOURCE = CSRC / "jpeg.cpp"
+BMP_RLE_SOURCE = CSRC / "bmp_rle.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
 _jpeg_lib = None
+_bmp_rle_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -206,3 +209,35 @@ def jpeg_decode(data: bytes) -> Tuple[int, Optional[np.ndarray], int]:
     if status:
         return status, None, 0
     return 0, out, int(info[2])
+
+
+def load_bmp_rle_library() -> ctypes.CDLL:
+    """Build (if needed) and load the BMP run-length decoder."""
+    global _bmp_rle_lib
+    with _lock:
+        if _bmp_rle_lib is None:
+            lib = ctypes.CDLL(str(build(BMP_RLE_SOURCE)))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.bmp_rle_decode.restype = ctypes.c_int
+            lib.bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                                           ctypes.c_int32, ctypes.c_int32, u8p, u8p]
+            _bmp_rle_lib = lib
+    return _bmp_rle_lib
+
+
+def bmp_rle_decode(data: bytes, offset: int, width: int, height: int, bits: int,
+                   palette: np.ndarray) -> Tuple[int, np.ndarray]:
+    """The BI_RLE8 (``bits`` 8) or BI_RLE4 (4) stream of a BMP from byte
+    ``offset`` → (status, [height, width, 3] BGR uint8 in the stream's row
+    order). ``palette`` is [256, 4] uint8 (B, G, R, reserved). Status 0 is
+    success; 1: the data ends before the image does; 2: a run passes the
+    end of its row. The image is only meaningful on status 0."""
+    pal = np.ascontiguousarray(palette, np.uint8)
+    if pal.shape != (256, 4) or bits not in (4, 8) or width <= 0 or height <= 0:
+        raise ValueError(f"bmp_rle_decode: palette {pal.shape}, {bits} bits, {width}x{height}")
+    lib = load_bmp_rle_library()
+    out = np.zeros((height, width, 3), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    status = lib.bmp_rle_decode(data, len(data), offset, width, height, bits, pal.ctypes.data_as(u8p),
+                                out.ctypes.data_as(u8p))
+    return status, out

@@ -23,8 +23,8 @@ Counters: total_requests / successful_requests / average_processing_time_ms
 are all real here — the reference declares but never increments the latter
 two (latent bug, ocr_ipc_service.h:91-93).
 
-Images are decoded by ``utils.imcodec`` (PNG, BMP and JPEG, as cv2
-decodes them): a payload it cannot decode gets the reference's own error
+Images are decoded by ``utils.imcodec`` (PNG, BMP, JPEG, PPM/PGM/PBM/PAM
+and Sun raster, as cv2 decodes them): a payload it cannot decode gets the reference's own error
 response.
 """
 

@@ -10,8 +10,30 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   ``IMREAD_COLOR`` does. The chunks are read as cv2 reads them: the data
   must run to a whole IEND chunk, a critical chunk with a bad CRC or an
   unknown critical chunk refuses the image, an ancillary chunk with a bad
-  CRC is dropped.
-* **BMP** (numpy), uncompressed: 24- and 32-bit, and 8-bit with a palette.
+  CRC is dropped. The zlib stream is inflated as libpng 1.6 inflates it,
+  row by row over 8192-byte slices of the IDAT data, so a damaged stream
+  gives libpng's answer: an error while the rows are filled refuses the
+  image, one after the last row is a warning and the damaged rows stand.
+* **BMP** (numpy; run-length streams in ``csrc/bmp_rle.cpp``, host C++
+  built at first use by ``ops.native``), as OpenCV's ``grfmt_bmp.cpp``
+  reads it: OS/2 core, 40-byte, V4 and V5 headers; 1-, 4- and 8-bit
+  palette images (an index past the colour table is black), ``BI_RLE4``
+  and ``BI_RLE8`` with their end-of-line, end-of-bitmap and delta codes,
+  16-bit 555 and 565 (channels shifted up, no bit replication; other
+  16-bit masks are refused), 24-bit, and 32-bit, whose ``BI_BITFIELDS``
+  masks apply only under a header of 56 bytes or more; bottom-up and
+  top-down rows.
+* **PPM / PGM / PBM / PAM** (numpy), as ``grfmt_pxm.cpp`` and
+  ``grfmt_pam.cpp`` read them: P1–P6, ASCII and binary, comments, maxval
+  1–65535 (16-bit samples keep their high byte, unscaled; ASCII samples
+  below 256 are scaled to 0–255, binary ones are not), P1 and P4 with 1
+  black; P7 with the TUPLTYPEs GRAYSCALE, GRAYSCALE_ALPHA, RGB, RGB_ALPHA
+  and BLACKANDWHITE as cv2 maps them (an RGB tuple lands in B, G, R as
+  stored; of a DEPTH 2 or 4 row cv2 writes only the first
+  ceil(width / DEPTH) pixels, and here the rest are 0).
+* **Sun raster** (numpy), as ``grfmt_sunras.cpp`` reads it: types 0 and
+  1 at 1, 8, 24 and 32 bits, with no colour map or an RGB one. cv2 5.0
+  refuses the byte-encoded (2) and RGB (3) types, and so does this module.
 * **JPEG**, 8-bit sequential and progressive, Huffman or arithmetic coded
   (SOF0, SOF1, SOF2, SOF9, SOF10), one, three or four (CMYK / YCCK)
   components, any integral sampling, restart intervals:
@@ -25,13 +47,15 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   reach EOI, gives ``None``. The EXIF orientation is applied as
   ``cv2.imdecode`` applies it; grey comes out as three equal channels.
 
-Refused with ``None`` and a log line naming the reason, as cv2 refuses
-them on the repo's cases: lossless, hierarchical and 12-bit JPEGs. And,
-named by their sniffed format, what cv2 decodes and this module does not
-(``FORMAT_NAMES``): GIF, WebP, TIFF, JPEG 2000, PPM/PGM/PBM, Sun raster,
-AVIF, PFM and Radiance HDR. ``None`` becomes the reference's own error response in the
-service. A JPEG decode raises when the decoder cannot be built: a missing
-compiler is not a bad image.
+Cut and corrupt data get cv2's answer in every format. Every ``None``
+logs one warning that names the format and the reason: cv2's own
+refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
+over ``imdecode``'s size limits (where cv2 raises), and, named by their
+sniffed format, what cv2 decodes and this module does not
+(``FORMAT_NAMES``): GIF, WebP, TIFF, JPEG 2000, AVIF, PFM and Radiance
+HDR. ``None`` becomes the reference's own error response in the service.
+A JPEG or run-length BMP decode raises when its host C++ cannot be built:
+a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -39,7 +63,10 @@ compiler is not a bad image.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import logging
+import re
 import struct
 import zlib
 from typing import Optional
@@ -53,7 +80,7 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type → samples per pi
 
 
 def sniff_format(data: bytes) -> str:
-    """Name of the container by its magic bytes: one of ``FORMAT_NAMES``'
+    """Name of the container by its magic bytes: one of ``FORMAT_LABELS``'
     keys or "unknown"."""
     if data[:8] == PNG_MAGIC:
         return "png"
@@ -82,18 +109,27 @@ def sniff_format(data: bytes) -> str:
     return "unknown"
 
 
-# the formats that cv2 decodes and this module does not, by their sniffed name
-FORMAT_NAMES = {
+# every sniffed format's display name; those without a decoder in
+# ``_DECODERS`` are the ones cv2 decodes and this module does not
+FORMAT_LABELS = {
+    "png": "PNG",
+    "bmp": "BMP",
+    "jpeg": "JPEG",
+    "pnm": "PPM/PGM/PBM/PAM",
+    "sunraster": "Sun raster",
     "gif": "GIF",
     "webp": "WebP",
     "tiff": "TIFF",
     "jpeg2000": "JPEG 2000",
-    "pnm": "PPM/PGM/PBM",
-    "sunraster": "Sun raster",
     "avif": "AVIF",
     "pfm": "PFM",
     "hdr": "Radiance HDR",
 }
+
+
+class _Refused(Exception):
+    """A payload that cv2 5.0 does not decode either; the message is the
+    reason, logged by ``decode_image``."""
 
 
 # -- PNG ----------------------------------------------------------------------
@@ -170,8 +206,8 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 
 
 def _png_chunks(data: bytes):
-    """(IHDR fields, palette or None, the IDAT data) as cv2 5.0 reads the
-    chunk stream, or ``None``. IHDR comes first; every chunk up to and
+    """(IHDR fields, palette or None, the IDAT chunks' bodies) as cv2 5.0
+    reads the chunk stream, or ``_Refused``. IHDR comes first; every chunk up to and
     including IEND is whole (IEND's CRC is not checked); a critical chunk
     with a bad CRC, an unknown critical chunk or IDATs that are not
     consecutive refuse the image; an ancillary chunk with a bad CRC is
@@ -182,22 +218,22 @@ def _png_chunks(data: bytes):
     idat_closed = False
     while True:
         if pos + 8 > len(data):
-            return None  # the data ends before IEND
+            raise _Refused("the data ends before IEND")
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
         end = pos + 12 + length
         if end > len(data):
-            return None
+            raise _Refused(f"the data ends inside a {ctype!r} chunk")
         body = data[pos + 8 : end - 4]
         crc_ok = struct.unpack(">I", data[end - 4 : end])[0] == zlib.crc32(ctype + body) & 0xFFFFFFFF
         first, pos = pos == 8, end
         if first != (ctype == b"IHDR"):
-            return None
+            raise _Refused("IHDR is not the first chunk")
         if ctype == b"IEND":
             break
         critical = not ctype[0] & 0x20
         if not crc_ok:
             if critical:
-                return None
+                raise _Refused(f"a bad CRC on the critical chunk {ctype!r}")
             continue
         if idat and ctype != b"IDAT":
             idat_closed = True
@@ -207,11 +243,11 @@ def _png_chunks(data: bytes):
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             if idat_closed:
-                return None
+                raise _Refused("IDAT chunks that are not consecutive")
             idat.append(body)
         elif critical:
-            return None
-    return ihdr, palette, b"".join(idat)
+            raise _Refused(f"the unknown critical chunk {ctype!r}")
+    return ihdr, palette, idat
 
 
 def _unfilter(lines: np.ndarray, bpp: int) -> Optional[np.ndarray]:
@@ -242,29 +278,143 @@ def _unpack(rows: np.ndarray, w: int, nch: int, depth: int, ctype: int) -> np.nd
     return values[..., None]
 
 
-def _decode_png(data: bytes) -> Optional[np.ndarray]:
+# libpng's IDAT reader (pngrutil.c png_read_IDAT_data), as cv2 drives it
+PNG_IDAT_READ_SIZE = 8192  # libpng feeds inflate at most this many bytes at a time
+_Z_OK, _Z_STREAM_END, _Z_NO_FLUSH = 0, 1, 0
+
+
+class _ZStream(ctypes.Structure):
+    """zlib's ``z_stream``."""
+
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint), ("total_in", ctypes.c_ulong),
+                ("next_out", ctypes.c_void_p), ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p), ("zalloc", ctypes.c_void_p),
+                ("zfree", ctypes.c_void_p), ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+_libz = None
+
+
+def _zlib() -> ctypes.CDLL:
+    """The zlib shared library that Python's ``zlib`` module is built on,
+    for ``inflate`` calls with libpng's output sizes: the module's
+    ``decompress(data, max_length)`` splits a call's output at 32 KiB, and
+    a match may reach back over the bytes of the same call only."""
+    global _libz
+    if _libz is None:
+        path = "libz.so.1"
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            path = ctypes.util.find_library("z")
+            if path is None:
+                raise RuntimeError("zlib's shared library (libz) cannot be loaded: a damaged PNG stream "
+                                   "cannot be read as libpng reads it") from None
+            lib = ctypes.CDLL(path)
+        lib.zlibVersion.restype = ctypes.c_char_p
+        lib.inflateInit2_.argtypes = [ctypes.POINTER(_ZStream), ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        lib.inflate.argtypes = [ctypes.POINTER(_ZStream), ctypes.c_int]
+        lib.inflateEnd.argtypes = [ctypes.POINTER(_ZStream)]
+        _libz = lib
+    return _libz
+
+
+def _inflate_rows(chunks, row_lens) -> bytes:
+    """The image rows of the IDAT chunks' zlib stream as libpng 1.6 reads
+    them (``png_read_IDAT_data``), or ``_Refused``.
+
+    libpng inflates one row at a time (``avail_out`` is that row's bytes),
+    feeding each IDAT chunk in slices of at most 8192 bytes. A zlib error
+    while a row is filled is fatal. After the last row it drains the rest
+    of the stream through a 1024-byte buffer: an error there is a benign
+    error (a warning on read) and the image stands. zlib goes on past a
+    row's last byte as far as the codes need no output, into the
+    end-of-block code and the Adler-32 trailer when the slice holds them:
+    so a bad trailer in the last row's slice is fatal, and one in a later
+    slice is not. A match may reach back over the bytes written in the same
+    ``inflate`` call and the window the stream's header declares."""
+    total = sum(row_lens)
+    joined = b"".join(chunks)
+    # One call when the answer cannot differ: a clean stream that ends with
+    # the image and whose window is 32 KiB or holds the whole image, so that
+    # no distance is valid in one call and too far back in rows
+    if joined and (joined[0] >> 4 == 7 or total <= 1 << ((joined[0] >> 4) + 8)):
+        d = zlib.decompressobj(0)
+        try:
+            flat = d.decompress(joined, total)
+            if len(flat) == total and d.eof and not d.unused_data and not d.unconsumed_tail:
+                return flat
+        except zlib.error:
+            pass
+    lib = _zlib()
+    src = ctypes.create_string_buffer(joined, len(joined))
+    slices, at = [], ctypes.addressof(src)
+    for c in chunks:
+        slices += [(at + i, min(PNG_IDAT_READ_SIZE, len(c) - i)) for i in range(0, len(c), PNG_IDAT_READ_SIZE)]
+        at += len(c)
+    slices = iter(slices)
+    out, spill = ctypes.create_string_buffer(total), ctypes.create_string_buffer(1024)
+    z = _ZStream()
+    # windowBits 0: the window the stream's header declares, as libpng asks
+    if lib.inflateInit2_(ctypes.byref(z), 0, lib.zlibVersion(), ctypes.sizeof(_ZStream)) != _Z_OK:
+        raise RuntimeError("zlib's inflateInit2 failed")
+
+    def inflate(avail_out: int) -> int:
+        if not z.avail_in:
+            z.next_in, z.avail_in = next(slices, (None, 0))
+            if not z.avail_in:
+                return -1
+        z.avail_out = avail_out
+        return lib.inflate(ctypes.byref(z), _Z_NO_FLUSH)
+
+    try:
+        z.next_out = ctypes.addressof(out)
+        ended = False
+        for n in row_lens:
+            goal = z.total_out + n
+            while z.total_out < goal:
+                if ended:
+                    raise _Refused("the zlib stream ends before the image does")
+                ret = inflate(goal - z.total_out)
+                if ret == -1:
+                    raise _Refused("the IDAT data ends before the image does")
+                if ret == _Z_STREAM_END:
+                    ended = True
+                elif ret != _Z_OK:
+                    raise _Refused(f"zlib error inside the image rows ({(z.msg or b'').decode()})")
+        extra = 0  # the drain: each call to a 1024-byte buffer, until a call gives nothing
+        while not ended:
+            z.next_out = ctypes.addressof(spill)
+            before = z.total_out
+            ret = inflate(1024)
+            if ret == -1:  # libpng reads the next chunk header, which is no IDAT
+                raise _Refused("the zlib stream does not end before the IDAT data does")
+            extra += z.total_out - before
+            if ret != _Z_OK or not extra:  # the end, a benign error (libpng warns), or nothing more
+                break
+        return out.raw
+    finally:
+        lib.inflateEnd(ctypes.byref(z))
+
+
+def _decode_png(data: bytes) -> np.ndarray:
     chunks = _png_chunks(data)
-    if chunks is None:
-        return None
     ihdr, palette, idat = chunks
     if ihdr is None or not idat:
-        return None
+        raise _Refused("no IHDR or no IDAT chunk")
     w, h, depth, ctype, comp, filt, interlace = ihdr
     if w == 0 or h == 0 or comp != 0 or filt != 0 or ctype not in _CHANNELS or interlace > 1:
-        return None
+        raise _Refused(f"IHDR fields libpng refuses ({w}x{h}, colour type {ctype}, method {comp}/{filt}/{interlace})")
     if w > 1_000_000 or h > 1_000_000 or w * h > 1 << 30:  # libpng's user limits, OpenCV's pixel limit
-        return None
+        raise _Refused(f"too large ({w}x{h})")
     if depth not in ((1, 2, 4, 8) if ctype == 3 else (1, 2, 4, 8, 16) if ctype == 0 else (8, 16)):
-        return None
+        raise _Refused(f"bit depth {depth} with colour type {ctype}")
     if ctype == 3 and palette is None:
-        return None
+        raise _Refused("a palette image without PLTE")
     nch = _CHANNELS[ctype]
     bits = nch * depth
     bpp = max(1, bits // 8)  # the filters' byte distance to the "left" pixel
-    try:
-        flat = zlib.decompress(idat)
-    except zlib.error:
-        return None
     # each pass: (its pixels' place in the image, its width and height);
     # a pass with no columns or no rows has no bytes, not even filter bytes
     passes = [((slice(None), slice(None)), w, h)]
@@ -272,8 +422,8 @@ def _decode_png(data: bytes) -> Optional[np.ndarray]:
         passes = [((slice(y0, None, dy), slice(x0, None, dx)), (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy)
                   for x0, y0, dx, dy in _ADAM7]
         passes = [p for p in passes if p[1] > 0 and p[2] > 0]
-    if len(flat) < sum(ph * ((pw * bits + 7) // 8 + 1) for _, pw, ph in passes):
-        return None
+    row_lens = [(pw * bits + 7) // 8 + 1 for _, pw, ph in passes for _ in range(ph)]
+    flat = _inflate_rows(idat, row_lens)
     samples = np.empty((h, w, nch), np.uint8)
     at = 0
     for where, pw, ph in passes:
@@ -282,7 +432,7 @@ def _decode_png(data: bytes) -> Optional[np.ndarray]:
         at += ph * (stride + 1)
         rows = _unfilter(lines, bpp)
         if rows is None:
-            return None
+            raise _Refused("a row filter type above 4")
         samples[where] = _unpack(rows, pw, nch, depth, ctype)
     if ctype == 3:  # libpng keeps 256 entries, zero past the PLTE's: black
         full = np.zeros((256, 3), np.uint8)
@@ -338,43 +488,359 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 
 
 # -- BMP ----------------------------------------------------------------------
+# OpenCV's grfmt_bmp.cpp as cv2 5.0 runs it
 
 
-def _decode_bmp(data: bytes) -> Optional[np.ndarray]:
-    if len(data) < 54:
-        return None
-    offset = struct.unpack("<I", data[10:14])[0]
-    hdr_size, w, h, planes, bits, comp = struct.unpack("<IiiHHI", data[14:34])
-    if hdr_size < 40 or planes != 1 or w <= 0 or h == 0:
-        return None
-    # 0: BI_RGB; 3: BI_BITFIELDS, taken only in its usual 32-bit BGRA layout
-    if comp == 3 and bits == 32 and len(data) >= 66:
-        if struct.unpack("<III", data[54:66]) != (0xFF0000, 0xFF00, 0xFF):
-            return None
-    elif comp != 0:
-        return None
-    if bits not in (8, 24, 32):
-        return None
-    rows = abs(h)
-    stride = (w * bits + 31) // 32 * 4
-    if len(data) < offset + rows * stride:
-        return None
-    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
-    if bits == 8:
-        n_colors = struct.unpack("<I", data[46:50])[0] or 256
-        table_at = 14 + hdr_size
-        if len(data) < table_at + 4 * n_colors:
-            return None
-        table = np.frombuffer(data, np.uint8, 4 * n_colors, table_at).reshape(-1, 4)
-        idx = px[:, :w]
-        if int(idx.max()) >= n_colors:
-            return None
-        bgr = table[idx][..., :3]
+def _u32(data: bytes, at: int) -> int:
+    """OpenCV's getDWord: four bytes past the end end the stream."""
+    if at + 4 > len(data):
+        raise _Refused("the data ends inside the header")
+    return int.from_bytes(data[at : at + 4], "little")
+
+
+def _i32(data: bytes, at: int) -> int:
+    v = _u32(data, at)
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _check_size(w: int, h: int):
+    """imdecode's own limits; cv2 raises where they are passed."""
+    if w > 1 << 20 or h > 1 << 20 or w * h > 1 << 30:
+        raise _Refused(f"too large ({w}x{h}; cv2.imdecode raises)")
+
+
+def _bmp_header(data: bytes):
+    """(width, height, bits, compression, palette [256, 4] or None,
+    32-bit masks (R, G, B) or None) as BmpDecoder::readHeader reads them;
+    bits 15 is 16-bit 555, 16 is 565."""
+    size = _i32(data, 14)
+    palette = masks = None
+    if size >= 36:
+        w, h = _i32(data, 18), _i32(data, 22)
+        bits, comp = _i32(data, 26) >> 16, _i32(data, 30)
+        if not 0 <= comp <= 3:
+            raise _Refused(f"compression {comp}")
+        clrused = _i32(data, 46)
+        if bits == 32 and comp == 3 and size >= 56:
+            masks = [_u32(data, 54 + 4 * k) for k in range(3)]  # R, G, B
+        ok = w > 0 and h != 0 and (
+            (bits in (1, 4, 8, 24, 32) and comp == 0) or (bits in (16, 32) and comp in (0, 3))
+            or (bits == 4 and comp == 2) or (bits == 8 and comp == 1))
+        if not ok:
+            raise _Refused(f"{w}x{h} at {bits} bits, compression {comp}")
+        table_at = 14 + size
+        if bits <= 8:
+            if not 0 <= clrused <= 256:
+                raise _Refused(f"a colour table of {clrused} entries")
+            n = clrused or 1 << bits
+            if table_at + 4 * n > len(data):
+                raise _Refused("the data ends inside the colour table")
+            palette = np.zeros((256, 4), np.uint8)
+            palette[:n] = np.frombuffer(data, np.uint8, 4 * n, table_at).reshape(n, 4)
+        elif bits == 16:
+            if comp == 3:  # the masks follow the header; only 555 and 565 are taken
+                red, green, blue = (_u32(data, table_at + 4 * k) for k in range(3))
+                if (red, green, blue) == (0x7C00, 0x3E0, 0x1F):
+                    bits = 15
+                elif (red, green, blue) != (0xF800, 0x7E0, 0x1F):
+                    raise _Refused(f"16-bit masks {red:#x}/{green:#x}/{blue:#x}")
+            else:
+                bits = 15
+    elif size == 12:  # OS/2 core header: 16-bit sizes, 3-byte colour table entries
+        if len(data) < 26:
+            raise _Refused("the data ends inside the header")
+        w, h = struct.unpack("<HH", data[18:22])
+        bits, comp = _u32(data, 22) >> 16, 0
+        if w == 0 or h == 0 or bits not in (1, 4, 8, 24, 32):
+            raise _Refused(f"{w}x{h} at {bits} bits (OS/2 header)")
+        if bits <= 8:
+            n = 1 << bits
+            if 26 + 3 * n > len(data):
+                raise _Refused("the data ends inside the colour table")
+            palette = np.zeros((256, 4), np.uint8)
+            palette[:n, :3] = np.frombuffer(data, np.uint8, 3 * n, 26).reshape(n, 3)
     else:
-        bgr = px[:, : w * bits // 8].reshape(rows, w, bits // 8)[..., :3]
+        raise _Refused(f"an info header of {size} bytes")
+    return w, h, bits, comp, palette, masks
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    offset = _i32(data, 10)
+    w, h, bits, comp, palette, masks = _bmp_header(data)
+    rows = abs(h)
+    _check_size(w, rows)
+    if rows * w * 3 >= 1 << 30:
+        raise _Refused(f"too large for OpenCV's BMP reader ({w}x{rows})")
+    if offset < 0:
+        raise _Refused(f"a pixel data offset of {offset}")
+    if comp in (1, 2):
+        from ..ops import native  # builds csrc/bmp_rle.cpp at first use; raises if it cannot
+
+        status, img = native.bmp_rle_decode(data, offset, w, rows, bits, palette)
+        if status:
+            raise _Refused("the data ends before the image does" if status == 1
+                           else "a run past the end of its row")
+        return np.ascontiguousarray(img[::-1]) if h > 0 else img
+    stride = ((w * (16 if bits == 15 else bits) + 7) // 8 + 3) & ~3
+    if offset + rows * stride > len(data):
+        raise _Refused("the data ends before the image does")
+    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if bits <= 8:  # indices into the 256 entries; past the file's table they are black
+        if bits == 8:
+            idx = px[:, :w]
+        else:
+            idx = np.unpackbits(px, axis=1)[:, : w * bits].reshape(rows, w, bits).dot(1 << np.arange(bits)[::-1])
+        bgr = palette[idx, :3]
+    elif bits in (15, 16):  # channels shifted up, low bits zero
+        v = px[:, : 2 * w].view("<u2").astype(np.uint16)
+        if bits == 15:
+            bgr = np.stack([v << 3, (v >> 2) & 0xF8, (v >> 7) & 0xF8], axis=2)
+        else:
+            bgr = np.stack([v << 3, (v >> 3) & 0xFC, (v >> 8) & 0xF8], axis=2)
+        bgr = bgr.astype(np.uint8)
+    elif bits == 24:
+        bgr = px[:, : 3 * w].reshape(rows, w, 3)
+    elif masks is None or 0 in masks:  # 32 bits: B, G, R, unused
+        bgr = px[:, : 4 * w].reshape(rows, w, 4)[..., :3]
+    else:  # BI_BITFIELDS under a header of 56 bytes or more: each channel
+        # shifted down and scaled to 0–255 in float, as OpenCV does
+        v = px[:, : 4 * w].view("<u4")
+        chans = []
+        for mask in masks[::-1]:
+            shift = (mask & -mask).bit_length() - 1
+            scale = np.float32(255) / np.float32(mask >> shift)
+            chans.append((((v & mask) >> shift).astype(np.float32) * scale).astype(np.int64) & 0xFF)
+        bgr = np.stack(chans, axis=2).astype(np.uint8)
     if h > 0:  # bottom-up
         bgr = bgr[::-1]
     return np.ascontiguousarray(bgr)
+
+
+# -- PPM / PGM / PBM / PAM -----------------------------------------------------
+# OpenCV's grfmt_pxm.cpp (P1–P6) and grfmt_pam.cpp (P7)
+
+_SPACE = b" \t\n\r\x0b\x0c"
+
+
+class _Bytes:
+    """OpenCV's RLByteStream over ``data``: a byte past the end ends the
+    decode."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise _Refused("the data ends before the image does")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def number(self, maxdigits: int = 0) -> int:
+        """PxMDecoder's ReadNumber: whitespace and ``#`` comments are
+        skipped, the first byte after the digits is consumed (a byte must
+        be there), any other byte is an error."""
+        code = self.byte()
+        while not 48 <= code <= 57:
+            if code == 35:  # '#': to the end of the line
+                while code not in (10, 13):
+                    code = self.byte()
+                code = self.byte()
+            elif code in _SPACE:
+                while code in _SPACE:
+                    code = self.byte()
+            else:
+                raise _Refused(f"the byte {code:#x} where a number should be")
+        val = digits = 0
+        while True:
+            val = val * 10 + code - 48
+            if val > 0x7FFFFFFF:
+                raise _Refused("a number above INT_MAX")
+            digits += 1
+            if maxdigits and digits >= maxdigits:
+                return val
+            code = self.byte()
+            if not 48 <= code <= 57:
+                return val
+
+
+def _ascii_samples(s: _Bytes, n: int, maxdigits: int = 0) -> np.ndarray:
+    """``n`` numbers read as ReadNumber reads them, as int64."""
+    return np.array([s.number(maxdigits) for _ in range(n)], np.int64)
+
+
+def _decode_pxm(data: bytes) -> np.ndarray:
+    kind = data[1] - 48
+    s = _Bytes(data, 2)
+    w, h = s.number(), s.number()
+    maxval = 1 if kind in (1, 4) else s.number()
+    if maxval > 65535:
+        raise _Refused(f"maxval {maxval}")
+    if w <= 0 or h <= 0 or maxval <= 0:
+        raise _Refused(f"{w}x{h}, maxval {maxval}")
+    _check_size(w, h)
+    nch = 3 if kind in (3, 6) else 1
+    if kind in (1, 4):  # 1 is black, 0 white
+        if kind == 1:
+            bits = _ascii_samples(s, w * h, maxdigits=1).reshape(h, w) != 0
+        else:
+            pitch = (w + 7) // 8
+            if s.pos + h * pitch > len(data):
+                raise _Refused("the data ends before the image does")
+            raw = np.frombuffer(data, np.uint8, h * pitch, s.pos).reshape(h, pitch)
+            bits = np.unpackbits(raw, axis=1)[:, :w] != 0
+        grey = np.where(bits, 0, 255).astype(np.uint8)
+        return np.ascontiguousarray(np.repeat(grey[..., None], 3, axis=2))
+    wide = maxval > 255  # 16-bit samples: IMREAD_COLOR keeps the high byte
+    if kind in (2, 3):  # ASCII: clipped to maxval; 8-bit samples scaled to 0–255
+        v = np.minimum(_ascii_samples(s, w * h * nch), maxval)
+        v = v >> 8 if wide else v * 255 // maxval
+    else:  # binary: as stored, not scaled, big-endian when 16-bit
+        n = w * h * nch * (2 if wide else 1)
+        if s.pos + n > len(data):
+            raise _Refused("the data ends before the image does")
+        v = np.frombuffer(data, np.uint8, n, s.pos)[:: 2 if wide else 1]
+    v = v.astype(np.uint8, copy=False).reshape(h, w, nch)
+    return np.ascontiguousarray(np.repeat(v, 3, axis=2) if nch == 1 else v[..., ::-1])
+
+
+_PAM_FIELDS = (b"HEIGHT", b"WIDTH", b"DEPTH", b"MAXVAL", b"TUPLTYPE", b"ENDHDR")
+_PAM_TUPLTYPES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2, b"RGB": 3, b"RGB_ALPHA": 4}
+
+
+def _pam_line(s: _Bytes):
+    """ReadPAMHeaderLine: (field name or None for a comment, its value)."""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    if code == 35:  # '#'
+        while code not in (10, 13):
+            code = s.byte()
+        return None, b""
+    ident = bytearray()
+    while len(ident) < 8 and code not in _SPACE:
+        ident.append(code)
+        code = s.byte()
+    ident = bytes(ident).split(b"\0")[0]  # C strings
+    if code not in _SPACE or ident not in _PAM_FIELDS:
+        raise _Refused(f"the header line {ident!r}")
+    if code in (10, 13):
+        return ident, b""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    value = bytearray()
+    while len(value) < 255 and code not in (10, 13):
+        value.append(code)
+        code = s.byte()
+    if code not in (10, 13):
+        raise _Refused("a header value over 255 bytes")
+    return ident, bytes(value).split(b"\0")[0].rstrip(_SPACE)
+
+
+def _pam_number(value: bytes) -> int:
+    """ParseInt: an optional minus sign, then decimal digits to the end of
+    the value, below INT_MAX."""
+    m = re.fullmatch(rb"-?[0-9]+", value)
+    if m is None or abs(int(value)) >= 0x7FFFFFFF:
+        raise _Refused(f"the number {value!r}")
+    return int(value)
+
+
+def _decode_pam(data: bytes) -> np.ndarray:
+    if data[2] not in (10, 13):
+        raise _Refused("no line break after P7")
+    s = _Bytes(data, 3)
+    fields, tupltype = {}, None
+    while True:
+        name, value = _pam_line(s)
+        if name == b"ENDHDR":
+            break
+        if name == b"TUPLTYPE":
+            if value not in _PAM_TUPLTYPES:
+                raise _Refused(f"TUPLTYPE {value!r}")
+            tupltype = value
+        elif name is not None:
+            if name in fields:
+                raise _Refused(f"{name.decode()} given twice")
+            fields[name] = _pam_number(value)
+    if len(fields) < 4:
+        raise _Refused(f"a header without {sorted(set(_PAM_FIELDS[:4]) - set(fields))}")
+    w, h, nch, maxval = (fields[k] for k in (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL"))
+    if maxval > 65535:  # 0 and below are read as 8-bit samples
+        raise _Refused(f"MAXVAL {maxval}")
+    if tupltype is None:
+        if nch == 3 and maxval < 256:
+            tupltype = b"RGB"
+        elif nch != 1 or maxval >= 256:
+            raise _Refused(f"no TUPLTYPE for DEPTH {nch}, MAXVAL {maxval}")
+    if tupltype is not None and _PAM_TUPLTYPES[tupltype] != nch:
+        raise _Refused(f"TUPLTYPE {tupltype.decode()} with DEPTH {nch}")
+    if w <= 0 or h <= 0:
+        raise _Refused(f"{w}x{h}")
+    _check_size(w, h)
+    wide = maxval > 255
+    n = w * h * nch * (2 if wide else 1)
+    if s.pos + n > len(data):
+        raise _Refused("the data ends before the image does")
+    v = np.frombuffer(data, np.uint8, n, s.pos)[:: 2 if wide else 1].reshape(h, w * nch)
+    if maxval == 1:  # the samples' bytes read as packed bits, 1 white
+        bits = np.unpackbits(v, axis=1)[:, :w]
+        return np.ascontiguousarray(np.repeat((bits * 255)[..., None], 3, axis=2))
+    if nch == 3:  # copied as stored: the first sample lands in blue
+        return np.ascontiguousarray(v.reshape(h, w, 3))
+    # OpenCV's conversion loop ends after W samples, not W pixels: only the
+    # first ceil(W / DEPTH) pixels of a row are written, and cv2 returns
+    # whatever memory held in the rest; here they are 0
+    out = np.zeros((h, w, 3), np.uint8)
+    k = -(-w // nch)
+    px = v[:, : k * nch].reshape(h, k, nch)
+    out[:, :k] = px[..., [2, 1, 0]] if nch == 4 else px[..., :1]
+    return out
+
+
+def _decode_netpbm(data: bytes) -> np.ndarray:
+    return _decode_pam(data) if data[1] == ord("7") else _decode_pxm(data)
+
+
+# -- Sun raster ----------------------------------------------------------------
+# OpenCV's grfmt_sunras.cpp
+
+def _decode_sunraster(data: bytes) -> np.ndarray:
+    if len(data) < 32:
+        raise _Refused("the data ends inside the header")
+    w, h, bpp, _, rtype, maptype, maplength = struct.unpack(">7i", data[4:32])
+    if rtype not in (0, 1):  # cv2 5.0's header check refuses the byte-encoded
+        # (2) and RGB (3) types whatever else the file holds
+        raise _Refused(f"raster type {rtype}" + (" (byte-encoded or RGB, which cv2 5.0 refuses)"
+                                                 if rtype in (2, 3) else ""))
+    pal_size = (1 << bpp) * 3 if 0 < bpp <= 8 else 0
+    if w <= 0 or h <= 0 or bpp not in (1, 8, 24, 32):
+        raise _Refused(f"{w}x{h} at {bpp} bits")
+    if not ((maptype == 0 and maplength == 0) or (maptype == 1 and 0 < maplength <= pal_size and bpp <= 8)):
+        raise _Refused(f"colour map type {maptype} of {maplength} bytes at {bpp} bits")
+    _check_size(w, h)
+    if 32 + maplength > len(data):
+        raise _Refused("the data ends inside the colour map")
+    if maplength:  # planes of R, then G, then B; entries past the map are black
+        n = maplength // 3
+        cmap = np.frombuffer(data, np.uint8, 3 * n, 32).reshape(3, n)
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:n] = cmap[::-1].T
+    else:  # grey ramp
+        palette = np.repeat((np.arange(256) * 255 // ((1 << min(bpp, 8)) - 1)).clip(0, 255)[:, None], 3, 1)
+        palette = palette.astype(np.uint8)
+    pitch = ((w * bpp + 7) // 8 + 1) & ~1  # rows padded to 16 bits
+    at = 32 + maplength
+    if at + h * pitch > len(data):
+        raise _Refused("the data ends before the image does")
+    px = np.frombuffer(data, np.uint8, h * pitch, at).reshape(h, pitch)
+    if bpp == 1:
+        return np.ascontiguousarray(palette[np.unpackbits(px, axis=1)[:, :w]])
+    if bpp == 8:
+        return np.ascontiguousarray(palette[px[:, :w]])
+    if bpp == 24:  # stored B, G, R
+        return np.ascontiguousarray(px[:, : 3 * w].reshape(h, w, 3))
+    return np.ascontiguousarray(px[:, : 4 * w].reshape(h, w, 4)[..., 1:])  # X, B, G, R
 
 
 # -- JPEG ---------------------------------------------------------------------
@@ -408,13 +874,12 @@ _ORIENT = {
 }
 
 
-def _decode_jpeg(data: bytes) -> Optional[np.ndarray]:
+def _decode_jpeg(data: bytes) -> np.ndarray:
     from ..ops import native  # builds csrc/jpeg.cpp at first use; raises if it cannot
 
     status, img, orientation = native.jpeg_decode(data)
     if status:
-        log.warning("JPEG payload not decoded: %s", _JPEG_REFUSED.get(status, f"status {status}"))
-        return None
+        raise _Refused(_JPEG_REFUSED.get(status, f"status {status}"))
     if orientation in _ORIENT:
         img = np.ascontiguousarray(_ORIENT[orientation](img))
     return img
@@ -422,25 +887,34 @@ def _decode_jpeg(data: bytes) -> Optional[np.ndarray]:
 
 # -- entry points -------------------------------------------------------------
 
+_DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
+             "sunraster": _decode_sunraster}
+# the formats that cv2 decodes and this module does not, by their sniffed name
+FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
+
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
-    """Encoded image bytes → [H, W, 3] BGR uint8, or ``None`` when the
-    bytes are no PNG, BMP or JPEG this module decodes."""
+    """Encoded image bytes → [H, W, 3] BGR uint8, or ``None`` where cv2
+    5.0 gives ``None`` (or raises) and for the formats this module does
+    not decode. Every ``None`` logs one warning that names the format and
+    the reason."""
     data = bytes(data)
     fmt = sniff_format(data)
-    if fmt == "jpeg":
-        return _decode_jpeg(data)
+    decoder = _DECODERS.get(fmt)
+    if decoder is None:
+        if fmt == "unknown":
+            log.warning("image payload of unknown format: not decoded")
+        else:
+            log.warning("%s payload: the format is not decoded (%s are)", FORMAT_LABELS[fmt],
+                        ", ".join(FORMAT_LABELS[k] for k in _DECODERS))
+        return None
     try:
-        if fmt == "png":
-            return _decode_png(data)
-        if fmt == "bmp":
-            return _decode_bmp(data)
-    except (struct.error, ValueError, IndexError):
-        return None  # malformed inside a well-formed container
-    if fmt == "unknown":
-        log.warning("image payload of unknown format: not decoded")
-    else:
-        log.warning("%s payload: the format is not decoded (PNG, BMP and JPEG are)", FORMAT_NAMES[fmt])
+        img = decoder(data)
+        return img if img.flags.writeable else img.copy()  # not a view of ``data``
+    except _Refused as e:
+        log.warning("%s payload not decoded: %s", FORMAT_LABELS[fmt], e)
+    except (struct.error, ValueError, IndexError) as e:  # malformed inside a well-formed container
+        log.warning("%s payload not decoded: malformed data (%s)", FORMAT_LABELS[fmt], e)
     return None
 
 

@@ -1,0 +1,824 @@
+"""The port's BMP, netpbm (PPM/PGM/PBM/PAM) and Sun raster decoders, and
+its PNG reader on damaged zlib streams, against ``cv2.imdecode(buf,
+IMREAD_COLOR)`` (OpenCV 5.0, libpng 1.6): the same ``None`` or not, and 0
+differing pixels.
+
+BMP: every depth (1, 4, 8, 16 as 555 and 565, 24, 32), every compression
+cv2 takes (``BI_RGB``, ``BI_RLE8``, ``BI_RLE4``, ``BI_BITFIELDS``), the
+OS/2 core, 40-byte, V4 and V5 headers, bottom-up and top-down rows, PIL's
+files, colour tables shorter than the indices, seeded garbled files and
+every cut of an RLE4 and an RLE8 file. The RLE streams come from a seeded
+encoder that mixes encoded and absolute runs, end-of-line, delta and
+end-of-bitmap codes.
+
+PNG: seeded zlib streams with 1–3 bytes changed and the CRC made valid
+again, interlaced and not, every colour type: libpng decodes some of them
+with a warning, and the port must give the same rows.
+
+Netpbm and Sun raster: each variant cv2 reads, and garbled and cut files.
+
+Where cv2 raises instead of returning (an image over ``imdecode``'s size
+limits) the port gives ``None``; a PAM of DEPTH 2 or 4 is compared on the
+pixels cv2 writes (``ceil(W / DEPTH)`` of each row; cv2 leaves the rest of
+its buffer as it found it).
+
+``python tests/test_torch_image_formats.py --write`` rewrites
+``ppocr_tpu_torch/assets/image_cases.npz``, the cases the card decodes (it
+has no cv2): each payload beside cv2's decode, or a flag where cv2 gives
+``None``.
+"""
+
+import io
+import logging
+import os
+import pathlib
+import struct
+import sys
+import zlib
+
+if __name__ == "__main__":
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image
+
+from ppocr_tpu_torch import assets
+from ppocr_tpu_torch.utils import imcodec
+
+
+def cv2_decode(data: bytes):
+    """cv2's answer; ``None`` also where it raises on its size limits."""
+    try:
+        return cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    except cv2.error as e:
+        if "validateInputImageSize" not in str(e):
+            raise
+        return None
+
+
+def port_decode(data: bytes):
+    logging.disable(logging.WARNING)  # a refusal logs a line each
+    try:
+        return imcodec.decode_image(data)
+    finally:
+        logging.disable(logging.NOTSET)
+
+
+def written_columns(data: bytes, width: int) -> int:
+    """The columns cv2 writes: all but in a PAM of DEPTH 2 or 4."""
+    if data[:2] == b"P7":
+        depth = next((int(line.split()[1]) for line in data.split(b"ENDHDR")[0].splitlines()
+                      if line.startswith(b"DEPTH ")), 1)
+        if depth in (2, 4):
+            return -(-width // depth)
+    return width
+
+
+def answers(data: bytes) -> str:
+    """"none", "equal", or how the port's answer differs from cv2's."""
+    want, got = cv2_decode(data), port_decode(data)
+    if want is None or got is None:
+        return "none" if want is None and got is None else ("cv2 only" if got is None else "port only")
+    if want.shape != got.shape:
+        return "shape"
+    k = written_columns(data, want.shape[1])
+    return "equal" if (want[:, :k] == got[:, :k]).all() else "pixels"
+
+
+def assert_all_equal_cv2(datas, what):
+    bad = [(i, a) for i, a in enumerate(map(answers, datas)) if a not in ("none", "equal")]
+    assert not bad, f"{what}: {len(bad)} of {len(datas)} differ from cv2, e.g. {bad[:8]}"
+
+
+def garbled(data: bytes, n: int, seed: int, first: int = 2):
+    """``n`` copies of ``data`` with 1–3 bytes from ``first`` on set at
+    random."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        bad = bytearray(data)
+        for at in rng.integers(first, len(bad), rng.integers(1, 4)):
+            bad[at] = rng.integers(0, 256)
+        out.append(bytes(bad))
+    return out
+
+
+def pattern(h, w, seed, levels=256):
+    """Runs of equal values with noise between them: RLE has runs of both
+    kinds to write."""
+    rng = np.random.default_rng(seed)
+    runs = np.repeat(rng.integers(0, levels, (h, w // 4 + 1)), 4, axis=1)[:, :w]
+    noise = rng.integers(0, levels, (h, w))
+    return np.where(rng.random((h, w)) < 0.3, noise, runs)
+
+
+# -- BMP writer ------------------------------------------------------------------
+
+
+def bmp_bytes(w, h, bits, comp, body, palette=None, hdr=40, clrused=0, masks=None, os2=False):
+    """A BMP of ``body`` under a file header and an info header of ``hdr``
+    bytes (12: OS/2 core, 3-byte table entries). ``masks`` (R, G, B[, A])
+    go inside a header of 56 bytes or more, else after it."""
+    pal = b""
+    if os2:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        if palette is not None:
+            pal = np.asarray(palette, np.uint8)[:, :3].tobytes()
+    else:
+        info = struct.pack("<IiiHHIIiiII", hdr, w, h, 1, bits, comp, len(body), 2835, 2835, clrused, 0)
+        if hdr >= 56:
+            info += struct.pack("<4I", *(tuple(masks or ()) + (0, 0, 0, 0))[:4])
+        info = (info + bytes(max(0, hdr - len(info))))[:hdr]
+        if masks is not None and hdr < 56:
+            pal += struct.pack(f"<{len(masks)}I", *masks)
+        if palette is not None:
+            pal += np.asarray(palette, np.uint8).tobytes()
+    off = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + info + pal + body
+
+
+def pack_rows(idx: np.ndarray, bits: int) -> bytes:
+    """[h, w] indices → rows of ``bits``-bit pixels padded to 32 bits,
+    bottom row first."""
+    h, w = idx.shape
+    if bits == 8:
+        rows = idx.astype(np.uint8)
+    else:
+        shifts = np.arange(8 // bits - 1, -1, -1) * bits
+        pad = -w % (8 // bits)
+        x = np.pad(idx, ((0, 0), (0, pad))).reshape(h, -1, 8 // bits)
+        rows = (x << shifts).sum(axis=2).astype(np.uint8)
+    stride = -(-rows.shape[1] // 4) * 4
+    return np.pad(rows, ((0, 0), (0, stride - rows.shape[1])))[::-1].tobytes()
+
+
+def rle_bytes(idx: np.ndarray, bits: int, seed: int, top_down=False, skips=True) -> bytes:
+    """A BI_RLE8 (``bits`` 8) or BI_RLE4 (4) stream of the [h, w] indices
+    ``idx``: encoded and absolute runs, each row closed by end-of-line or
+    (RLE8, now and then, when an encoded run ends it) nothing, some pixels
+    skipped by a delta. Deltas down and an early end-of-bitmap (the last
+    rows left to cv2's fill) are written for RLE8 only: cv2 5.0 counts no
+    rows in an RLE4 delta or end-of-bitmap. ``skips=False``: no delta and
+    no early end-of-bitmap, so the stream holds every pixel of ``idx``."""
+    rng = np.random.default_rng(seed)
+    h, w = idx.shape
+    rows = np.array(idx if top_down else idx[::-1])
+    out = bytearray()
+    y = 0
+    while y < h:
+        row, x, encoded = rows[y], 0, False
+        while x < w:
+            if skips and rng.random() < 0.03 and x + 3 < w:  # delta right (and sometimes down)
+                dx = int(rng.integers(1, min(w - x, 8)))
+                dy = int(bits == 8 and rng.random() < 0.2 and y + 1 < h)
+                out += bytes([0, 2, dx, dy])
+                x += dx
+                if dy:
+                    y += 1
+                    row = rows[y]
+                continue
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if bits == 4 and run == 1 and x + 1 < w and rng.random() < 0.5:  # two alternating nibbles
+                run = 2 + 2 * int(rng.integers(0, 3))
+                run = min(run, w - x)
+                pair = (row[x], row[x + 1] if x + 1 < w else row[x])
+                out += bytes([run, (pair[0] << 4) | pair[1]])
+                for k in range(run):
+                    row[x + k] = pair[k % 2]  # what the stream now says
+                x += run
+                encoded = True
+                continue
+            if run >= 2 or w - x < 3:
+                out += bytes([run, row[x] * (17 if bits == 4 else 1)])
+                x += run
+                encoded = True
+                continue
+            encoded = False
+            n = int(min(w - x, rng.integers(3, 40)))
+            vals = row[x : x + n].astype(np.uint8)
+            if bits == 8:
+                body = vals.tobytes() + bytes(n % 2)
+            else:
+                packed = np.pad(vals, (0, n % 2)).reshape(-1, 2)
+                body = ((packed[:, 0] << 4) | packed[:, 1]).astype(np.uint8).tobytes()
+                body += bytes(len(body) % 2)
+            out += bytes([0, n]) + body
+            x += n
+        y += 1
+        if y == h:
+            break
+        if bits == 8 and x == w and encoded and rng.random() < 0.3:
+            continue  # an encoded run ended the row: cv2 moves on without a code
+        if skips and bits == 8 and rng.random() < 0.05 and y > h // 2:
+            break  # end of bitmap early: the rest takes palette entry 0
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def bmp_palette(n, seed):
+    """``n`` distinct entries (B, G, R, 0): 16 random colours, the blue of
+    each repeat raised by its row of 16, which keeps the committed files
+    small."""
+    base = np.random.default_rng(seed).integers(0, 256, (16, 4))
+    pal = base[np.arange(n) % 16] + np.stack([np.arange(n) // 16, 0 * np.arange(n), 0 * np.arange(n),
+                                              0 * np.arange(n)], axis=1)
+    pal[:, 3] = 0
+    return (pal % 256).astype(np.uint8)
+
+
+def bmp_cases() -> dict:
+    """{name: BMP bytes}: every kind of step, header and row order cv2
+    reads, and the files it refuses."""
+    rng = np.random.default_rng(0)
+    cases = {}
+    for bits in (1, 4, 8):
+        for h, w in ((5, 13), (3, 1), (9, 33)):
+            n = 1 << bits
+            idx = rng.integers(0, n, (h, w))
+            cases[f"{bits}bit_{h}x{w}"] = bmp_bytes(w, h, bits, 0, pack_rows(idx, bits), bmp_palette(n, bits))
+            cases[f"{bits}bit_{h}x{w}_topdown"] = bmp_bytes(w, -h, bits, 0, pack_rows(idx[::-1], bits),
+                                                           bmp_palette(n, bits))
+            cases[f"{bits}bit_{h}x{w}_os2"] = bmp_bytes(w, h, bits, 0, pack_rows(idx, bits), bmp_palette(n, bits),
+                                                        os2=True)
+    # indices past a short colour table read black
+    idx = rng.integers(0, 256, (6, 10))
+    cases["8bit_past_table"] = bmp_bytes(10, 6, 8, 0, pack_rows(idx, 8), bmp_palette(4, 3), clrused=4)
+    cases["4bit_past_table"] = bmp_bytes(10, 6, 4, 0, pack_rows(idx % 16, 4), bmp_palette(3, 4), clrused=3)
+    cases["1bit_one_entry"] = bmp_bytes(10, 6, 1, 0, pack_rows(idx % 2, 1), bmp_palette(1, 5), clrused=1)
+    cases["8bit_table_300"] = bmp_bytes(10, 6, 8, 0, pack_rows(idx, 8), bmp_palette(300, 6), clrused=300)
+    for bits, comp in ((8, 1), (4, 2)):
+        name = f"rle{bits}"
+        for k, (h, w) in enumerate(((7, 21), (16, 40), (1, 5), (12, 3))):
+            idx = pattern(h, w, 10 * bits + k, 1 << bits)
+            cases[f"{name}_{h}x{w}"] = bmp_bytes(w, h, bits, comp, rle_bytes(idx, bits, k), bmp_palette(1 << bits, k))
+            cases[f"{name}_{h}x{w}_topdown"] = bmp_bytes(w, -h, bits, comp, rle_bytes(idx, bits, k, True),
+                                                         bmp_palette(1 << bits, k))
+        idx = pattern(8, 16, bits, 1 << bits)
+        body = rle_bytes(idx, bits, 99)
+        cases[f"{name}_no_eob"] = bmp_bytes(16, 8, bits, comp, body[:-2], bmp_palette(1 << bits, 1))
+        cases[f"{name}_cut"] = bmp_bytes(16, 8, bits, comp, body[: len(body) // 2], bmp_palette(1 << bits, 1))
+        cases[f"{name}_run_past_row"] = bmp_bytes(4, 2, bits, comp, bytes([6, 0x12, 0, 1]), bmp_palette(1 << bits, 1))
+        cases[f"{name}_small_table"] = bmp_bytes(16, 8, bits, comp, body, bmp_palette(5, 2), clrused=5)
+    px16 = rng.integers(0, 1 << 16, (5, 7)).astype("<u2")
+    px16[0, :4] = [0x7FFF, 0xFFFF, 0x001F, 0x07E0]
+    body16 = b"".join(np.pad(r, (0, 1)).tobytes() for r in px16[::-1])
+    cases["16bit_555"] = bmp_bytes(7, 5, 16, 0, body16)
+    cases["16bit_555_bitfields"] = bmp_bytes(7, 5, 16, 3, body16, masks=(0x7C00, 0x3E0, 0x1F))
+    cases["16bit_565_bitfields"] = bmp_bytes(7, 5, 16, 3, body16, masks=(0xF800, 0x7E0, 0x1F))
+    cases["16bit_565_topdown"] = bmp_bytes(7, -5, 16, 3, body16, masks=(0xF800, 0x7E0, 0x1F))
+    cases["16bit_444_bitfields"] = bmp_bytes(7, 5, 16, 3, body16, masks=(0xF00, 0xF0, 0xF))
+    cases["16bit_565_v4"] = bmp_bytes(7, 5, 16, 3, body16, hdr=108, masks=(0xF800, 0x7E0, 0x1F, 0))
+    cases["16bit_555_v5"] = bmp_bytes(7, 5, 16, 0, body16, hdr=124)
+    px32 = rng.integers(0, 256, (4, 6, 4)).astype(np.uint8)
+    body32 = px32[::-1].tobytes()
+    for name, masks in {"bgra": (0xFF0000, 0xFF00, 0xFF, 0xFF000000), "rgba": (0xFF, 0xFF00, 0xFF0000, 0),
+                        "argb": (0xFF00, 0xFF0000, 0xFF000000, 0xFF), "10bit": (0x3FF00000, 0xFFC00, 0x3FF, 0),
+                        "3bit": (0x7, 0x38, 0x1C0, 0), "sparse": (0xF0F, 0xF0F00000, 0x101, 0),
+                        "zero_green": (0xFF0000, 0, 0xFF, 0)}.items():
+        cases[f"32bit_bitfields_{name}_hdr40"] = bmp_bytes(6, 4, 32, 3, body32, masks=masks[:3])
+        cases[f"32bit_bitfields_{name}_v4"] = bmp_bytes(6, 4, 32, 3, body32, hdr=108, masks=masks)
+        cases[f"32bit_bitfields_{name}_v5_topdown"] = bmp_bytes(6, -4, 32, 3, px32.tobytes(), hdr=124, masks=masks)
+    cases["32bit_bitfields_hdr56"] = bmp_bytes(6, 4, 32, 3, body32, hdr=56, masks=(0xFF, 0xFF00, 0xFF0000, 0))
+    cases["32bit_bitfields_hdr52"] = bmp_bytes(6, 4, 32, 3, body32, hdr=52, masks=(0xFF, 0xFF00, 0xFF0000, 0))
+    cases["32bit_rgb_v4"] = bmp_bytes(6, 4, 32, 0, body32, hdr=108, masks=(0xFF, 0xFF00, 0xFF0000, 0))
+    cases["32bit_os2"] = bmp_bytes(6, 4, 32, 0, body32, os2=True)
+    px24 = rng.integers(0, 256, (4, 5, 3)).astype(np.uint8)
+    body24 = b"".join(np.pad(r.reshape(-1), (0, 1)).tobytes() for r in px24[::-1])
+    for hdr in (36, 40, 52, 56, 64, 108, 124):
+        cases[f"24bit_hdr{hdr}"] = bmp_bytes(5, 4, 24, 0, body24, hdr=hdr)
+    cases["24bit_os2"] = bmp_bytes(5, 4, 24, 0, body24, os2=True)
+    # refused: other depths, compressions and header sizes
+    cases["2bit"] = bmp_bytes(8, 2, 2, 0, bytes(8), bmp_palette(4, 0))
+    cases["24bit_rle8"] = bmp_bytes(5, 4, 24, 1, body24)
+    cases["24bit_bitfields"] = bmp_bytes(5, 4, 24, 3, body24, masks=(0xFF0000, 0xFF00, 0xFF))
+    cases["8bit_rle4"] = bmp_bytes(4, 2, 8, 2, bytes([4, 0x11, 0, 1]), bmp_palette(256, 0))
+    cases["jpeg_compression"] = bmp_bytes(5, 4, 24, 4, body24)
+    cases["hdr20"] = bmp_bytes(5, 4, 24, 0, body24, hdr=20)
+    cases["os2_16bit"] = bmp_bytes(7, 5, 16, 0, body16, os2=True)
+    cases["width0"] = bmp_bytes(0, 4, 24, 0, body24)
+    for mode in ("1", "L", "P", "RGB", "RGBA"):  # PIL's own
+        buf = io.BytesIO()
+        Image.fromarray(pattern(9, 17, 3, 256).astype(np.uint8)).convert(mode).save(buf, "BMP")
+        cases[f"pil_{mode}"] = buf.getvalue()
+    return cases
+
+
+BMP_CASES = list(bmp_cases())
+
+
+@pytest.mark.parametrize("name", BMP_CASES)
+def test_bmp_kinds_answer_as_cv2(name):
+    data = bmp_cases()[name]
+    assert answers(data) in ("none", "equal")
+
+
+def test_bmp_probes_of_cv2_rules():
+    """cv2's rules, held as numbers: an index past a 4-entry table is black;
+    16-bit channels are shifted with no bit replication; 16-bit masks other
+    than 565 and 555 refuse the file; 32-bit masks apply only under a header
+    of 56 bytes or more; a cut RLE stream refuses the file."""
+    pal = bmp_palette(4, 0)
+    data = bmp_bytes(4, 1, 8, 0, bytes([0, 1, 200, 7]), pal, clrused=4)
+    assert port_decode(data)[0, 2:].tolist() == [[0, 0, 0], [0, 0, 0]]
+    d555 = bmp_bytes(2, 1, 16, 0, struct.pack("<2H", 0x7FFF, 0))
+    assert port_decode(d555)[0, 0].tolist() == [248, 248, 248]
+    d565 = bmp_bytes(2, 1, 16, 3, struct.pack("<2H", 0x07E0, 0), masks=(0xF800, 0x7E0, 0x1F))
+    assert port_decode(d565)[0, 0].tolist() == [0, 252, 0]
+    assert port_decode(bmp_bytes(2, 1, 16, 3, bytes(4), masks=(0xF00, 0xF0, 0xF))) is None
+    rgba = (0xFF, 0xFF00, 0xFF0000, 0)
+    assert port_decode(bmp_bytes(1, 1, 32, 3, bytes([1, 2, 3, 4]), masks=rgba[:3]))[0, 0].tolist() == [1, 2, 3]
+    assert port_decode(bmp_bytes(1, 1, 32, 3, bytes([1, 2, 3, 4]), hdr=108, masks=rgba))[0, 0].tolist() == [3, 2, 1]
+    rle = bmp_bytes(4, 2, 8, 1, bytes([4, 1, 0, 0, 4, 2, 0, 1]), pal, clrused=4)
+    assert port_decode(rle) is not None and port_decode(rle[:-3]) is None
+    # end of bitmap with a row left: RLE8 fills it with entry 0, RLE4 takes
+    # it for an end of line and runs out of data
+    eob8 = bmp_bytes(4, 2, 8, 1, bytes([4, 1, 0, 1]), pal, clrused=4)
+    assert port_decode(eob8)[0].tolist() == [pal[0, :3].tolist()] * 4
+    eob4 = bmp_bytes(4, 2, 4, 2, bytes([4, 0x12, 0, 1]), pal, clrused=4)
+    assert port_decode(eob4) is None
+    for data in (data, d555, d565, rle, rle[:-3], eob8, eob4):
+        assert answers(data) in ("none", "equal")
+
+
+GARBLED_BMP = ["8bit_5x13", "4bit_9x33", "pil_1", "24bit_hdr124", "32bit_bitfields_10bit_v4",
+               "16bit_565_bitfields", "8bit_5x13_os2", "rle8_16x40", "rle4_16x40"]
+
+
+@pytest.mark.parametrize("name", GARBLED_BMP)
+def test_garbled_bmps_answer_as_cv2(name):
+    """100 seeded files per kind, 1–3 bytes changed anywhere past "BM":
+    file header, info header, masks, colour table and pixels."""
+    data = bmp_cases()[name]
+    assert_all_equal_cv2(garbled(data, 100, seed=GARBLED_BMP.index(name)), f"garbled {name}")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_every_rle_cut_answers_as_cv2(bits):
+    data = bmp_cases()[f"rle{bits}_7x21"]
+    assert_all_equal_cv2([data[:k] for k in range(2, len(data) + 1)], f"rle{bits} cuts")
+
+
+def scene_bmps(scene: np.ndarray) -> dict:
+    """A BGR scene as a 24-bit BMP beside its PNG, and its grey as an RLE8
+    BMP (a grey ramp palette) beside the grey's PNG: each pair decodes to
+    the same pixels."""
+    h, w, _ = scene.shape
+    body24 = b"".join(np.pad(r.reshape(-1), (0, -w * 3 % 4)).tobytes() for r in scene[::-1])
+    grey = scene.mean(axis=2).astype(np.uint8)
+    ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, axis=1)
+    ramp[:, 3] = 0
+    return {"bgr": (bmp_bytes(w, h, 24, 0, body24), imcodec.encode_png(scene)),
+            "grey_rle8": (bmp_bytes(w, h, 8, 1, rle_bytes(grey, 8, seed=0, skips=False), ramp),
+                          imcodec.encode_png(np.repeat(grey[..., None], 3, axis=2)))}
+
+
+def test_a_bmp_payload_gives_the_png_payloads_words(tmp_path):
+    """The port's service on the CPU answers a parity scene sent as a
+    24-bit BMP, and its grey as an RLE8 BMP, with the words of the same
+    pixels sent as PNG."""
+    import base64
+
+    import torch
+
+    from ppocr_tpu_torch.serve import OCRIPCClient, OCRIPCService
+    from test_torch_serve import run_service, small_config, stop_service
+
+    scene = assets.load_scenes()["parity"][0]
+    pairs = scene_bmps(scene)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs several test processes at once
+    svc = OCRIPCService(model_dir=str(assets.make_jumbo_model_dir(tmp_path / "jumbo")),
+                        socket_path=str(tmp_path / "svc.sock"), config=small_config(), device="cpu")
+    t = run_service(svc)
+    try:
+        with OCRIPCClient(svc.socket_path, timeout_ms=120000) as c:
+            def words(data):
+                r = c.send_request({"command": "recognize", "image_data": base64.b64encode(data).decode()})
+                assert r["success"], r
+                return r["words"]
+
+            for name, (bmp, png) in pairs.items():
+                assert (port_decode(bmp) == port_decode(png)).all() and answers(bmp) == "equal", name
+                got = words(bmp)
+                assert got and got == words(png), name
+    finally:
+        stop_service(svc, t)
+        torch.set_num_threads(threads)
+
+
+# -- PNG: damaged zlib streams under valid CRCs ------------------------------------
+
+
+def png_damaged(ctype, depth, interlace, seed, n=40, size=(13, 21), wbits=15, chunk=None):
+    """``n`` PNGs whose zlib stream has 1–3 bytes changed, the IDAT CRCs
+    made valid again: half anywhere, half in the last 40 bytes (the last
+    rows, the end-of-block code, the Adler-32 trailer), then the stream
+    cut short, with junk after it, and with a zeroed trailer. ``chunk``
+    splits the stream into IDATs of that many bytes; ``wbits`` is the
+    window the stream declares."""
+    from test_torch_decode_parity import ADAM7, CHANNELS, _filtered, _pack
+
+    h, w = size
+    rng = np.random.default_rng(seed + 100 * ctype + depth)
+    nch = CHANNELS[ctype]
+    palette = None
+    if ctype == 3:
+        k = min(1 << depth, 200)
+        palette = rng.integers(0, 256, (k, 3))
+        samples = rng.integers(0, k, (h, w, 1))
+    else:  # mostly one colour: long matches, so damage can reach far back
+        samples = rng.integers(0, 1 << depth, (h, w, nch))
+        samples = np.where(rng.random((h, w, 1)) < 0.7, samples[:1, :1], samples)
+    raw = b"".join(_filtered(_pack(samples[y0::dy, x0::dx], depth), max(1, nch * depth // 8), rng)
+                   for x0, y0, dx, dy in (ADAM7 if interlace else [(0, 0, 1, 1)])
+                   if samples[y0::dy, x0::dx].size)
+    c = zlib.compressobj(6, zlib.DEFLATED, wbits)
+    z = c.compress(raw) + c.flush()
+
+    def chunk_(t, body):
+        return struct.pack(">I", len(body)) + t + body + struct.pack(">I", zlib.crc32(t + body) & 0xFFFFFFFF)
+
+    head = imcodec.PNG_MAGIC + chunk_(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        head += chunk_(b"PLTE", palette.astype(np.uint8).tobytes())
+    streams = []
+    for i in range(n):
+        zz = bytearray(z)
+        lo = 0 if i % 2 else max(0, len(z) - 40)
+        for at in rng.integers(lo, len(zz), rng.integers(1, 4)):
+            zz[at] = rng.integers(0, 256)
+        streams.append(bytes(zz))
+    streams += [z[:-k] for k in (1, 3, 5, 9)] + [z + b"\x00\x17junk", z[:-4] + bytes(4)]
+    out = []
+    for zz in streams:
+        parts = [zz] if chunk is None else [zz[i : i + chunk] for i in range(0, len(zz), chunk)]
+        out.append(head + b"".join(chunk_(b"IDAT", p) for p in parts) + chunk_(b"IEND", b""))
+    return out
+
+
+PNG_DAMAGE = ([(ct, d, il) for ct, ds in ((0, (1, 8, 16)), (2, (8, 16)), (3, (1, 4, 8)), (4, (8,)), (6, (8, 16)))
+               for d in ds for il in (False, True)])
+
+
+@pytest.mark.parametrize("ctype,depth,interlace", PNG_DAMAGE,
+                         ids=[f"type{c}-{d}bit-{'adam7' if i else 'plain'}" for c, d, i in PNG_DAMAGE])
+def test_damaged_zlib_pngs_answer_as_cv2(ctype, depth, interlace):
+    """libpng reads a damaged stream row by row: an error while a row is
+    filled refuses the image, an error in the drain after the last row is
+    a warning and the image stands, with whatever rows the damage made."""
+    datas = png_damaged(ctype, depth, interlace, seed=len(PNG_DAMAGE))
+    assert_all_equal_cv2(datas, "damaged png")
+
+
+@pytest.mark.parametrize("wbits,chunk,size", [(15, 5000, (60, 120)), (15, 20000, (70, 150)), (9, None, (40, 300)),
+                                              (10, 700, (50, 70)), (9, 100, (40, 150))],
+                         ids=["32k-idat5000", "32k-idat20000", "512-window", "1k-window-idat700",
+                              "512-window-idat100"])
+def test_damaged_zlib_pngs_over_slices_and_small_windows_answer_as_cv2(wbits, chunk, size):
+    """Streams over several IDATs and 8192-byte slices, and streams that
+    declare a window smaller than the image: libpng's per-row inflate calls
+    see fewer bytes back than one call over the whole stream would."""
+    for interlace in (False, True):
+        datas = png_damaged(2 if wbits == 15 else 0, 8, interlace, seed=wbits, n=60, size=size, wbits=wbits,
+                            chunk=chunk)
+        assert_all_equal_cv2(datas, "damaged png")
+
+
+def png_far(wbits, period, w, h, seed):
+    """A grey PNG ``h`` rows of ``w`` bytes whose first row repeats a
+    random run of ``period`` bytes (the other rows are random), deflated
+    with a 32 KiB window under a header that declares ``1 << wbits``
+    bytes: its matches reach further back than the declared window."""
+    rng = np.random.default_rng(seed)
+    rows = [np.resize(rng.integers(0, 256, period, dtype=np.uint8), w)]
+    rows += [rng.integers(0, 256, w, dtype=np.uint8) for _ in range(h - 1)]
+    z = bytearray(zlib.compress(b"".join(b"\x00" + r.tobytes() for r in rows), 6))
+    z[0] = (wbits - 8) << 4 | 8
+    z[1] = (z[1] & 0xE0) | (31 - ((z[0] << 8 | (z[1] & 0xE0)) % 31))
+
+    def chunk_(t, body):
+        return struct.pack(">I", len(body)) + t + body + struct.pack(">I", zlib.crc32(t + body) & 0xFFFFFFFF)
+
+    return (imcodec.PNG_MAGIC + chunk_(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk_(b"IDAT", bytes(z)) + chunk_(b"IEND", b""))
+
+
+PNG_FAR = [(wbits, period, w, h) for wbits in (8, 9, 10, 14) for period, w in ((700, 33000), (3000, 40000),
+                                                                              (20000, 70000)) for h in (1, 2)]
+
+
+@pytest.mark.parametrize("wbits,period,w,h", PNG_FAR, ids=[f"window{1 << b}-period{p}-{w}x{h}"
+                                                           for b, p, w, h in PNG_FAR])
+def test_rows_over_32k_under_a_small_window_answer_as_cv2(wbits, period, w, h):
+    """A row longer than 32 KiB is one inflate call in libpng: past its
+    first 32 KiB every distance is in reach, whatever window the stream
+    declares, and across rows only the window is. (Python's ``zlib``
+    splits such a call's output at 32 KiB, which would refuse these.)"""
+    assert_all_equal_cv2([png_far(wbits, period, w, h, seed=wbits * 100 + h)], "far png")
+
+
+# -- netpbm: PBM, PGM, PPM (P1–P6) and PAM (P7) --------------------------------------
+
+
+def ascii_body(values, per_line=7) -> bytes:
+    flat = [str(int(v)) for v in np.asarray(values).reshape(-1)]
+    return "\n".join(" ".join(flat[i : i + per_line]) for i in range(0, len(flat), per_line)).encode() + b"\n"
+
+
+def pam_bytes(w, h, depth, maxval, tupltype, body, extra=b"") -> bytes:
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n".encode() + extra
+    if tupltype:
+        head += b"TUPLTYPE " + tupltype + b"\n"
+    return head + b"ENDHDR\n" + body
+
+
+def netpbm_cases() -> dict:
+    """{name: file}: every P kind, maxval below and above 255, comments,
+    the 16-bit and the PAM rules, and what cv2 refuses."""
+    rng = np.random.default_rng(5)
+    cases = {}
+    img = rng.integers(0, 256, (7, 11, 3)).astype(np.uint8)
+    for ext in (".ppm", ".pam"):
+        cases[f"cv2{ext}"] = cv2.imencode(ext, img)[1].tobytes()
+    cases["cv2.pgm"] = cv2.imencode(".pgm", img[..., 0])[1].tobytes()
+    cases["cv2.pbm"] = cv2.imencode(".pbm", (img[..., 0] > 127).astype(np.uint8) * 255)[1].tobytes()
+    for h, w in ((5, 13), (1, 1), (3, 17)):
+        bits = rng.integers(0, 2, (h, w))
+        cases[f"p1_{h}x{w}"] = f"P1\n{w} {h}\n".encode() + ascii_body(bits)
+        cases[f"p4_{h}x{w}"] = f"P4\n{w} {h}\n".encode() + np.packbits(bits.astype(np.uint8), axis=1).tobytes()
+    cases["p1_packed_digits"] = b"P1\n# no spaces\n5 2\n0101110010"
+    cases["p1_junk"] = b"P1\n3 1\n0 x 1\n"
+    for maxval in (1, 100, 255, 1000, 65535):
+        g = rng.integers(0, maxval + 1, (4, 6))
+        c = rng.integers(0, maxval + 1, (4, 6, 3))
+        wide = ">u2" if maxval > 255 else np.uint8
+        cases[f"p2_max{maxval}"] = f"P2\n6 4\n{maxval}\n".encode() + ascii_body(g)
+        cases[f"p3_max{maxval}"] = f"P3\n6 4\n{maxval}\n".encode() + ascii_body(c)
+        cases[f"p5_max{maxval}"] = f"P5\n6 4\n{maxval}\n".encode() + g.astype(wide).tobytes()
+        cases[f"p6_max{maxval}"] = f"P6\n6 4\n{maxval}\n".encode() + c.astype(wide).tobytes()
+    cases["p2_above_maxval"] = b"P2\n3 1\n100\n50 200 100\n"
+    cases["p5_above_maxval"] = b"P5\n3 1\n100\n" + bytes([50, 200, 100])
+    cases["p2_comments"] = b"P2\n# a\n3 # b\n1\n255 # c\n 1 #d\n2\n3\n"
+    cases["p2_no_final_byte"] = b"P2\n2 1\n255\n1 2"
+    cases["p2_digit_then_comment"] = b"P2\n2 1\n255\n1#x\n 2\n"
+    cases["p6_space_header"] = b"P6 2 1 255 " + bytes(range(6))
+    cases["p6_comment_after_maxval"] = b"P6\n2 1\n255#" + bytes(range(6))
+    cases["p5_short"] = b"P5\n6 4\n255\n" + bytes(23)
+    cases["p6_16bit_short"] = b"P6\n2 2\n1000\n" + bytes(23)
+    cases["p5_maxval0"] = b"P5\n2 1\n0\n\x01\x02"
+    cases["p5_maxval70000"] = b"P5\n2 1\n70000\n\x01\x02\x03\x04"
+    cases["p5_width0"] = b"P5\n0 1\n255\n\x01"
+    cases["p5_huge"] = b"P5\n3000000 1\n255\n" + bytes(16)
+    cases["p3_no_header_end"] = b"P3\n2 1\n255"
+    # PAM
+    for depth, tupl in ((1, b"GRAYSCALE"), (2, b"GRAYSCALE_ALPHA"), (3, b"RGB"), (4, b"RGB_ALPHA"), (1, b""),
+                        (3, b""), (1, b"BLACKANDWHITE")):
+        for maxval in ((1,) if tupl == b"BLACKANDWHITE" else (255, 1000)):
+            if not tupl and maxval > 255 and depth == 3:
+                continue
+            v = rng.integers(0, maxval + 1, (5, 9 * depth))
+            body = v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+            cases[f"pam_{tupl.decode() or 'none'}_{depth}_max{maxval}"] = pam_bytes(9, 5, depth, maxval, tupl, body)
+    cases["pam_rgb_maxval1"] = pam_bytes(9, 2, 3, 1, b"RGB", rng.integers(0, 2, 54).astype(np.uint8).tobytes())
+    cases["pam_comment_hex_width"] = pam_bytes(0, 2, 1, 255, b"GRAYSCALE", bytes(range(16)), b"# c\n").replace(
+        b"WIDTH 0", b"WIDTH 0x8")
+    cases["pam_rgb_depth1"] = pam_bytes(2, 1, 1, 255, b"RGB", bytes(2))
+    cases["pam_depth2_no_tupltype"] = pam_bytes(2, 1, 2, 255, b"", bytes(4))
+    cases["pam_depth5"] = pam_bytes(2, 1, 5, 255, b"", bytes(10))
+    cases["pam_unknown_tupltype"] = pam_bytes(2, 1, 1, 255, b"GREY", bytes(2))
+    cases["pam_unknown_field"] = pam_bytes(2, 1, 1, 255, b"GRAYSCALE", bytes(2), b"SIZE 4\n")
+    cases["pam_twice"] = pam_bytes(2, 1, 1, 255, b"GRAYSCALE", bytes(2), b"WIDTH 2\n")
+    cases["pam_no_depth"] = b"P7\nWIDTH 2\nHEIGHT 1\nMAXVAL 255\nENDHDR\n" + bytes(2)
+    cases["pam_short"] = pam_bytes(4, 2, 3, 255, b"RGB", bytes(23))
+    cases["pam_space_after_p7"] = b"P7 " + pam_bytes(1, 1, 1, 255, b"GRAYSCALE", b"\x05")[3:]
+    return cases
+
+
+NETPBM_CASES = list(netpbm_cases())
+
+
+@pytest.mark.parametrize("name", NETPBM_CASES)
+def test_netpbm_kinds_answer_as_cv2(name):
+    assert answers(netpbm_cases()[name]) in ("none", "equal")
+
+
+def test_netpbm_probes_of_cv2_rules():
+    """cv2's rules, held as numbers: 16-bit samples keep their high byte
+    with no rescale; P1's 1 is black; a PAM RGB tuple lands in B, G, R as
+    stored; ASCII samples below 256 are scaled to 0–255, binary ones are
+    not; short data refuses the file."""
+    assert port_decode(b"P2\n2 1\n1000\n500 1000\n")[0, :, 0].tolist() == [1, 3]
+    assert port_decode(b"P5\n1 1\n65535\n\x01\x01")[0, 0, 0] == 1
+    assert port_decode(b"P1\n3 1\n0 1 0\n")[0, :, 0].tolist() == [255, 0, 255]
+    assert port_decode(pam_bytes(1, 1, 3, 255, b"RGB", b"\x01\x02\x03"))[0, 0].tolist() == [1, 2, 3]
+    assert port_decode(b"P2\n2 1\n100\n50 100\n")[0, :, 0].tolist() == [127, 255]
+    assert port_decode(b"P5\n2 1\n100\n\x32\x64")[0, :, 0].tolist() == [50, 100]
+    assert port_decode(b"P5\n2 1\n255\n\x01") is None
+
+
+@pytest.mark.parametrize("name", ["cv2.ppm", "cv2.pgm", "cv2.pbm", "p2_max255", "p3_max1000", "p6_max65535",
+                                  "pam_RGB_3_max255", "pam_GRAYSCALE_ALPHA_2_max1000", "pam_BLACKANDWHITE_1_max1"])
+def test_garbled_and_cut_netpbm_answer_as_cv2(name):
+    data = netpbm_cases()[name]
+    assert_all_equal_cv2(garbled(data, 60, seed=NETPBM_CASES.index(name)), f"garbled {name}")
+    assert_all_equal_cv2([data[:k] for k in range(2, len(data) + 1, max(1, len(data) // 60))], f"cut {name}")
+
+
+# -- Sun raster ------------------------------------------------------------------------
+
+
+def ras_bytes(w, h, bpp, rtype, body, maptype=0, cmap=b"") -> bytes:
+    return struct.pack(">8I", 0x59A66A95, w, h, bpp, len(body), rtype, maptype, len(cmap)) + cmap + body
+
+
+def ras_rows(w, h, bpp, seed) -> bytes:
+    rng = np.random.default_rng(seed)
+    pitch = ((w * bpp + 7) // 8 + 1) & ~1
+    return rng.integers(0, 256, h * pitch).astype(np.uint8).tobytes()
+
+
+def sunraster_cases() -> dict:
+    rng = np.random.default_rng(7)
+    img = rng.integers(0, 256, (5, 9, 3)).astype(np.uint8)
+    cases = {"cv2_color": cv2.imencode(".ras", img)[1].tobytes(),
+             "cv2_grey": cv2.imencode(".ras", img[..., 0])[1].tobytes()}
+    for rtype in (0, 1):
+        for bpp in (1, 8, 24, 32):
+            for w in (9, 16, 1):
+                cases[f"type{rtype}_{bpp}bit_w{w}"] = ras_bytes(w, 4, bpp, rtype, ras_rows(w, 4, bpp, bpp + w))
+        cases[f"type{rtype}_1bit_cmap"] = ras_bytes(9, 4, 1, rtype, ras_rows(9, 4, 1, 1), 1, bytes([9, 200, 8, 100, 7, 50]))
+        cases[f"type{rtype}_8bit_cmap256"] = ras_bytes(9, 4, 8, rtype, ras_rows(9, 4, 8, 2), 1,
+                                                       rng.integers(0, 256, 768).astype(np.uint8).tobytes())
+        cases[f"type{rtype}_8bit_cmap5"] = ras_bytes(9, 4, 8, rtype, ras_rows(9, 4, 8, 3), 1,
+                                                     rng.integers(0, 256, 15).astype(np.uint8).tobytes())
+        cases[f"type{rtype}_8bit_cmap_not3"] = ras_bytes(9, 4, 8, rtype, ras_rows(9, 4, 8, 3), 1, bytes(range(16)))
+    # refused by cv2 5.0: byte-encoded and RGB rasters, other depths and maps
+    rle = bytes([0x80, 20, 7, 1, 2, 0x80, 0, 0x80, 40, 9])
+    cases["type2_rle_8bit"] = ras_bytes(9, 4, 8, 2, rle * 4)
+    cases["type2_rle_24bit"] = ras_bytes(9, 4, 24, 2, rle * 16)
+    cases["type3_rgb_24bit"] = ras_bytes(9, 4, 24, 3, ras_rows(9, 4, 24, 4))
+    cases["type4_tiff"] = ras_bytes(9, 4, 24, 4, ras_rows(9, 4, 24, 4))
+    cases["4bit"] = ras_bytes(9, 4, 4, 1, ras_rows(9, 4, 4, 5))
+    cases["16bit"] = ras_bytes(9, 4, 16, 1, ras_rows(9, 4, 16, 5))
+    cases["24bit_cmap"] = ras_bytes(9, 4, 24, 1, ras_rows(9, 4, 24, 5), 1, bytes(6))
+    cases["raw_map"] = ras_bytes(9, 4, 8, 1, ras_rows(9, 4, 8, 5), 2, bytes(6))
+    cases["1bit_cmap_too_long"] = ras_bytes(9, 4, 1, 1, ras_rows(9, 4, 1, 5), 1, bytes(9))
+    cases["no_map_with_length"] = ras_bytes(9, 4, 8, 1, ras_rows(9, 4, 8, 5), 0, bytes(3))
+    cases["cut_rows"] = ras_bytes(9, 4, 8, 1, ras_rows(9, 4, 8, 5)[:-1])
+    cases["cut_header"] = ras_bytes(9, 4, 8, 1, b"")[:20]
+    cases["height0"] = ras_bytes(9, 0, 8, 1, b"")
+    return cases
+
+
+SUNRASTER_CASES = list(sunraster_cases())
+
+
+@pytest.mark.parametrize("name", SUNRASTER_CASES)
+def test_sunraster_kinds_answer_as_cv2(name):
+    assert answers(sunraster_cases()[name]) in ("none", "equal")
+
+
+@pytest.mark.parametrize("name", ["cv2_color", "cv2_grey", "type0_1bit_w9", "type1_8bit_cmap5", "type1_32bit_w9"])
+def test_garbled_and_cut_sunraster_answer_as_cv2(name):
+    data = sunraster_cases()[name]
+    assert_all_equal_cv2(garbled(data, 60, seed=SUNRASTER_CASES.index(name), first=4), f"garbled {name}")
+    assert_all_equal_cv2([data[:k] for k in range(4, len(data) + 1)], f"cut {name}")
+
+
+# -- refusals --------------------------------------------------------------------------
+
+
+def test_every_refusal_logs_one_line_naming_format_and_reason(caplog):
+    """Each ``None`` of the cases above (and of a cut PNG and a lossless
+    JPEG) comes with exactly one warning from ``imcodec`` that names the
+    format and gives a reason."""
+    refused = {**bmp_cases(), **netpbm_cases(), **sunraster_cases()}
+    refused["png_cut"] = imcodec.encode_png(np.zeros((4, 4, 3), np.uint8))[:-20]
+    refused["png_damaged"] = next(d for d in png_damaged(2, 8, False, seed=1) if cv2_decode(d) is None)
+    jpeg = bytearray(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))[1].tobytes())
+    jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC3
+    refused["jpeg_lossless"] = bytes(jpeg)
+    names = {"bmp": "BMP", "pnm": "PPM/PGM/PBM/PAM", "sunraster": "Sun raster", "png": "PNG", "jpeg": "JPEG"}
+    seen = 0
+    for name, data in refused.items():
+        caplog.clear()
+        with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
+            img = imcodec.decode_image(data)
+        if img is not None:
+            assert not caplog.records, name
+            continue
+        seen += 1
+        assert len(caplog.records) == 1, (name, caplog.text)
+        msg = caplog.records[0].getMessage()
+        fmt = names[imcodec.sniff_format(data)]
+        assert msg.startswith(f"{fmt} payload not decoded: ") and len(msg) > len(fmt) + 25, (name, msg)
+    assert seen >= 40
+
+
+# -- the committed cases' writer --------------------------------------------------------
+
+
+def sun_rle(raw: bytes) -> bytes:
+    """RT_BYTE_ENCODED: a run of 3 or more equal bytes (or any 0x80) as
+    0x80, count - 1, value; a single 0x80 as 0x80, 0."""
+    out, i = bytearray(), 0
+    while i < len(raw):
+        j = i
+        while j < len(raw) and raw[j] == raw[i] and j - i < 256:
+            j += 1
+        if j - i >= 3 or raw[i] == 0x80:
+            out += bytes([0x80, 0]) if (raw[i] == 0x80 and j - i == 1) else bytes([0x80, j - i - 1, raw[i]])
+        else:
+            out += raw[i:j]
+        i = j
+    return bytes(out)
+
+
+def scene_payloads(scene: np.ndarray) -> dict:
+    """A serving scene as the smoke run's timing inputs: a 24-bit BMP, its
+    grey as an RLE8 BMP, a binary PPM, a standard Sun raster and a
+    byte-encoded one (which cv2 5.0 refuses)."""
+    h, w, _ = scene.shape
+    bmps = scene_bmps(scene)
+    rows = np.pad(scene.reshape(h, -1), ((0, 0), (0, -w * 3 % 2))).tobytes()
+    return {"scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
+            "scene0_ppm": f"P6\n{w} {h}\n255\n".encode() + np.ascontiguousarray(scene[..., ::-1]).tobytes(),
+            "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows))}
+
+
+def write():
+    """Rewrite ``image_cases.npz``: every BMP, netpbm and Sun raster case
+    above, garbled and cut ones among them, damaged PNGs (decoded and
+    refused) and the first serving scene as each timing payload, each
+    beside cv2's decode or a flag that cv2 gave ``None``. Of a PAM of DEPTH
+    2 or 4 the columns cv2 does not write are stored as 0, as the port
+    gives them."""
+    cases = {**{f"bmp_{k}": v for k, v in bmp_cases().items()},
+             **{f"netpbm_{k}": v for k, v in netpbm_cases().items()},
+             **{f"sunras_{k}": v for k, v in sunraster_cases().items()
+                if not k.startswith("type0_") or k in ("type0_8bit_w9", "type0_1bit_cmap")}}
+    for i, (name, src) in enumerate((("rle8", "rle8_16x40"), ("rle4", "rle4_16x40"), ("8bit", "8bit_5x13"),
+                                     ("v4", "32bit_bitfields_10bit_v4"))):
+        for k, data in enumerate(garbled(bmp_cases()[src], 4, seed=i + 70)):
+            cases[f"bmp_garbled_{name}_{k}"] = data
+    rle = bmp_cases()["rle8_7x21"]
+    for k in np.linspace(struct.unpack("<I", rle[10:14])[0], len(rle), 8).astype(int):
+        cases[f"bmp_cut_rle8_{k}"] = rle[:k]
+    for i, (name, src) in enumerate((("ppm", "cv2.ppm"), ("pam", "pam_RGB_3_max255"), ("ras", "cv2_color"))):
+        data = {**netpbm_cases(), **sunraster_cases()}[src]
+        for k, g in enumerate(garbled(data, 4, seed=i + 80)):
+            cases[f"{name}_garbled_{k}"] = g
+    for ct, d, il in ((0, 8, False), (2, 8, True), (3, 1, True), (4, 8, False)):
+        decoded = refused = 0
+        for k, data in enumerate(png_damaged(ct, d, il, seed=ct + d)):
+            none = cv2_decode(data) is None
+            if (refused if none else decoded) < (2 if none else 5):
+                cases[f"png_damaged_type{ct}_{d}bit_{'adam7' if il else 'plain'}_{k}"] = data
+                refused, decoded = refused + none, decoded + (not none)
+    for wbits, period, w, h in ((9, 3000, 40000, 1), (10, 700, 33000, 1)):
+        cases[f"png_far_window{1 << wbits}_period{period}_{w}x{h}"] = png_far(wbits, period, w, h, seed=wbits)
+    cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
+    out = {}
+    for name, data in cases.items():
+        out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
+        want = cv2_decode(data)
+        if want is None:
+            out[f"{name}/none"] = np.array(True)
+            continue
+        want = want.copy()
+        want[:, written_columns(data, want.shape[1]):] = 0
+        same = next((k for k in out if k.endswith("/cv2") and out[k].shape == want.shape
+                     and (out[k] == want).all()), None)
+        if same is not None and want.size > 100_000:  # the scene's payloads decode alike
+            out[f"{name}/same_as"] = np.array(same.rsplit("/", 1)[0])
+        else:
+            out[f"{name}/cv2"] = want
+    np.savez_compressed(assets.IMAGE_CASES, **out)
+    refused = sum(f"{n}/none" in out for n in cases)
+    print(f"wrote {assets.IMAGE_CASES} ({os.path.getsize(assets.IMAGE_CASES)} bytes, "
+          f"{len(cases)} cases, {refused} refused by cv2, cv2 {cv2.__version__})")
+
+
+def test_the_committed_cases_equal_cv2_today_and_the_port():
+    cases = assets.load_image_cases()
+    assert len(cases) >= 250
+    for name, (data, want) in cases.items():
+        got = port_decode(data)
+        if want is None:
+            assert cv2_decode(data) is None and got is None, name
+        else:
+            now = cv2_decode(data).copy()
+            now[:, written_columns(data, now.shape[1]):] = 0
+            assert (now == want).all() and got is not None and (got == want).all(), name
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--write"]:
+        sys.exit("usage: python tests/test_torch_image_formats.py --write")
+    write()
