@@ -1,6 +1,6 @@
 """Drive the PyTorch port's fused and staged OCR requests, its IPC service
 (single- and multi-process; PNG, JPEG and BMP payloads) and its training
-path on one NVIDIA card and check them.
+path, on one device and over a mesh, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -158,7 +158,25 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 16. det train: ``make_det_train_step`` from ``init_det_params`` at batch
     8 × 512×512, shrink masks filled from the golden boxes in numpy, 20
     steps: step ms, peak memory, the losses (finite; from this saturated
-    init they wander instead of falling, in the JAX package too).
+    init they wander instead of falling, in the JAX package too);
+17. train devices (training over several devices, on one card whose
+    devices repeat, as in phase 5): ``dryrun_multichip(8, ["cuda:0"] * 8)``
+    in f32 with TF32 off gives the JAX package's mesh ``{'data': 4,
+    'model': 2}``, ctc loss within rtol 1e-4 of 65.0417 and det BCE within
+    1e-4 of 0.6932 (``MULTICHIP_r05.json``); the jumbo recognizer at 32 ×
+    48×320 over data 2 (``make_mesh(devices=["cuda:0"] * 2)``) and over
+    data 1 × model 2, and the trained detector at 8 × 512×512 over data 2:
+    3 steps in f32 with TF32 off against the one-device step (losses rtol
+    1e-5, parameters as ``adam_close`` states, the rows' copies bit-equal),
+    then 3 untimed steps of each and of the one-device step and two rounds
+    of 20 timed steps of each in turns (cuDNN's default TF32): step ms
+    (CUDA events between step ends), peak memory, kernel launches per step
+    (``torch.profiler``, two steps); then
+    ``sharded_rec_infer`` over data 2 × model 2 on the golden-word crops at
+    48×256 against one rec step: the index equal wherever the top two
+    probabilities differ by more than 1e-4, the value rtol 2e-4, and the
+    launch counters zeroed just before it read 2 ``ctc_topk`` launches.
+    Two or four cards are not measured.
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -197,6 +215,9 @@ MOVED_BOX_CONF_TOL = 0.05  # staged: a word whose box differs reads another crop
 # plain version. The others are further buckets of the two profiles.
 STAGED_TIERS = ((6, 40, 5008), (4, 40, 5008), (16, 40, 5008), (16, 24, 5008), (1, 40, 5008),
                 (6, 160, 5008))
+# ctc_topk in "train devices": one data row of sharded_rec_infer over data 2
+# x model 2 on the six golden-word crops at 48x256
+SHARDED_TIER = (3, 32, 5008)
 PSUM_RTOL = 1e-5
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -373,7 +394,7 @@ class Smoke:
         # are less than one vector per thread; then single rows
         for shape in ((16, 32, 5008), (32, 64, 5008), (32, 48, 6625), (3, 7, 333),
                       (8, 16, 5007), (3, 7, 31), (3, 7, 4), (1, 1, 5008), (1, 1, 6625),
-                      *STAGED_TIERS):
+                      *STAGED_TIERS, SHARDED_TIER):
             p = torch.rand(shape, generator=g)
             v = shape[2]
             p[0, 0, :] = 0.25  # whole-row tie
@@ -432,7 +453,7 @@ class Smoke:
         # the staged tiers first; the last one (a fused request's tier, also
         # the staged serving profile's full batch at width 256) is reported
         # in the kernels line
-        for shape in (*STAGED_TIERS, (32, 48, 6625), (32, 64, 5008), (16, 32, 5008)):
+        for shape in (*STAGED_TIERS, SHARDED_TIER, (32, 48, 6625), (32, 64, 5008), (16, 32, 5008)):
             p = probs[shape]
             rows, v = shape[0] * shape[1], shape[2]
             idx = torch.empty(shape[:2], dtype=torch.int32, device=self.dev)
@@ -1553,6 +1574,180 @@ class Smoke:
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "losses": losses, "card": card_line()}), flush=True)
 
+    # -- 17 --------------------------------------------------------------
+    def jumbo_rec_batch(self, n, seed):
+        """``n`` crops of the golden words at 48×320 (T = 40), f32
+        normalized, with labels of 1–30 classes from a seed."""
+        import numpy as np
+
+        from ppocr_tpu_torch.ops.resize import crnn_resize
+        from ppocr_tpu_torch.utils.imcodec import decode_image
+
+        cases, texts = self.assets.load_jpeg_cases()
+        crops = [decode_image(cases[f"crop{i}"][0]) for i in range(len(texts))]
+        x = np.stack([crnn_resize(crops[i % len(crops)], 320 / 48, (3, 48, 320)) for i in range(n)])
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(1, 31, n)
+        labels = rng.integers(1, 5008, (n, 30)).astype(np.int32)
+        pads = (np.arange(30)[None, :] >= lens[:, None]).astype(np.float32)
+        return {"images": (x.astype(np.float32) / 255.0 - 0.5) * 2.0,
+                "labels": np.where(pads > 0, 0, labels).astype(np.int32), "label_paddings": pads}
+
+    def train_devices(self):
+        import numpy as np
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from ppocr_tpu_torch.models import det_to_jax, rec_forward, rec_from_jax, rec_to_jax
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.ops.resize import crnn_resize
+        from ppocr_tpu_torch.parallel import (dryrun_multichip, make_mesh, shard_rec_params,
+                                              sharded_rec_infer)
+        from ppocr_tpu_torch.train import trainer as TT
+        from ppocr_tpu_torch.utils.checkpoint import load_params_npz
+        from ppocr_tpu_torch.utils.imcodec import decode_image
+
+        card = str(self.dev)
+        with f32_exact():
+            dry = dryrun_multichip(8, [card] * 8)
+        if (dry["mesh"] != {"data": 4, "model": 2} or not abs(dry["ctc_loss"] - 65.0417) <= 1e-4 * 65.0417
+                or not abs(dry["det_bce_loss"] - 0.6932) <= 1e-4):
+            raise AssertionError(f"dry run: {dry}, the JAX package's: mesh {{'data': 4, 'model': 2}}, "
+                                 f"ctc loss 65.0417, det bce loss 0.6932")
+
+        meshes = {"one_device": None, "data2": make_mesh(devices=[card] * 2),
+                  "data1_model2": make_mesh(devices=[card] * 2, model=2)}
+        runs = (("rec", TT.make_train_step, load_params_npz(str(self.assets.WEIGHTS / "rec_scene_jumbo.npz")),
+                 self.jumbo_rec_batch(self.FT_BATCH, 0), rec_to_jax, 1e-4,
+                 ("one_device", "data2", "data1_model2")),
+                ("det", TT.make_det_train_step,
+                 load_params_npz(str(self.assets.WEIGHTS / "det_synthetic_text.npz")),
+                 dict(zip(("images", "masks"), self.det_images(self.DET_BATCH, self.DET_SIZE, 0))),
+                 det_to_jax, 1e-3, ("one_device", "data2")))
+
+        def start(make, lr, m, params):
+            kw = {"device": card} if meshes[m] is None else {"mesh": meshes[m]}
+            _, init_fn, step_fn = make(learning_rate=lr, **kw)
+            return init_fn(params), step_fn
+
+        out = {}
+        for name, make, params, batch, to_jax, lr, which in runs:
+            # three steps in f32 with TF32 off, each mesh against one device
+            trees, losses = {}, {}
+            with f32_exact():
+                for m in which:
+                    state, step_fn = start(make, lr, m, params)
+                    losses[m] = []
+                    for _ in range(3):
+                        state, loss = step_fn(state, batch)
+                        losses[m].append(float(loss))
+                    trees[m] = to_jax(state.model)
+                    if m != "one_device":
+                        rows = state.model.rows
+                        if not all(torch.equal(a, b) for r in rows[1:]
+                                   for a, b in zip(rows[0].parameters(), r.parameters())):
+                            raise AssertionError(f"{name} {m}: the rows' copies differ")
+            parity = {}
+            for m in which[1:]:
+                for a, b in zip(losses[m], losses["one_device"]):
+                    if not abs(a - b) <= 1e-5 * abs(b):
+                        raise AssertionError(f"{name} {m} losses {losses[m]} vs one device "
+                                             f"{losses['one_device']}")
+                worst, off, n = adam_close(trees[m], trees["one_device"], 3 * lr)
+                parity[m] = {"losses": losses[m], "params_max_abs_diff": worst,
+                             "params_off_tight": f"{off}/{n}"}
+            # timing, cuDNN's default TF32: each state after 3 untimed steps,
+            # then 20 steps between step ends, the configurations in turns
+            # (one device, meshes, meshes reversed, one device)
+            states = {}
+            for m in which:
+                state, step_fn = start(make, lr, m, params)
+                for _ in range(3):
+                    state, _ = step_fn(state, batch)
+                states[m] = [state, step_fn]
+            rounds, peaks = {m: [] for m in which}, {m: 0 for m in which}
+            for m in which + which[::-1]:
+                state, step_fn = states[m]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ends = []
+                for _ in range(21):
+                    state, loss = step_fn(state, batch)
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    ends.append(ev)
+                torch.cuda.synchronize()
+                rounds[m].append([a.elapsed_time(b) for a, b in zip(ends, ends[1:])])
+                peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated())
+                states[m][0] = state
+            timed = {}
+            for m in which:
+                state, step_fn = states[m]
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(2):
+                        state, loss = step_fn(state, batch)
+                    torch.cuda.synchronize()
+                kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                           and not e.is_user_annotation and not e.key.startswith("Optimizer.")]
+                timed[m] = {"step_ms": statistics.median(rounds[m][0] + rounds[m][1]),
+                            "step_ms_by_round": [statistics.median(r) for r in rounds[m]],
+                            "max_memory_allocated_gb": peaks[m] / 1e9,
+                            "launches_per_step": sum(e.count for e in kernels) / 2,
+                            "loss_last": float(loss)}
+            del states, state
+            base = timed["one_device"]
+            for m in which[1:]:
+                timed[m]["step_ms_ratio"] = timed[m]["step_ms"] / base["step_ms"]
+                timed[m]["launches_ratio"] = (timed[m]["launches_per_step"] / base["launches_per_step"]
+                                              if base["launches_per_step"] else None)
+            out[name] = {"parity_f32_tf32_off_vs_one_device": parity, "timed": timed,
+                         "losses_one_device": losses["one_device"]}
+
+        # sharded_rec_infer over data 2 x model 2 on the golden-word crops
+        cases, texts = self.assets.load_jpeg_cases()
+        crops = [decode_image(cases[f"crop{i}"][0]) for i in range(len(texts))]
+        n = len(crops) - len(crops) % 2
+        x = np.stack([crnn_resize(c, 256 / 48, (3, 48, 256)) for c in crops[:n]])
+        x = torch.from_numpy((x.astype(np.float32) / 255.0 - 0.5) * 2.0).to(card)
+        model = rec_from_jax(load_params_npz(str(self.assets.WEIGHTS / "rec_scene_jumbo.npz"))).to(card)
+        mesh = make_mesh(devices=[card] * 4, model=2)
+        with f32_exact():
+            with torch.inference_mode():
+                probs = rec_forward(model, x)
+                one_idx, one_val = K.ctc_topk(probs)
+                top2 = probs.topk(2, dim=-1).values
+            infer, split = sharded_rec_infer(mesh), shard_rec_params(mesh, model)
+            infer(split, x)  # untimed: the split copies' first call
+            torch.cuda.synchronize()
+            K.reset_launch_counts()  # the train devices main path's run starts here
+            idx, val = infer(split, x)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        self.launches["train devices"] = counts
+        if (n // 2, x.shape[2] // 8, probs.shape[2]) != SHARDED_TIER:
+            raise AssertionError(f"sharded_rec_infer's row shape {(n // 2, x.shape[2] // 8)} was "
+                                 f"not held against the plain version ({SHARDED_TIER})")
+        clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+        if not torch.equal(idx[clear], one_idx[clear]) or counts["ctc_topk"] != 2:
+            raise AssertionError(f"sharded_rec_infer over data 2 x model 2: "
+                                 f"{int((idx != one_idx)[clear].sum())} index mismatches where the "
+                                 f"top two differ by > 1e-4; launches {counts}")
+        torch.testing.assert_close(val, one_val, rtol=2e-4, atol=0)
+        print(json.dumps({
+            "train_devices": "one card for several devices: dryrun_multichip(8, ['cuda:0'] * 8) "
+            "f32 TF32 off; rec = the jumbo recognizer at 32 x 48x320, det = the trained detector "
+            "at 8 x 512x512; meshes data2 = make_mesh(devices=['cuda:0'] * 2), data1_model2 = the "
+            "same with model=2; 3 steps f32 TF32 off against one device, then 3 untimed steps of "
+            "each and 20 timed steps of each in turns, twice, with cuDNN TF32 (the default; "
+            "peak memory with every configuration's state held); two or four cards were not "
+            "measured",
+            "dryrun": dry, **out,
+            "sharded_rec_infer": {"mesh": mesh.shape, "crops": list(x.shape[:3]),
+                                  "clear_share": float(clear.float().mean()),
+                                  "val_max_rel_err": float(((val - one_val).abs() / one_val).max()),
+                                  "launches": counts},
+            "card": card_line()}), flush=True)
+
     # -- 10 --------------------------------------------------------------
     def processes(self):
         from ppocr_tpu_torch.serve import OCRIPCClient
@@ -1769,6 +1964,7 @@ def main() -> int:
     smoke.phase("train parity", smoke.train_parity)
     smoke.phase("finetune", smoke.finetune)
     smoke.phase("det train", smoke.det_train)
+    smoke.phase("train devices", smoke.train_devices)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:

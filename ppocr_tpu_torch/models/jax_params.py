@@ -250,8 +250,16 @@ class _Saver:
         return tree
 
 
+def whole_module(model: nn.Module) -> nn.Module:
+    """``model``, or the whole module that a mesh's copies of it
+    (``parallel.MeshReplicas``, which has ``gather``) gather to."""
+    return model.gather() if hasattr(model, "gather") else model
+
+
 def rec_to_jax(model: RecSVTR) -> Dict:
-    """:class:`RecSVTR` → JAX rec pytree (``init_rec_params`` layout)."""
+    """:class:`RecSVTR` (or a mesh's copies of one) → JAX rec pytree
+    (``init_rec_params`` layout)."""
+    model = whole_module(model)
     sv = _Saver(model)
     m = model
     backbone = {"stem": sv.conv(m.stem, bn=sv.bn(m.stem_bn)), "blocks": sv.blocks(m.blocks)}
@@ -278,7 +286,9 @@ def rec_to_jax(model: RecSVTR) -> Dict:
 
 
 def det_to_jax(model: DetDB) -> Dict:
-    """:class:`DetDB` → JAX det pytree (``init_det_params`` layout)."""
+    """:class:`DetDB` (or a mesh's copies of one) → JAX det pytree
+    (``init_det_params`` layout)."""
+    model = whole_module(model)
     sv = _Saver(model)
     m = model
     backbone = {"stem": sv.conv(m.stem, bn=sv.bn(m.stem_bn)), "blocks": sv.blocks(m.blocks)}

@@ -105,19 +105,23 @@ class SVTRBlock(nn.Module):
         self.fc2 = Linear(REC_MLP_RATIO * d, d)
 
     def forward(self, x):
-        n, t, d = x.shape
-        h = self.heads
-        hd = d // h
-        qkv = self.qkv(self.norm1(x)).reshape(n, t, 3, h, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * (hd**-0.5), qkv[1], qkv[2]
-        # scores and softmax in f32, then back to the activation dtype
-        attn = torch.matmul(q.float(), k.float().transpose(2, 3))
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        y = torch.matmul(attn.float(), v.float()).to(x.dtype)
-        y = y.transpose(1, 2).reshape(n, t, d)
-        x = x + self.proj(y)
+        x = x + self.proj(attention(self.qkv(self.norm1(x)), self.heads))
         y = self.fc2(swish(self.fc1(self.norm2(x))))
         return x + y
+
+
+def attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Multi-head self-attention over the T axis: ``qkv`` [N, T, 3·heads·hd]
+    laid out (q | k | v, head, hd) → [N, T, heads·hd] laid out (head, hd)."""
+    n, t, c = qkv.shape
+    hd = c // (3 * heads)
+    qkv = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0] * (hd**-0.5), qkv[1], qkv[2]
+    # scores and softmax in f32, then back to the activation dtype
+    attn = torch.matmul(q.float(), k.float().transpose(2, 3))
+    attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
+    y = torch.matmul(attn.float(), v.float()).to(qkv.dtype)
+    return y.transpose(1, 2).reshape(n, t, heads * hd)
 
 
 class RecSVTR(nn.Module):

@@ -24,6 +24,7 @@ import torch
 
 from ..models.rec_svtr import rec_forward
 from ..ops.ctc import ctc_topk_device
+from .tensor_parallel import split_rec
 
 
 def as_device(d) -> torch.device:
@@ -104,10 +105,12 @@ def device_scope(device: torch.device):
     return contextlib.nullcontext()
 
 
-def _run_jobs(dev: torch.device, items) -> list:
+def _run_jobs(dev: torch.device, items, grad: bool) -> list:
     """``items`` [(i, fn)] in order, with ``dev`` current and under
-    ``torch.inference_mode`` (both are per thread)."""
-    with device_scope(dev), torch.inference_mode():
+    ``torch.inference_mode``, or with autograd on where ``grad`` (all three
+    are per thread; a tensor made under inference mode cannot enter a
+    backward pass)."""
+    with device_scope(dev), (torch.enable_grad() if grad else torch.inference_mode()):
         return [(i, fn()) for i, fn in items]
 
 
@@ -131,18 +134,21 @@ class DeviceThreads:
                 self._pools[dev] = ThreadPoolExecutor(1, thread_name_prefix=f"ocr-{dev}")
             return self._pools[dev]
 
-    def run(self, jobs: Sequence[Tuple[torch.device, Callable]]) -> list:
+    def run(self, jobs: Sequence[Tuple[torch.device, Callable]], grad: bool = False) -> list:
         """Run each ``(device, fn)`` job and return the results in job
         order: the jobs of one device in order on that device's thread.
         With a single distinct device they run on the calling thread. The
-        first error is raised after every device's jobs have ended."""
+        jobs run under inference mode, or with autograd on where ``grad``
+        (a train step's forwards). The first error is raised after every
+        device's jobs have ended."""
         by_dev: Dict[torch.device, list] = {}
         for i, (dev, fn) in enumerate(jobs):
             by_dev.setdefault(dev, []).append((i, fn))
         if len(by_dev) == 1:
-            done = [_run_jobs(*next(iter(by_dev.items())))]
+            done = [_run_jobs(*next(iter(by_dev.items())), grad)]
         else:
-            futures = [self._pool(dev).submit(_run_jobs, dev, items) for dev, items in by_dev.items()]
+            futures = [self._pool(dev).submit(_run_jobs, dev, items, grad)
+                       for dev, items in by_dev.items()]
             done, errors = [], []
             for f in futures:  # read every future: each holds its device's error
                 try:
@@ -158,14 +164,22 @@ class DeviceThreads:
         return results
 
 
+def split_rows(mesh: DeviceMesh, batch) -> list:
+    """A batch (numpy or tensor) split along its leading axis into one
+    equal chunk per data row, where it stays; ``ValueError`` when it does
+    not split."""
+    n = mesh.shape["data"]
+    if batch.shape[0] % n:
+        raise ValueError(f"a batch of {batch.shape[0]} does not split over data={n}")
+    step = batch.shape[0] // n
+    return [batch[i * step : (i + 1) * step] for i in range(n)]
+
+
 def shard_batch(mesh: DeviceMesh, batch) -> List[torch.Tensor]:
     """A host (numpy) or device batch split along its leading axis over
     "data": one chunk per data shard, each on its shard's device."""
-    n = mesh.shape["data"]
     x = torch.as_tensor(batch) if isinstance(batch, np.ndarray) else batch
-    if x.shape[0] % n:
-        raise ValueError(f"a batch of {x.shape[0]} does not split over data={n}")
-    return [c.to(d) for c, d in zip(x.chunk(n), mesh.data_devices)]
+    return [c.to(d) for c, d in zip(split_rows(mesh, x), mesh.data_devices)]
 
 
 def replicate(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
@@ -176,16 +190,14 @@ def replicate(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     return copy.deepcopy(module).to(device)
 
 
-def shard_rec_params(mesh: DeviceMesh, model: torch.nn.Module) -> Dict[torch.device, torch.nn.Module]:
-    """One replica of the recognizer per distinct device of the mesh.
-    Tensor parallelism over the "model" axis (the JAX package's
-    ``param_shardings``) belongs to training over several devices, which is
-    not ported yet."""
+def shard_rec_params(mesh: DeviceMesh, model: torch.nn.Module) -> dict:
+    """The recognizer placed on the mesh. With a "model" axis of 1, one
+    replica per distinct device, keyed by device. Wider, one recognizer
+    per distinct grid row whose SVTR blocks are split over that row's
+    devices (``tensor_parallel.split_rec``; the JAX package's
+    ``param_shardings`` layout), keyed by the row."""
     if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            "tensor parallelism over the mesh's model axis is not ported to "
-            "ppocr_tpu_torch yet (ROADMAP A10)"
-        )
+        return {row: split_rec(model, row) for row in dict.fromkeys(mesh.grid)}
     return {dev: replicate(model, dev) for dev in mesh.distinct_devices}
 
 
@@ -193,20 +205,23 @@ def sharded_rec_infer(mesh: DeviceMesh):
     """The data-parallel rec step: ``run(model, x)`` splits the normalized
     [N, H, W, 3] float input ``x`` over "data", runs ``rec_forward`` and the
     CTC top-k (the ``ctc_topk`` kernel on a card) on each shard on its
-    device, and returns (idx [N, T] int32, val [N, T] f32) concatenated on
-    the mesh's first device. ``model`` is the recognizer, or the replicas
-    of :func:`shard_rec_params`."""
+    row's first device, and returns (idx [N, T] int32, val [N, T] f32)
+    concatenated on the mesh's first device. ``model`` is the recognizer,
+    or what :func:`shard_rec_params` made of it; with a "model" axis wider
+    than 1 each shard's SVTR blocks run split over its row's devices."""
 
     threads = DeviceThreads()
+    split = mesh.shape["model"] > 1
 
     def run(model, x):
         replicas = model if isinstance(model, dict) else shard_rec_params(mesh, model)
         shards = shard_batch(mesh, x)
 
-        def one(dev, xs):
-            return lambda: ctc_topk_device(rec_forward(replicas[dev], xs))
+        def one(row, xs):
+            rec = replicas[row if split else row[0]]
+            return lambda: ctc_topk_device(rec_forward(rec, xs))
 
-        outs = threads.run([(dev, one(dev, xs)) for dev, xs in zip(mesh.data_devices, shards)])
+        outs = threads.run([(row[0], one(row, xs)) for row, xs in zip(mesh.grid, shards)])
         first = mesh.devices[0]
         idx = torch.cat([o[0].to(first) for o in outs])
         val = torch.cat([o[1].to(first) for o in outs])

@@ -1,6 +1,8 @@
-"""Training on one device: the recognizer's CTC step, the detector's
-balanced-BCE step, and the recognizer fine-tuning recipe
-(``finetune_rec``), the counterpart of ``ppocr_tpu/train``."""
+"""Training: the recognizer's CTC step, the detector's balanced-BCE step,
+each on one device or over a device mesh (data parallel, and tensor
+parallel over the recognizer's SVTR blocks), and the recognizer
+fine-tuning recipe (``finetune_rec``); the counterpart of
+``ppocr_tpu/train``."""
 
 from .trainer import (
     TrainState,

@@ -1,4 +1,4 @@
-"""Recognizer fine-tuning recipe, on one device.
+"""Recognizer fine-tuning recipe, on one device or over a device mesh.
 
 Counterpart of ``ppocr_tpu/train/finetune.py``: adapt the recognizer to a
 custom font or charset from a directory of labeled crops.
@@ -203,9 +203,13 @@ def finetune_rec(
     serving bundle (weights.npz + ppocr_keys_v1.txt) under ``out_dir`` that
     drops into ``<model_dir>/rec/``. Returns the weights path.
 
-    ``device``: default the card (raises without one). ``on_step(step,
-    loss)``, when given, is called after each update with the loss as a
-    device tensor (for timing; reading it waits for the card)."""
+    ``device``: default the card (raises without one). ``mesh``: a
+    ``parallel.DeviceMesh`` to train over instead of one device (data
+    parallel, tensor parallel over its "model" axis; ``batch_size`` must
+    split over its data rows); the exported weights are the gathered whole
+    model. ``on_step(step, loss)``, when given, is called after each
+    update with the loss as a device tensor (for timing; reading it waits
+    for the card)."""
     from ..models.jax_params import rec_to_jax
     from ..models.rec_svtr import init_rec_params
     from ..pipeline.charset import load_charset

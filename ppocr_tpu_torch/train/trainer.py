@@ -23,8 +23,21 @@ are optax's on every row.
 
 A step takes the numpy batch, moves it to the device from pinned memory
 without a sync, and returns the loss as a device tensor: the host waits
-for the card only where it reads the loss. One device only: ``mesh``, or
-any sharding (``param_shardings`` in the JAX package), is ROADMAP A10.
+for the card only where it reads the loss.
+
+Over a mesh (``mesh=``, a ``parallel.DeviceMesh``) one process drives
+every device, as the JAX package's single controller does. The global
+batch is split over the data rows, the labels on the host; each row runs
+its forward on its own copy of the model (``parallel.MeshReplicas``: for
+the recognizer, SVTR blocks split over the row's devices as the JAX
+package's ``param_shardings`` lays them out; the detector whole, its
+model axis unused as in JAX). The global loss is formed on the mesh's
+first device from the rows' partial sums (the per-sequence CTC sum over
+the global N; the detector's four sums, so that each side of the
+balanced BCE is normalised over the whole batch as in JAX, and not per
+row), one backward pass follows the copies across devices, each
+parameter's gradient is summed over the rows and handed to every copy,
+and every copy makes the same AdamW update.
 """
 
 from __future__ import annotations
@@ -41,6 +54,8 @@ from ..models.det_db import DetDB, det_forward
 from ..models.jax_params import det_from_jax, rec_from_jax
 from ..models.layers import set_trainable
 from ..models.rec_svtr import RecSVTR, rec_forward_logits
+from ..parallel.mesh import DeviceThreads, split_rows
+from ..parallel.tensor_parallel import MeshReplicas
 from ..pipeline.engine import resolve_device
 
 LOG_EPSILON = -1e5  # optax.ctc_loss's stand-in for log(0)
@@ -50,8 +65,9 @@ Schedule = Union[float, Callable[[int], float]]
 
 
 class TrainState(NamedTuple):
-    """The module (its parameters are the trained leaves), its optimizer,
-    and the number of updates made (the schedule's count)."""
+    """The module (its parameters are the trained leaves; on a mesh the
+    :class:`MeshReplicas`), its optimizer, and the number of updates made
+    (the schedule's count)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -164,34 +180,78 @@ def ctc_loss(logits: torch.Tensor, labels, label_paddings) -> torch.Tensor:
     return torch.cat(parts)[_upload(inverse, dev)]
 
 
+def _ctc_per_seq(model: RecSVTR, batch: Dict) -> torch.Tensor:
+    logits = rec_forward_logits(model, normalize_rec_images(batch["images"]))
+    return ctc_loss(logits, batch["labels"], batch["label_paddings"])
+
+
 def ctc_train_loss(model: RecSVTR, batch: Dict) -> torch.Tensor:
     """Mean CTC loss of a batch {images [N, H, W, 3] (uint8, or f32
     normalized) on the model's device, labels and label_paddings on the
     host}."""
-    logits = rec_forward_logits(model, normalize_rec_images(batch["images"]))
-    return ctc_loss(logits, batch["labels"], batch["label_paddings"]).mean()
+    return _ctc_per_seq(model, batch).mean()
+
+
+def _det_sums(model: DetDB, batch: Dict) -> torch.Tensor:
+    """[Σ m·log p, Σ m, Σ (1−m)·log(1−p), Σ (1−m)] of a batch: what the
+    balanced BCE needs, summable over shards of the batch."""
+    prob = det_forward(model, batch["images"]).float()
+    m = batch["masks"]
+    eps = 1e-6
+    p = prob.clamp(eps, 1.0 - eps)
+    return torch.stack([(m * torch.log(p)).sum(), m.sum(),
+                        ((1.0 - m) * torch.log(1.0 - p)).sum(), (1.0 - m).sum()])
+
+
+def _det_bce(sums: torch.Tensor) -> torch.Tensor:
+    pos = -sums[0] / torch.clamp(sums[1], min=1.0)
+    neg = -sums[2] / torch.clamp(sums[3], min=1.0)
+    return pos + neg
 
 
 def det_train_loss(model: DetDB, batch: Dict) -> torch.Tensor:
     """Balanced BCE on the DB shrink mask, {images [N, H, W, 3]
     normalized, masks [N, H, W] in {0, 1}}: the positive and the negative
     pixels' mean BCE, each over its own count, summed."""
-    prob = det_forward(model, batch["images"]).float()
-    m = batch["masks"]
-    eps = 1e-6
-    p = prob.clamp(eps, 1.0 - eps)
-    pos = -(m * torch.log(p)).sum() / torch.clamp(m.sum(), min=1.0)
-    neg = -((1.0 - m) * torch.log(1.0 - p)).sum() / torch.clamp((1.0 - m).sum(), min=1.0)
-    return pos + neg
+    return _det_bce(_det_sums(model, batch))
 
 
-def _make_step(device, learning_rate: Schedule, mesh, from_jax, loss_fn, on_device):
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported to ppocr_tpu_torch yet (ROADMAP A10)"
-        )
-    dev = resolve_device(device)
+class MeshAdamW:
+    """The optimizers of a mesh's copies of the model, one AdamW per data
+    row, driven as one. ``state_dict`` and ``load_state_dict`` speak the
+    layout of one AdamW over the whole model, as a one-device run saves
+    it."""
+
+    def __init__(self, replicas: MeshReplicas, make: Callable[[nn.Module], torch.optim.Optimizer]):
+        self.replicas = replicas
+        self.optimizers = [make(row) for row in replicas.rows]
+
+    @property
+    def param_groups(self) -> list:
+        return [g for opt in self.optimizers for g in opt.param_groups]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for opt in self.optimizers:
+            opt.step()
+
+    def state_dict(self) -> Dict:
+        return self.replicas.optimizer_state(self.optimizers)
+
+    def load_state_dict(self, state_dict: Dict) -> None:
+        self.replicas.load_optimizer_state(self.optimizers, state_dict)
+
+
+def _make_step(device, learning_rate: Schedule, mesh, from_jax, loss_fn, on_device, mesh_loss):
     lr = learning_rate if callable(learning_rate) else (lambda count: learning_rate)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        return _make_mesh_step(mesh, lr, from_jax, on_device, *mesh_loss)
+    dev = resolve_device(device)
 
     def make_optimizer(model: nn.Module) -> torch.optim.AdamW:
         return torch.optim.AdamW(model.parameters(), lr=lr(0), **ADAMW)
@@ -216,21 +276,72 @@ def _make_step(device, learning_rate: Schedule, mesh, from_jax, loss_fn, on_devi
     return make_optimizer, init_fn, step_fn
 
 
+def _make_mesh_step(mesh, lr, from_jax, on_device, row_sums, finish, split):
+    """The step over a mesh: ``row_sums(model, batch)`` is what each data
+    row sums, ``finish(sums, n)`` the loss of the global batch of n from the
+    rows' summed sums, ``split`` whether the copies split the SVTR blocks
+    over the "model" axis."""
+    threads = DeviceThreads()
+    first = mesh.devices[0]
+
+    def make_optimizer(replicas: MeshReplicas) -> MeshAdamW:
+        return MeshAdamW(replicas, lambda row: torch.optim.AdamW(row.parameters(), lr=lr(0),
+                                                                 **ADAMW))
+
+    def init_fn(params) -> TrainState:
+        """A JAX-layout tree or a module → one copy per data row of the
+        mesh, every parameter trainable."""
+        model = params if isinstance(params, nn.Module) else from_jax(params)
+        replicas = MeshReplicas(model, mesh, split)
+        for row in replicas.rows:
+            set_trainable(row, True)
+        return TrainState(replicas, make_optimizer(replicas), 0)
+
+    def step_fn(state: TrainState, batch: Dict) -> Tuple[TrainState, torch.Tensor]:
+        parts = {k: split_rows(mesh, v) for k, v in batch.items()}
+        n = len(batch["images"])
+
+        def job(r, row):
+            def run():
+                b = {k: _upload(v[r], row[0]) if k in on_device else v[r] for k, v in parts.items()}
+                return row_sums(state.model.rows[r], b)
+            return row[0], run
+
+        sums = threads.run([job(r, row) for r, row in enumerate(mesh.grid)], grad=True)
+        total = sums[0].to(first)
+        for s in sums[1:]:
+            total = total + s.to(first)
+        loss = finish(total, n)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr(state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.model.reduce_grads()
+        state.optimizer.step()
+        return TrainState(state.model, state.optimizer, state.step + 1), loss.detach()
+
+    return make_optimizer, init_fn, step_fn
+
+
 def make_train_step(device=None, learning_rate: Schedule = 1e-4, mesh=None):
     """Recognizer trainer: returns ``(make_optimizer, init_fn, step_fn)``.
 
     ``init_fn(params)`` puts a rec tree (JAX layout) or a ``RecSVTR`` on
     the device (default: the card; without one it raises) with its AdamW;
     ``step_fn(state, batch)`` makes one update from a numpy batch
-    {images, labels, label_paddings} and returns (state, loss)."""
-    return _make_step(device, learning_rate, mesh, rec_from_jax, ctc_train_loss, ("images",))
+    {images, labels, label_paddings} and returns (state, loss). With
+    ``mesh`` (and no ``device``) the step is data parallel over its rows
+    and tensor parallel over its "model" axis (module docstring)."""
+    return _make_step(device, learning_rate, mesh, rec_from_jax, ctc_train_loss, ("images",),
+                      (lambda model, b: _ctc_per_seq(model, b).sum(), lambda s, n: s / n, True))
 
 
 def make_det_train_step(device=None, learning_rate: Schedule = 1e-3, mesh=None):
     """Detector trainer with :func:`make_train_step`'s contract; batches
-    are {images [N, H, W, 3] normalized, masks [N, H, W]}."""
+    are {images [N, H, W, 3] normalized, masks [N, H, W]}. Over a mesh it
+    is data parallel; the "model" axis carries nothing."""
     return _make_step(device, learning_rate, mesh, det_from_jax, det_train_loss,
-                      ("images", "masks"))
+                      ("images", "masks"), (_det_sums, lambda s, n: _det_bce(s), False))
 
 
 class BatchPrefetcher:

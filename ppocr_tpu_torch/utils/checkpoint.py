@@ -9,7 +9,9 @@ subtree is stored as a ``__empty__`` marker array.
 under ``step_N/``: ``params.npz`` (the module's parameters in the JAX
 layout, loadable by either package), ``optimizer.pt`` (the AdamW
 ``state_dict``) and ``state.json`` (the model kind and the count of
-updates made, which the learning-rate schedule reads). These are not the
+updates made, which the learning-rate schedule reads). A state trained
+over a mesh is saved whole, in the same files as a one-device run's, and
+either kind of state restores from either. These are not the
 JAX package's orbax checkpoints and neither package reads the other's;
 ``params.npz`` and an exported ``weights.npz`` are what cross over.
 """
@@ -100,17 +102,18 @@ def save_train_state(ckpt_dir: str, state, step: int | None = None) -> str:
     which is renamed into place. Returns the checkpoint's path."""
     import torch
 
-    from ..models.jax_params import det_to_jax, rec_to_jax
+    from ..models.jax_params import det_to_jax, rec_to_jax, whole_module
     from ..models.rec_svtr import RecSVTR
 
     step = int(step if step is not None else state.step)
-    kind = "rec" if isinstance(state.model, RecSVTR) else "det"
+    model = whole_module(state.model)
+    kind = "rec" if isinstance(model, RecSVTR) else "det"
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     try:
-        tree = rec_to_jax(state.model) if kind == "rec" else det_to_jax(state.model)
+        tree = rec_to_jax(model) if kind == "rec" else det_to_jax(model)
         save_params_npz(os.path.join(tmp, "params.npz"), tree)
         torch.save(state.optimizer.state_dict(), os.path.join(tmp, "optimizer.pt"))
         with open(os.path.join(tmp, "state.json"), "w") as f:
@@ -136,7 +139,10 @@ def restore_train_state(path: str, template):
         meta = json.load(f)
     tree = load_params_npz(os.path.join(path, "params.npz"))
     loaded = rec_from_jax(tree) if meta["kind"] == "rec" else det_from_jax(tree)
-    template.model.load_state_dict(loaded.state_dict())
+    if hasattr(template.model, "scatter"):  # a mesh's copies
+        template.model.scatter(loaded)
+    else:
+        template.model.load_state_dict(loaded.state_dict())
     opt = torch.load(os.path.join(path, "optimizer.pt"), map_location="cpu", weights_only=True)
     template.optimizer.load_state_dict(opt)
     return type(template)(template.model, template.optimizer, int(meta["updates"]))

@@ -42,5 +42,6 @@ def test_port_imports_without_jax_cv2_pil_or_the_jax_package():
     assert len(names) >= 40  # every module was visited
     for module in ("ops.native", "ops.geometry", "ops.db_postprocess", "pipeline.sysinfo",
                    "serve.balancer", "pipeline.engine", "pipeline.worker", "train.trainer",
-                   "train.finetune", "cli.finetune_main", "utils.imcodec"):
+                   "train.finetune", "cli.finetune_main", "utils.imcodec",
+                   "parallel.tensor_parallel", "parallel.dryrun"):
         assert f"ppocr_tpu_torch.{module}" in names

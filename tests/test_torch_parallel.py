@@ -38,6 +38,7 @@ from ppocr_tpu_torch.models.jax_params import rec_to_jax
 from ppocr_tpu_torch.ops import kernels as K
 from ppocr_tpu_torch.parallel import CrossChipFusedOCR, make_mesh, shard_batch, sharded_rec_infer
 from ppocr_tpu_torch.parallel.mesh import DeviceMesh, DeviceThreads, shard_rec_params
+from ppocr_tpu_torch.parallel.tensor_parallel import SplitSVTRBlock
 from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker, PipelineConfig
 from ppocr_tpu_torch.pipeline.fused import merge_tiers
 from ppocr_tpu_torch.serve import OCRIPCService
@@ -198,8 +199,17 @@ def test_shard_batch_and_rec_replicas(single):
         shard_batch(mesh, x[:6])
     replicas = shard_rec_params(mesh, single.rec_model)
     assert list(replicas) == [torch.device("cpu")] and replicas[torch.device("cpu")] is single.rec_model
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        shard_rec_params(make_mesh(devices=CPU8, model=2), single.rec_model)
+    # a model axis of 2: one recognizer per distinct grid row, its SVTR
+    # blocks split in two (by heads and hidden columns), the rest whole
+    split = shard_rec_params(make_mesh(devices=CPU8, model=2), single.rec_model)
+    assert list(split) == [(torch.device("cpu"),) * 2]
+    (rec,) = split.values()
+    assert rec is not single.rec_model
+    for blk in rec.svtr:
+        assert isinstance(blk, SplitSVTRBlock) and blk.heads == 4
+        assert [s.w_in.shape[0] for s in blk.attn] == [180, 180]
+        assert [s.w_in.shape[0] for s in blk.mlp] == [120, 120]
+    torch.testing.assert_close(rec.fc.weight, single.rec_model.fc.weight, rtol=0, atol=0)
 
 
 def test_sharded_rec_infer_equals_jax_and_one_step(single):

@@ -345,10 +345,19 @@ def test_the_batch_prefetcher_hands_over_batches_and_errors_in_order():
 
 
 def test_training_entry_points_refuse_a_mesh_and_default_to_the_card():
-    with pytest.raises(NotImplementedError, match="A10"):
-        TT.make_train_step(CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        TT.make_det_train_step(CPU, mesh=object())
+    """A mesh is taken (the steps over it: ``test_torch_parallel_train.py``)
+    in place of a device, not beside one."""
+    from ppocr_tpu_torch.parallel import MeshReplicas
+    from ppocr_tpu_torch.parallel import make_mesh as torch_mesh
+
+    mesh = torch_mesh(devices=[CPU] * 2)
+    for make, params in ((TT.make_train_step, init_rec_params(0)),
+                         (TT.make_det_train_step, init_det_params(0))):
+        _, init_fn, _ = make(mesh=mesh)
+        state = init_fn(params)
+        assert isinstance(state.model, MeshReplicas) and len(state.model.rows) == 2
+        with pytest.raises(ValueError, match="not both"):
+            make(CPU, mesh=mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TT.make_train_step()
