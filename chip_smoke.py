@@ -123,16 +123,24 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 13. image formats vs cv2: every committed case of ``assets/image_cases.npz``
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
-    garbled and cut files among them) decoded with ``decode_image``
-    (``csrc/bmp_rle.cpp`` built with the host compiler), each equal to the cv2 decode stored beside it, or ``None``
-    where cv2 gave ``None``; the case counts by format; the host ms to
-    decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of
-    its grey, a binary PPM, a standard Sun raster and a byte-encoded one
-    (which cv2 5.0 refuses: the time of the refusal), in turns, median of
-    25 after one untimed; then the same 24-bit and RLE8 BMPs through the
-    service (a subprocess as in phase 7) answer the words of the PNG of the
-    same pixels (texts exact, boxes ≤ 2 px), and the service's ``status``
-    shows ``ctc_topk`` launched by the two BMP requests;
+    PFM, Radiance HDR and GIF, garbled and cut files among them) decoded
+    with ``decode_image`` (``csrc/bmp_rle.cpp``, ``csrc/hdr_rgbe.cpp`` and
+    ``csrc/gif_lzw.cpp`` built with the host compiler), each equal to the
+    cv2 decode stored beside it (a grey PFM's is [H, W]), or ``None`` where
+    cv2 gave ``None``; the case counts by format; the host ms to decode the
+    first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
+    binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
+    refuses: the time of the refusal), a PFM, a run-length HDR and a GIF, in
+    turns, median of 25 after one untimed; then the same 24-bit and RLE8
+    BMPs through the service (a subprocess as in phase 7) answer the words
+    of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the HDR and
+    the GIF answer the words phase 4's in-process worker gives on the
+    port's decode of the same bytes, and the service's ``status`` shows
+    ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones; a
+    grey PFM sent as data gets the in-process worker's error response (the
+    JAX service's answer, held on the CPU by
+    ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
+    load image" response;
 14. train parity: f32, TF32 off, from the same JAX-layout weights and
     numpy batches, 3 rec CTC steps (the jumbo recognizer, 8 crops at
     48×320, labels with a repeat and padding) and 3 det steps (the trained
@@ -1269,16 +1277,22 @@ class Smoke:
 
     # -- 13 --------------------------------------------------------------
     def image_formats(self):
+        import numpy as np
+
         from ppocr_tpu_torch.ops import native
         from ppocr_tpu_torch.serve import OCRIPCClient
-        from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png, sniff_format
+        from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png, read_image, sniff_format
 
+        if self.serving_worker is None:
+            raise AssertionError("needs the bf16 serving phase's worker")
         t0 = time.perf_counter()
-        lib = native.build(native.BMP_RLE_SOURCE)
-        print(f"bmp rle decoder build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+        libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE)]
+        print(f"bmp rle, hdr and gif decoder builds: {time.perf_counter() - t0:.2f} s "
+              f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
-        timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle")
+        timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
+                 "scene0_hdr_rle", "scene0_gif")
         ms = {n: [] for n in timed}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1312,6 +1326,18 @@ class Smoke:
                 return {"command": "recognize", "image_path": bmp_path}
             return {"command": "recognize", "image_data": base64.b64encode(data).decode()}
 
+        # the HDR and GIF scenes, held to the in-process worker on the
+        # port's decode; a grey PFM (a crop as data, the whole scene by path)
+        others = {n: cases[n][0] for n in ("scene0_hdr_rle", "scene0_gif")}
+        grey = decode_image(cases["scene0_bmp24"][0]).mean(axis=2, dtype=np.float32)
+        grey_pfm = {"data": b"Pf\n320 256\n-1\n" + np.ascontiguousarray(grey[:256, :320][::-1]).astype("<f4").tobytes()}
+        pfm_path = os.path.join(self.tmp.name, "grey.pfm")
+        with open(pfm_path, "wb") as f:
+            f.write(b"Pf\n1024 768\n-1\n" + np.ascontiguousarray(grey[::-1]).astype("<f4").tobytes())
+        if decode_image(grey_pfm["data"]).shape != (256, 320) or read_image(pfm_path) is not None:
+            raise AssertionError("a grey PFM must decode to [H, W] and be refused by read_image")
+        want_grey = self.serving_worker.process(decode_image(grey_pfm["data"]), 0)
+
         sock = os.path.join(self.tmp.name, "formats.sock")
         proc, lines = self.start_service(sock, {"--warmup": "full"})
         words = {}
@@ -1326,6 +1352,23 @@ class Smoke:
                         raise AssertionError(f"{name}: {str(got[name])[:200]} / {str(want)[:200]}")
                     check_words(got[name]["words"], want["words"], f"{name} as BMP vs PNG")
                     words[name] = len(got[name]["words"])
+                before = service_launches(c)
+                got = {name: c.send_request(req(data)) for name, data in others.items()}
+                self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
+                for name, data in others.items():
+                    want = self.serving_worker.process(decode_image(data), 0)["words"]
+                    if not got[name].get("success") or not want:
+                        raise AssertionError(f"{name}: {str(got[name])[:200]} / {str(want)[:200]}")
+                    check_words(got[name]["words"], want, f"{name} in the service vs in process")
+                    words[name] = len(got[name]["words"])
+                grey_pfm["path"] = c.send_request({"command": "recognize", "image_path": pfm_path})
+                grey_pfm["data"] = c.send_request(req(grey_pfm["data"]))
+                keys = ("success", "error", "width", "height")
+                if ({k: grey_pfm["data"].get(k) for k in keys} != {k: want_grey.get(k) for k in keys}
+                        or want_grey["success"] or "could not broadcast" not in want_grey["error"]):
+                    raise AssertionError(f"grey PFM as data: {grey_pfm['data']} vs in process {want_grey}")
+                if grey_pfm["path"] != {"success": False, "error": f"Failed to load image from path: {pfm_path}"}:
+                    raise AssertionError(f"grey PFM by path: {grey_pfm['path']}")
                 if c.send_shutdown_command().get("success") is not True:
                     raise AssertionError("shutdown was not acknowledged")
             if proc.wait(timeout=30) != 0:
@@ -1340,8 +1383,10 @@ class Smoke:
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed},
             "bytes": {n[len("scene0_"):]: len(cases[n][0]) for n in timed},
-            "bmp_service_words": words, "launches_of_2_bmp_requests": launched,
-            "what": "host wall ms, median of 25 after one untimed, the five payloads in turns; "
+            "service_words": words, "launches_of_2_bmp_requests": launched,
+            "launches_of_hdr_and_gif_requests": launched_hdr_gif,
+            "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
+            "what": "host wall ms, median of 25 after one untimed, the eight payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's",
             "card": card_line()}), flush=True)
 

@@ -121,8 +121,8 @@ def load_jpeg_cases():
 
 
 def load_image_cases() -> dict:
-    """{case name: (payload bytes, cv2's [H, W, 3] BGR decode, or None
-    where cv2 returns None)} of ``image_cases.npz``."""
+    """{case name: (payload bytes, cv2's [H, W, 3] BGR decode ([H, W] for
+    a grey PFM), or None where cv2 returns None)} of ``image_cases.npz``."""
     with np.load(IMAGE_CASES) as data:
         def decode_of(n):  # a case may share another's decode ("same_as")
             if f"{n}/none" in data.files:

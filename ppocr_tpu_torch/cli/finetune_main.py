@@ -7,7 +7,7 @@ Counterpart of ``scripts/finetune_rec.py``, with its flags plus
         --init weights/rec_scene_digits.npz --steps 2000 --out /tmp/ft
 
 Label file format (PaddleOCR rec_gt): ``relative/path.png<TAB>text`` per
-line (PNG, BMP, JPEG, PPM/PGM/PBM/PAM or Sun raster crops). Exports a
+line (PNG, BMP, JPEG, PPM/PGM/PBM/PAM, Sun raster, PFM, HDR or GIF crops). Exports a
 serving bundle (weights.npz in the JAX layout + ppocr_keys_v1.txt) under
 --out; copy both into <model_dir>/rec/ to serve with either package. Runs
 on the card (``--device cuda``, the default; it raises when there is none)

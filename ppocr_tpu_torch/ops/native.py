@@ -1,6 +1,8 @@
 """Build and ctypes bindings of the port's host C++: the DB-postprocess
-core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, and the
-BMP run-length decoder, ``csrc/bmp_rle.cpp``.
+core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, the BMP
+run-length decoder, ``csrc/bmp_rle.cpp``, the Radiance HDR scanline
+decoder, ``csrc/hdr_rgbe.cpp``, and the GIF LZW decoder,
+``csrc/gif_lzw.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -37,11 +39,15 @@ from .kernels import BUILD_DIR, CSRC
 SOURCE = CSRC / "dbpost.cpp"
 JPEG_SOURCE = CSRC / "jpeg.cpp"
 BMP_RLE_SOURCE = CSRC / "bmp_rle.cpp"
+HDR_SOURCE = CSRC / "hdr_rgbe.cpp"
+GIF_SOURCE = CSRC / "gif_lzw.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
 _jpeg_lib = None
 _bmp_rle_lib = None
+_hdr_lib = None
+_gif_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -240,4 +246,72 @@ def bmp_rle_decode(data: bytes, offset: int, width: int, height: int, bits: int,
     u8p = ctypes.POINTER(ctypes.c_uint8)
     status = lib.bmp_rle_decode(data, len(data), offset, width, height, bits, pal.ctypes.data_as(u8p),
                                 out.ctypes.data_as(u8p))
+    return status, out
+
+
+def load_hdr_library() -> ctypes.CDLL:
+    """Build (if needed) and load the Radiance HDR scanline decoder."""
+    global _hdr_lib
+    with _lock:
+        if _hdr_lib is None:
+            lib = ctypes.CDLL(str(build(HDR_SOURCE)))
+            lib.hdr_decode.restype = ctypes.c_int
+            lib.hdr_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                                       ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8)]
+            _hdr_lib = lib
+    return _hdr_lib
+
+
+def hdr_decode(data: bytes, offset: int, width: int, height: int) -> Tuple[int, np.ndarray]:
+    """The RGBE scanlines of a Radiance HDR file from byte ``offset`` →
+    (status, [height, width, 3] BGR uint8). Status 0 is success; 1: the
+    data ends before the image does; 2: a scanline of another width; 3: a
+    run count of 0 or past the end of its channel. The image is only
+    meaningful on status 0."""
+    if width <= 0 or height <= 0:
+        raise ValueError(f"hdr_decode: {width}x{height}")
+    lib = load_hdr_library()
+    out = np.zeros((height, width, 3), np.uint8)
+    status = lib.hdr_decode(data, len(data), offset, width, height, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return status, out
+
+
+def load_gif_library() -> ctypes.CDLL:
+    """Build (if needed) and load the GIF frame decoder."""
+    global _gif_lib
+    with _lock:
+        if _gif_lib is None:
+            lib = ctypes.CDLL(str(build(GIF_SOURCE)))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            i32 = ctypes.c_int32
+            lib.gif_frame.restype = ctypes.c_int
+            lib.gif_frame.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, i32, i32, i32, u8p, u8p, i32,
+                                      u8p, u8p, i32, i32, i32, i32]
+            _gif_lib = lib
+    return _gif_lib
+
+
+def gif_frame(data: bytes, offset: int, frame: Tuple[int, int, int, int], interlaced: bool, colours: np.ndarray,
+              known: np.ndarray, transparent: Optional[int], background, screen: Tuple[int, int]
+              ) -> Tuple[int, np.ndarray]:
+    """Decode a GIF frame's LZW data (its code size byte at ``offset``)
+    onto a screen: ``frame`` is (left, top, width, height) inside
+    ``screen`` (width, height), ``colours`` [256, 3] BGR, ``known`` [256]
+    bool (the entries the colour tables hold), ``transparent`` the index
+    that keeps the ``background`` BGR colour. Returns (status, [H, W, 3]
+    BGR uint8); status 0 is success, the others are ``csrc/gif_lzw.cpp``'s
+    codes, and the image is only meaningful on 0."""
+    left, top, w, h = frame
+    sw, sh = screen
+    if not (w > 0 and h > 0 and left + w <= sw and top + h <= sh):
+        raise ValueError(f"gif_frame: a {w}x{h} frame at ({left}, {top}) on a {sw}x{sh} screen")
+    lib = load_gif_library()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    pal = np.ascontiguousarray(colours, np.uint8)
+    flags = np.ascontiguousarray(known, np.uint8)
+    fill = np.ascontiguousarray(background, np.uint8)
+    out = np.empty((sh, sw, 3), np.uint8)
+    status = lib.gif_frame(data, len(data), offset, w, h, int(interlaced), pal.ctypes.data_as(u8p),
+                           flags.ctypes.data_as(u8p), -1 if transparent is None else transparent,
+                           fill.ctypes.data_as(u8p), out.ctypes.data_as(u8p), sw, sh, left, top)
     return status, out

@@ -23,9 +23,10 @@ Counters: total_requests / successful_requests / average_processing_time_ms
 are all real here — the reference declares but never increments the latter
 two (latent bug, ocr_ipc_service.h:91-93).
 
-Images are decoded by ``utils.imcodec`` (PNG, BMP, JPEG, PPM/PGM/PBM/PAM
-and Sun raster, as cv2 decodes them): a payload it cannot decode gets the reference's own error
-response.
+Images are decoded by ``utils.imcodec`` (PNG, BMP, JPEG, PPM/PGM/PBM/PAM,
+Sun raster, PFM, Radiance HDR and GIF, as cv2 decodes them): a payload it
+cannot decode gets the reference's own error response, and a grey PFM,
+which cv2 decodes to [H, W], the JAX service's worker error.
 """
 
 from __future__ import annotations

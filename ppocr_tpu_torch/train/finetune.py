@@ -5,8 +5,9 @@ custom font or charset from a directory of labeled crops.
 
 * **data** — PaddleOCR ``rec_gt``-style label files
   (``relative/path.png\\ttext`` per line), crops read with
-  ``utils.imcodec.read_image`` (PNG, BMP, JPEG, PPM/PGM/PBM/PAM and Sun
-  raster with ``cv2.imread``'s answers; no cv2) and the
+  ``utils.imcodec.read_image`` (PNG, BMP, JPEG, PPM/PGM/PBM/PAM, Sun
+  raster, PFM, Radiance HDR and GIF with ``cv2.imread``'s answers, a grey
+  PFM refused as imread refuses it; no cv2) and the
   serving-exact ``crnn_resize``; the same skip rules and the same numpy
   draws as the JAX package's dataset, so both make the same batches;
 * **charset tools** — build/write charset files in the

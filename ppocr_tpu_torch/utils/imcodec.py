@@ -46,16 +46,44 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   byte past the end, or a progressive or multi-scan image that does not
   reach EOI, gives ``None``. The EXIF orientation is applied as
   ``cv2.imdecode`` applies it; grey comes out as three equal channels.
+* **PFM** (numpy), as ``grfmt_pfm.cpp`` reads it: ``PF`` (RGB) or ``Pf``
+  (grey) and a line break (``P``, ``F`` or ``f`` and other whitespace is
+  sniffed as PFM and refused, as cv2 refuses it), width, height and scale
+  as ``atoi`` / ``atof`` read them, rows bottom-up, big-endian under a
+  positive scale. The values are divided by |scale| and rounded half to
+  even, with no ×255: [0, 1] floats give 0s and 1s; NaN, ±inf and values
+  at or past 2^31 give 0. **A grey PFM decodes to [H, W]**, as
+  ``cv2.imdecode`` gives it even under ``IMREAD_COLOR``; ``read_image``
+  gives ``None`` for it, as ``cv2.imread`` does. The JAX service hands
+  that array to its worker, which answers an error response (``could
+  not broadcast ...``); the port's service gives the same response, and a
+  grey PFM sent by path, or named in a fine-tuning label file, is refused
+  as cv2.imread refuses it.
+* **Radiance HDR** (header in Python, scanlines in ``csrc/hdr_rgbe.cpp``,
+  host C++ built at first use), as ``grfmt_hdr.cpp`` and its bundled
+  ``rgbe.cpp`` read it: header lines up to exactly
+  ``FORMAT=32-bit_rle_rgbe`` (XYZE files are refused), one blank line, and
+  the resolution ``-Y H +X W``, the only orientation read; new-style
+  run-length or flat scanlines (no old-style runs); ``clip(rint(m ·
+  2^(E-136) · 255))`` in float, RGB turned to BGR.
+* **GIF**, the first frame (container in Python, LZW and painting in
+  ``csrc/gif_lzw.cpp``, host C++ built at first use), as OpenCV 5.0's own
+  ``grfmt_gif.cpp`` reads it: GIF87a and GIF89a; every block to the
+  trailer is walked first (a cut file or a stray byte refuses it); the
+  screen takes the global table's background colour (black without one),
+  a transparent pixel keeps it; local over global tables, grey levels with
+  no table at all (index 1 white), an index past the tables refuses the
+  file; interlaced rows; cv2's LZW rules on damaged streams.
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and, named by their
 sniffed format, what cv2 decodes and this module does not
-(``FORMAT_NAMES``): GIF, WebP, TIFF, JPEG 2000, AVIF, PFM and Radiance
-HDR. ``None`` becomes the reference's own error response in the service.
-A JPEG or run-length BMP decode raises when its host C++ cannot be built:
-a missing compiler is not a bad image.
+(``FORMAT_NAMES``): WebP, TIFF, JPEG 2000 and AVIF. ``None`` becomes the
+reference's own error response in the service. A JPEG, run-length BMP,
+HDR or GIF decode raises when its host C++ cannot be built: a missing
+compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -88,7 +116,7 @@ def sniff_format(data: bytes) -> str:
         return "bmp"
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
+    if data[:3] == b"GIF":
         return "gif"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
@@ -102,7 +130,7 @@ def sniff_format(data: bytes) -> str:
         return "sunraster"
     if data[4:12] in (b"ftypavif", b"ftypavis"):
         return "avif"
-    if data[:3] in (b"PF\n", b"Pf\n"):
+    if data[:1] == b"P" and data[1:2] in (b"F", b"f") and data[2:3].isspace():
         return "pfm"
     if data[:10] == b"#?RADIANCE" or data[:6] == b"#?RGBE":
         return "hdr"
@@ -843,6 +871,253 @@ def _decode_sunraster(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[:, : 4 * w].reshape(h, w, 4)[..., 1:])  # X, B, G, R
 
 
+# -- PFM ------------------------------------------------------------------------
+# OpenCV's grfmt_pfm.cpp
+
+
+def _to_u8(x: np.ndarray) -> np.ndarray:
+    """float32 → uint8 as OpenCV's ``saturate_cast`` does: ``cvRound``
+    (half to even), whose int32 conversion gives INT_MIN for NaN, ±inf and
+    anything at or past ±2^31, so those become 0."""
+    with np.errstate(invalid="ignore"):
+        r = np.rint(x)
+        r[~(np.abs(x) < np.float32(2**31))] = 0
+    return np.clip(r, 0, 255, out=r).astype(np.uint8)
+
+
+def _pfm_token(s: _Bytes) -> bytes:
+    """PFM's read_number: the bytes up to the first whitespace (which is
+    consumed), at most 2048; a byte above 127 is an error; the string ends
+    at a NUL."""
+    tok = bytearray()
+    for _ in range(2048):
+        c = s.byte()
+        if c >= 128:
+            raise _Refused(f"the header byte {c:#x}")
+        if c in _SPACE:
+            break
+        tok.append(c)
+    return bytes(tok).split(b"\0")[0]
+
+
+_C_FLOAT = re.compile(rb"[+-]?(?:inf(?:inity)?|nan(?:\([0-9a-z_]*\))?|0x(?:[0-9a-f]+\.?[0-9a-f]*|\.[0-9a-f]+)"
+                      rb"(?:p[+-]?[0-9]+)?|(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:e[+-]?[0-9]+)?)", re.I)
+
+
+def _atoi(tok: bytes) -> int:
+    """glibc's ``atoi``: ``(int) strtol``, clamped to 64 bits, then wrapped
+    to 32."""
+    m = re.match(rb"[+-]?[0-9]+", tok)
+    v = max(-(1 << 63), min((1 << 63) - 1, int(m.group()))) if m else 0
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _atof(tok: bytes) -> float:
+    """``atof``: ``strtod``'s longest prefix (decimal, hex, inf, nan), else 0."""
+    m = _C_FLOAT.match(tok)
+    if m is None:
+        return 0.0
+    t = m.group().decode().lower()
+    if "x" in t:
+        return float.fromhex(t)
+    return float(t.split("(")[0])
+
+
+def _decode_pfm(data: bytes) -> np.ndarray:
+    """``PF`` (RGB) or ``Pf`` (grey), a line break, width, height and
+    scale, each ended by one whitespace byte, then float32 rows bottom-up,
+    big-endian when the scale is positive. The values are divided by
+    |scale| and rounded, not scaled by 255. A grey file gives [H, W], as
+    cv2 gives it even under ``IMREAD_COLOR``."""
+    if data[2] != 10:
+        raise _Refused("no line break after the signature")
+    s = _Bytes(data, 3)
+    w, h = _atoi(_pfm_token(s)), _atoi(_pfm_token(s))
+    scale = _atof(_pfm_token(s))
+    if w <= 0 or h <= 0:
+        raise _Refused(f"{w}x{h} (cv2.imdecode raises)")
+    _check_size(w, h)
+    nch = 3 if data[1:2] == b"F" else 1
+    if s.pos + 4 * w * h * nch > len(data):
+        raise _Refused("the data ends before the image does")
+    if not abs(scale) > 0:  # NaN too
+        raise _Refused(f"the scale {scale}")
+    x = np.frombuffer(data, ">f4" if scale >= 0 else "<f4", w * h * nch, s.pos).astype(np.float32)
+    if abs(scale) != 1:
+        with np.errstate(over="ignore", invalid="ignore"):
+            x *= np.float32(1.0 / abs(scale))
+    x = _to_u8(x).reshape(h, w, nch)[::-1]
+    return np.ascontiguousarray(x[..., ::-1] if nch == 3 else x[..., 0])
+
+
+# -- Radiance HDR -----------------------------------------------------------------
+# OpenCV's grfmt_hdr.cpp over its bundled rgbe.cpp
+
+
+def _fgets(data: bytes, pos: int):
+    """``fgets`` into a 128-byte buffer: (the line up to its NUL, the next
+    position), or ``_Refused`` at the end of the data."""
+    if pos >= len(data):
+        raise _Refused("the data ends inside the header")
+    nl = data.find(b"\n", pos, pos + 127)
+    end = min(len(data), pos + 127 if nl < 0 else nl + 1)
+    return data[pos:end].split(b"\0")[0], end
+
+
+_HDR_SIZE = re.compile(rb"-Y\s*([+-]?[0-9]+)\s*\+X\s*([+-]?[0-9]+)")
+_HDR_REFUSED = {1: "the data ends before the image does", 2: "a scanline of another width",
+                3: "bad scanline data (a run count of 0 or past its channel)"}
+
+
+def _decode_hdr(data: bytes) -> np.ndarray:
+    """RGBE_ReadHeader: header lines up to exactly ``FORMAT=32-bit_rle_rgbe``
+    (a blank line before it refuses the file, so XYZE files are refused),
+    one blank line, then ``-Y height +X width``, the only orientation
+    read. The scanlines go to ``csrc/hdr_rgbe.cpp``."""
+    line, pos = _fgets(data, 0)
+    while line != b"FORMAT=32-bit_rle_rgbe\n":
+        if line[:1] in (b"", b"\n"):
+            raise _Refused("no FORMAT=32-bit_rle_rgbe line before the blank line")
+        line, pos = _fgets(data, pos)
+    line, pos = _fgets(data, pos)
+    if line != b"\n":
+        raise _Refused("no blank line after the FORMAT line")
+    line, pos = _fgets(data, pos)
+    m = _HDR_SIZE.match(line)
+    if m is None:
+        raise _Refused(f"the resolution line {line[:40]!r} (only -Y H +X W is read)")
+    h, w = (_atoi(g) for g in m.groups())
+    if w <= 0 or h <= 0:
+        raise _Refused(f"a {w}x{h} image")
+    _check_size(w, h)
+    from ..ops import native  # builds csrc/hdr_rgbe.cpp at first use; raises if it cannot
+
+    status, img = native.hdr_decode(data, pos, w, h)
+    if status:
+        raise _Refused(_HDR_REFUSED.get(status, f"status {status}"))
+    return img
+
+
+# -- GIF ----------------------------------------------------------------------
+# OpenCV's grfmt_gif.cpp, the first frame
+
+
+def _gif_sub_blocks(s: _Bytes, app: bool = False):
+    """Skips sub-blocks to the zero length byte, as cv2's frame count reads
+    them. In an application extension a sub-block of 3 bytes is read as 2
+    unless the last 11-byte sub-block was ``NETSCAPE2.0``."""
+    netscape = False
+    n = s.byte()
+    while n:
+        if app and n == 11:
+            netscape = s.data[s.pos : s.pos + 11] == b"NETSCAPE2.0"
+        if app and n == 3 and not netscape:
+            n = 2
+        if s.pos + n > len(s.data):
+            raise _Refused("the data ends inside a sub-block")
+        s.pos += n
+        n = s.byte()
+
+
+def _gif_table(s: _Bytes, flags: int) -> Optional[np.ndarray]:
+    """The colour table that ``flags`` announces, as BGR [2^k, 3], or None."""
+    if not flags & 0x80:
+        return None
+    n = 2 << (flags & 7)
+    if s.pos + 3 * n > len(s.data):
+        raise _Refused("the data ends inside a colour table")
+    s.pos += 3 * n
+    return np.frombuffer(s.data, np.uint8, 3 * n, s.pos - 3 * n).reshape(n, 3)[:, ::-1]
+
+
+_GIF_REFUSED = {1: "the data ends inside the image data", 2: "an LZW code size outside 2..11",
+                3: "an LZW code past the table", 4: "an LZW string past the end of the frame",
+                5: "more LZW codes than pixels", 6: "fewer pixels than the frame holds",
+                7: "a colour index past its colour tables"}
+
+
+def _decode_gif(data: bytes) -> np.ndarray:
+    """The logical screen, the global table, then every block to the
+    trailer (cv2 counts the frames first: a cut file, or a byte that
+    starts no block, refuses it), then the first frame: its extensions
+    (a graphic control extension of 4 bytes with a disposal method of 0–3
+    gives the transparent index), its descriptor, which must lie inside
+    the screen, and its LZW data (``csrc/gif_lzw.cpp``). The screen is the
+    global table's background colour, or black without a global table; a
+    transparent pixel keeps it. An index takes the local table's colour,
+    else the global one's; past both it refuses the file, and with no table
+    at all it is a grey level (index 1 is white)."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise _Refused(f"the version {data[3:6]!r}")
+    s = _Bytes(data, 6)
+
+    def word() -> int:
+        return s.byte() | s.byte() << 8
+
+    sw, sh = word(), word()
+    if not sw or not sh:
+        raise _Refused(f"a {sw}x{sh} screen")
+    flags, bg, _aspect = s.byte(), s.byte(), s.byte()
+    glob = _gif_table(s, flags)
+    if glob is not None and bg >= len(glob):
+        raise _Refused(f"the background index {bg} past a global table of {len(glob)}")
+    first = s.pos
+    while True:  # the frame count's walk over every block
+        b = s.byte()
+        if b == 0x21:
+            _gif_sub_blocks(s, app=s.byte() == 0xFF)
+        elif b == 0x2C:
+            s.pos += 8
+            _gif_table(s, s.byte())
+            s.pos += 1
+            _gif_sub_blocks(s)
+        elif b == 0x3B:
+            break
+        else:
+            raise _Refused(f"the byte {b:#x} where a block should start")
+    _check_size(sw, sh)
+    s.pos = first
+    transparent = None
+    b = s.byte()
+    while b == 0x21:
+        if s.byte() == 0xF9:
+            if s.byte() != 4:
+                raise _Refused("a graphic control extension whose size is not 4")
+            gflags = s.byte()
+            s.pos += 2
+            index = s.byte()
+            transparent = index if gflags & 1 else None
+            if (gflags >> 2) & 7 > 3:
+                raise _Refused(f"the disposal method {(gflags >> 2) & 7}")
+        _gif_sub_blocks(s)
+        b = s.byte()
+    if b != 0x2C:
+        raise _Refused("no image descriptor before the trailer")
+    left, top, w, h = word(), word(), word(), word()
+    if not (w and h and left + w <= sw and top + h <= sh):
+        raise _Refused(f"a {w}x{h} frame at ({left}, {top}) outside the {sw}x{sh} screen")
+    fflags = s.byte()
+    loc = _gif_table(s, fflags)
+    colours = np.zeros((256, 3), np.uint8)
+    known = np.zeros(256, bool)
+    if glob is None and loc is None:  # no table: grey levels, 1 white
+        colours[:] = np.arange(256, dtype=np.uint8)[:, None]
+        colours[1] = 255
+        known[:] = True
+    for table in (glob, loc):  # the local table over the global one
+        if table is not None:
+            colours[: len(table)] = table
+            known[: len(table)] = True
+    background = glob[bg] if glob is not None else np.zeros(3, np.uint8)
+    from ..ops import native  # builds csrc/gif_lzw.cpp at first use; raises if it cannot
+
+    status, screen = native.gif_frame(data, s.pos, (left, top, w, h), bool(fflags & 0x40), colours, known,
+                                      transparent, background, (sw, sh))
+    if status:
+        raise _Refused(_GIF_REFUSED.get(status, f"status {status}"))
+    return screen
+
+
 # -- JPEG ---------------------------------------------------------------------
 
 # csrc/jpeg.cpp's Status codes other than success
@@ -888,16 +1163,17 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 # -- entry points -------------------------------------------------------------
 
 _DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
-             "sunraster": _decode_sunraster}
+             "sunraster": _decode_sunraster, "pfm": _decode_pfm, "hdr": _decode_hdr,
+             "gif": _decode_gif}
 # the formats that cv2 decodes and this module does not, by their sniffed name
 FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
 
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
-    """Encoded image bytes → [H, W, 3] BGR uint8, or ``None`` where cv2
-    5.0 gives ``None`` (or raises) and for the formats this module does
-    not decode. Every ``None`` logs one warning that names the format and
-    the reason."""
+    """Encoded image bytes → [H, W, 3] BGR uint8 ([H, W] for a grey PFM, as
+    ``cv2.imdecode`` gives it), or ``None`` where cv2 5.0 gives ``None`` (or
+    raises) and for the formats this module does not decode. Every
+    ``None`` logs one warning that names the format and the reason."""
     data = bytes(data)
     fmt = sniff_format(data)
     decoder = _DECODERS.get(fmt)
@@ -919,9 +1195,15 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 
 def read_image(path: str) -> Optional[np.ndarray]:
-    """``decode_image`` of a file's bytes; ``None`` when it cannot be read."""
+    """``cv2.imread``: ``decode_image`` of a file's bytes; ``None`` when it
+    cannot be read, and for a grey PFM, whose [H, W] decode ``imread``
+    refuses where ``imdecode`` returns it."""
     try:
         with open(path, "rb") as f:
-            return decode_image(f.read())
+            img = decode_image(f.read())
     except OSError:
         return None
+    if img is not None and img.ndim == 2:
+        log.warning("PFM file not read: a grey PFM, which cv2.imread refuses (cv2.imdecode gives [H, W])")
+        return None
+    return img

@@ -691,6 +691,539 @@ def test_garbled_and_cut_sunraster_answer_as_cv2(name):
     assert_all_equal_cv2([data[:k] for k in range(4, len(data) + 1)], f"cut {name}")
 
 
+# -- PFM ---------------------------------------------------------------------------------
+
+
+def pfm_bytes(values, scale=b"-1", sep=b"\n", header=None) -> bytes:
+    """A PFM of ``values`` ([H, W, 3] RGB or [H, W] grey, top row first),
+    rows written bottom-up, little-endian under a negative scale."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape[:2]
+    order = ">" if not scale.startswith(b"-") else "<"
+    head = header if header is not None else f"{w} {h}\n".encode() + scale + b"\n"
+    return (b"PF" if v.ndim == 3 else b"Pf") + sep + head + np.ascontiguousarray(v[::-1]).astype(order + "f4").tobytes()
+
+
+def pfm_cases() -> dict:
+    """{name: file}: cv2's own files, grey and colour under each byte order
+    and scale, exact halves, NaN and infinities, the header's number
+    rules, and what cv2 refuses."""
+    rng = np.random.default_rng(13)
+    img = (rng.random((5, 7, 3)) * 300).astype(np.float32)
+    cases = {"cv2_color": cv2.imencode(".pfm", img)[1].tobytes(),
+             "cv2_grey": cv2.imencode(".pfm", img[..., 0])[1].tobytes()}
+    for grey in (False, True):
+        kind = "grey" if grey else "color"
+        for scale in (b"-1", b"1", b"-2.5", b"0.5", b"-0.003", b"1e2", b"-1.0"):
+            v = rng.random((4, 6) if grey else (4, 6, 3)) * rng.choice([1, 300, 1e4])
+            cases[f"{kind}_scale{scale.decode()}"] = pfm_bytes(v, scale)
+    cases["unit_floats"] = pfm_bytes(rng.random((3, 5, 3)))
+    cases["halves"] = pfm_bytes((np.arange(-2, 268).reshape(10, 9, 3) + 0.5).astype(np.float32))
+    cases["specials"] = pfm_bytes(np.array([[np.nan, np.inf, -np.inf, -5, 300, 1e10, 2.0**31, 2147483520.0, -2.2e9,
+                                             255.49, 255.5, 256]], np.float32).reshape(1, 4, 3))
+    body = pfm_bytes(img[:2, :3])[len(b"PF\n3 2\n-1\n"):]
+    for name, head in {"newlines": b"3\n2\n-1\n", "junk_suffixes": b"3x 2y -1z\n", "width_2^32+3": b"4294967299 2 -1\n",
+                       "plus_signs": b"+3 +2 -1\n", "hex_scale": b"3 2 -0x1p0\n", "nul_in_width": b"3\x009 2 -1\n",
+                       "leading_space": b" 3 2 -1\n", "byte_above_127": b"3\x80 2 -1\n", "scale_0": b"3 2 0\n",
+                       "scale_minus0": b"3 2 -0\n", "scale_nan": b"3 2 nan\n", "scale_inf": b"3 2 -inf\n",
+                       "scale_junk": b"3 2 abc\n", "width_0": b"0 2 -1\n", "height_minus2": b"3 -2 -1\n",
+                       "huge": b"3000000 2 -1\n"}.items():
+        cases[f"header_{name}"] = b"PF\n" + head + body
+    for name, sep in (("cr", b"\r"), ("space", b" "), ("tab", b"\t")):
+        cases[f"signature_then_{name}"] = pfm_bytes(img[:2, :3], sep=sep)
+    cases["short"] = pfm_bytes(img[:2, :3])[:-1]
+    cases["extra"] = pfm_bytes(img[:2, :3]) + b"tail"
+    cases["header_only"] = b"PF\n3 2 -1"
+    return cases
+
+
+PFM_CASES = list(pfm_cases())
+
+
+@pytest.mark.parametrize("name", PFM_CASES)
+def test_pfm_kinds_answer_as_cv2(name):
+    assert answers(pfm_cases()[name]) in ("none", "equal")
+
+
+def test_pfm_probes_of_cv2_rules():
+    """cv2's PFM rules, held as numbers: values are divided by |scale| and
+    rounded half to even with no ×255; NaN, ±inf and anything at or past
+    2^31 give 0; a positive scale is big-endian; rows are stored bottom-up
+    and RGB; a grey file gives [H, W]; ``P[Ff]`` and any whitespace is a
+    PFM, refused unless it is a line break."""
+    halves = port_decode(pfm_bytes(np.array([[[0.5, 1.5, 2.5], [254.5, 255.5, -0.5]]])))
+    assert halves.tolist() == [[[2, 2, 0], [0, 255, 254]]]
+    specials = port_decode(pfm_bytes(np.array([[[np.nan, np.inf, -np.inf], [1e10, 2.0**31, 2147483520.0]]])))
+    assert specials.tolist() == [[[0, 0, 0], [255, 0, 0]]]
+    assert port_decode(pfm_bytes(np.array([[[100, 101, 102]]]), b"-2"))[0, 0].tolist() == [51, 50, 50]
+    assert port_decode(pfm_bytes(np.array([[[100, 101, 102]]]), b"4"))[0, 0].tolist() == [26, 25, 25]
+    assert port_decode(pfm_bytes(np.array([[1.0, 2.0], [3.0, 4.0]]))).tolist() == [[1, 2], [3, 4]]
+    assert port_decode(pfm_bytes(np.array([[[0.4, 0.6, 1.0]]])))[0, 0].tolist() == [1, 1, 0]
+    for sep in (b"\r", b" ", b"\t", b"\x0b", b"\x0c"):
+        data = pfm_bytes(np.ones((1, 1, 3)), sep=sep)
+        assert imcodec.sniff_format(data) == "pfm" and port_decode(data) is None and cv2_decode(data) is None
+    assert imcodec.sniff_format(b"PFx") == "unknown"
+
+
+def test_a_grey_pfm_request_gets_the_jax_services_answer(tmp_path):
+    """cv2 decodes a grey PFM to [H, W] under ``IMREAD_COLOR`` and refuses
+    it under ``imread``. Sent as data, the JAX service hands the 2-D array
+    to its worker, which answers an error; sent by path, it answers that
+    the file cannot be loaded. The port's service answers both requests
+    with the same responses, fused, staged and through the batching
+    dispatcher, and ``FinetuneDataset`` refuses such a crop as the JAX one
+    does."""
+    import asyncio
+    import base64
+    import dataclasses
+    import json
+
+    import torch
+
+    from ppocr_tpu.serve.service import OCRIPCService as JaxService
+    from ppocr_tpu.train.finetune import FinetuneDataset as JaxDataset
+    from ppocr_tpu_torch.serve import OCRIPCService
+    from ppocr_tpu_torch.train.finetune import FinetuneDataset
+    from test_torch_goldens import jax_config
+    from test_torch_serve import small_config
+
+    grey = cv2.cvtColor(assets.load_scenes()["parity"][0], cv2.COLOR_BGR2GRAY)
+    pfm = pfm_bytes(grey.astype(np.float32))
+    assert cv2_decode(pfm).shape == grey.shape and (port_decode(pfm) == grey).all()
+    path = tmp_path / "grey.pfm"
+    path.write_bytes(pfm)
+    assert cv2.imread(str(path)) is None and imcodec.read_image(str(path)) is None
+    lines = [json.dumps({"command": "recognize", "image_data": base64.b64encode(pfm).decode()}).encode(),
+             json.dumps({"command": "recognize", "image_path": str(path)}).encode()]
+    model_dir = str(assets.make_jumbo_model_dir(tmp_path / "jumbo"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs several test processes at once
+    try:
+        for changes in ({}, {"fast_path": False}, {"request_batch_buckets": (1, 2)}):
+            cfg = small_config(**changes)
+            jax_svc = JaxService(model_dir, socket_path=str(tmp_path / "j.sock"),
+                                 config=jax_config(dataclasses.asdict(cfg)))
+            svc = OCRIPCService(model_dir=model_dir, socket_path=str(tmp_path / "p.sock"), config=cfg, device="cpu")
+            for line in lines:
+                want, got = (asyncio.run(s.process_request(line)) for s in (jax_svc, svc))
+                for r in (want, got):
+                    r.pop("processing_time_ms", None)
+                assert got == want and not got["success"], (changes, got, want)
+            assert "could not broadcast" in want["error"] or "Failed to load" in want["error"]
+    finally:
+        torch.set_num_threads(threads)
+    labels = tmp_path / "labels.txt"
+    labels.write_text("grey.pfm\t1\n")
+    keys = assets.JUMBO_BUNDLE["rec/ppocr_keys_v1.txt"]
+    for dataset in (JaxDataset, FinetuneDataset):
+        with pytest.raises(FileNotFoundError, match="cannot read crop"):
+            dataset(str(labels), str(keys))
+
+
+# -- Radiance HDR ------------------------------------------------------------------------
+
+
+def rgbe_pixels(h, w, seed, emax=140):
+    """[h, w, 4] RGBE bytes, runs and noise mixed: RLE has both to write."""
+    rng = np.random.default_rng(seed)
+    px = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    px[..., 3] = rng.integers(120, emax, (h, w))
+    runs = np.repeat(px[:, ::5], 5, axis=1)[:, :w]
+    return np.where(rng.random((h, w, 1)) < 0.6, runs, px).astype(np.uint8)
+
+
+def rle_channel(vals: bytes, rng) -> bytes:
+    """New-style RLE of one channel: runs of 3 or more as (128 + n, v),
+    the rest as literal spans of random length."""
+    out, i, n = bytearray(), 0, len(vals)
+    while i < n:
+        j = i
+        while j < n and vals[j] == vals[i] and j - i < 127:
+            j += 1
+        if j - i >= 3:
+            out += bytes([128 + j - i, vals[i]])
+            i = j
+        else:
+            k = min(n - i, int(rng.integers(1, 129)))
+            out += bytes([k]) + vals[i : i + k]
+            i += k
+    return bytes(out)
+
+
+HDR_HEAD = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+
+
+def hdr_bytes(px, head=HDR_HEAD, res=None, rle=True, seed=0) -> bytes:
+    """A Radiance HDR of the RGBE pixels ``px`` [h, w, 4]: new-style RLE
+    scanlines where the width allows (8..32767), else flat."""
+    rng = np.random.default_rng(seed)
+    h, w, _ = px.shape
+    out = bytearray(head + (res or f"-Y {h} +X {w}\n".encode()))
+    for y in range(h):
+        if rle and 8 <= w <= 0x7FFF:
+            out += bytes([2, 2, w >> 8, w & 255])
+            for c in range(4):
+                out += rle_channel(px[y, :, c].tobytes(), rng)
+        else:
+            out += px[y].tobytes()
+    return bytes(out)
+
+
+def hdr_cases() -> dict:
+    """{name: file}: cv2's own file, RLE and flat scanlines, a switch to
+    flat mid-image, the header's lines and resolution strings, exponents
+    from 0 to 255, and what cv2 refuses."""
+    rng = np.random.default_rng(17)
+    cases = {"cv2": cv2.imencode(".hdr", (rng.random((5, 20, 3)) * 3).astype(np.float32))[1].tobytes()}
+    for h, w in ((3, 10), (2, 40), (4, 8), (2, 129)):
+        px = rgbe_pixels(h, w, h * w)
+        cases[f"rle_{h}x{w}"] = hdr_bytes(px, seed=w)
+        cases[f"flat_{h}x{w}"] = hdr_bytes(px, rle=False)
+    px = rgbe_pixels(3, 10, 1)
+    cases["width5_flat"] = hdr_bytes(rgbe_pixels(2, 5, 2))
+    cases["rle_then_flat"] = hdr_bytes(px[:1]).replace(b"-Y 1", b"-Y 3") + px[1:].tobytes()
+    exps = np.zeros((1, 8, 4), np.uint8)
+    exps[0, :, :3] = [[255, 1, 128]]
+    exps[0, :, 3] = [0, 1, 128, 129, 135, 136, 200, 255]
+    cases["exponents"] = hdr_bytes(exps)
+    for name, head in {"rgbe_signature": b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n",
+                       "more_lines": b"#?RADIANCE\n#made by hand\nEXPOSURE=2\nGAMMA=1\nFORMAT=32-bit_rle_rgbe\n\n",
+                       "long_line": b"#?RADIANCE\n" + b"x" * 300 + b"\nFORMAT=32-bit_rle_rgbe\n\n",
+                       "signature_tail": b"#?RADIANCEjunk\nFORMAT=32-bit_rle_rgbe\n\n",
+                       "xyze": b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n", "no_format": b"#?RADIANCE\n\n",
+                       "blank_before_format": b"#?RADIANCE\n\nFORMAT=32-bit_rle_rgbe\n\n",
+                       "no_blank_after_format": b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n",
+                       "format_trailing_space": b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe \n\n",
+                       "crlf": b"#?RADIANCE\r\nFORMAT=32-bit_rle_rgbe\r\n\r\n"}.items():
+        cases[f"head_{name}"] = hdr_bytes(px, head=head)
+    for name, res in {"minus_y_plus_x": b"-Y 3 +X 10 tail\n", "no_spaces": b"-Y3 +X10\n",
+                      "plus_signs": b"-Y +3 +X +10\n",
+                      "plus_y": b"+Y 3 +X 10\n", "minus_x": b"-Y 3 -X 10\n", "x_first": b"+X 10 -Y 3\n",
+                      "no_width": b"-Y 3\n", "width_11": b"-Y 3 +X 11\n", "height_2": b"-Y 2 +X 10\n",
+                      "height_4": b"-Y 4 +X 10\n", "height_0": b"-Y 0 +X 10\n", "huge": b"-Y 3 +X 3000000\n"}.items():
+        cases[f"res_{name}"] = hdr_bytes(px, res=res)
+    rle = hdr_bytes(px)
+    at = len(HDR_HEAD) + len(b"-Y 3 +X 10\n")
+    cases["bad_run_zero"] = rle[: at + 4] + b"\x00" + rle[at + 5 :]
+    cases["run_past_channel"] = rle[: at + 4] + b"\xff\x07" + rle[at + 6 :]
+    cases["cut"] = rle[:-3]
+    cases["extra"] = rle + b"tail"
+    return cases
+
+
+HDR_CASES = list(hdr_cases())
+
+
+@pytest.mark.parametrize("name", HDR_CASES)
+def test_hdr_kinds_answer_as_cv2(name):
+    assert answers(hdr_cases()[name]) in ("none", "equal")
+
+
+def test_hdr_probes_of_cv2_rules():
+    """cv2's HDR rules, held as numbers: ``clip(rint(m · 2^(E-136) · 255))``
+    in float, RGB stored, BGR out; E = 0 is black, and a value at or past
+    2^31 gives 0, not 255; only ``-Y H +X W`` and ``32-bit_rle_rgbe`` are
+    read, the sizes as ``sscanf`` stores them; there are no old-style
+    runs."""
+    px = np.array([[[255, 1, 128, e] for e in (0, 128, 129, 136, 200, 255)] + [[3, 5, 7, 129]] * 2], np.uint8)
+    got = port_decode(hdr_bytes(px))
+    assert got[0, :6].tolist() == [[0, 0, 0], [128, 1, 254], [255, 2, 255], [255, 255, 255], [0, 0, 0], [0, 0, 0]]
+    assert got[0, 6].tolist() == [14, 10, 6]
+    for res in (b"+Y 1 +X 8\n", b"-Y 1 -X 8\n", b"+X 8 -Y 1\n"):
+        assert port_decode(hdr_bytes(px, res=res)) is None
+    assert port_decode(hdr_bytes(px, head=b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n")) is None
+    # the resolution's numbers wrap as sscanf's %d stores them: 2^32 + 1 rows is 1
+    assert port_decode(hdr_bytes(px, res=b"-Y 4294967297 +X 8\n")).shape == (1, 8, 3)
+    # no old-style runs: (1, 1, 1, n) in flat data is a pixel, not a repeat of the one before
+    flat = np.array([[[10, 20, 30, 137], [1, 1, 1, 3], [40, 50, 60, 137]]], np.uint8)
+    assert port_decode(hdr_bytes(flat)).tolist() == [[[255, 255, 255], [0, 0, 0], [255, 255, 255]]]
+    for data in (hdr_bytes(px, res=b"-Y 4294967297 +X 8\n"), hdr_bytes(flat)):
+        assert answers(data) == "equal"
+
+
+# -- GIF ----------------------------------------------------------------------------------
+
+
+def lzw_codes(idx, mcs, clear_at=4095):
+    """[(code, bits)] of a GIF LZW stream of the byte indices ``idx``:
+    clear first, end of information last, a clear whenever the next code
+    would be ``clear_at`` (4096: the table fills and codes go on at 12 bits,
+    a deferred clear)."""
+    clear, eoi = 1 << mcs, (1 << mcs) + 1
+    out, size, nxt = [(clear, mcs + 1)], mcs + 1, eoi + 1
+    table = {bytes([i]): i for i in range(min(clear, 256))}
+    w = b""
+    for c in np.asarray(idx, np.uint8).reshape(-1).tobytes():
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        out.append((table[w], size))
+        if nxt < min(clear_at, 4096):
+            table[wc] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        elif clear_at < 4096:
+            out.append((clear, size))
+            size, nxt = mcs + 1, eoi + 1
+            table = {bytes([i]): i for i in range(min(clear, 256))}
+        w = bytes([c])
+    if w:
+        out.append((table[w], size))
+    return out + [(eoi, size)]
+
+
+def pack_codes(codes) -> bytes:
+    acc = n = 0
+    out = bytearray()
+    for code, bits in codes:
+        acc |= code << n
+        n += bits
+        while n >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n -= 8
+    return bytes(out + (bytes([acc]) if n else b""))
+
+
+def sub_blocks(data: bytes, n=255) -> bytes:
+    return b"".join(bytes([len(data[i : i + n])]) + data[i : i + n] for i in range(0, len(data), n)) + b"\x00"
+
+
+def gif_table(colours):
+    """A colour table's flag bits and bytes (RGB, padded to a power of two)."""
+    k = max(0, int(np.ceil(np.log2(max(2, len(colours))))) - 1)
+    pal = np.zeros((2 << k, 3), np.uint8)
+    pal[: len(colours)] = colours
+    return 0x80 | k, pal.tobytes()
+
+
+def gif_image(idx, left=0, top=0, mcs=8, local=None, interlace=False, data=None, block=255) -> bytes:
+    """An image descriptor, its local table and LZW data of [h, w] ``idx``
+    (or the packed codes ``data``)."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    flags, lct = (0, b"") if local is None else gif_table(local)
+    flags |= 0x40 if interlace else 0
+    if data is None:
+        rows = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]]) if interlace else idx
+        data = pack_codes(lzw_codes(rows, mcs))
+    return struct.pack("<BHHHHB", 0x2C, left, top, w, h, flags) + lct + bytes([mcs]) + sub_blocks(data, block)
+
+
+def gif_gce(transparent=None, disposal=0) -> bytes:
+    return struct.pack("<BBBBHBB", 0x21, 0xF9, 4, disposal << 2 | (transparent is not None), 0, transparent or 0, 0)
+
+
+def gif_bytes(w, h, blocks, glob=None, bg=0, version=b"GIF89a", trailer=b";") -> bytes:
+    flags, gct = (0x70, b"") if glob is None else gif_table(glob)
+    return version + struct.pack("<HHBBB", w, h, flags | 0x70, bg, 0) + gct + b"".join(blocks) + trailer
+
+
+NETSCAPE = b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+
+
+def gif_cases() -> dict:
+    """{name: file}: PIL's and cv2's files (palettes of 2 to 256, interlaced,
+    transparent, animated), frames smaller than the screen with and without
+    a global table, transparency, local and missing tables, every LZW code
+    size, a full table with and without clears, end-of-information
+    mid-stream, the pixel count cv2 takes, the extensions it reads, and
+    what it refuses."""
+    rng = np.random.default_rng(19)
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    cases = {"cv2": cv2.imencode(".gif", rng.integers(0, 256, (5, 9, 3)).astype(np.uint8))[1].tobytes()}
+    for n, (h, w) in ((2, (5, 13)), (16, (9, 7)), (256, (11, 4))):
+        a = pattern(h, w, n, n).astype(np.uint8)
+        im = Image.fromarray(a, "P")
+        im.putpalette(pal[:n].tobytes())
+        for kind, kw in (("", {}), ("_interlaced", {"interlace": True}),
+                         ("_transparent", {"transparency": int(a[0, 0])})):
+            buf = io.BytesIO()
+            im.save(buf, "GIF", **kw)
+            cases[f"pil_{n}colours{kind}"] = buf.getvalue()
+    frames = [Image.fromarray(rng.integers(0, 256, (6, 8, 3)).astype(np.uint8)) for _ in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "GIF", save_all=True, append_images=frames[1:], duration=50, loop=0, disposal=2)
+    cases["pil_animated"] = buf.getvalue()
+    a = rng.integers(0, 16, (3, 4))
+    cases["subframe_on_background"] = gif_bytes(6, 5, [gif_image(a, 1, 2, mcs=4)], pal[:16], bg=5)
+    cases["subframe_no_global"] = gif_bytes(6, 5, [gif_image(a, 2, 1, mcs=4, local=pal[:16])], bg=5)
+    cases["subframe_disposal3"] = gif_bytes(6, 5, [gif_gce(disposal=3), gif_image(a, 1, 1, mcs=4)], pal[:16], bg=2)
+    cases["transparent"] = gif_bytes(4, 3, [gif_gce(int(a[0, 0])), gif_image(a, mcs=4)], pal[:16], bg=7)
+    cases["transparent_no_global"] = gif_bytes(4, 3, [gif_gce(int(a[0, 0])), gif_image(a, mcs=4, local=pal[:16])])
+    past = np.where(a == a[0, 0], 9, a % 4)  # the transparent index is the only one past the table
+    cases["transparent_past_table"] = gif_bytes(4, 3, [gif_gce(9), gif_image(past, mcs=4)], pal[:4])
+    cases["no_table"] = gif_bytes(4, 3, [gif_image(a, mcs=4)])
+    cases["no_table_256"] = gif_bytes(256, 1, [gif_image(np.arange(256)[None])])
+    cases["local_over_global"] = gif_bytes(4, 3, [gif_image(a, mcs=4, local=pal[100:116])], pal[:16])
+    cases["short_local_long_global"] = gif_bytes(4, 3, [gif_image(a, mcs=4, local=pal[:2])], pal[:16])
+    cases["index_past_tables"] = gif_bytes(4, 3, [gif_image(a, mcs=4)], pal[:4])
+    for mcs in (2, 3, 5, 8, 9, 11):
+        cases[f"code_size{mcs}"] = gif_bytes(7, 5, [gif_image(rng.integers(0, min(1 << mcs, 256), (5, 7)), mcs=mcs)],
+                                             pal if mcs > 3 else pal[: 1 << mcs])
+    big = rng.integers(0, 256, (60, 90))
+    cases["full_table_cleared"] = gif_bytes(90, 60, [gif_image(big)], pal)
+    cases["full_table_deferred"] = gif_bytes(90, 60, [gif_image(big, data=pack_codes(lzw_codes(big, 8, 4096)))], pal)
+    cases["one_byte_blocks"] = gif_bytes(4, 3, [gif_image(a, mcs=4, block=1)], pal[:16])
+    lit = lambda *cs: pack_codes([(c, 5) for c in cs])  # noqa: E731  (code size 5 throughout: mcs 4, < 32 entries)
+    c, e = 16, 17
+    for name, codes in {"eoi_mid_stream": (c, 1, 2, 3, e, 4, 5, 6, 7, 8, 9, 10, 11, 12, e),
+                        "eoi_then_kwkwk": (c, 1, 2, 3, e, 4, 18, 7, 8, 9, 10, 11, 12),
+                        "no_eoi": (c, *range(1, 13)), "no_clear": (*range(1, 13), e),
+                        "one_pixel_more": (c, *range(1, 14)),
+                        "two_pixels_more": (c, *range(1, 15)), "one_pixel_short": (c, *range(1, 12), e),
+                        "string_past_end": (c, *range(1, 12), 18), "code_past_table": (c, 1, 2, 25, *range(4, 13), e),
+                        "first_code_past_table": (c, 18, *range(1, 12), e)}.items():
+        cases[f"lzw_{name}"] = gif_bytes(4, 3, [gif_image(a, mcs=4, data=lit(*codes))], pal[:16])
+    img = gif_image(a, mcs=4)
+    xmp = b"\x21\xff\x0bXMP DataXMP<x/>" + bytes([1, *range(255, -1, -1)]) + b"\x00"  # with XMP's magic trailer
+    for name, ext in {"netscape": NETSCAPE, "xmp": xmp,
+                      "animexts_3byte_block": b"\x21\xff\x0bANIMEXTS1.0\x03\x01\x00\x00\x00",
+                      "animexts_2byte_read": b"\x21\xff\x0bANIMEXTS1.0\x03\x01\x00\x00",
+                      "comment": b"\x21\xfe\x05hello\x00", "plain_text": b"\x21\x01\x0c" + bytes(12) + b"\x02ab\x00",
+                      "unknown_type": b"\x21\x77\x02ab\x00", "gce_size5": b"\x21\xf9\x05\x01\x00\x00\x03\x00\x00",
+                      "disposal5": gif_gce(disposal=5), "two_gce": gif_gce(3) + gif_gce()}.items():
+        cases[f"ext_{name}_before"] = gif_bytes(4, 3, [ext, img], pal[:16])
+        cases[f"ext_{name}_after"] = gif_bytes(4, 3, [img, ext, img], pal[:16])
+    cases["second_frame_outside"] = gif_bytes(4, 3, [img, gif_image(a, 2, 0, mcs=4)], pal[:16])
+    cases["gif87a"] = gif_bytes(4, 3, [img], pal[:16], version=b"GIF87a")
+    cases["gif90a"] = gif_bytes(4, 3, [img], pal[:16], version=b"GIF90a")
+    cases["background_past_table"] = gif_bytes(4, 3, [img], pal[:16], bg=20)
+    cases["frame_outside_screen"] = gif_bytes(4, 3, [gif_image(a, 1, 0, mcs=4)], pal[:16])
+    cases["no_trailer"] = gif_bytes(4, 3, [img], pal[:16], trailer=b"")
+    cases["junk_after_trailer"] = gif_bytes(4, 3, [img], pal[:16], trailer=b";junk")
+    cases["unknown_block"] = gif_bytes(4, 3, [img, b"\x99"], pal[:16])
+    cases["trailer_only"] = gif_bytes(4, 3, [], pal[:16])
+    cases["code_size1"] = gif_bytes(4, 3, [gif_image(a % 2, mcs=1, data=pack_codes(lzw_codes(a % 2, 1)))], pal[:2])
+    cases["screen_0"] = gif_bytes(0, 3, [img], pal[:16])
+    return cases
+
+
+GIF_CASES = list(gif_cases())
+
+
+@pytest.mark.parametrize("name", GIF_CASES)
+def test_gif_kinds_answer_as_cv2(name):
+    assert answers(gif_cases()[name]) in ("none", "equal")
+
+
+def test_gif_probes_of_cv2_rules():
+    """cv2's GIF rules, held as numbers: the screen outside the first frame
+    and under its transparent pixels is the global table's background
+    colour (black without a global table), whatever the disposal method;
+    with no table at all an index is a grey level, 1 white; an index past
+    the tables refuses the file; only the first frame counts; cv2 takes one
+    pixel more than the frame but not two; a cut file is refused."""
+    pal = np.array([[10, 20, 30], [40, 50, 60], [70, 80, 90], [100, 110, 120]], np.uint8)
+    a = np.array([[0, 1], [2, 3]])
+    sub = port_decode(gif_bytes(3, 2, [gif_image(a[:1], 1, 1, mcs=2)], pal, bg=2))
+    assert sub.tolist() == [[[90, 80, 70]] * 3, [[90, 80, 70], [30, 20, 10], [60, 50, 40]]]
+    transparent = port_decode(gif_bytes(2, 2, [gif_gce(1, disposal=1), gif_image(a, mcs=2)], pal, bg=3))
+    assert transparent[0].tolist() == [[30, 20, 10], [120, 110, 100]]
+    assert port_decode(gif_bytes(3, 2, [gif_image(a[:1], mcs=2, local=pal)], bg=2))[1].tolist() == [[0, 0, 0]] * 3
+    assert port_decode(gif_bytes(4, 1, [gif_image(np.array([[0, 1, 2, 200]]))]))[0, :, 0].tolist() == [0, 255, 2, 200]
+    assert port_decode(gif_bytes(2, 2, [gif_image(a, mcs=2)], pal[:2])) is None
+    frames = gif_bytes(2, 2, [gif_image(a, mcs=2), gif_image(a[::-1], mcs=2)], pal)
+    assert (port_decode(frames) == pal[a][..., ::-1]).all()
+    lit = lambda *cs: pack_codes([(c, 5) for c in cs])  # noqa: E731  (code size 4: clear 16, 5-bit codes)
+    one_more, two_more = (gif_bytes(2, 2, [gif_image(a, mcs=4, data=lit(16, 0, 1, 2, 3, *extra))], pal)
+                          for extra in ((1,), (1, 1)))
+    assert (port_decode(one_more) == pal[a][..., ::-1]).all() and port_decode(two_more) is None
+    assert answers(one_more) == "equal" and answers(two_more) == "none"
+    assert all(port_decode(frames[:k]) is None for k in range(3, len(frames)))
+    assert imcodec.sniff_format(b"GIF90a") == "gif" and port_decode(b"GIF90a" + frames[6:]) is None
+
+
+def lzw_streams(seed, n=400):
+    """``n`` GIFs whose LZW streams are changed at random: codes replaced,
+    dropped, added, clears and ends of information put in, the stream cut,
+    bytes appended, split over sub-blocks of 1 to 255 bytes; some frames
+    large enough to fill the table."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        mcs = int(rng.integers(2, 9))
+        big = rng.random() < 0.1
+        w, h = int(rng.integers(1, 9)) * (70 if big else 1), int(rng.integers(1, 6)) * (20 if big else 1)
+        if rng.random() < 0.5:
+            idx = rng.integers(0, 1 << mcs, w * h)
+        else:
+            idx = np.repeat(rng.integers(0, 1 << mcs, w * h // 3 + 1), 3)[: w * h]
+        codes = lzw_codes(idx, mcs)
+        for _ in range(int(rng.integers(0, 4))):
+            if len(codes) < 2:
+                break
+            op, at = int(rng.integers(0, 5)), int(rng.integers(0, len(codes)))
+            bits = codes[at][1]
+            if op == 0:
+                codes[at] = (int(rng.integers(0, 1 << bits)), bits)
+            elif op == 1:
+                del codes[at]
+            elif op == 2:
+                codes.insert(at, (int(rng.integers(0, 1 << bits)), bits))
+            elif op == 3:
+                codes.insert(at, ((1 << mcs) + int(rng.integers(0, 2)), bits))
+            else:
+                codes = codes[: max(at, 1)]
+        data = pack_codes(codes) + bytes([int(rng.choice([0, 255]))] * int(rng.integers(0, 3)))
+        img = gif_image(np.zeros((h, w)), mcs=mcs, data=data, block=int(rng.choice([1, 2, 3, 255])))
+        out.append(gif_bytes(w, h, [img]))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_changed_lzw_streams_answer_as_cv2(seed):
+    """cv2's LZW reader on damaged streams: codes past the table, strings
+    past the frame, ends of information mid-stream, counts one or two past
+    the frame or short of it, a full table."""
+    assert_all_equal_cv2(lzw_streams(seed), "changed lzw stream")
+
+
+@pytest.mark.parametrize("fmt", ["bmp", "hdr", "gif"])
+def test_a_run_length_bmp_hdr_or_gif_raises_when_its_decoder_cannot_be_built(fmt, monkeypatch):
+    """A missing compiler is not a bad image: the decode raises, as a
+    JPEG's does, and never falls back."""
+    from ppocr_tpu_torch.ops import native
+
+    def no_compiler(source=None):
+        raise RuntimeError("no C++ compiler")
+
+    data = {"bmp": lambda: bmp_cases()["rle8_7x21"], "hdr": lambda: hdr_cases()["rle_3x10"],
+            "gif": lambda: gif_cases()["pil_16colours"]}[fmt]()
+    for lib in ("_bmp_rle_lib", "_hdr_lib", "_gif_lib"):
+        monkeypatch.setattr(native, lib, None)
+    monkeypatch.setattr(native, "build", no_compiler)
+    with pytest.raises(RuntimeError, match="compiler"):
+        imcodec.decode_image(data)
+
+
+# -- garbled and cut, the three formats -------------------------------------------------
+
+GARBLED_PFM_HDR_GIF = [f"pfm_{n}" for n in ("cv2_color", "cv2_grey", "color_scale1", "grey_scale-2.5")] + [
+    f"hdr_{n}" for n in ("cv2", "rle_3x10", "flat_2x40", "width5_flat", "head_more_lines")] + [
+    f"gif_{n}" for n in ("cv2", "pil_16colours", "pil_256colours_interlaced", "pil_2colours_transparent",
+                         "pil_animated", "subframe_on_background", "ext_netscape_before", "code_size9")]
+
+
+def pfm_hdr_gif_case(name):
+    fmt, case = name.split("_", 1)
+    return {"pfm": pfm_cases, "hdr": hdr_cases, "gif": gif_cases}[fmt]()[case]
+
+
+@pytest.mark.parametrize("name", GARBLED_PFM_HDR_GIF)
+def test_garbled_and_cut_pfm_hdr_gif_answer_as_cv2(name):
+    """100 seeded files per kind with 1–3 bytes changed past the signature
+    (past a GIF's screen size, which could ask both decoders for gigabytes:
+    the size rules have cases of their own), then every cut (at most 120 of
+    them, evenly spaced)."""
+    data = pfm_hdr_gif_case(name)
+    first = {"pfm": 3, "hdr": 6, "gif": 10}[name[:3]]
+    assert_all_equal_cv2(garbled(data, 100, seed=GARBLED_PFM_HDR_GIF.index(name), first=first), f"garbled {name}")
+    assert_all_equal_cv2([data[:k] for k in range(3, len(data) + 1, max(1, len(data) // 120))], f"cut {name}")
+
+
 # -- refusals --------------------------------------------------------------------------
 
 
@@ -698,13 +1231,16 @@ def test_every_refusal_logs_one_line_naming_format_and_reason(caplog):
     """Each ``None`` of the cases above (and of a cut PNG and a lossless
     JPEG) comes with exactly one warning from ``imcodec`` that names the
     format and gives a reason."""
-    refused = {**bmp_cases(), **netpbm_cases(), **sunraster_cases()}
+    refused = {**bmp_cases(), **netpbm_cases(), **sunraster_cases(),
+               **{f"{fmt}_{k}": v for fmt, cases in (("pfm", pfm_cases), ("hdr", hdr_cases), ("gif", gif_cases))
+                  for k, v in cases().items()}}
     refused["png_cut"] = imcodec.encode_png(np.zeros((4, 4, 3), np.uint8))[:-20]
     refused["png_damaged"] = next(d for d in png_damaged(2, 8, False, seed=1) if cv2_decode(d) is None)
     jpeg = bytearray(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))[1].tobytes())
     jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC3
     refused["jpeg_lossless"] = bytes(jpeg)
-    names = {"bmp": "BMP", "pnm": "PPM/PGM/PBM/PAM", "sunraster": "Sun raster", "png": "PNG", "jpeg": "JPEG"}
+    names = {"bmp": "BMP", "pnm": "PPM/PGM/PBM/PAM", "sunraster": "Sun raster", "png": "PNG", "jpeg": "JPEG",
+             "pfm": "PFM", "hdr": "Radiance HDR", "gif": "GIF"}
     seen = 0
     for name, data in refused.items():
         caplog.clear()
@@ -740,23 +1276,37 @@ def sun_rle(raw: bytes) -> bytes:
     return bytes(out)
 
 
+def scene_gif(scene: np.ndarray) -> bytes:
+    """A scene of at most 256 colours as a GIF that keeps every pixel."""
+    colours, idx = np.unique(scene.reshape(-1, 3), axis=0, return_inverse=True)
+    assert len(colours) <= 256, len(colours)
+    h, w, _ = scene.shape
+    return gif_bytes(w, h, [gif_image(idx.reshape(h, w))], colours[:, ::-1])
+
+
 def scene_payloads(scene: np.ndarray) -> dict:
     """A serving scene as the smoke run's timing inputs: a 24-bit BMP, its
     grey as an RLE8 BMP, a binary PPM, a standard Sun raster and a
-    byte-encoded one (which cv2 5.0 refuses)."""
+    byte-encoded one (which cv2 5.0 refuses), a PFM, cv2's run-length
+    Radiance HDR of the scene / 255 and a GIF (the scene has 256
+    colours)."""
     h, w, _ = scene.shape
     bmps = scene_bmps(scene)
     rows = np.pad(scene.reshape(h, -1), ((0, 0), (0, -w * 3 % 2))).tobytes()
     return {"scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
             "scene0_ppm": f"P6\n{w} {h}\n255\n".encode() + np.ascontiguousarray(scene[..., ::-1]).tobytes(),
-            "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows))}
+            "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows)),
+            "scene0_pfm": pfm_bytes(scene[..., ::-1].astype(np.float32)),
+            "scene0_hdr_rle": cv2.imencode(".hdr", scene.astype(np.float32) / 255)[1].tobytes(),
+            "scene0_gif": scene_gif(scene)}
 
 
 def write():
-    """Rewrite ``image_cases.npz``: every BMP, netpbm and Sun raster case
-    above, garbled and cut ones among them, damaged PNGs (decoded and
-    refused) and the first serving scene as each timing payload, each
-    beside cv2's decode or a flag that cv2 gave ``None``. Of a PAM of DEPTH
+    """Rewrite ``image_cases.npz``: every BMP, netpbm, Sun raster, PFM,
+    Radiance HDR and GIF case above, garbled and cut ones among them,
+    damaged PNGs (decoded and refused) and the first serving scene as each
+    timing payload, each beside cv2's decode (a grey PFM's is [H, W]) or a
+    flag that cv2 gave ``None``. Of a PAM of DEPTH
     2 or 4 the columns cv2 does not write are stored as 0, as the port
     gives them."""
     cases = {**{f"bmp_{k}": v for k, v in bmp_cases().items()},
@@ -774,6 +1324,14 @@ def write():
         data = {**netpbm_cases(), **sunraster_cases()}[src]
         for k, g in enumerate(garbled(data, 4, seed=i + 80)):
             cases[f"{name}_garbled_{k}"] = g
+    for fmt, kinds in (("pfm", pfm_cases), ("hdr", hdr_cases), ("gif", gif_cases)):
+        cases.update({f"{fmt}_{k}": v for k, v in kinds().items()})
+    for i, name in enumerate(GARBLED_PFM_HDR_GIF):
+        data = pfm_hdr_gif_case(name)
+        for k, g in enumerate(garbled(data, 4, seed=i + 90, first={"pfm": 3, "hdr": 6, "gif": 10}[name[:3]])):
+            cases[f"{name}_garbled_{k}"] = g
+        for k in np.linspace(3, len(data) - 1, 3).astype(int):
+            cases[f"{name}_cut_{k}"] = data[:k]
     for ct, d, il in ((0, 8, False), (2, 8, True), (3, 1, True), (4, 8, False)):
         decoded = refused = 0
         for k, data in enumerate(png_damaged(ct, d, il, seed=ct + d)):
@@ -807,7 +1365,7 @@ def write():
 
 def test_the_committed_cases_equal_cv2_today_and_the_port():
     cases = assets.load_image_cases()
-    assert len(cases) >= 250
+    assert len(cases) >= 540
     for name, (data, want) in cases.items():
         got = port_decode(data)
         if want is None:
@@ -818,7 +1376,31 @@ def test_the_committed_cases_equal_cv2_today_and_the_port():
             assert (now == want).all() and got is not None and (got == want).all(), name
 
 
+def fuzz(rounds: int) -> int:
+    """The PFM, HDR and GIF decoders against cv2 on ``rounds`` seeded
+    passes: every kind above with 1–3 bytes changed (``rounds`` × 200
+    copies each) and every cut, and ``rounds`` × 3,000 changed LZW streams.
+    Prints the counts; returns the number of files that differ."""
+    files = bad = 0
+    for r in range(rounds):
+        for fmt, kinds in (("pfm", pfm_cases), ("hdr", hdr_cases), ("gif", gif_cases)):
+            for i, data in enumerate(kinds().values()):
+                first = {"pfm": 3, "hdr": 6, "gif": 10}[fmt]
+                datas = garbled(data, 200, seed=1000 * r + i, first=first) + [data[:k] for k in range(3, len(data))]
+                files += len(datas)
+                bad += sum(answers(d) not in ("none", "equal") for d in datas)
+        datas = [d for k in range(5) for d in lzw_streams(100 * r + k + 10, 600)]
+        files += len(datas)
+        bad += sum(answers(d) not in ("none", "equal") for d in datas)
+        print(f"round {r + 1}: {files} files, {bad} differ from cv2 {cv2.__version__}", flush=True)
+    return bad
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
-        sys.exit("usage: python tests/test_torch_image_formats.py --write")
-    write()
+    logging.disable(logging.WARNING)
+    if sys.argv[1:] == ["--write"]:
+        write()
+    elif sys.argv[1:2] == ["--fuzz"] and len(sys.argv) == 3:
+        sys.exit(1 if fuzz(int(sys.argv[2])) else 0)
+    else:
+        sys.exit("usage: python tests/test_torch_image_formats.py --write | --fuzz ROUNDS")
