@@ -123,17 +123,23 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 13. image formats vs cv2: every committed case of ``assets/image_cases.npz``
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
-    PFM, Radiance HDR and GIF, garbled and cut files among them) decoded
-    with ``decode_image`` (``csrc/bmp_rle.cpp``, ``csrc/hdr_rgbe.cpp`` and
-    ``csrc/gif_lzw.cpp`` built with the host compiler), each equal to the
-    cv2 decode stored beside it (a grey PFM's is [H, W]), or ``None`` where
-    cv2 gave ``None``; the case counts by format; the host ms to decode the
-    first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
+    PFM, Radiance HDR, GIF, and TIFF and BigTIFF of every kind the port
+    decodes, garbled and cut files and damaged TIFF strips among them)
+    decoded with ``decode_image`` (``csrc/bmp_rle.cpp``,
+    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp`` and ``csrc/tiff.cpp`` built
+    with the host compiler), each equal to the cv2 decode stored beside it
+    (a grey PFM's is [H, W]), or ``None`` where cv2 gave ``None``; the case
+    counts by format and the TIFF count; the host ms to decode the first
+    768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
     binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
-    refuses: the time of the refusal), a PFM, a run-length HDR and a GIF, in
-    turns, median of 25 after one untimed; then the same 24-bit and RLE8
-    BMPs through the service (a subprocess as in phase 7) answer the words
-    of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the HDR and
+    refuses: the time of the refusal), a PFM, a run-length HDR, a GIF and
+    cv2's own TIFFs (uncompressed, LZW with the predictor, PackBits,
+    deflate), in turns, median of 25 after one untimed; then the same
+    24-bit and RLE8 BMPs, the LZW TIFF (as data) and the uncompressed TIFF
+    (by path) through the service (a subprocess as in phase 7) answer the
+    words of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the
+    service's ``status`` shows ``ctc_topk`` launched by the TIFF requests,
+    the HDR and
     the GIF answer the words phase 4's in-process worker gives on the
     port's decode of the same bytes, and the service's ``status`` shows
     ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones; a
@@ -1286,13 +1292,15 @@ class Smoke:
         if self.serving_worker is None:
             raise AssertionError("needs the bf16 serving phase's worker")
         t0 = time.perf_counter()
-        libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE)]
-        print(f"bmp rle, hdr and gif decoder builds: {time.perf_counter() - t0:.2f} s "
+        libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
+                                              native.TIFF_SOURCE)]
+        print(f"bmp rle, hdr, gif and tiff decoder builds: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
-                 "scene0_hdr_rle", "scene0_gif")
+                 "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
+                 "scene0_tiff_deflate")
         ms = {n: [] for n in timed}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1313,17 +1321,24 @@ class Smoke:
                     ms[name].append((time.perf_counter() - t1) * 1e3)
         finally:
             logging.disable(logging.NOTSET)
-        # through the service: the scene as a 24-bit BMP (by path: 2.4 MB is
-        # over the 1 MB message limit) and its grey as an RLE8 BMP (as data),
+        # through the service: the scene as a 24-bit BMP and as an
+        # uncompressed TIFF (by path: 2.4 MB is over the 1 MB message limit),
+        # its grey as an RLE8 BMP and the scene as cv2's LZW TIFF (as data),
         # each beside the PNG of the same pixels
         pairs = {n: (cases[n][0], encode_png(decode_image(cases[n][0]))) for n in timed[:2]}
-        bmp_path = os.path.join(self.tmp.name, "scene0.bmp")
-        with open(bmp_path, "wb") as f:
-            f.write(cases["scene0_bmp24"][0])
+        tiff_pairs = {n: (cases[n][0], encode_png(decode_image(cases[n][0])))
+                      for n in ("scene0_tiff_lzw", "scene0_tiff_none")}
+        by_path = {}
+        for name, ext in (("scene0_bmp24", "bmp"), ("scene0_tiff_none", "tif")):
+            by_path[id(cases[name][0])] = os.path.join(self.tmp.name, f"scene0.{ext}")
+            with open(by_path[id(cases[name][0])], "wb") as f:
+                f.write(cases[name][0])
+        if read_image(by_path[id(cases["scene0_tiff_none"][0])]) is None:
+            raise AssertionError("read_image refuses the uncompressed scene TIFF")
 
         def req(data):
-            if data is cases["scene0_bmp24"][0]:
-                return {"command": "recognize", "image_path": bmp_path}
+            if id(data) in by_path:
+                return {"command": "recognize", "image_path": by_path[id(data)]}
             return {"command": "recognize", "image_data": base64.b64encode(data).decode()}
 
         # the HDR and GIF scenes, held to the in-process worker on the
@@ -1353,6 +1368,15 @@ class Smoke:
                     check_words(got[name]["words"], want["words"], f"{name} as BMP vs PNG")
                     words[name] = len(got[name]["words"])
                 before = service_launches(c)
+                got = {name: c.send_request(req(tiff)) for name, (tiff, _) in tiff_pairs.items()}
+                self.launches["tiff service"] = launched_tiff = launches_since(c, before, "TIFF")
+                for name, (_, png) in tiff_pairs.items():
+                    want = c.send_request(req(png))
+                    if not got[name].get("success") or not want.get("words"):
+                        raise AssertionError(f"{name}: {str(got[name])[:200]} / {str(want)[:200]}")
+                    check_words(got[name]["words"], want["words"], f"{name} as TIFF vs PNG")
+                    words[name] = len(got[name]["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1380,13 +1404,16 @@ class Smoke:
         print(json.dumps({
             "image_formats_vs_cv2": f"{len(cases)} committed cases equal cv2's answer, "
             f"{sum(c[1] for c in counts.values())} of them None",
+            "tiff_vs_cv2": f"{counts.get('tiff', [0, 0])[0]} TIFF and BigTIFF cases equal cv2's answer, "
+            f"{counts.get('tiff', [0, 0])[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed},
             "bytes": {n[len("scene0_"):]: len(cases[n][0]) for n in timed},
             "service_words": words, "launches_of_2_bmp_requests": launched,
             "launches_of_hdr_and_gif_requests": launched_hdr_gif,
+            "launches_of_2_tiff_requests": launched_tiff,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the eight payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the twelve payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's",
             "card": card_line()}), flush=True)
 

@@ -1,8 +1,8 @@
 """Build and ctypes bindings of the port's host C++: the DB-postprocess
 core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, the BMP
 run-length decoder, ``csrc/bmp_rle.cpp``, the Radiance HDR scanline
-decoder, ``csrc/hdr_rgbe.cpp``, and the GIF LZW decoder,
-``csrc/gif_lzw.cpp``.
+decoder, ``csrc/hdr_rgbe.cpp``, the GIF LZW decoder,
+``csrc/gif_lzw.cpp``, and the TIFF strip and tile decoder, ``csrc/tiff.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -41,6 +41,7 @@ JPEG_SOURCE = CSRC / "jpeg.cpp"
 BMP_RLE_SOURCE = CSRC / "bmp_rle.cpp"
 HDR_SOURCE = CSRC / "hdr_rgbe.cpp"
 GIF_SOURCE = CSRC / "gif_lzw.cpp"
+TIFF_SOURCE = CSRC / "tiff.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
@@ -48,6 +49,7 @@ _jpeg_lib = None
 _bmp_rle_lib = None
 _hdr_lib = None
 _gif_lib = None
+_tiff_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -314,4 +316,79 @@ def gif_frame(data: bytes, offset: int, frame: Tuple[int, int, int, int], interl
     status = lib.gif_frame(data, len(data), offset, w, h, int(interlaced), pal.ctypes.data_as(u8p),
                            flags.ctypes.data_as(u8p), -1 if transparent is None else transparent,
                            fill.ctypes.data_as(u8p), out.ctypes.data_as(u8p), sw, sh, left, top)
+    return status, out
+
+
+class TiffParams(ctypes.Structure):
+    """``csrc/tiff.cpp``'s ``TiffParams``."""
+
+    _fields_ = [(name, ctypes.c_int64) for name in ("width", "height", "block_w", "block_h", "blocks_across",
+                                                    "blocks_per_plane", "nblocks", "row_bytes", "block_bytes")] + [
+        (name, ctypes.c_int32) for name in ("tiled", "spp", "bps", "compression", "predictor", "swab", "bitrev",
+                                            "mapped", "put", "flip_h", "planes")] + [
+        ("plane_index", ctypes.c_int32 * 4), ("ycc_hs", ctypes.c_int32), ("ycc_vs", ctypes.c_int32),
+        ("sampling_row", ctypes.c_int64), ("white", ctypes.c_float * 2)]
+
+
+def load_tiff_library() -> ctypes.CDLL:
+    """Build (if needed) and load the TIFF strip and tile decoder."""
+    global _tiff_lib
+    with _lock:
+        if _tiff_lib is None:
+            lib = ctypes.CDLL(str(build(TIFF_SOURCE)))
+            u8p, u64p, vp = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p
+            lib.tiff_decode.restype = ctypes.c_int
+            lib.tiff_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(TiffParams), u64p, u64p,
+                                        u8p, u8p, ctypes.POINTER(ctypes.c_int32), vp, vp, vp, ctypes.c_char_p, u8p]
+            _tiff_lib = lib
+    return _tiff_lib
+
+
+def tiff_decode(data: bytes, params: dict, offsets: np.ndarray, counts: np.ndarray, grey_map: np.ndarray,
+                palette: np.ndarray, ycbcr: Optional[np.ndarray] = None, zlib: Optional[ctypes.CDLL] = None
+                ) -> Tuple[int, np.ndarray]:
+    """Decode a TIFF image's strips or tiles (``params``: ``TiffParams``'
+    fields; ``offsets`` / ``counts``: every strip's or tile's offset and byte
+    count; ``grey_map`` [256] uint8, the grey level of a sample; ``palette``
+    [256, 3] uint8 RGB; ``ycbcr`` [5, 256] int32, libtiff's YCbCr to RGB
+    tables; ``zlib``: the zlib library, for deflate) → (status,
+    [height, width, 3] BGR uint8, each block at its stored place). Status 0
+    is success; 1: a block's data cannot be read; 2: an uncompressed tile
+    whose byte count is not the tile's size. The image is only meaningful
+    on 0."""
+    p = TiffParams()
+    for name, value in params.items():
+        if name == "plane_index":
+            p.plane_index[:] = (list(value) + [0, 0, 0, 0])[:4]
+        elif name == "white":
+            p.white[:] = [float(v) for v in value]
+        else:
+            setattr(p, name, int(value))
+    if p.width <= 0 or p.height <= 0 or p.block_w <= 0 or p.block_h <= 0:
+        raise ValueError(f"tiff_decode: a {p.width}x{p.height} image in {p.block_w}x{p.block_h} blocks")
+    offs = np.ascontiguousarray(offsets, np.uint64)
+    cnts = np.ascontiguousarray(counts, np.uint64)
+    if len(offs) != p.nblocks or len(cnts) != p.nblocks:
+        raise ValueError(f"tiff_decode: {len(offs)} offsets and {len(cnts)} counts for {p.nblocks} blocks")
+    gmap = np.ascontiguousarray(grey_map, np.uint8)
+    pal = np.ascontiguousarray(palette, np.uint8)
+    if gmap.shape != (256,) or pal.shape != (256, 3):
+        raise ValueError(f"tiff_decode: grey map {gmap.shape}, palette {pal.shape}")
+    ycc = np.ascontiguousarray(np.zeros((5, 256)) if ycbcr is None else ycbcr, np.int32)
+    if ycc.shape != (5, 256):
+        raise ValueError(f"tiff_decode: YCbCr tables {ycc.shape}")
+    lib = load_tiff_library()
+    u8p, u64p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint64)
+    fns = [None, None, None]
+    version = None
+    if zlib is not None:
+        fns = [ctypes.cast(getattr(zlib, f), ctypes.c_void_p).value for f in ("inflateInit2_", "inflate", "inflateEnd")]
+        version = zlib.zlibVersion()
+    out = np.zeros((p.height, p.width, 3), np.uint8)
+    status = lib.tiff_decode(data, len(data), ctypes.byref(p), offs.ctypes.data_as(u64p), cnts.ctypes.data_as(u64p),
+                             gmap.ctypes.data_as(u8p), pal.ctypes.data_as(u8p),
+                             ycc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), *fns, version,
+                             out.ctypes.data_as(u8p))
+    if status == 3:
+        raise ValueError("tiff_decode: parameters the decoder does not take")
     return status, out

@@ -74,16 +74,36 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   a transparent pixel keeps it; local over global tables, grey levels with
   no table at all (index 1 white), an index past the tables refuses the
   file; interlaced rows; cv2's LZW rules on damaged streams.
+* **TIFF and BigTIFF**, the first page (the directory and the colour
+  tables in Python, strips and tiles in ``csrc/tiff.cpp``, host C++ built
+  at first use), as OpenCV 5.0's ``grfmt_tiff.cpp`` reads it through
+  libtiff 4.7's RGBA interface: libtiff's directory rules (which tags are
+  fatal when unreadable, the byte count estimate for a lone strip,
+  StripOffsets and TileOffsets in one slot), OpenCV's own checks (1, 4
+  (palette), 8 or 16 bits, integer samples, at most 4 samples, its tile
+  limits), the RGBA interface's photometric interpretations (grey,
+  palette, RGB with or without alpha (unassociated alpha premultiplied),
+  CMYK, YCbCr at every subsampling libtiff reads, CIE L*a*b* through its
+  sRGB display) and its put routines,
+  pointer steps included; compressions none, LZW (old-style codes too),
+  PackBits and deflate (zlib's ``inflate`` with libtiff's calls), the
+  horizontal predictor; the orientation as cv2 turns the image (libtiff
+  mirrors each tile, OpenCV turns the whole); a strip that fails to decode
+  keeps what it decoded, as libtiff's RGBA reader goes on. ``read_image``
+  reads a file as ``cv2.imread`` maps it: an uncompressed tile must hold
+  exactly its size, and an orientation that turns the image (5–8) is
+  refused.
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and, named by their
 sniffed format, what cv2 decodes and this module does not
-(``FORMAT_NAMES``): WebP, TIFF, JPEG 2000 and AVIF. ``None`` becomes the
-reference's own error response in the service. A JPEG, run-length BMP,
-HDR or GIF decode raises when its host C++ cannot be built: a missing
-compiler is not a bad image.
+(``FORMAT_NAMES``): WebP, JPEG 2000 and AVIF, and TIFF's compressions of
+``TIFF_UNPORTED`` (CCITT, JPEG, NeXT, ThunderScan, SGI Log). ``None``
+becomes the reference's own error response in the
+service. A JPEG, run-length BMP, HDR, GIF or TIFF decode raises when its
+host C++ cannot be built: a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -120,7 +140,7 @@ def sniff_format(data: bytes) -> str:
         return "gif"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return "tiff"
     if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
         return "jpeg2000"
@@ -1118,6 +1138,492 @@ def _decode_gif(data: bytes) -> np.ndarray:
     return screen
 
 
+# -- TIFF ---------------------------------------------------------------------
+# The first directory as libtiff 4.7's TIFFReadDirectory reads it, the rules of
+# its RGBA interface and of OpenCV 5.0's grfmt_tiff.cpp; the strips and tiles
+# in csrc/tiff.cpp
+
+_TIFF_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+_TIFF_INTS = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q", 13: "I", 18: "Q"}
+_TIFF_SHORT_TYPES = (1, 6, 3, 8, 4, 9, 16, 17)  # the integer types libtiff reads as a SHORT, LONG or LONG8
+# compressions OpenCV's libtiff decodes and this module does not (a known
+# difference), and those it was built without (cv2 refuses them too)
+TIFF_UNPORTED = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 7: "JPEG", 32766: "NeXT", 32771: "CCITT RLEW",
+                 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+_TIFF_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG", 34887: "LERC", 34925: "LZMA",
+                        50000: "ZSTD", 50001: "WebP"}
+_TIFF_PUT = {"grey": 1, "palette": 2, "rgb8": 3, "rgbua8": 4, "rgb16": 5, "rgbua16": 6, "cmyk8": 7, "sep8": 8,
+             "sepua8": 9, "sep16": 10, "sepua16": 11, "sepcmyk8": 12, "ycbcr": 13, "sepycbcr": 14, "cielab8": 15,
+             "cielab16": 16}
+_TIFF_REFUSED = {1: "a strip or tile whose data cannot be read", 2: "an uncompressed tile whose byte count is not "
+                 "the size of its buffer"}
+
+
+class _TiffDir:
+    """The entries of the first directory: tag → (type, count, the file
+    position of its value), the first of each tag only."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        e = "<" if data[:2] == b"II" else ">"
+        self.e = e
+        version = struct.unpack(e + "H", data[2:4])[0]
+        self.big = version == 43
+        if version not in (42, 43):
+            raise _Refused(f"the version {version} (42 or 43, BigTIFF)")
+        if self.big:
+            if len(data) < 16:
+                raise _Refused("the data ends inside the BigTIFF header")
+            offsize, unused = struct.unpack(e + "HH", data[4:8])
+            if offsize != 8 or unused != 0:
+                raise _Refused(f"a BigTIFF header with offset size {offsize} and {unused} in its reserved word")
+            at = struct.unpack(e + "Q", data[8:16])[0]
+            n_size, entry = 8, 20
+        else:
+            if len(data) < 8:
+                raise _Refused("the data ends inside the header")
+            at = struct.unpack(e + "I", data[4:8])[0]
+            n_size, entry = 2, 12
+        if at + n_size > len(data):
+            raise _Refused("the first directory lies past the end of the data")
+        n = struct.unpack(e + ("Q" if self.big else "H"), data[at : at + n_size])[0]
+        if n > 4096:
+            raise _Refused(f"a directory of {n} entries (libtiff's sanity limit is 4096)")
+        at += n_size
+        if at + n * entry > len(data):
+            raise _Refused("the data ends inside the first directory")
+        self.entries, self.order, self.types = {}, {}, []
+        fmt = e + ("HHQ" if self.big else "HHI")
+        for k in range(n):
+            pos = at + k * entry
+            tag, typ, count = struct.unpack(fmt, data[pos : pos + (12 if self.big else 8)])
+            value = pos + (12 if self.big else 8)
+            size = _TIFF_SIZES.get(typ, 0) * count
+            if size > (8 if self.big else 4):
+                value = struct.unpack(e + ("Q" if self.big else "I"), data[value : value + (8 if self.big else 4)])[0]
+            if tag not in self.entries:
+                self.entries[tag] = (typ, count, value)
+                self.order[tag] = k
+            self.types.append((typ, count))
+
+    def ints(self, tag, limit=None):
+        """The entry's values as integers (libtiff's SHORT, LONG and LONG8
+        readers: unsigned and signed integers, negative ones refused), at most
+        ``limit`` of them; None for a type libtiff does not take there or a
+        value outside the data."""
+        typ, count, value = self.entries[tag]
+        if typ not in _TIFF_INTS:
+            return None
+        if limit is not None:
+            count = min(count, limit)
+        size = _TIFF_SIZES[typ]
+        if value + size * count > len(self.data):
+            return None
+        vals = struct.unpack(f"{self.e}{count}{_TIFF_INTS[typ]}", self.data[value : value + size * count])
+        return None if any(v < 0 for v in vals) else list(vals)
+
+    def one(self, tag, maximum=0xFFFF):
+        """A tag of one value (libtiff's TIFFReadDirEntryShort / Long): the
+        value, or None (absent); raises ``ValueError`` for an entry libtiff
+        cannot read (wrong count or type, a value out of range)."""
+        if tag not in self.entries:
+            return None
+        typ, count, _ = self.entries[tag]
+        if count != 1 or typ not in _TIFF_SHORT_TYPES:
+            raise ValueError(f"tag {tag}: {count} values of type {typ}")
+        vals = self.ints(tag)
+        if vals is None or vals[0] > maximum:
+            raise ValueError(f"tag {tag}: a type or value libtiff does not read")
+        return vals[0]
+
+    def floats(self, tag, n):
+        """A tag of exactly ``n`` numbers as float32 (libtiff's float array
+        read: integers, rationals, floats, doubles), or None (absent or
+        unreadable, which libtiff only warns about)."""
+        if tag not in self.entries:
+            return None
+        typ, count, value = self.entries[tag]
+        if count != n or value + _TIFF_SIZES.get(typ, 0) * n > len(self.data):
+            return None
+        raw = self.data[value : value + _TIFF_SIZES.get(typ, 0) * n]
+        if typ in _TIFF_SHORT_TYPES:
+            return np.array(struct.unpack(f"{self.e}{n}{_TIFF_INTS[typ]}", raw), np.float32)
+        if typ in (5, 10):
+            v = np.array(struct.unpack(f"{self.e}{2 * n}{'I' if typ == 5 else 'i'}", raw), np.float32).reshape(n, 2)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return np.where(v[:, 1] == 0, np.float32(0), v[:, 0] / v[:, 1]).astype(np.float32)
+        if typ in (11, 12):
+            return np.array(struct.unpack(f"{self.e}{n}{'f' if typ == 11 else 'd'}", raw)).astype(np.float32)
+        return None
+
+    def per_sample(self, tag, spp):
+        """libtiff's Short-or-PersampleShort read: one value, or ``spp`` or
+        more of which the first ``spp`` agree."""
+        if tag not in self.entries:
+            return None
+        typ, count, _ = self.entries[tag]
+        if count == 1:
+            return self.one(tag)
+        vals = self.ints(tag) if typ in _TIFF_SHORT_TYPES and count <= 0xFFFF else None
+        if count < spp or vals is None or max(vals, default=0) > 0xFFFF or len(set(vals[:spp])) != 1:
+            raise ValueError(f"tag {tag}: per-sample values libtiff does not read")
+        return vals[0]
+
+
+def _tiff_sizes(w, spp, bps, contig):
+    """libtiff's scanline size (bytes of one row of ``w`` pixels)."""
+    return (w * (spp if contig else 1) * bps + 7) // 8
+
+
+def _ycbcr_tables(luma, ref) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit in its float32 arithmetic: [5, 256]
+    int32, the Y, Cr→R, Cb→B, Cr→G and Cb→G tables."""
+    f = np.float32
+
+    def clamp(v, lo, hi):
+        return f(lo) if not v >= lo else f(hi) if v > hi else f(v)
+
+    def fix(v):  # FIX(): a float times 65536, + 0.5 in double, truncated
+        return int(float(f(v) * f(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):
+        return f(f(c - int(rb)) * f(cr)) / f(rw - rb if f(rw - rb) != 0 else 1)
+
+    def clampw(v):
+        return int(f(-4096) if v < -4096 else f(4096) if v > 4096 else v)
+
+    with np.errstate(all="ignore"):  # C's float arithmetic overflows to inf silently, and so may this
+        lr, lg, lb = (f(v) for v in luma)
+        f1 = f(2) - f(2) * lr
+        d1, d2 = fix(clamp(f1, 0, 2)), -fix(clamp(f(lr * f1 / lg), 0, 2))
+        f3 = f(2) - f(2) * lb
+        d3, d4 = fix(clamp(f3, 0, 2)), -fix(clamp(f(lb * f3 / lg), 0, 2))
+        t = np.zeros((5, 256), np.int64)
+        for i in range(256):
+            x = i - 128
+            cr = clampw(code2v(x, f(ref[4] - f(128)), f(ref[5] - f(128)), 127))
+            cb = clampw(code2v(x, f(ref[2] - f(128)), f(ref[3] - f(128)), 127))
+            t[:, i] = (clampw(code2v(x + 128, ref[0], ref[1], 255)), (d1 * cr + 32768) >> 16,
+                       (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768)
+    return t.astype(np.int32)
+
+
+def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
+    """The first directory of a TIFF or BigTIFF file, read as libtiff reads
+    it (see ``csrc/tiff.cpp`` for the strips and tiles): the tags libtiff
+    needs to size the image are fatal when unreadable, the others are
+    dropped; a lone strip whose byte count is missing or looks wrong is sized
+    from the image (OpenCV's libtiff does not cut it into smaller strips); a
+    missing RowsPerStrip means one strip. Then OpenCV's checks (1, 4 (a
+    palette only), 8 or 16 bits per sample, integer samples; at most 4
+    samples) and those of libtiff's RGBA interface, which reads grey
+    (MinIsBlack, MinIsWhite) at 1, 8 and 16 bits, palette at 1, 4 and 8,
+    RGB at 8 and 16 with or without alpha (unassociated alpha is
+    premultiplied), CMYK at 8, YCbCr at 8 (subsampled when contiguous) and
+    CIE L*a*b* at 8 and 16 (contiguous). ``mapped``: the file is read as
+    ``cv2.imread`` maps it (not as ``cv2.imdecode`` streams it), which
+    changes the rule for uncompressed tiles and refuses the orientations
+    that turn the image."""
+    d = _TiffDir(data)
+    e = d.entries
+    if not e:
+        raise _Refused("an empty first directory")
+    try:
+        spp = d.one(277)
+        if spp == 0:
+            raise ValueError("SamplesPerPixel 0")
+        spp = spp or 1
+        compression = d.per_sample(259, spp) if 259 in e else 1
+        width, height = d.one(256, 0xFFFFFFFF), d.one(257, 0xFFFFFFFF)
+        tile_w, tile_h = d.one(322, 0xFFFFFFFF), d.one(323, 0xFFFFFFFF)
+        planar = d.one(284)
+        if planar not in (None, 1, 2):
+            raise ValueError(f"PlanarConfiguration {planar}")
+        rps = d.one(278, 0xFFFFFFFF)
+        if rps == 0:
+            raise ValueError("RowsPerStrip 0")
+        extras = []
+        if 338 in e:
+            extras = d.ints(338) if e[338][0] in _TIFF_SHORT_TYPES and e[338][1] <= 0xFFFF else None
+            if extras is None or len(extras) > spp or any(v > 2 and v != 999 for v in extras) or max(extras + [0]) > 0xFFFF:
+                raise ValueError("ExtraSamples libtiff does not take")
+            extras = [2 if v == 999 else v for v in extras]
+        bps = d.per_sample(258, spp)
+        sample_format = d.per_sample(339, spp)
+        if sample_format is not None and not 1 <= sample_format <= 6:
+            raise ValueError(f"SampleFormat {sample_format}")
+        for tag in (280, 281, 32996):  # Min/MaxSampleValue, DataType: read, and fatal when unreadable
+            d.per_sample(tag, spp)
+        for tag in (340, 341):  # SMin/SMaxSampleValue: one number per sample
+            if tag in e and (e[tag][1] != spp or e[tag][0] not in _TIFF_SIZES or e[tag][0] in (2, 7, 13, 18)
+                             or e[tag][2] + spp * _TIFF_SIZES[e[tag][0]] > len(data)):
+                raise ValueError(f"tag {tag}: not one number per sample")
+    except ValueError as err:
+        raise _Refused(f"a directory libtiff refuses ({err})") from None
+
+    def soft(tag, ok=lambda v: True):  # a tag whose errors libtiff only warns about
+        try:
+            v = d.one(tag)
+        except ValueError:
+            return None
+        return v if v is not None and ok(v) else None
+
+    photometric = soft(262)
+    orientation = soft(274, lambda v: 1 <= v <= 8) or 1
+    fill_order = soft(266, lambda v: v in (1, 2)) or 1
+    predictor = soft(317) if compression in (5, 8, 32946) else None
+    predictor = 1 if predictor is None else predictor
+    inkset = soft(332)
+    inkset = 1 if inkset is None else inkset
+    bps_read = bps is not None
+    bps = 1 if bps is None else bps
+    planar = planar or 1
+    if width is None and height is None:
+        raise _Refused("no ImageWidth or ImageLength")
+    width, height = width or 0, height or 0
+    tiled = tile_w is not None or tile_h is not None
+    contig = planar == 1
+    if tiled:
+        # a RowsPerStrip read before the first tile tag set the tile to
+        # (the width read so far, the rows per strip)
+        first_tile = min(d.order[t] for t in (322, 323) if t in e)
+        if rps is not None and d.order[278] < first_tile:
+            tile_w = tile_w if tile_w is not None else (width if 256 in e and d.order[256] < d.order[278] else 0)
+            tile_h = tile_h if tile_h is not None else rps
+        tile_w, tile_h = tile_w or 0, tile_h or 0
+        across = -(-width // tile_w) if tile_w else 0
+        nblocks = across * (-(-height // tile_h) if tile_h else 0)
+    else:
+        nblocks = 1 if rps is None else -(-height // rps)
+    per_plane = nblocks
+    if not contig:
+        nblocks *= spp
+    if nblocks == 0:
+        raise _Refused(f"no {'tiles' if tiled else 'strips'} in a {width}x{height} image")
+    # StripOffsets and TileOffsets fill one field, and so do the byte counts:
+    # the later entry of the directory wins
+    offsets_tag = max((t for t in (273, 324) if t in e), key=d.order.get, default=None)
+    counts_tag = max((t for t in (279, 325) if t in e), key=d.order.get, default=None)
+    if offsets_tag is None:
+        raise _Refused(f"no {'TileOffsets' if tiled else 'StripOffsets'}")
+    # the extra samples: every sample past the photometric's colour channels
+    colours = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3, 5: 4, 4: 4}.get(photometric or 0, 0)
+    if colours and spp - len(extras) > colours:
+        extras = extras + [0] * (spp - colours - len(extras))
+    colormap = None
+    if 320 in e and bps_read and bps <= 16 and e[320][1] == 3 * (1 << bps) and e[320][0] in _TIFF_SHORT_TYPES:
+        cm = d.ints(320)
+        if cm is not None and max(cm) <= 0xFFFF:
+            colormap = np.array(cm, np.int64).reshape(3, -1)
+    if photometric == 3 and colormap is None:
+        if bps >= 8:
+            photometric = 2 if spp == 3 else 1
+        else:
+            raise _Refused("a palette image without a colour map")
+
+    def strile(tag):
+        typ, count, _ = d.entries[tag]
+        if typ not in _TIFF_SHORT_TYPES or count * _TIFF_SIZES[typ] >= 1 << 64:  # no IFD types; no overflow
+            raise _Refused(f"strip or tile offsets or byte counts libtiff cannot read (tag {tag})")
+        vals = d.ints(tag, limit=nblocks)
+        if vals is None:
+            raise _Refused(f"strip or tile offsets or byte counts libtiff cannot read (tag {tag})")
+        return (vals + [0] * nblocks)[:nblocks]
+
+    offsets = strile(offsets_tag)
+    row_bytes = _tiff_sizes(tile_w if tiled else width, spp, bps, contig)
+    ycc_sub, sampling_row = (1, 1), 0
+    if photometric == 6 and contig and spp == 3:  # YCbCr: rows of subsampled blocks
+        sub = d.ints(530) if 530 in e and e[530][1] == 2 and e[530][0] in _TIFF_SHORT_TYPES else None
+        ycc_sub = (sub[0], sub[1]) if sub and max(sub) <= 0xFFFF else (2, 2)
+        hs, vs = ycc_sub
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+            raise _Refused(f"the YCbCr subsampling {hs}x{vs} (libtiff reads 1, 2 or 4 each way)")
+        sampling_row = (-(-(tile_w if tiled else width) // hs) * (hs * vs + 2) * bps + 7) // 8
+        if not tiled:
+            row_bytes = sampling_row // vs  # libtiff's scanline size, rounded down
+    counts = strile(counts_tag) if counts_tag else None
+    n = len(data)
+
+    def estimate():
+        if compression != 1:
+            space = (16 + 8 + len(d.types) * 20 + 8) if d.big else (8 + 2 + len(d.types) * 12 + 4)
+            for typ, count in d.types:  # every entry, repeated tags too
+                size = _TIFF_SIZES.get(typ, 0)
+                if size == 0:
+                    raise _Refused(f"an entry of unknown type {typ}")
+                space += size * count if size * count > (8 if d.big else 4) else 0
+            space = n if n < space else n - space
+            if not contig:
+                space //= spp
+            est = [space] * nblocks
+            if offsets[-1] + est[-1] > n:
+                est[-1] = 0 if offsets[-1] >= n else n - offsets[-1]
+            return est
+        if tiled:
+            return [row_bytes * tile_h] * nblocks
+        return [row_bytes * (height // (nblocks // (1 if contig else spp)))] * nblocks
+
+    if counts is None:
+        if (contig and nblocks > 1) or (not contig and nblocks != spp):
+            raise _Refused("no StripByteCounts")
+        counts = estimate()
+    elif nblocks == 1 and not tiled and offsets[0] != 0 and (
+            counts[0] == 0 or (compression == 1 and (
+                (offsets[0] <= n and counts[0] > n - offsets[0]) or counts[0] < row_bytes * height))):
+        counts = estimate()
+    elif (contig and nblocks > 2 and compression == 1 and counts[0] != counts[1] and counts[0] and counts[1]):
+        counts = estimate()
+    if row_bytes == 0:
+        raise _Refused("a zero scanline size")
+    # OpenCV's readHeader and readData
+    if photometric is None:
+        raise _Refused("no PhotometricInterpretation (OpenCV requires it)")
+    if bps not in (1, 4, 8, 10, 12, 14, 16, 32, 64):
+        raise _Refused(f"{bps} bits per sample (OpenCV reads 1, 4, 8, 10, 12, 14, 16, 32 or 64)")
+    if bps == 4 and photometric != 3:
+        raise _Refused("4 bits per sample outside a palette image (OpenCV refuses it)")
+    if sample_format not in (None, 1, 2) and bps <= 16:
+        raise _Refused(f"the sample format {sample_format} (OpenCV reads unsigned and signed integers)")
+    if spp > 4:
+        raise _Refused(f"{spp} samples per pixel (OpenCV reads at most 4)")
+    _check_size(width, height)
+    if not width or not height:
+        raise _Refused(f"a {width}x{height} image")
+    block_w = tile_w if tiled else width
+    block_h = tile_h if tiled else (rps if rps is not None and rps != 0xFFFFFFFF else height)
+    if not (0 < block_w <= 1 << 24 and 0 < block_h <= 1 << 24) or \
+            block_w * block_h * spp * max(1, bps // 8) >= 1 << 30:
+        raise _Refused(f"{block_w}x{block_h} blocks (OpenCV's tile limits)")
+    # libtiff's RGBA interface: TIFFRGBAImageOK, TIFFRGBAImageBegin and the put routine
+    if compression in _TIFF_NOT_CONFIGURED:
+        raise _Refused(f"compression {_TIFF_NOT_CONFIGURED[compression]} ({compression}), which OpenCV's libtiff "
+                       "is built without")
+    if compression in TIFF_UNPORTED:
+        raise _Refused(f"compression {TIFF_UNPORTED[compression]} ({compression}) is not decoded")
+    if bps not in (1, 2, 4, 8, 16):
+        raise _Refused(f"{bps}-bit samples (libtiff's RGBA interface reads 1, 2, 4, 8 and 16)")
+    if sample_format == 3:
+        raise _Refused("floating-point samples")
+    alpha = 0
+    if extras:
+        if extras[0] == 0 and spp > 3:
+            alpha = 1
+        elif extras[0] in (1, 2):
+            alpha = extras[0]
+    if not extras and spp == 4 and photometric == 2:
+        alpha, extras = 1, [1]
+    channels = spp - len(extras)
+    if photometric in (0, 1, 3):
+        if contig and spp != 1 and bps < 8:
+            raise _Refused(f"{bps}-bit contiguous samples with {spp} samples per pixel")
+    elif photometric == 2:
+        if channels < 3:
+            raise _Refused(f"an RGB image with {channels} colour channels")
+    elif photometric == 5:
+        if inkset != 1:
+            raise _Refused(f"a separated image with ink set {inkset}")
+        if channels < 4:
+            raise _Refused(f"a separated image with {channels} colour channels")
+    elif photometric == 6:
+        pass
+    elif photometric == 8:
+        if spp != 3 or channels != 3 or bps not in (8, 16):
+            raise _Refused(f"a CIE L*a*b* image of {spp} samples, {channels} colour channels, {bps} bits")
+    else:
+        raise _Refused(f"the photometric interpretation {photometric}")
+    put = None
+    if contig or spp == 1:
+        planes, plane_index = 0, []
+        if photometric == 2:
+            put = {(8, 1): "rgb8", (8, 2): "rgbua8", (8, 0): "rgb8", (16, 1): "rgb16", (16, 2): "rgbua16",
+                   (16, 0): "rgb16"}.get((bps, alpha))
+        elif photometric == 5:
+            put = "cmyk8" if bps == 8 else None
+        elif photometric == 8:
+            put = f"cielab{bps}"
+        elif photometric == 6:
+            put = "ycbcr" if bps == 8 and spp == 3 and ycc_sub in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2),
+                                                                   (1, 1)) else None
+        elif photometric == 3:
+            put = "palette" if bps <= 8 else None
+        else:
+            put = "grey" if bps in (1, 2, 4, 8, 16) else None
+    else:
+        grey = photometric in (0, 1, 3)
+        planes = (1 if grey else 3) + (1 if alpha else 0)
+        plane_index = list(range(planes))
+        if photometric in (0, 1, 2):
+            put = {(8, 0): "sep8", (8, 1): "sep8", (8, 2): "sepua8", (16, 0): "sep16", (16, 1): "sep16",
+                   (16, 2): "sepua16"}.get((bps, alpha))
+        elif photometric == 5 and bps == 8 and spp == 4:
+            put, planes, plane_index = "sepcmyk8", 4, [0, 1, 2, 3]
+        elif photometric == 6 and bps == 8 and spp == 3:
+            sub = d.ints(530) if 530 in e and e[530][1] == 2 and e[530][0] in _TIFF_SHORT_TYPES else None
+            if (tuple(sub) if sub else (2, 2)) == (1, 1):
+                put, planes, plane_index = "sepycbcr", 3, [0, 1, 2]
+    white = [0, 1]
+    if put in ("cielab8", "cielab16"):  # the white point (D50 by default), as initCIELabConversion reads it
+        f = np.float32
+        wp = d.floats(318, 2)
+        white = [f(96.425) / (f(96.425) + f(100) + f(82.468)), f(100) / (f(96.425) + f(100) + f(82.468))] \
+            if wp is None else list(wp)
+        if white[1] == 0:
+            put = None
+    ycc_tables = None
+    if put in ("ycbcr", "sepycbcr"):  # initYCbCrConversion, and its checks
+        luma = d.floats(529, 3)
+        luma = np.array([0.299, 0.587, 0.114], np.float32) if luma is None else luma
+        ref = d.floats(532, 6)
+        ref = np.array([0, 255, 128, 255, 128, 255], np.float32) if ref is None else ref
+        if np.isnan(luma).any() or luma[1] == 0 or not ((ref > -2147483647 + 128) & (ref < 2147483647)).all():
+            put = None
+        else:
+            ycc_tables = _ycbcr_tables(luma, ref)
+    if put is None:
+        raise _Refused(f"no libtiff put routine for photometric {photometric} at {bps} bits, {spp} samples, "
+                       f"planar {planar}")
+    if predictor not in (1, 2, 3) or (predictor == 2 and bps not in (8, 16, 32, 64)) or predictor == 3:
+        raise _Refused(f"the predictor {predictor} with {bps}-bit samples")
+    grey_map = np.zeros(256, np.uint8)
+    palette = np.zeros((256, 3), np.uint8)
+    if put == "grey":
+        levels = 255 if bps == 16 else (1 << bps) - 1
+        x = np.arange(levels + 1)
+        level = ((levels - x) if photometric == 0 else x) * 255 // levels
+        grey_map[: levels + 1] = level
+    elif put == "palette":
+        cm = colormap[:, : 1 << bps]
+        cm = cm >> 8 if (cm >= 256).any() else cm & 0xFF
+        palette[: 1 << bps] = cm.T
+    block_bytes = row_bytes * (tile_h if tiled else min(rps if rps is not None else height, height))
+    if put == "ycbcr":  # TIFFVStripSize / TIFFVTileSize: whole rows of blocks
+        block_bytes = -(-(tile_h if tiled else min(rps if rps is not None else height, height)) // ycc_sub[1]) \
+            * sampling_row
+    from ..ops import native  # builds csrc/tiff.cpp at first use; raises if it cannot
+
+    params = dict(width=width, height=height, block_w=block_w, block_h=block_h,
+                  blocks_across=-(-width // block_w) if tiled else 1, blocks_per_plane=per_plane, nblocks=nblocks,
+                  row_bytes=row_bytes, block_bytes=block_bytes, tiled=int(tiled), spp=spp, bps=bps,
+                  compression=8 if compression == 32946 else compression, predictor=predictor,
+                  swab=int(d.e == ">" and bps == 16), bitrev=int(fill_order == 2), mapped=int(mapped),
+                  put=_TIFF_PUT[put], flip_h=int(orientation in (2, 3, 6, 7)), planes=planes,
+                  plane_index=plane_index, ycc_hs=ycc_sub[0], ycc_vs=ycc_sub[1], sampling_row=sampling_row,
+                  white=white)
+    status, img = native.tiff_decode(data, params, offsets, counts, grey_map, palette, ycc_tables,
+                                     _zlib() if compression in (8, 32946) else None)
+    if status:
+        raise _Refused(_TIFF_REFUSED.get(status, f"status {status}"))
+    if mapped and orientation >= 5:
+        raise _Refused(f"the orientation {orientation} turns the image, which cv2.imread refuses "
+                       "(cv2.imdecode turns it)")
+    if orientation in (2, 3, 6, 7):  # libtiff mirrored each block; OpenCV turns the whole image
+        img = img[:, ::-1]
+    if orientation in _ORIENT:
+        img = _ORIENT[orientation](img)
+    return np.ascontiguousarray(img)
+
+
 # -- JPEG ---------------------------------------------------------------------
 
 # csrc/jpeg.cpp's Status codes other than success
@@ -1164,16 +1670,18 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 
 _DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
              "sunraster": _decode_sunraster, "pfm": _decode_pfm, "hdr": _decode_hdr,
-             "gif": _decode_gif}
+             "gif": _decode_gif, "tiff": _decode_tiff}
 # the formats that cv2 decodes and this module does not, by their sniffed name
 FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
 
 
-def decode_image(data: bytes) -> Optional[np.ndarray]:
+def decode_image(data: bytes, mapped: bool = False) -> Optional[np.ndarray]:
     """Encoded image bytes → [H, W, 3] BGR uint8 ([H, W] for a grey PFM, as
     ``cv2.imdecode`` gives it), or ``None`` where cv2 5.0 gives ``None`` (or
     raises) and for the formats this module does not decode. Every
-    ``None`` logs one warning that names the format and the reason."""
+    ``None`` logs one warning that names the format and the reason.
+    ``mapped``: the bytes are a file's, read as ``cv2.imread`` maps it
+    (this changes one rule, of uncompressed TIFF tiles)."""
     data = bytes(data)
     fmt = sniff_format(data)
     decoder = _DECODERS.get(fmt)
@@ -1185,22 +1693,22 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
                         ", ".join(FORMAT_LABELS[k] for k in _DECODERS))
         return None
     try:
-        img = decoder(data)
+        img = _decode_tiff(data, mapped) if fmt == "tiff" else decoder(data)
         return img if img.flags.writeable else img.copy()  # not a view of ``data``
     except _Refused as e:
         log.warning("%s payload not decoded: %s", FORMAT_LABELS[fmt], e)
-    except (struct.error, ValueError, IndexError) as e:  # malformed inside a well-formed container
+    except (struct.error, ValueError, IndexError, OverflowError) as e:  # malformed inside a well-formed container
         log.warning("%s payload not decoded: malformed data (%s)", FORMAT_LABELS[fmt], e)
     return None
 
 
 def read_image(path: str) -> Optional[np.ndarray]:
-    """``cv2.imread``: ``decode_image`` of a file's bytes; ``None`` when it
-    cannot be read, and for a grey PFM, whose [H, W] decode ``imread``
-    refuses where ``imdecode`` returns it."""
+    """``cv2.imread``: ``decode_image`` of a file's bytes, read as mapped;
+    ``None`` when it cannot be read, and for a grey PFM, whose [H, W]
+    decode ``imread`` refuses where ``imdecode`` returns it."""
     try:
         with open(path, "rb") as f:
-            img = decode_image(f.read())
+            img = decode_image(f.read(), mapped=True)
     except OSError:
         return None
     if img is not None and img.ndim == 2:

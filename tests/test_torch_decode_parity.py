@@ -14,7 +14,8 @@ of every colour type and bit depth at sizes with empty passes. No pixel
 may differ: where cv2 decodes corrupt data, the port decodes it the same.
 
 What is still refused where cv2 decodes (the formats of
-``imcodec.FORMAT_NAMES``) is pinned by
+``imcodec.FORMAT_NAMES`` and the TIFF compressions of
+``imcodec.TIFF_UNPORTED``) is pinned by
 ``test_what_is_still_refused_gives_none_and_a_log_line_naming_it``, which
 holds cv2 to decoding them: a known difference, written down, not hidden.
 A PNG whose zlib stream is damaged under a valid CRC decodes as libpng
@@ -389,8 +390,13 @@ def _refused():
         "12-bit": (base[:sof + 3] + bytes([12]) + base[sof + 4:], "precision", False),
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
-    for ext, fmt in [(".webp", "webp"), (".tiff", "tiff"), (".avif", "avif")]:
+    for ext, fmt in [(".webp", "webp"), (".avif", "avif")]:
         cases[fmt] = (cv2.imencode(ext, img)[1].tobytes(), imcodec.FORMAT_NAMES[fmt], True)
+    # TIFF is decoded since, but not its fax, JPEG and other compressions
+    # (``imcodec.TIFF_UNPORTED``): a bilevel CCITT G4 file, which cv2 decodes
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 0]).convert("1").save(buf, "TIFF", compression="group4")
+    cases["tiff"] = (buf.getvalue(), "compression CCITT G4 (4) is not decoded", True)
     # decoded since, refused where cv2 refuses them: a GIF of another
     # version, a PFM signature ended by a carriage return, an XYZE HDR
     gif, pfm, hdr = (cv2.imencode(ext, img)[1].tobytes() for ext in (".gif", ".pfm", ".hdr"))
@@ -407,15 +413,17 @@ def _refused():
                                   "pfm", "hdr"])
 def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog):
     """The refusals that remain. The JPEG, GIF, PFM and HDR ones are cv2's
-    own on these files; WebP, TIFF, JPEG 2000 and AVIF are decoded by cv2
-    and not by the port: the known difference, held here so that it cannot
-    grow unnoticed."""
+    own on these files; WebP, JPEG 2000 and AVIF, and a TIFF whose
+    compression is one of ``imcodec.TIFF_UNPORTED`` (CCITT G4 here), are
+    decoded by cv2 and not by the port: the known difference, held here so
+    that it cannot grow unnoticed."""
     data, reason, cv2_decodes = _refused()[name]
     assert (cv2_decode(data) is not None) == cv2_decodes
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     assert reason in caplog.text
-    assert set(imcodec.FORMAT_NAMES) == {"webp", "tiff", "jpeg2000", "avif"}
+    assert set(imcodec.FORMAT_NAMES) == {"webp", "jpeg2000", "avif"}
+    assert set(imcodec.TIFF_UNPORTED) == {2, 3, 4, 7, 32766, 32771, 32809, 34676, 34677}
 
 
 def test_a_damaged_zlib_stream_under_a_valid_crc_is_the_known_png_difference():

@@ -265,7 +265,7 @@ def test_a_jpeg_request_answers_the_jax_engines_words(tmp_path):
     scenes = assets.load_scenes()["parity"][:2]
     jax_worker = JaxWorker(JaxEngine(model_dir, jax_config(dataclasses.asdict(cfg))), 0)
     svc = OCRIPCService(model_dir=model_dir, socket_path=str(tmp_path / "svc.sock"),
-                        config=cfg, device="cpu")
+                        config=cfg, device="cpu", request_timeout_ms=0)
     t = run_service(svc)
     try:
         with OCRIPCClient(svc.socket_path, timeout_ms=120000) as c:
