@@ -124,22 +124,26 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
     PFM, Radiance HDR, GIF, and TIFF and BigTIFF of every kind the port
-    decodes, garbled and cut files and damaged TIFF strips among them)
+    decodes, CCITT fax ones (RLE, RLEW, G3 1D and 2D, G4) included, garbled
+    and cut files and damaged TIFF strips among them)
     decoded with ``decode_image`` (``csrc/bmp_rle.cpp``,
     ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp`` and ``csrc/tiff.cpp`` built
     with the host compiler), each equal to the cv2 decode stored beside it
     (a grey PFM's is [H, W]), or ``None`` where cv2 gave ``None``; the case
-    counts by format and the TIFF count; the host ms to decode the first
-    768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
+    counts by format, the TIFF count and the fax count; the host ms to
+    decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
     binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
     refuses: the time of the refusal), a PFM, a run-length HDR, a GIF and
     cv2's own TIFFs (uncompressed, LZW with the predictor, PackBits,
-    deflate), in turns, median of 25 after one untimed; then the same
+    deflate), the scene thresholded to 1 bit as G4, G3 1D, G3 2D, CCITT RLE
+    and RLEW TIFFs and a 1728×2304 fax page of it as G4, in turns, median of
+    25 after one untimed; then the same
     24-bit and RLE8 BMPs, the LZW TIFF (as data) and the uncompressed TIFF
     (by path) through the service (a subprocess as in phase 7) answer the
     words of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the
     service's ``status`` shows ``ctc_topk`` launched by the TIFF requests,
-    the HDR and
+    the G4 fax TIFF (as data) answers the words of the PNG of cv2's decode
+    of it and launches ``ctc_topk`` ("fax service"), the HDR and
     the GIF answer the words phase 4's in-process worker gives on the
     port's decode of the same bytes, and the service's ``status`` shows
     ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones; a
@@ -1300,7 +1304,9 @@ class Smoke:
         counts = {}  # format → [cases, of them None]
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
-                 "scene0_tiff_deflate")
+                 "scene0_tiff_deflate", "scene0_tiff_g4", "scene0_tiff_g3", "scene0_tiff_g3_2d", "scene0_tiff_rle",
+                 "scene0_tiff_rlew", "page_tiff_g4")
+        fax = [0, 0]  # CCITT fax TIFF cases, of them None
         ms = {n: [] for n in timed}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1308,10 +1314,13 @@ class Smoke:
                 got = decode_image(data)
                 count = counts.setdefault(sniff_format(data), [0, 0])
                 count[0] += 1
+                is_fax = name.startswith("tiff_fax_") or name in timed[12:]
+                fax[0] += is_fax
                 if want is None:
                     if got is not None:
                         raise AssertionError(f"case {name}: decoded where cv2 gives None")
                     count[1] += 1
+                    fax[1] += is_fax
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1328,6 +1337,8 @@ class Smoke:
         pairs = {n: (cases[n][0], encode_png(decode_image(cases[n][0]))) for n in timed[:2]}
         tiff_pairs = {n: (cases[n][0], encode_png(decode_image(cases[n][0])))
                       for n in ("scene0_tiff_lzw", "scene0_tiff_none")}
+        # the scene's G4 fax TIFF as data, beside the PNG of cv2's decode of it
+        fax_png = encode_png(cases["scene0_tiff_g4"][1])
         by_path = {}
         for name, ext in (("scene0_bmp24", "bmp"), ("scene0_tiff_none", "tif")):
             by_path[id(cases[name][0])] = os.path.join(self.tmp.name, f"scene0.{ext}")
@@ -1377,6 +1388,14 @@ class Smoke:
                     check_words(got[name]["words"], want["words"], f"{name} as TIFF vs PNG")
                     words[name] = len(got[name]["words"])
                 before = service_launches(c)
+                got_fax = c.send_request(req(cases["scene0_tiff_g4"][0]))
+                self.launches["fax service"] = launched_fax = launches_since(c, before, "G4 fax TIFF")
+                want = c.send_request(req(fax_png))
+                if not got_fax.get("success") or not want.get("words"):
+                    raise AssertionError(f"G4 fax TIFF: {str(got_fax)[:200]} / {str(want)[:200]}")
+                check_words(got_fax["words"], want["words"], "the G4 fax TIFF vs the PNG of cv2's decode")
+                words["scene0_tiff_g4"] = len(got_fax["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1406,14 +1425,18 @@ class Smoke:
             f"{sum(c[1] for c in counts.values())} of them None",
             "tiff_vs_cv2": f"{counts.get('tiff', [0, 0])[0]} TIFF and BigTIFF cases equal cv2's answer, "
             f"{counts.get('tiff', [0, 0])[1]} of them None",
+            "fax_vs_cv2": f"{fax[0]} CCITT fax TIFF cases (RLE, RLEW, G3 1D and 2D, G4) equal cv2's answer, "
+            f"{fax[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
-            **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed},
-            "bytes": {n[len("scene0_"):]: len(cases[n][0]) for n in timed},
+            **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed
+               if n.startswith("scene0_")},
+            "decode_ms_1728x2304_tiff_g4": statistics.median(ms["page_tiff_g4"][1:]),
+            "bytes": {n[len("scene0_"):] if n.startswith("scene0_") else n: len(cases[n][0]) for n in timed},
             "service_words": words, "launches_of_2_bmp_requests": launched,
             "launches_of_hdr_and_gif_requests": launched_hdr_gif,
-            "launches_of_2_tiff_requests": launched_tiff,
+            "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twelve payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the eighteen payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's",
             "card": card_line()}), flush=True)
 

@@ -22,8 +22,10 @@
 //    codes of a block whose data starts 00 x1 switch the whole file to that
 //    decoder when they come first), PackBits as tif_packbits.c, deflate as
 //    tif_zip.c (zlib's inflate with Z_PARTIAL_FLUSH; an error zeroes the
-//    rest); a compression libtiff has no codec for fails every block. A
-//    block that fails to decode keeps what it got: libtiff goes on.
+//    rest), the CCITT fax codecs as tif_fax3.c (see below: RLE, RLEW, G3 1D
+//    and 2D, G4, which read FillOrder 2 themselves); a compression libtiff
+//    has no codec for fails every block. A block that fails to decode keeps
+//    what it got: libtiff goes on.
 //  * only when it decoded: the horizontal predictor (8 and 16 bits, after
 //    the byte swap of a big-endian file) or the byte swap alone.
 //  * put: libtiff's contiguous or separate put routine for the photometric
@@ -69,7 +71,9 @@ enum Put : int32_t {
   PUT_CIELAB16 = 16,  // contiguous CIE L*a*b*, 16 bits
 };
 
-enum Compression : int32_t { NONE = 1, LZW = 5, DEFLATE = 8, PACKBITS = 32773 };
+enum Compression : int32_t {
+  NONE = 1, CCITT_RLE = 2, CCITT_G3 = 3, CCITT_G4 = 4, LZW = 5, DEFLATE = 8, CCITT_RLEW = 32771, PACKBITS = 32773
+};
 
 }  // namespace
 
@@ -94,6 +98,7 @@ struct TiffParams {
   int32_t ycc_hs, ycc_vs;     // YCbCr: the subsampling
   int64_t sampling_row;       // YCbCr: bytes of one row of blocks (of ycc_vs image rows)
   float white[2];             // CIE L*a*b*: the white point's x and y
+  int32_t group3_options;     // CCITT G3: T4Options (bit 0: rows may be 2D-coded)
 };
 
 // zlib's z_stream on LP64
@@ -382,6 +387,459 @@ int zip_decode(const Zlib& zl, const uint8_t* raw, int64_t rawcc, uint8_t* op, i
   return ok;
 }
 
+// -- CCITT fax (tif_fax3.c, tif_fax3.h) ----------------------------------------
+//
+// Modified Huffman rows (CCITT RLE, byte-aligned; RLEW, 16-bit-aligned; G3 1D
+// after an EOL), Modified READ rows (G3 2D: an EOL and a tag bit before each
+// row says 1D or 2D) and MMR rows (G4: 2D only, no EOLs, the first row's
+// reference white). The bits are read least significant first through a
+// table that reverses each byte (FillOrder 1) or not (FillOrder 2); the raw
+// bytes are never reversed. Each row's runs are painted into the zeroed
+// block buffer (white clears, black sets bits, MSB first), and libtiff's
+// control flow is kept: a code not in a table ends the row, which is then
+// padded or cut to the width; the end of the data fills the row it was in
+// and stops the block; a run array that overflows stops the block without
+// filling the row. The run arrays live as long as the image, as libtiff's
+// codec state does, so stale runs read past a reference row's end are the
+// same ones.
+
+enum FaxState : uint8_t { S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERMW, S_TERMB, S_MAKEUPW, S_MAKEUPB,
+                          S_MAKEUP, S_EOL };
+
+struct FaxEntry {
+  uint8_t state, width;
+  uint32_t param;
+};
+
+struct FaxCode {
+  const char* bits;  // the code as written in T.4, first bit first
+  uint32_t param;
+};
+
+// T.4's tables 1-3: terminating codes 0-63, then make-up codes
+const FaxCode kWhiteTerm[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4}, {"1100", 5}, {"1110", 6}, {"1111", 7},
+    {"10011", 8}, {"10100", 9}, {"00111", 10}, {"01000", 11}, {"001000", 12}, {"000011", 13}, {"110100", 14},
+    {"110101", 15}, {"101010", 16}, {"101011", 17}, {"0100111", 18}, {"0001100", 19}, {"0001000", 20},
+    {"0010111", 21}, {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25}, {"0010011", 26},
+    {"0100100", 27}, {"0011000", 28}, {"00000010", 29}, {"00000011", 30}, {"00011010", 31}, {"00011011", 32},
+    {"00010010", 33}, {"00010011", 34}, {"00010100", 35}, {"00010101", 36}, {"00010110", 37}, {"00010111", 38},
+    {"00101000", 39}, {"00101001", 40}, {"00101010", 41}, {"00101011", 42}, {"00101100", 43}, {"00101101", 44},
+    {"00000100", 45}, {"00000101", 46}, {"00001010", 47}, {"00001011", 48}, {"01010010", 49}, {"01010011", 50},
+    {"01010100", 51}, {"01010101", 52}, {"00100100", 53}, {"00100101", 54}, {"01011000", 55}, {"01011001", 56},
+    {"01011010", 57}, {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61}, {"00110011", 62},
+    {"00110100", 63}};
+const FaxCode kWhiteMakeUp[] = {
+    {"11011", 64}, {"10010", 128}, {"010111", 192}, {"0110111", 256}, {"00110110", 320}, {"00110111", 384},
+    {"01100100", 448}, {"01100101", 512}, {"01101000", 576}, {"01100111", 640}, {"011001100", 704},
+    {"011001101", 768}, {"011010010", 832}, {"011010011", 896}, {"011010100", 960}, {"011010101", 1024},
+    {"011010110", 1088}, {"011010111", 1152}, {"011011000", 1216}, {"011011001", 1280}, {"011011010", 1344},
+    {"011011011", 1408}, {"010011000", 1472}, {"010011001", 1536}, {"010011010", 1600}, {"011000", 1664},
+    {"010011011", 1728}};
+const FaxCode kBlackTerm[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4}, {"0011", 5}, {"0010", 6}, {"00011", 7},
+    {"000101", 8}, {"000100", 9}, {"0000100", 10}, {"0000101", 11}, {"0000111", 12}, {"00000100", 13},
+    {"00000111", 14}, {"000011000", 15}, {"0000010111", 16}, {"0000011000", 17}, {"0000001000", 18},
+    {"00001100111", 19}, {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22}, {"00000101000", 23},
+    {"00000010111", 24}, {"00000011000", 25}, {"000011001010", 26}, {"000011001011", 27}, {"000011001100", 28},
+    {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31}, {"000001101010", 32}, {"000001101011", 33},
+    {"000011010010", 34}, {"000011010011", 35}, {"000011010100", 36}, {"000011010101", 37}, {"000011010110", 38},
+    {"000011010111", 39}, {"000001101100", 40}, {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43},
+    {"000001010100", 44}, {"000001010101", 45}, {"000001010110", 46}, {"000001010111", 47}, {"000001100100", 48},
+    {"000001100101", 49}, {"000001010010", 50}, {"000001010011", 51}, {"000000100100", 52}, {"000000110111", 53},
+    {"000000111000", 54}, {"000000100111", 55}, {"000000101000", 56}, {"000001011000", 57}, {"000001011001", 58},
+    {"000000101011", 59}, {"000000101100", 60}, {"000001011010", 61}, {"000001100110", 62}, {"000001100111", 63}};
+const FaxCode kBlackMakeUp[] = {
+    {"0000001111", 64}, {"000011001000", 128}, {"000011001001", 192}, {"000001011011", 256}, {"000000110011", 320},
+    {"000000110100", 384}, {"000000110101", 448}, {"0000001101100", 512}, {"0000001101101", 576},
+    {"0000001001010", 640}, {"0000001001011", 704}, {"0000001001100", 768}, {"0000001001101", 832},
+    {"0000001110010", 896}, {"0000001110011", 960}, {"0000001110100", 1024}, {"0000001110101", 1088},
+    {"0000001110110", 1152}, {"0000001110111", 1216}, {"0000001010010", 1280}, {"0000001010011", 1344},
+    {"0000001010100", 1408}, {"0000001010101", 1472}, {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728}};
+const FaxCode kMakeUp[] = {  // white and black alike
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920}, {"000000010010", 1984},
+    {"000000010011", 2048}, {"000000010100", 2112}, {"000000010101", 2176}, {"000000010110", 2240},
+    {"000000010111", 2304}, {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560}};
+// the 2D modes; libtiff reads only the first 7 bits of the extension code
+// (uncompressed mode) and 7 zeros as an EOL's start
+const FaxCode kMain[] = {{"0001", 0}, {"001", 0}, {"1", 0}, {"011", 1}, {"000011", 2}, {"0000011", 3}, {"010", 1},
+                         {"000010", 2}, {"0000010", 3}, {"0000001", 0}, {"0000000", 0}};
+const uint8_t kMainState[] = {S_PASS, S_HORIZ, S_V0, S_VR, S_VR, S_VR, S_VL, S_VL, S_VL, S_EXT, S_EOL};
+
+// mkg3states.c's FillTable: every index whose low bits (read first) are the code
+template <size_t N>
+void fill_table(FaxEntry* t, int size, const FaxCode (&codes)[N], uint8_t state, const uint8_t* states = nullptr) {
+  for (size_t i = 0; i < N; i++) {
+    const int width = int(std::strlen(codes[i].bits));
+    int code = 0;
+    for (int b = 0; b < width; b++) code |= (codes[i].bits[b] - '0') << b;
+    for (int at = code; at < (1 << size); at += 1 << width)
+      t[at] = {states ? states[i] : state, uint8_t(width), codes[i].param};
+  }
+}
+
+struct FaxTables {
+  FaxEntry main[128], white[4096], black[8192];
+  uint8_t rev[256], same[256];
+  FaxTables() {
+    std::memset(main, 0, sizeof main);
+    std::memset(white, 0, sizeof white);
+    std::memset(black, 0, sizeof black);
+    fill_table(main, 7, kMain, 0, kMainState);
+    const FaxCode eol[] = {{"00000000000", 0}};  // 11 zeros: the EOL, its 1 left to the sync
+    fill_table(white, 12, kWhiteMakeUp, S_MAKEUPW);
+    fill_table(white, 12, kMakeUp, S_MAKEUP);
+    fill_table(white, 12, kWhiteTerm, S_TERMW);
+    fill_table(white, 12, eol, S_EOL);
+    fill_table(black, 13, kBlackMakeUp, S_MAKEUPB);
+    fill_table(black, 13, kMakeUp, S_MAKEUP);
+    fill_table(black, 13, kBlackTerm, S_TERMB);
+    fill_table(black, 13, eol, S_EOL);
+    for (int b = 0; b < 256; b++) {
+      same[b] = uint8_t(b);
+      rev[b] = uint8_t(((b * 0x0802u & 0x22110u) | (b * 0x8020u & 0x88440u)) * 0x10101u >> 16);
+    }
+  }
+};
+
+const FaxTables& fax_tables() {
+  static const FaxTables t;
+  return t;
+}
+
+enum FaxKind { FAX_RLE, FAX_RLEW, FAX_G3_1D, FAX_G3_2D, FAX_G4 };
+
+// libtiff's Fax3CodecState: the run arrays (Fax3SetupState sizes them once)
+// and the G3 mode that a block without EOLs switches on for the rest of the
+// image
+struct FaxRuns {
+  int64_t nruns = 0;
+  std::vector<uint32_t> runs;
+  bool no_eol = false;
+  void setup(int64_t rowpixels, bool two_d) {
+    nruns = (rowpixels + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    runs.assign(size_t(2 * nruns + 2), 0);  // + the word _TIFFFax3fillruns may write past a full array
+  }
+};
+
+// _TIFFFax3fillruns: white runs clear bits, black runs set them
+void fax_fill(uint8_t* buf, uint32_t* runs, uint32_t* erun, uint32_t lastx) {
+  static const uint8_t masks[] = {0x00, 0x80, 0xc0, 0xe0, 0xf0, 0xf8, 0xfc, 0xfe, 0xff};
+  if ((erun - runs) & 1) *erun++ = 0;
+  uint32_t x = 0;
+  for (; runs < erun; runs += 2) {
+    for (int black = 0; black < 2; black++) {
+      uint32_t run = runs[black];
+      if (x + run > lastx || run > lastx) run = runs[black] = lastx - x;
+      if (!run) continue;
+      uint8_t* cp = buf + (x >> 3);
+      const uint32_t bx = x & 7;
+      if (run > 8 - bx) {
+        if (bx) {
+          *cp = black ? uint8_t(*cp | (0xff >> bx)) : uint8_t(*cp & (0xff << (8 - bx)));
+          cp++;
+          run -= 8 - bx;
+        }
+        const uint32_t n = run >> 3;
+        std::memset(cp, black ? 0xff : 0, n);
+        cp += n;
+        run &= 7;
+        if (run) *cp = black ? uint8_t(*cp | (0xff00 >> run)) : uint8_t(*cp & (0xff >> run));
+      } else {
+        *cp = black ? uint8_t(*cp | (masks[run] >> bx)) : uint8_t(*cp & ~(masks[run] >> bx));
+      }
+      x += runs[black];
+    }
+  }
+}
+
+// One block (Fax3PreDecode, then Fax3DecodeRLE, Fax3Decode1D, Fax3Decode2D or
+// Fax4Decode on its rows). `align` is the parity of the raw data's address
+// (RLEW skips a byte at an odd address).
+class FaxDecoder {
+ public:
+  FaxDecoder(FaxKind kind, FaxRuns& r, const uint8_t* raw, int64_t rawcc, bool fill_order2, int64_t rowpixels,
+             int64_t align)
+      : kind_(kind), r_(r), cp_(raw), ep_(raw + rawcc), raw_(raw), align_(align),
+        bitmap_(fill_order2 ? fax_tables().same : fax_tables().rev), lastx_(int32_t(rowpixels)) {}
+
+  void decode(uint8_t* buf, int64_t occ, int64_t rowbytes) {
+    const FaxTables& t = fax_tables();
+    const bool two_d = kind_ == FAX_G3_2D || kind_ == FAX_G4;
+    uint32_t* cur = r_.runs.data();
+    uint32_t* ref = two_d ? cur + r_.nruns : nullptr;
+    if (ref) {  // the first row's reference is white
+      ref[0] = uint32_t(lastx_);
+      ref[1] = 0;
+    }
+    for (; occ > 0; buf += rowbytes, occ -= rowbytes) {
+      a0_ = 0;
+      run_ = 0;
+      pa_ = thisrun_ = cur;
+      if ((kind_ == FAX_G3_1D || kind_ == FAX_G3_2D) && !r_.no_eol && sync_eol() == EOF_ROW) {
+        // no EOL up to the end of the data: the block is read again from its
+        // first byte into this row on, without EOLs, and so is every later
+        // block
+        r_.no_eol = true;
+        cp_ = raw_;
+        acc_ = 0;
+        avail_ = 0;
+        eolcnt_ = 0;
+      }
+      bool one_d = kind_ != FAX_G4;
+      if (kind_ == FAX_G3_2D) {
+        if (!need(1)) {  // NeedBits8(1, EOF2D)
+          if (cleanup() == FAIL_ROW) return;
+          fax_fill(buf, thisrun_, pa_, uint32_t(lastx_));
+          return;
+        }
+        one_d = bits(1);
+        clr(1);
+      }
+      if (ref) {
+        pb_ = ref;
+        b1_ = int32_t(*pb_++);
+      }
+      const Row row = one_d ? expand1d(t) : expand2d(t, ref);
+      if (row == FAIL_ROW) return;
+      if (row == EOF_ROW || (kind_ == FAX_G4 && eolcnt_)) {  // G4: an EOL starts the EOFB
+        fax_fill(buf, thisrun_, pa_, uint32_t(lastx_));
+        return;
+      }
+      fax_fill(buf, thisrun_, pa_, uint32_t(lastx_));
+      if (kind_ == FAX_RLE) {
+        clr(avail_ - (avail_ & ~7));
+      } else if (kind_ == FAX_RLEW) {
+        clr(avail_ - (avail_ & ~15));
+        if (avail_ == 0 && ((cp_ - raw_) + align_) & 1) cp_++;
+      }
+      if (two_d) {  // the imaginary change for the reference (G3 skips it when the runs are full)
+        if ((kind_ == FAX_G4 || pa_ < thisrun_ + r_.nruns) && !setvalue(0)) return;
+        std::swap(cur, ref);
+      }
+    }
+  }
+
+ private:
+  enum Row { OK_ROW, EOF_ROW, FAIL_ROW, UNEXPECTED_ROW };
+
+  FaxKind kind_;
+  FaxRuns& r_;
+  const uint8_t *cp_, *ep_, *raw_;
+  int64_t align_;
+  const uint8_t* bitmap_;
+  int32_t lastx_;
+  uint32_t acc_ = 0;  // BitAcc: the next bits, the first in bit 0
+  int avail_ = 0;     // BitsAvail
+  int eolcnt_ = 0;    // EOLcnt
+  int32_t a0_ = 0, run_ = 0, b1_ = 0;
+  uint32_t *pa_ = nullptr, *thisrun_ = nullptr, *pb_ = nullptr;
+
+  // NeedBits8 / NeedBits16: false at the end of the data with no bit left;
+  // a partial code is padded with zeros
+  bool need(int n) {
+    if (avail_ >= n) return true;
+    if (cp_ >= ep_) {
+      if (avail_ == 0) return false;
+      avail_ = n;
+      return true;
+    }
+    while (avail_ < n) {
+      if (cp_ >= ep_) {
+        avail_ = n;
+        break;
+      }
+      acc_ |= uint32_t(bitmap_[*cp_++]) << avail_;
+      avail_ += 8;
+    }
+    return true;
+  }
+  uint32_t bits(int n) const { return acc_ & ((1u << n) - 1); }
+  void clr(int n) {
+    avail_ -= n;
+    acc_ >>= n;
+  }
+  const FaxEntry* lookup(const FaxEntry* tab, int width) {
+    const FaxEntry* e = tab + bits(width);
+    clr(e->width);
+    return e;
+  }
+  // SETVALUE: false when the row's run array is full
+  bool setvalue(uint32_t x) {
+    if (pa_ >= thisrun_ + r_.nruns) return false;
+    *pa_++ = uint32_t(run_) + x;
+    a0_ = int32_t(uint32_t(a0_) + x);
+    run_ = 0;
+    return true;
+  }
+  void makeup(uint32_t x) {
+    a0_ = int32_t(uint32_t(a0_) + x);
+    run_ = int32_t(uint32_t(run_) + x);
+  }
+
+  // SYNC_EOL: past the next EOL (its 11 zeros were read already when
+  // EOLcnt is set), its fill bits and its 1; EOF_ROW when the data ends
+  // first
+  Row sync_eol() {
+    if (eolcnt_ == 0) {
+      for (;;) {
+        if (!need(11)) return EOF_ROW;
+        if (bits(11) == 0) break;
+        clr(1);
+      }
+    }
+    for (;;) {
+      if (!need(8)) return EOF_ROW;
+      if (bits(8)) break;
+      clr(8);
+    }
+    while (bits(1) == 0) clr(1);
+    clr(1);
+    eolcnt_ = 0;
+    return OK_ROW;
+  }
+
+  // CLEANUP_RUNS: the row padded or cut to the width
+  Row cleanup() {
+    if (run_ && !setvalue(0)) return FAIL_ROW;
+    if (a0_ != lastx_) {
+      while (a0_ > lastx_ && pa_ > thisrun_) a0_ = int32_t(uint32_t(a0_) - *--pa_);
+      if (a0_ < lastx_) {
+        if (a0_ < 0) a0_ = 0;
+        if (((pa_ - thisrun_) & 1) && !setvalue(0)) return FAIL_ROW;
+        if (!setvalue(uint32_t(lastx_ - a0_))) return FAIL_ROW;
+      } else if (a0_ > lastx_) {
+        if (!setvalue(uint32_t(lastx_)) || !setvalue(0)) return FAIL_ROW;
+      }
+    }
+    return OK_ROW;
+  }
+
+  // EXPAND1D: white and black runs until the width is reached, an EOL or a
+  // code not in the table
+  Row expand1d(const FaxTables& t) {
+    for (;;) {
+      for (int black = 0; black < 2; black++) {
+        for (;;) {
+          if (!need(black ? 13 : 12)) {
+            return cleanup() == FAIL_ROW ? FAIL_ROW : EOF_ROW;
+          }
+          const FaxEntry* e = lookup(black ? t.black : t.white, black ? 13 : 12);
+          if (e->state == S_EOL) {
+            eolcnt_ = 1;
+            return cleanup();
+          }
+          if (e->state == (black ? S_TERMB : S_TERMW)) {
+            if (!setvalue(e->param)) return FAIL_ROW;
+            break;
+          }
+          if (e->state == (black ? S_MAKEUPB : S_MAKEUPW) || e->state == S_MAKEUP) {
+            makeup(e->param);
+            continue;
+          }
+          return cleanup();  // unexpected
+        }
+        if (a0_ >= lastx_) return cleanup();
+      }
+      if (pa_[-1] == 0 && pa_[-2] == 0) pa_ -= 2;
+    }
+  }
+
+  // the two runs of a horizontal mode code, the colour of a0 first;
+  // UNEXPECTED_ROW when a code is not in the table (the row then ends)
+  Row horizontal(const FaxTables& t) {
+    const bool black_first = (pa_ - thisrun_) & 1;
+    for (int k = 0; k < 2; k++) {
+      const bool black = black_first != (k == 1);
+      for (;;) {
+        if (!need(black ? 13 : 12)) return EOF_ROW;
+        const FaxEntry* e = lookup(black ? t.black : t.white, black ? 13 : 12);
+        if (e->state == (black ? S_TERMB : S_TERMW)) {
+          if (!setvalue(e->param)) return FAIL_ROW;
+          break;
+        }
+        if (e->state != (black ? S_MAKEUPB : S_MAKEUPW) && e->state != S_MAKEUP) return UNEXPECTED_ROW;
+        makeup(e->param);
+      }
+    }
+    return OK_ROW;
+  }
+
+  // CHECK_b1: false when the reference row's runs are exhausted
+  bool check_b1(const uint32_t* ref) {
+    if (pa_ != thisrun_) {
+      while (b1_ <= a0_ && b1_ < lastx_) {
+        if (pb_ + 1 >= ref + r_.nruns) return false;
+        b1_ = int32_t(uint32_t(b1_) + pb_[0] + pb_[1]);
+        pb_ += 2;
+      }
+    }
+    return true;
+  }
+
+  // EXPAND2D: mode codes against the reference row
+  Row expand2d(const FaxTables& t, const uint32_t* ref) {
+    auto eof = [&]() { return cleanup() == FAIL_ROW ? FAIL_ROW : EOF_ROW; };
+    while (a0_ < lastx_) {
+      if (pa_ >= thisrun_ + r_.nruns) return FAIL_ROW;
+      if (!need(7)) return eof();
+      const FaxEntry* e = lookup(t.main, 7);
+      switch (e->state) {
+        case S_PASS:
+          if (!check_b1(ref) || pb_ + 1 >= ref + r_.nruns) return FAIL_ROW;
+          b1_ = int32_t(uint32_t(b1_) + *pb_++);
+          run_ = int32_t(uint32_t(run_) + uint32_t(b1_ - a0_));
+          a0_ = b1_;
+          b1_ = int32_t(uint32_t(b1_) + *pb_++);
+          break;
+        case S_HORIZ: {
+          const Row row = horizontal(t);
+          if (row == FAIL_ROW) return FAIL_ROW;
+          if (row == EOF_ROW) return eof();
+          if (row == UNEXPECTED_ROW) return cleanup();
+          if (!check_b1(ref)) return FAIL_ROW;
+          break;
+        }
+        case S_V0:
+        case S_VR:
+          if (!check_b1(ref)) return FAIL_ROW;
+          if (!setvalue(uint32_t(b1_ - a0_) + (e->state == S_VR ? e->param : 0))) return FAIL_ROW;
+          if (pb_ >= ref + r_.nruns) return FAIL_ROW;
+          b1_ = int32_t(uint32_t(b1_) + *pb_++);
+          break;
+        case S_VL:
+          if (!check_b1(ref)) return FAIL_ROW;
+          if (b1_ < int32_t(uint32_t(a0_) + e->param)) return cleanup();  // unexpected
+          if (!setvalue(uint32_t(b1_ - a0_) - e->param)) return FAIL_ROW;
+          b1_ = int32_t(uint32_t(b1_) - *--pb_);
+          break;
+        case S_EXT:  // uncompressed mode, which libtiff does not decode
+          *pa_++ = uint32_t(lastx_ - a0_);
+          return cleanup();
+        case S_EOL:
+          *pa_++ = uint32_t(lastx_ - a0_);
+          if (!need(4)) return eof();
+          clr(4);
+          eolcnt_ = 1;
+          return cleanup();
+        default:
+          return cleanup();
+      }
+    }
+    if (run_) {
+      if (run_ + a0_ < lastx_) {
+        if (!need(1)) return eof();
+        if (!bits(1)) return cleanup();
+        clr(1);
+      }
+      if (!setvalue(0)) return FAIL_ROW;
+    }
+    return cleanup();
+  }
+};
+
 // -- the predictor and the byte swap ------------------------------------------
 
 void swab16(uint8_t* p, int64_t n) {
@@ -470,10 +928,30 @@ struct Tables {
   const Lab* lab;
   const uint8_t (*ua)[256];
   const uint8_t* to8;
-  Tables(const uint8_t* m, const uint8_t* p, const int32_t* y, const Lab* l) : map(m), pal(p), ycc(y), lab(l) {
+  // grey or palette samples of 1, 2 or 4 bits: the BGR pixels of each byte
+  std::vector<uint8_t> packed;  // [256 x 8 / bps x 3]
+  Tables(const TiffParams& p, const uint8_t* m, const uint8_t* pl, const int32_t* y, const Lab* l)
+      : map(m), pal(pl), ycc(y), lab(l) {
     static const Maps maps;
     ua = maps.ua;
     to8 = maps.to8;
+    if ((p.put == PUT_GREY || p.put == PUT_PALETTE) && p.bps < 8) {
+      const int per = 8 / p.bps, mask = (1 << p.bps) - 1;
+      packed.resize(size_t(256 * per * 3));
+      for (int b = 0; b < 256; b++) {
+        for (int k = 0; k < per; k++) {
+          const int v = (b >> (8 - p.bps * (k + 1))) & mask;
+          uint8_t* q = &packed[size_t((b * per + k) * 3)];
+          if (p.put == PUT_GREY) {
+            q[0] = q[1] = q[2] = map[v];
+          } else {
+            q[0] = pal[3 * v + 2];
+            q[1] = pal[3 * v + 1];
+            q[2] = pal[3 * v];
+          }
+        }
+      }
+    }
   }
 };
 
@@ -544,18 +1022,17 @@ void put_block(const TiffParams& p, const Tables& t, const uint8_t* const* plane
         }
       };
       const uint8_t* pp = planes[0];
-      if (bps < 8) {
-        const int per = 8 / bps, mask = (1 << bps) - 1;
+      if (bps < 8) {  // a byte's pixels at once: the first ones of the last byte of a row
+        const int per = 8 / bps;
         for (y = 0; y < h; y++) {
-          x = 0;
-          int64_t left = w;
-          for (; left >= per; left -= per) {
-            const int byte = *pp++;
-            for (int k = 0; k < per; k++) one((byte >> (8 - bps * (k + 1))) & mask);
-          }
-          if (left > 0) {
-            const int byte = *pp++;
-            for (int k = 0; k < left; k++) one((byte >> (8 - bps * (k + 1))) & mask);
+          for (x = 0; x < w; x += per) {
+            const uint8_t* px = &t.packed[size_t(*pp++) * per * 3];
+            const int64_t n = std::min<int64_t>(per, w - x);
+            if (!dst.flip) {
+              std::memcpy(dst.at(y, x), px, size_t(n * 3));
+            } else {
+              for (int64_t k = 0; k < n; k++) std::memcpy(dst.at(y, x + k), px + 3 * k, 3);
+            }
           }
           pp += skew / per;
         }
@@ -674,12 +1151,23 @@ struct Reader {
   const uint64_t* counts;
   const Zlib& zl;
   Lzw lzw;
+  FaxRuns fax;
   int64_t rawdatasize = 0;  // libtiff's raw buffer, for uncompressed tiles
+  int64_t raw_offset = 0;   // the filled block's offset in the file
   std::vector<uint8_t> reversed;
 
   Reader(const uint8_t* d, int64_t size, const TiffParams& params, const uint64_t* o, const uint64_t* c,
          const Zlib& z)
-      : data(d), n(size), p(params), offsets(o), counts(c), zl(z) {}
+      : data(d), n(size), p(params), offsets(o), counts(c), zl(z) {
+    if (is_fax())
+      fax.setup(p.block_w, p.compression == CCITT_G4 || (p.compression == CCITT_G3 && (p.group3_options & 1)));
+  }
+
+  // the fax codecs read the bits in either order themselves (TIFF_NOBITREV)
+  bool is_fax() const {
+    return p.compression == CCITT_RLE || p.compression == CCITT_G3 || p.compression == CCITT_G4 ||
+           p.compression == CCITT_RLEW;
+  }
 
   // TIFFFillStrip / TIFFFillTile: the block's raw bytes, or false
   bool fill(int64_t block, const uint8_t** raw, int64_t* rawcc) {
@@ -691,7 +1179,7 @@ struct Reader {
     const uint64_t off = offsets[block];
     if (count > uint64_t(n) || off > uint64_t(n) - count) return false;
     if (p.tiled) {  // the raw buffer libtiff holds the tile in
-      if (p.mapped && !p.bitrev) {
+      if (p.mapped && (!p.bitrev || is_fax())) {
         rawdatasize = int64_t(count);
       } else {
         const int64_t rounded = int64_t((count + 1023) / 1024 * 1024);
@@ -700,7 +1188,8 @@ struct Reader {
     }
     *raw = data + off;
     *rawcc = int64_t(count);
-    if (p.bitrev) {
+    raw_offset = int64_t(off);
+    if (p.bitrev && !is_fax()) {
       reversed.assign(*raw, *raw + count);
       for (uint8_t& b : reversed) {
         b = uint8_t(((b * 0x0802u & 0x22110u) | (b * 0x8020u & 0x88440u)) * 0x10101u >> 16);
@@ -728,6 +1217,21 @@ struct Reader {
       case DEFLATE:
         ok = zip_decode(zl, raw, rawcc, buf, occ);
         break;
+      case CCITT_RLE:
+      case CCITT_RLEW:
+      case CCITT_G3:
+      case CCITT_G4: {
+        // RLEW aligns on the data's address: the file's offset when mapped,
+        // the start of libtiff's own raw buffer when streamed
+        const FaxKind kind = p.compression == CCITT_RLE    ? FAX_RLE
+                             : p.compression == CCITT_RLEW ? FAX_RLEW
+                             : p.compression == CCITT_G4   ? FAX_G4
+                             : (p.group3_options & 1)      ? FAX_G3_2D
+                                                           : FAX_G3_1D;
+        FaxDecoder(kind, fax, raw, rawcc, p.bitrev != 0, p.block_w, p.mapped ? raw_offset : 0)
+            .decode(buf, occ, p.row_bytes);
+        return 1;  // the buffer holds what was decoded whatever the codec's answer
+      }
       default:  // a compression libtiff knows no codec for: its decode fails
         return 0;
     }
@@ -803,7 +1307,7 @@ int tiff_decode(const uint8_t* data, int64_t n, const TiffParams* params, const 
                 reinterpret_cast<InflateEnd>(zend), zversion};
   const bool lab_put = p.put == PUT_CIELAB8 || p.put == PUT_CIELAB16;
   const std::unique_ptr<Lab> lab(lab_put ? new Lab(p.white) : nullptr);
-  const Tables tables(map, pal, ycc, lab.get());
+  const Tables tables(p, map, pal, ycc, lab.get());
   Reader rd(data, n, p, offsets, counts, zl);
   const int64_t nplanes = p.planes ? p.planes : 1;
   std::vector<uint8_t> buf(size_t(p.block_bytes * nplanes));

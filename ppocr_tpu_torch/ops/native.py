@@ -327,7 +327,7 @@ class TiffParams(ctypes.Structure):
         (name, ctypes.c_int32) for name in ("tiled", "spp", "bps", "compression", "predictor", "swab", "bitrev",
                                             "mapped", "put", "flip_h", "planes")] + [
         ("plane_index", ctypes.c_int32 * 4), ("ycc_hs", ctypes.c_int32), ("ycc_vs", ctypes.c_int32),
-        ("sampling_row", ctypes.c_int64), ("white", ctypes.c_float * 2)]
+        ("sampling_row", ctypes.c_int64), ("white", ctypes.c_float * 2), ("group3_options", ctypes.c_int32)]
 
 
 def load_tiff_library() -> ctypes.CDLL:

@@ -86,13 +86,16 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   CMYK, YCbCr at every subsampling libtiff reads, CIE L*a*b* through its
   sRGB display) and its put routines,
   pointer steps included; compressions none, LZW (old-style codes too),
-  PackBits and deflate (zlib's ``inflate`` with libtiff's calls), the
-  horizontal predictor; the orientation as cv2 turns the image (libtiff
-  mirrors each tile, OpenCV turns the whole); a strip that fails to decode
-  keeps what it decoded, as libtiff's RGBA reader goes on. ``read_image``
-  reads a file as ``cv2.imread`` maps it: an uncompressed tile must hold
-  exactly its size, and an orientation that turns the image (5–8) is
-  refused.
+  PackBits, deflate (zlib's ``inflate`` with libtiff's calls) and the
+  CCITT fax codecs of 1-bit images (RLE, RLEW, G3 1D and 2D, G4, as
+  tif_fax3.c decodes them, damaged rows and G3 data without EOLs
+  included), the horizontal predictor; the orientation as cv2 turns the
+  image (libtiff mirrors each tile, OpenCV turns the whole); a strip that
+  fails to decode keeps what it decoded, as libtiff's RGBA reader goes
+  on. ``read_image`` reads a file as ``cv2.imread`` maps it: an
+  uncompressed tile must hold exactly its size, an orientation that turns
+  the image (5–8) is refused, and RLEW aligns its rows on the mapped
+  address.
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
@@ -100,7 +103,7 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and, named by their
 sniffed format, what cv2 decodes and this module does not
 (``FORMAT_NAMES``): WebP, JPEG 2000 and AVIF, and TIFF's compressions of
-``TIFF_UNPORTED`` (CCITT, JPEG, NeXT, ThunderScan, SGI Log). ``None``
+``TIFF_UNPORTED`` (JPEG, NeXT, ThunderScan, SGI Log). ``None``
 becomes the reference's own error response in the
 service. A JPEG, run-length BMP, HDR, GIF or TIFF decode raises when its
 host C++ cannot be built: a missing compiler is not a bad image.
@@ -1148,8 +1151,8 @@ _TIFF_INTS = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q", 
 _TIFF_SHORT_TYPES = (1, 6, 3, 8, 4, 9, 16, 17)  # the integer types libtiff reads as a SHORT, LONG or LONG8
 # compressions OpenCV's libtiff decodes and this module does not (a known
 # difference), and those it was built without (cv2 refuses them too)
-TIFF_UNPORTED = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 7: "JPEG", 32766: "NeXT", 32771: "CCITT RLEW",
-                 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+TIFF_UNPORTED = {7: "JPEG", 32766: "NeXT", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+_TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, G3, G4, RLEW
 _TIFF_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                         50000: "ZSTD", 50001: "WebP"}
 _TIFF_PUT = {"grey": 1, "palette": 2, "rgb8": 3, "rgbua8": 4, "rgb16": 5, "rgbua16": 6, "cmyk8": 7, "sep8": 8,
@@ -1361,9 +1364,9 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     except ValueError as err:
         raise _Refused(f"a directory libtiff refuses ({err})") from None
 
-    def soft(tag, ok=lambda v: True):  # a tag whose errors libtiff only warns about
+    def soft(tag, ok=lambda v: True, maximum=0xFFFF):  # a tag whose errors libtiff only warns about
         try:
-            v = d.one(tag)
+            v = d.one(tag, maximum)
         except ValueError:
             return None
         return v if v is not None and ok(v) else None
@@ -1373,6 +1376,8 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     fill_order = soft(266, lambda v: v in (1, 2)) or 1
     predictor = soft(317) if compression in (5, 8, 32946) else None
     predictor = 1 if predictor is None else predictor
+    # T4Options: a tag of the G3 codec alone (bit 0: 2D-coded rows); the decoder reads no other option
+    group3_options = (soft(292, maximum=0xFFFFFFFF) or 0) if compression == 3 else 0
     inkset = soft(332)
     inkset = 1 if inkset is None else inkset
     bps_read = bps is not None
@@ -1585,6 +1590,8 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
                        f"planar {planar}")
     if predictor not in (1, 2, 3) or (predictor == 2 and bps not in (8, 16, 32, 64)) or predictor == 3:
         raise _Refused(f"the predictor {predictor} with {bps}-bit samples")
+    if compression in _TIFF_FAX and (bps != 1 or (contig and spp != 1)):  # Fax3SetupState fails every block
+        raise _Refused(f"a CCITT compression ({compression}) with {bps}-bit samples, {spp} per pixel")
     grey_map = np.zeros(256, np.uint8)
     palette = np.zeros((256, 3), np.uint8)
     if put == "grey":
@@ -1609,7 +1616,7 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
                   swab=int(d.e == ">" and bps == 16), bitrev=int(fill_order == 2), mapped=int(mapped),
                   put=_TIFF_PUT[put], flip_h=int(orientation in (2, 3, 6, 7)), planes=planes,
                   plane_index=plane_index, ycc_hs=ycc_sub[0], ycc_vs=ycc_sub[1], sampling_row=sampling_row,
-                  white=white)
+                  white=white, group3_options=group3_options)
     status, img = native.tiff_decode(data, params, offsets, counts, grey_map, palette, ycc_tables,
                                      _zlib() if compression in (8, 32946) else None)
     if status:

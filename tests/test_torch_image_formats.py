@@ -1299,13 +1299,23 @@ def scene_payloads(scene: np.ndarray) -> dict:
     byte-encoded one (which cv2 5.0 refuses), a PFM, cv2's run-length
     Radiance HDR of the scene / 255, a GIF (the scene has 256 colours) and
     cv2's own TIFFs: uncompressed, LZW with the horizontal predictor,
-    PackBits and deflate (384 strips of 2 rows each)."""
+    PackBits and deflate (384 strips of 2 rows each); the scene thresholded
+    to 1 bit as PIL's G4, G3 1D, G3 2D (T4Options 1) and CCITT RLE TIFFs and
+    as an RLEW TIFF of the fax coder here, and the same at a fax page's
+    1728×2304 (nearest) as PIL's G4."""
+    from test_torch_tiff_fax import fax_tiff, pil_fax
+
     h, w, _ = scene.shape
+    black = (cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY) <= 128).astype(np.uint8)
+    fax = {f"scene0_tiff_{name}": pil_fax(black, comp, info) for name, comp, info in (
+        ("g4", "group4", None), ("g3", "group3", None), ("g3_2d", "group3", {292: 1}), ("rle", "tiff_ccitt", None))}
+    fax["scene0_tiff_rlew"] = fax_tiff(black, "rlew", rows=64)
+    fax["page_tiff_g4"] = pil_fax(cv2.resize(black, (1728, 2304), interpolation=cv2.INTER_NEAREST), "group4")
     bmps = scene_bmps(scene)
     rows = np.pad(scene.reshape(h, -1), ((0, 0), (0, -w * 3 % 2))).tobytes()
     tiffs = {f"scene0_tiff_{name}": cv2.imencode(".tiff", scene, [cv2.IMWRITE_TIFF_COMPRESSION, c])[1].tobytes()
              for name, c in (("none", 1), ("lzw", 5), ("packbits", 32773), ("deflate", 8))}
-    return {**tiffs, "scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
+    return {**tiffs, **fax, "scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
             "scene0_ppm": f"P6\n{w} {h}\n255\n".encode() + np.ascontiguousarray(scene[..., ::-1]).tobytes(),
             "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows)),
             "scene0_pfm": pfm_bytes(scene[..., ::-1].astype(np.float32)),
@@ -1316,8 +1326,8 @@ def scene_payloads(scene: np.ndarray) -> dict:
 def write():
     """Rewrite ``image_cases.npz``: every BMP, netpbm, Sun raster, PFM,
     Radiance HDR and GIF case above and every TIFF kind of
-    ``tests/test_torch_tiff.py``, garbled and cut ones among them (and TIFFs
-    with damaged strip data),
+    ``tests/test_torch_tiff.py`` and ``tests/test_torch_tiff_fax.py``,
+    garbled and cut ones among them (and TIFFs with damaged strip data),
     damaged PNGs (decoded and refused) and the first serving scene as each
     timing payload, each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
@@ -1370,6 +1380,16 @@ def write():
         ifd = struct.unpack("<I", data[4:8])[0]
         for k, g in enumerate(tiff_garbled(data, 3, seed=i + 130, first=8, last=ifd)):
             cases[f"tiff_damaged_{codec}_{k}"] = g
+    from test_torch_tiff_fax import GARBLED as FAX_GARBLED
+    from test_torch_tiff_fax import damaged as fax_damaged
+    from test_torch_tiff_fax import fax_cases_cached
+
+    cases.update({f"tiff_fax_{k}": v for k, v in fax_cases_cached().items()})
+    for i, name in enumerate(FAX_GARBLED):
+        data = fax_cases_cached()[name]
+        kept = [g for g in tiff_garbled(data, 8, seed=i + 150) if small_enough(g)][:3]
+        cases.update({f"tiff_fax_{name}_garbled_{k}": g for k, g in enumerate(kept)})
+        cases.update({f"tiff_fax_{name}_damaged_{k}": g for k, g in enumerate(fax_damaged(data, 3, seed=i + 170))})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
@@ -1412,14 +1432,21 @@ def fuzz(rounds: int) -> int:
     the TIFF kinds of ``tests/test_torch_tiff.py``'s garbled test (200
     changed copies each, those declaring over 4 Mpixels dropped, and every
     cut) and 300 files with damaged strip or tile data per codec and
-    layout. Prints the counts; returns the number of files that differ (a
-    TIFF of a kind the port names as not decoded, which garbling can reach,
-    is counted apart)."""
+    layout, and the same of the fax kinds of
+    ``tests/test_torch_tiff_fax.py`` (its garbled test's kinds, and 300
+    files with damaged coded rows per fax compression and layout). Prints
+    the counts; returns the number of files that differ (a TIFF of a kind
+    the port names as not decoded, which garbling can reach, is counted
+    apart)."""
     from test_torch_tiff import COMPRESSIONS, GARBLED, noise, small_enough, tiff_bytes, tiff_cases_cached
     from test_torch_tiff import answers as tiff_answers
     from test_torch_tiff import garbled as tiff_garbled
+    from test_torch_tiff_fax import COMPRESSION as FAX_KINDS
+    from test_torch_tiff_fax import GARBLED as FAX_GARBLED
+    from test_torch_tiff_fax import damaged as fax_damaged
+    from test_torch_tiff_fax import fax_cases_cached, fax_tiff, page
 
-    files = bad = known = 0
+    files = bad = known = fax_files = 0
     for r in range(rounds):
         tiffs = []
         for i, name in enumerate(GARBLED):
@@ -1431,6 +1458,16 @@ def fuzz(rounds: int) -> int:
                 data = tiff_bytes(noise(40, 50, 3, 8, seed=r), **COMPRESSIONS[codec], **blocks)
                 tiffs += tiff_garbled(data, 300, seed=1000 * r + i + 700, first=8,
                                       last=struct.unpack("<I", data[4:8])[0])
+        n_tiffs = len(tiffs)
+        for i, name in enumerate(FAX_GARBLED):
+            data = fax_cases_cached()[name]
+            tiffs += [g for g in tiff_garbled(data, 200, seed=1000 * r + i + 900) if small_enough(g)]
+            tiffs += [data[:k] for k in range(4, len(data))]
+        for i, kind in enumerate(FAX_KINDS):
+            for blocks in (dict(rows=8), dict(tile=(32, 16))):
+                data = fax_tiff(page(40, 50, seed=r), kind, **blocks)
+                tiffs += fax_damaged(data, 300, seed=1000 * r + i + 950)
+        fax_files += len(tiffs) - n_tiffs
         files += len(tiffs)
         got = [tiff_answers(d) for d in tiffs]
         bad += sum(a not in ("none", "equal", "known") for a in got)
@@ -1444,8 +1481,8 @@ def fuzz(rounds: int) -> int:
         datas = [d for k in range(5) for d in lzw_streams(100 * r + k + 10, 600)]
         files += len(datas)
         bad += sum(answers(d) not in ("none", "equal") for d in datas)
-        print(f"round {r + 1}: {files} files, {bad} differ from cv2 {cv2.__version__} ({known} TIFFs of a kind "
-              "named as not decoded)", flush=True)
+        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs), {bad} differ from cv2 {cv2.__version__} "
+              f"({known} TIFFs of a kind named as not decoded)", flush=True)
     return bad
 
 

@@ -14,8 +14,9 @@ last ones partial), both byte orders, BigTIFF, the eight orientations, and
 the directory's odd cases (no RowsPerStrip, no or wrong StripByteCounts,
 several pages). Then garbled and cut files and damaged LZW, PackBits and
 deflate strips. What cv2 refuses the port refuses; the compressions cv2
-decodes and the port does not (CCITT, JPEG, ...) are a known difference, each refused with one log line that names
-it.
+decodes and the port does not (JPEG, NeXT, ThunderScan, SGI Log) are a
+known difference, each refused with one log line that names it. The CCITT
+fax compressions are held in ``tests/test_torch_tiff_fax.py``.
 """
 
 import io
@@ -220,11 +221,13 @@ def ycbcr_rows(ycc: np.ndarray, hs: int, vs: int) -> np.ndarray:
 
 def tiff_bytes(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, rows=None, tile=None,
                order="<", big=False, extra=(), colormap=None, drop=(), override=None, orientation=None,
-               compat=False, pages=1, ycbcr=None):
+               compat=False, pages=1, ycbcr=None, encode=None):
     """A TIFF (or BigTIFF) file of ``samples`` [H, W, S]: strips of ``rows``
     rows (all rows by default) or ``tile`` (width, height) tiles, the last
     ones padded; ``extra`` are more (tag, (type, values)) entries, ``drop``
     tags to leave out and ``override`` entries to put in their place.
+    ``encode``: a function of a block's samples [rows, columns, S] that
+    gives its coded bytes, in place of ``compression``'s own coder.
     ``pages`` > 1 writes more directories after the first, each with the
     samples inverted."""
     samples = np.asarray(samples, np.int64)
@@ -268,7 +271,7 @@ def tiff_bytes(samples, bits=8, photometric=2, compression=1, predictor=1, plana
                 diff = flat.copy()
                 diff[:, bs:] = flat[:, bs:] - flat[:, :-bs]
                 flat = diff & ((1 << bits) - 1)
-            enc.append(encode_block(pack_samples(flat, bits, e), compression, bh, compat))
+            enc.append(encode(b) if encode else encode_block(pack_samples(flat, bits, e), compression, bh, compat))
         tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
                 262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
         if tile:
@@ -673,7 +676,7 @@ def test_a_damaged_lzw_strip_still_gives_cv2s_image():
 
 
 # compressions and photometric interpretations cv2 decodes and the port does not
-KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (2, 3, 4, 7, 32766, 32771, 32809)},
+KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (7, 32766, 32809)},
                      "compression34676": dict(compression=34676, photometric=32844),
                      "compression34677": dict(compression=34677, photometric=32845)}
 
@@ -682,10 +685,10 @@ KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (2, 3, 4
 def test_an_unported_tiff_kind_logs_one_line_naming_it(name, caplog):
     """The known difference: these are refused with one log line that names
     them, whatever cv2 makes of them. The set is pinned."""
-    assert set(imcodec.TIFF_UNPORTED) == {2, 3, 4, 7, 32766, 32771, 32809, 34676, 34677}
+    assert set(imcodec.TIFF_UNPORTED) == {7, 32766, 32809, 34676, 34677}
     kw = KNOWN_DIFFERENCES[name]
-    spp = 1 if kw.get("compression", 1) in (2, 3, 4, 32771, 32809, 34676) else 3
-    bits = 1 if kw.get("compression", 1) in (2, 3, 4, 32771) else 8
+    spp = 1 if kw.get("compression", 1) in (32809, 34676) else 3
+    bits = 8
     data = tiff_bytes(noise(8, 16, spp, bits, seed=1), bits=bits, photometric=kw.get("photometric", 1 if spp == 1 else 2),
                       compression=kw.get("compression", 1))
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
