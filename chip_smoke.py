@@ -124,20 +124,23 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
     PFM, Radiance HDR, GIF, and TIFF and BigTIFF of every kind the port
-    decodes, CCITT fax ones (RLE, RLEW, G3 1D and 2D, G4) included, garbled
-    and cut files and damaged TIFF strips among them)
+    decodes, CCITT fax and JPEG ones included, garbled and cut files,
+    damaged TIFF strips and JPEG headers among them)
     decoded with ``decode_image`` (``csrc/bmp_rle.cpp``,
-    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp`` and ``csrc/tiff.cpp`` built
-    with the host compiler), each equal to the cv2 decode stored beside it
-    (a grey PFM's is [H, W]), or ``None`` where cv2 gave ``None``; the case
-    counts by format, the TIFF count and the fax count; the host ms to
+    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp`` and ``csrc/tiff.cpp`` with
+    ``csrc/jpeg.cpp`` built with the host compiler), each equal to the cv2
+    decode stored beside it (a grey PFM's is [H, W]), or ``None`` where cv2
+    gave ``None``; the case counts by format, the TIFF count, the fax count
+    and the JPEG TIFF count; the host ms to
     decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
     binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
     refuses: the time of the refusal), a PFM, a run-length HDR, a GIF and
     cv2's own TIFFs (uncompressed, LZW with the predictor, PackBits,
     deflate), the scene thresholded to 1 bit as G4, G3 1D, G3 2D, CCITT RLE
-    and RLEW TIFFs and a 1728×2304 fax page of it as G4, in turns, median of
-    25 after one untimed; then the same
+    and RLEW TIFFs and a 1728×2304 fax page of it as G4, and the scene as
+    YCbCr JPEG TIFFs (q95 4:2:0 under JPEGTables, in 64-row strips and in
+    256×256 tiles, and phase 11's scene0 JPEG as one strip) beside that
+    bare JPEG, in turns, median of 25 after one untimed; then the same
     24-bit and RLE8 BMPs, the LZW TIFF (as data) and the uncompressed TIFF
     (by path) through the service (a subprocess as in phase 7) answer the
     words of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the
@@ -146,7 +149,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     of it and launches ``ctc_topk`` ("fax service"), the HDR and
     the GIF answer the words phase 4's in-process worker gives on the
     port's decode of the same bytes, and the service's ``status`` shows
-    ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones; a
+    ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones,
+    the one-strip JPEG TIFF (as data) answers the words phase 4's worker
+    gives on its decode and those of the bare JPEG request, and launches
+    ``ctc_topk`` ("jpeg tiff service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1298,35 +1304,43 @@ class Smoke:
         t0 = time.perf_counter()
         libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
                                               native.TIFF_SOURCE)]
-        print(f"bmp rle, hdr, gif and tiff decoder builds: {time.perf_counter() - t0:.2f} s "
+        print(f"bmp rle, hdr, gif and tiff (with jpeg) decoder builds: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
+        fax_timed = ("scene0_tiff_g4", "scene0_tiff_g3", "scene0_tiff_g3_2d", "scene0_tiff_rle", "scene0_tiff_rlew",
+                     "page_tiff_g4")
+        jpeg_timed = ("scene0_tiff_jpeg", "scene0_tiff_jpeg_tiles", "scene0_tiff_jpeg_onestrip")
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
-                 "scene0_tiff_deflate", "scene0_tiff_g4", "scene0_tiff_g3", "scene0_tiff_g3_2d", "scene0_tiff_rle",
-                 "scene0_tiff_rlew", "page_tiff_g4")
+                 "scene0_tiff_deflate") + fax_timed + jpeg_timed
+        bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
+        payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
-        ms = {n: [] for n in timed}
+        jpeg_tiff = [0, 0]  # JPEG TIFF cases, of them None
+        ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
             for name, (data, want) in cases.items():
                 got = decode_image(data)
                 count = counts.setdefault(sniff_format(data), [0, 0])
                 count[0] += 1
-                is_fax = name.startswith("tiff_fax_") or name in timed[12:]
+                is_fax = name.startswith("tiff_fax_") or name in fax_timed
+                is_jpeg = name.startswith("tiff_jpeg_") or name in jpeg_timed
                 fax[0] += is_fax
+                jpeg_tiff[0] += is_jpeg
                 if want is None:
                     if got is not None:
                         raise AssertionError(f"case {name}: decoded where cv2 gives None")
                     count[1] += 1
                     fax[1] += is_fax
+                    jpeg_tiff[1] += is_jpeg
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
-                for name in timed:  # in turns
+                for name, data in payloads.items():  # in turns
                     t1 = time.perf_counter()
-                    decode_image(cases[name][0])
+                    decode_image(data)
                     ms[name].append((time.perf_counter() - t1) * 1e3)
         finally:
             logging.disable(logging.NOTSET)
@@ -1339,6 +1353,14 @@ class Smoke:
                       for n in ("scene0_tiff_lzw", "scene0_tiff_none")}
         # the scene's G4 fax TIFF as data, beside the PNG of cv2's decode of it
         fax_png = encode_png(cases["scene0_tiff_g4"][1])
+        # phase 11's scene0 JPEG as the one strip of a YCbCr TIFF: the bare
+        # JPEG's pixels, held to the in-process worker and to the bare request
+        jpeg_tiff_data = cases["scene0_tiff_jpeg_onestrip"][0]
+        if bare_jpeg not in jpeg_tiff_data or not (decode_image(jpeg_tiff_data) == decode_image(bare_jpeg)).all():
+            raise AssertionError("the one-strip JPEG TIFF does not hold the scene0 JPEG's pixels")
+        want_jpeg_tiff = self.serving_worker.process(decode_image(jpeg_tiff_data), 0)["words"]
+        if not want_jpeg_tiff:
+            raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
         for name, ext in (("scene0_bmp24", "bmp"), ("scene0_tiff_none", "tif")):
             by_path[id(cases[name][0])] = os.path.join(self.tmp.name, f"scene0.{ext}")
@@ -1396,6 +1418,16 @@ class Smoke:
                 check_words(got_fax["words"], want["words"], "the G4 fax TIFF vs the PNG of cv2's decode")
                 words["scene0_tiff_g4"] = len(got_fax["words"])
                 before = service_launches(c)
+                got_jpeg_tiff = c.send_request(req(jpeg_tiff_data))
+                self.launches["jpeg tiff service"] = launched_jpeg_tiff = launches_since(c, before, "JPEG TIFF")
+                if not got_jpeg_tiff.get("success"):
+                    raise AssertionError(f"the one-strip JPEG TIFF: {str(got_jpeg_tiff)[:200]}")
+                check_words(got_jpeg_tiff["words"], want_jpeg_tiff, "the one-strip JPEG TIFF in the service vs in "
+                            "process")
+                check_words(got_jpeg_tiff["words"], c.send_request(req(bare_jpeg)).get("words"),
+                            "the one-strip JPEG TIFF vs the bare JPEG request")
+                words["scene0_tiff_jpeg_onestrip"] = len(got_jpeg_tiff["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1427,17 +1459,20 @@ class Smoke:
             f"{counts.get('tiff', [0, 0])[1]} of them None",
             "fax_vs_cv2": f"{fax[0]} CCITT fax TIFF cases (RLE, RLEW, G3 1D and 2D, G4) equal cv2's answer, "
             f"{fax[1]} of them None",
+            "tiff_jpeg_vs_cv2": f"{jpeg_tiff[0]} JPEG TIFF cases equal cv2's answer, {jpeg_tiff[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
-            **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in timed
+            **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
             "decode_ms_1728x2304_tiff_g4": statistics.median(ms["page_tiff_g4"][1:]),
             "bytes": {n[len("scene0_"):] if n.startswith("scene0_") else n: len(cases[n][0]) for n in timed},
             "service_words": words, "launches_of_2_bmp_requests": launched,
             "launches_of_hdr_and_gif_requests": launched_hdr_gif,
             "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
+            "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the eighteen payloads in turns; "
-            "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's",
+            "what": "host wall ms, median of 25 after one untimed, the twenty-two payloads in turns; "
+            "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
+            "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)
 
     # -- 14 --------------------------------------------------------------

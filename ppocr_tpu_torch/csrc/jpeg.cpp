@@ -45,6 +45,25 @@
 // It also reports the EXIF orientation from the first APP1 segment before
 // the first scan as OpenCV's ExifReader reads it; the caller applies it.
 //
+// A second entry decodes one strip or tile of a JPEG-compressed TIFF
+// (compression 7) as libtiff 4.7's tif_jpeg.c drives libjpeg-turbo under
+// OpenCV's TIFFReadRGBAStrip / TIFFReadRGBATile (see jpeg_tiff.h): the same
+// Decoder, with libtiff's source and rules in place of OpenCV's:
+//
+//  * the source inserts a fake EOI whenever the data runs out
+//    (std_fill_input_buffer), so a cut block decodes as far as it goes and
+//    the rest of its scan is zeros; a skip past the end lands on a fresh
+//    fake EOI (std_skip_input_data); APP1 is skipped, not saved;
+//  * the quantization and Huffman tables persist from the JPEGTables tag
+//    and from block to block (jpeg_abort keeps them), the standard Huffman
+//    tables included once jinit_huff_decoder has installed them; OpenCV's
+//    own rule for files without any DHT does not apply;
+//  * JPEGPreDecode's checks of the frame against the strip or tile;
+//  * no colour space from the JFIF or Adobe markers: contiguous YCbCr is
+//    converted to RGB by libjpeg (JPEGCOLORMODE_RGB, fancy upsampling), any
+//    other image gets its components as stored (JCS_UNKNOWN, null_convert),
+//    interleaved, at libtiff's row pitch.
+//
 // Refused with a status code, as cv2 refuses them on the repo's cases:
 // lossless and hierarchical frames, a precision other than 8 bits, 2 or
 // more than 4 components, non-integral sampling ratios.
@@ -56,13 +75,16 @@
 //                   int32_t info[3]);
 //       out: height x width x 3 BGR, row-major, before the orientation;
 //       info as above
-// Both return 0 on success or one of the Status codes below.
+//   jpeg_tiff_tables, jpeg_tiff_block: see jpeg_tiff.h
+// All return 0 on success or one of the Status codes below.
 
 #include <climits>
 #include <cstdint>
 #include <cstring>
 #include <new>
 #include <vector>
+
+#include "jpeg_tiff.h"
 
 namespace {
 
@@ -80,6 +102,8 @@ enum Status {
   TOO_LARGE = 11,
   NO_FRAME = 12,
   SMALL_BUFFER = 13,
+  FRAME = 14,   // TIFF: a frame larger than its strip or tile
+  TABLES = 15,  // TIFF: JPEGTables that are not a tables-only stream
 };
 
 struct Fail {
@@ -249,6 +273,24 @@ void make_derived(const HuffTable* tables, bool dc, int tblno, Derived* derived)
 
 inline int huff_extend(int x, int s) { return x < (1 << (s - 1)) ? x + int(unsigned(-1) << s) + 1 : x; }
 
+// jdcolor.c build_ycc_rgb_table (SCALEBITS 16)
+struct YccTables {
+  static constexpr int SB = 16;
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    constexpr int64_t HALF = int64_t(1) << (SB - 1);
+    auto fix = [](double x) { return int64_t(x * (1 << SB) + 0.5); };
+    for (int i = 0; i < 256; i++) {
+      int64_t x = i - 128;
+      cr_r[i] = int((fix(1.40200) * x + HALF) >> SB);
+      cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + HALF;
+    }
+  }
+};
+
 // -- IDCT and sample range ---------------------------------------------------
 
 // jdmaster.c prepare_range_limit_table's "simple" part:
@@ -263,6 +305,7 @@ struct RangeLimit {
   }
 };
 const RangeLimit kRange;
+const YccTables kYcc;
 
 // The islow IDCT as libjpeg-turbo's SIMD builds compute it
 // (jidctint-sse2.asm / jidctint-avx2.asm, the same arithmetic): jidctint.c's
@@ -425,6 +468,8 @@ struct Decoder {
   uint8_t dc_stats[16][64], ac_stats[16][256];
   uint8_t fixed_bin[4];
 
+  bool tiff = false;  // libtiff's source and rules (jpeg_tiff_block)
+
   Decoder(const uint8_t* data, int64_t size) : d(data), n(size) {
     fixed_bin[0] = 113;
     for (int i = 0; i < 16; i++) {
@@ -434,16 +479,29 @@ struct Decoder {
     }
   }
 
-  // -- the source: it fails where OpenCV's would have to refill
+  // -- the source: it fails where OpenCV's would have to refill; libtiff's
+  // inserts a fake EOI each time (tif_jpeg.c std_fill_input_buffer)
   int byte() {
-    if (pos >= n) fail(TRUNCATED);
+    if (pos >= n) {
+      if (!tiff) fail(TRUNCATED);
+      return (pos++ - n) & 1 ? 0xD9 : 0xFF;
+    }
     return d[pos++];
   }
   int two() {
     int a = byte();
     return (a << 8) | byte();
   }
-  void skip(int64_t k) { pos = k > n - pos ? n : pos + k; }  // OpenCV skip_input_data
+  void skip(int64_t k) {
+    if (!tiff) {
+      pos = k > n - pos ? n : pos + k;  // OpenCV skip_input_data
+      return;
+    }
+    // tif_jpeg.c std_skip_input_data: past what the buffer holds (the data,
+    // or a fake EOI), a fresh fake EOI
+    const int64_t left = pos < n ? n - pos : 2 - ((pos - n) & 1);
+    pos += k > left ? left : k;
+  }
 
   // jdmarker.c next_marker: skips anything up to FF xx, xx not 0 or FF
   void next_marker() {
@@ -705,7 +763,10 @@ struct Decoder {
           break;
         case 0xE0:
         case 0xEE: get_interesting_appn(m); break;
-        case 0xE1: save_app1(); break;
+        case 0xE1:
+          if (tiff) skip_variable();  // libtiff saves no markers
+          else save_app1();
+          break;
         case 0xD0: case 0xD1: case 0xD2: case 0xD3:
         case 0xD4: case 0xD5: case 0xD6: case 0xD7:
         case 0x01:
@@ -752,14 +813,14 @@ struct Decoder {
   // scan's data: a colour conversion to BGR (or CMYK for 4 components), an
   // upsampling method for each component, then the buffers
   void master_selection() {
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(COMPONENTS);
+    if (!tiff && ncomp != 1 && ncomp != 3 && ncomp != 4) fail(COMPONENTS);  // JCS_UNKNOWN takes any count
     for (Component& c : comp)
       if (hmax % c.h || vmax % c.v) fail(SAMPLING);
-    if (int64_t(width) * height > (int64_t(1) << 30)) fail(TOO_LARGE);  // OpenCV's own limit
+    if (!tiff && int64_t(width) * height > (int64_t(1) << 30)) fail(TOO_LARGE);  // OpenCV's own limit
     // OpenCV loads the standard Huffman tables when tables 0 and 1 are all
     // missing (Motion-JPEG frames); jinit_huff_decoder fills in any of them
     // for a sequential Huffman file; the progressive decoder does neither
-    const bool none = !dc_tbl[0].defined && !dc_tbl[1].defined && !ac_tbl[0].defined && !ac_tbl[1].defined;
+    const bool none = !tiff && !dc_tbl[0].defined && !dc_tbl[1].defined && !ac_tbl[0].defined && !ac_tbl[1].defined;
     if (none || (!progressive && !arith)) {
       for (int t = 0; t < 2; t++) {
         std_table(dc_tbl, true, t);
@@ -1616,9 +1677,19 @@ struct Decoder {
 
   // the header, every scan that cv2 reads, and the IDCT
   void run() {
+    read_header();
+    decode();
+  }
+
+  // jpeg_read_header(TRUE): the markers up to the first SOS
+  void read_header() {
     if (read_markers(false) == REACHED_EOI) fail(saw_SOF ? NO_SCAN : NO_FRAME);
     in_headers = false;
     initial_setup();
+  }
+
+  // jpeg_start_decompress: every scan it reads, then the IDCT
+  void decode() {
     master_selection();
     start_input_pass();
     consume_scan();
@@ -1737,19 +1808,10 @@ struct Decoder {
       }
       return;
     }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert / ycck_cmyk_convert
-    constexpr int SB = 16;
-    constexpr int64_t HALF = int64_t(1) << (SB - 1);
-    auto fix = [](double x) { return int64_t(x * (1 << SB) + 0.5); };
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0; i < 256; i++) {
-      int64_t x = i - 128;
-      cr_r[i] = int((fix(1.40200) * x + HALF) >> SB);
-      cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + HALF;
-    }
+    // jdcolor.c ycc_rgb_convert / ycck_cmyk_convert
+    constexpr int SB = YccTables::SB;
+    const int *cr_r = kYcc.cr_r, *cb_b = kYcc.cb_b;
+    const int64_t *cr_g = kYcc.cr_g, *cb_g = kYcc.cb_g;
     const uint8_t* lim = kRange.simple + 384;
     if (ncomp == 3) {
       for (int64_t i = 0; i < np; i++) {
@@ -1776,6 +1838,65 @@ struct Decoder {
       out[3 * i] = uint8_t(k - (((255 - c2) * k) >> 8));
     }
   }
+
+  // -- JPEG in TIFF
+
+  // the tables libjpeg keeps between datastreams (jpeg_abort frees neither)
+  void load_tables(const JpegTiffTables& t) {
+    for (int i = 0; i < 4; i++) {
+      qt_defined[i] = t.quant_defined[i] != 0;
+      std::memcpy(qtab[i], t.quant[i], sizeof qtab[i]);
+      for (int dc = 0; dc < 2; dc++) {
+        HuffTable& h = (dc ? dc_tbl : ac_tbl)[i];
+        const int k = (dc ? 0 : 4) + i;
+        h.defined = t.huff_defined[k] != 0;
+        std::memcpy(h.bits, t.huff_bits[k], 17);
+        std::memcpy(h.vals, t.huff_vals[k], 256);
+      }
+    }
+  }
+  void save_tables(JpegTiffTables& t) const {
+    for (int i = 0; i < 4; i++) {
+      t.quant_defined[i] = qt_defined[i];
+      std::memcpy(t.quant[i], qtab[i], sizeof qtab[i]);
+      for (int dc = 0; dc < 2; dc++) {
+        const HuffTable& h = (dc ? dc_tbl : ac_tbl)[i];
+        const int k = (dc ? 0 : 4) + i;
+        t.huff_defined[k] = h.defined;
+        std::memcpy(t.huff_bits[k], h.bits, 17);
+        std::memcpy(t.huff_vals[k], h.vals, 256);
+      }
+    }
+  }
+
+  // the first `rows` rows as libjpeg writes them into libtiff's buffer,
+  // row_bytes apart: RGB (jdcolor.c ycc_rgb_convert) or the components as
+  // stored (null_convert), interleaved
+  void write_tiff(bool ycc_to_rgb, uint8_t* out, int64_t row_bytes, int rows) const {
+    const int64_t np = int64_t(width) * height;
+    std::vector<std::vector<uint8_t>> ch(ncomp);
+    for (int k = 0; k < ncomp; k++) {
+      ch[k].resize(np);
+      upsample(comp[k], ch[k].data());
+    }
+    const uint8_t* lim = kRange.simple + 384;
+    for (int y = 0; y < rows; y++) {
+      uint8_t* o = out + y * row_bytes;
+      const int64_t at = int64_t(y) * width;
+      if (ycc_to_rgb) {
+        const uint8_t *py = ch[0].data() + at, *pb = ch[1].data() + at, *pr = ch[2].data() + at;
+        for (int x = 0; x < width; x++, o += 3) {
+          const int yy = py[x], cb = pb[x], cr = pr[x];
+          o[0] = lim[yy + kYcc.cr_r[cr]];
+          o[1] = lim[yy + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> YccTables::SB)];
+          o[2] = lim[yy + kYcc.cb_b[cb]];
+        }
+      } else {
+        for (int x = 0; x < width; x++)
+          for (int k = 0; k < ncomp; k++) *o++ = ch[k][at + x];
+      }
+    }
+  }
 };
 
 int header(const uint8_t* data, int64_t n, int32_t* info) {
@@ -1789,6 +1910,48 @@ int header(const uint8_t* data, int64_t n, int32_t* info) {
   return OK;
 }
 
+// A decoder on libtiff's source holding the image's tables, which it hands
+// back however it ends: what a datastream defined stays defined
+struct TiffDecoder : Decoder {
+  JpegTiffTables* t;
+  TiffDecoder(const uint8_t* data, int64_t n, JpegTiffTables* tables) : Decoder(data, n), t(tables) {
+    tiff = true;
+    load_tables(*t);
+  }
+  ~TiffDecoder() { save_tables(*t); }
+};
+
+// tif_jpeg.c JPEGSetupDecode: JPEGTables read as jpeg_read_header(FALSE)
+// reads a tables-only datastream
+int tiff_tables(const uint8_t* tables, int64_t n, JpegTiffTables* t) {
+  TiffDecoder dec(tables, n, t);
+  const MarkerResult r = dec.read_markers(false);
+  return r == REACHED_EOI && !dec.saw_SOF ? OK : TABLES;  // at SOS: "Bogus JPEGTables field"
+}
+
+// JPEGPreDecode, then JPEGDecode's rows
+int tiff_block(JpegTiffTables* t, const uint8_t* data, int64_t n, const JpegTiffBlock& b, uint8_t* out,
+               int64_t row_bytes, int64_t rows) {
+  TiffDecoder dec(data, n, t);
+  dec.read_header();
+  // JPEGPreDecode: a frame no larger than the strip or tile, except that
+  // the last strip's may be taller at the same width; the component
+  // count, the precision, the sampling factors
+  const bool taller_last = b.last_strip && dec.width == b.segment_w && dec.height > b.segment_h;
+  if (!taller_last && (dec.width > b.segment_w || dec.height > b.segment_h)) fail(FRAME);
+  if (dec.ncomp != b.components) fail(COMPONENTS);
+  if (dec.precision != b.precision) fail(PRECISION);
+  if (dec.comp[0].h != b.h_sampling || dec.comp[0].v != b.v_sampling) fail(SAMPLING);
+  for (int ci = 1; ci < dec.ncomp; ci++)
+    if (dec.comp[ci].h != 1 || dec.comp[ci].v != 1) fail(SAMPLING);
+  if (b.ycc_to_rgb && dec.ncomp != 3) fail(COMPONENTS);  // jdcolor.c: JCS_YCbCr has 3
+  if (int64_t(dec.width) * dec.ncomp > row_bytes) fail(SMALL_BUFFER);
+  dec.decode();
+  // JPEGDecode: the rows the buffer holds, at most the frame's
+  dec.write_tiff(b.ycc_to_rgb != 0, out, row_bytes, int(rows < dec.height ? rows : dec.height));
+  return OK;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1796,6 +1959,28 @@ extern "C" {
 int jpeg_header(const uint8_t* data, int64_t n, int32_t* info) {
   try {
     return header(data, n, info);
+  } catch (const Fail& f) {
+    return f.status;
+  } catch (const std::bad_alloc&) {
+    return TOO_LARGE;
+  }
+}
+
+int jpeg_tiff_tables(const uint8_t* tables, int64_t n, JpegTiffTables* t) {
+  try {
+    return t->status = tiff_tables(tables, n, t);
+  } catch (const Fail& f) {
+    return t->status = f.status;
+  } catch (const std::bad_alloc&) {
+    return t->status = TOO_LARGE;
+  }
+}
+
+int jpeg_tiff_block(JpegTiffTables* t, const uint8_t* data, int64_t n, const JpegTiffBlock* b, uint8_t* out,
+                    int64_t row_bytes, int64_t rows) {
+  if (t->status) return t->status;  // JPEGSetupDecode fails for every block
+  try {
+    return tiff_block(t, data, n, *b, out, row_bytes, rows);
   } catch (const Fail& f) {
     return f.status;
   } catch (const std::bad_alloc&) {

@@ -23,11 +23,17 @@
 //    decoder when they come first), PackBits as tif_packbits.c, deflate as
 //    tif_zip.c (zlib's inflate with Z_PARTIAL_FLUSH; an error zeroes the
 //    rest), the CCITT fax codecs as tif_fax3.c (see below: RLE, RLEW, G3 1D
-//    and 2D, G4, which read FillOrder 2 themselves); a compression libtiff
-//    has no codec for fails every block. A block that fails to decode keeps
-//    what it got: libtiff goes on.
+//    and 2D, G4, which read FillOrder 2 themselves), JPEG as tif_jpeg.c
+//    drives libjpeg (csrc/jpeg.cpp through jpeg_tiff.h: the JPEGTables tag
+//    read once, the tables kept from block to block, JPEGPreDecode's checks
+//    of the frame; contiguous YCbCr comes out as RGB, anything else as its
+//    components; the data is never bit-reversed); a compression libtiff has
+//    no codec for fails every block. A block that fails to decode keeps what
+//    it got: libtiff goes on. A JPEG block its codec refuses fails as a fill
+//    does (JPEGPreDecode runs in TIFFStartStrip).
 //  * only when it decoded: the horizontal predictor (8 and 16 bits, after
-//    the byte swap of a big-endian file) or the byte swap alone.
+//    the byte swap of a big-endian file) or the byte swap alone (JPEG has
+//    neither).
 //  * put: libtiff's contiguous or separate put routine for the photometric
 //    interpretation, with its pointer steps (a clipped tile's skew included),
 //    into BGR at the block's stored place; the rows of a block are mirrored
@@ -41,7 +47,8 @@
 //
 // C interface (ctypes): see tiff_decode below. Returns 0, or 1 (a block's
 // data cannot be filled) or 2 (an uncompressed tile whose byte count is not
-// the tile's size), or 3 (bad parameters).
+// the tile's size), or 3 (bad parameters), or 4 (the JPEG codec refuses the
+// first plane's block).
 
 #include <algorithm>
 #include <cmath>
@@ -49,6 +56,8 @@
 #include <cstring>
 #include <memory>
 #include <vector>
+
+#include "jpeg_tiff.h"
 
 namespace {
 
@@ -72,7 +81,8 @@ enum Put : int32_t {
 };
 
 enum Compression : int32_t {
-  NONE = 1, CCITT_RLE = 2, CCITT_G3 = 3, CCITT_G4 = 4, LZW = 5, DEFLATE = 8, CCITT_RLEW = 32771, PACKBITS = 32773
+  NONE = 1, CCITT_RLE = 2, CCITT_G3 = 3, CCITT_G4 = 4, LZW = 5, JPEG = 7, DEFLATE = 8, CCITT_RLEW = 32771,
+  PACKBITS = 32773
 };
 
 }  // namespace
@@ -99,6 +109,7 @@ struct TiffParams {
   int64_t sampling_row;       // YCbCr: bytes of one row of blocks (of ycc_vs image rows)
   float white[2];             // CIE L*a*b*: the white point's x and y
   int32_t group3_options;     // CCITT G3: T4Options (bit 0: rows may be 2D-coded)
+  int32_t jpeg_ycc;           // JPEG, contiguous YCbCr: libjpeg converts to RGB (ycc_hs, ycc_vs: the sampling)
 };
 
 // zlib's z_stream on LP64
@@ -1141,7 +1152,7 @@ void put_block(const TiffParams& p, const Tables& t, const uint8_t* const* plane
 
 // -- reading a block ----------------------------------------------------------
 
-enum Status { OK = 0, FILL_FAILED = 1, BAD_TILE_SIZE = 2, BAD_PARAMS = 3 };
+enum Status { OK = 0, FILL_FAILED = 1, BAD_TILE_SIZE = 2, BAD_PARAMS = 3, JPEG_FAILED = 4 };
 
 struct Reader {
   const uint8_t* data;
@@ -1155,18 +1166,38 @@ struct Reader {
   int64_t rawdatasize = 0;  // libtiff's raw buffer, for uncompressed tiles
   int64_t raw_offset = 0;   // the filled block's offset in the file
   std::vector<uint8_t> reversed;
+  const uint8_t* jpeg_tables;  // the JPEGTables tag's bytes (JPEG), or null
+  int64_t jpeg_tables_n;
+  std::unique_ptr<JpegTiffTables> jpeg_state;  // null until JPEGSetupDecode has run
+  int64_t segment_h = 0;       // the block's rows (a strip's, or the tile height)
+  bool last_strip = false;     // a strip that ends the image
 
   Reader(const uint8_t* d, int64_t size, const TiffParams& params, const uint64_t* o, const uint64_t* c,
-         const Zlib& z)
-      : data(d), n(size), p(params), offsets(o), counts(c), zl(z) {
+         const Zlib& z, const uint8_t* tables, int64_t ntables)
+      : data(d), n(size), p(params), offsets(o), counts(c), zl(z), jpeg_tables(tables), jpeg_tables_n(ntables) {
     if (is_fax())
       fax.setup(p.block_w, p.compression == CCITT_G4 || (p.compression == CCITT_G3 && (p.group3_options & 1)));
   }
 
-  // the fax codecs read the bits in either order themselves (TIFF_NOBITREV)
   bool is_fax() const {
     return p.compression == CCITT_RLE || p.compression == CCITT_G3 || p.compression == CCITT_G4 ||
            p.compression == CCITT_RLEW;
+  }
+  // the fax codecs read the bits in either order themselves, and TIFFInitJPEG
+  // asks for none (TIFF_NOBITREV)
+  bool no_bitrev() const { return is_fax() || p.compression == JPEG; }
+
+  // tif_jpeg.c: JPEGSetupDecode reads JPEGTables once; JPEGPreDecode and
+  // JPEGDecode read the block. false: the codec refused it
+  bool jpeg(const uint8_t* raw, int64_t rawcc, uint8_t* buf, int64_t occ) {
+    if (!jpeg_state) {
+      jpeg_state.reset(new JpegTiffTables());
+      if (jpeg_tables) jpeg_tiff_tables(jpeg_tables, jpeg_tables_n, jpeg_state.get());
+    }
+    const bool separate = p.planes != 0;
+    const JpegTiffBlock b{int32_t(p.block_w), int32_t(segment_h), int32_t(last_strip), separate ? 1 : p.spp, p.bps,
+                          p.jpeg_ycc ? p.ycc_hs : 1, p.jpeg_ycc ? p.ycc_vs : 1, p.jpeg_ycc};
+    return jpeg_tiff_block(jpeg_state.get(), raw, rawcc, &b, buf, p.row_bytes, occ / p.row_bytes) == 0;
   }
 
   // TIFFFillStrip / TIFFFillTile: the block's raw bytes, or false
@@ -1179,7 +1210,7 @@ struct Reader {
     const uint64_t off = offsets[block];
     if (count > uint64_t(n) || off > uint64_t(n) - count) return false;
     if (p.tiled) {  // the raw buffer libtiff holds the tile in
-      if (p.mapped && (!p.bitrev || is_fax())) {
+      if (p.mapped && (!p.bitrev || no_bitrev())) {
         rawdatasize = int64_t(count);
       } else {
         const int64_t rounded = int64_t((count + 1023) / 1024 * 1024);
@@ -1189,7 +1220,7 @@ struct Reader {
     *raw = data + off;
     *rawcc = int64_t(count);
     raw_offset = int64_t(off);
-    if (p.bitrev && !is_fax()) {
+    if (p.bitrev && !no_bitrev()) {
       reversed.assign(*raw, *raw + count);
       for (uint8_t& b : reversed) {
         b = uint8_t(((b * 0x0802u & 0x22110u) | (b * 0x8020u & 0x88440u)) * 0x10101u >> 16);
@@ -1199,10 +1230,13 @@ struct Reader {
     return true;
   }
 
-  // the codec on a filled block: 1 decoded, 0 failed
+  // the codec on a filled block: 1 decoded, 0 failed, -1 refused before
+  // decoding (JPEG: the fill fails)
   int decode(const uint8_t* raw, int64_t rawcc, uint8_t* buf, int64_t occ) {
     int ok;
     switch (p.compression) {
+      case JPEG:
+        return jpeg(raw, rawcc, buf, occ) ? 1 : -1;  // no predictor, no byte swap
       case NONE:
         if (rawcc < occ) return 0;
         std::memcpy(buf, raw, size_t(occ));
@@ -1252,8 +1286,7 @@ struct Reader {
     int64_t rawcc;
     if (!fill(block, &raw, &rawcc)) return FILL_FAILED;
     if (p.tiled && p.compression == NONE && rawdatasize != p.block_bytes) return BAD_TILE_SIZE;
-    decode(raw, rawcc, buf, occ);
-    return OK;
+    return decode(raw, rawcc, buf, occ) < 0 ? JPEG_FAILED : OK;
   }
 
   // another plane of a separate image: every failure is ignored
@@ -1276,11 +1309,7 @@ struct Reader {
     }
     const uint8_t* raw;
     int64_t rawcc;
-    if (!fill(block, &raw, &rawcc)) {
-      std::memset(buf, 0, size_t(occ));
-      return;
-    }
-    decode(raw, rawcc, buf, occ);
+    if (!fill(block, &raw, &rawcc) || decode(raw, rawcc, buf, occ) < 0) std::memset(buf, 0, size_t(occ));
   }
 };
 
@@ -1291,24 +1320,26 @@ extern "C" {
 // data[n]: the file. offsets[], counts[]: p->nblocks strip or tile offsets and
 // byte counts, after libtiff's directory fix-ups. map: [256] grey levels;
 // pal: [256 x 3] palette RGB. ycc: [5 x 256] YCbCr tables (YCbCr only). zinit / zinflate / zend / zversion: zlib's
-// inflateInit2_, inflate, inflateEnd and version string (deflate only).
+// inflateInit2_, inflate, inflateEnd and version string (deflate only). jpeg_tables[jpeg_tables_n]: the
+// JPEGTables tag's bytes (JPEG; null when the tag is absent or libtiff drops it).
 // out: height x width x 3 BGR, each block at its stored place. Written
 // block by block: only meaningful on 0.
 int tiff_decode(const uint8_t* data, int64_t n, const TiffParams* params, const uint64_t* offsets,
                 const uint64_t* counts, const uint8_t* map, const uint8_t* pal, const int32_t* ycc, void* zinit,
-                void* zinflate, void* zend, const char* zversion, uint8_t* out) {
+                void* zinflate, void* zend, const char* zversion, const uint8_t* jpeg_tables, int64_t jpeg_tables_n,
+                uint8_t* out) {
   const TiffParams& p = *params;
   if ((p.put == PUT_YCBCR || p.put == PUT_SEPYCBCR) && (!ycc || p.ycc_hs <= 0 || p.ycc_vs <= 0)) return BAD_PARAMS;
   if (p.width <= 0 || p.height <= 0 || p.block_w <= 0 || p.block_h <= 0 || p.row_bytes <= 0 || p.block_bytes <= 0 ||
       p.spp <= 0 || (p.bps != 1 && p.bps != 2 && p.bps != 4 && p.bps != 8 && p.bps != 16) || p.planes < 0 ||
-      p.planes > 4 || (p.compression == DEFLATE && !zinit))
+      p.planes > 4 || (p.compression == DEFLATE && !zinit) || (p.jpeg_ycc && (p.ycc_hs <= 0 || p.ycc_vs <= 0)))
     return BAD_PARAMS;
   const Zlib zl{reinterpret_cast<InflateInit2>(zinit), reinterpret_cast<Inflate>(zinflate),
                 reinterpret_cast<InflateEnd>(zend), zversion};
   const bool lab_put = p.put == PUT_CIELAB8 || p.put == PUT_CIELAB16;
   const std::unique_ptr<Lab> lab(lab_put ? new Lab(p.white) : nullptr);
   const Tables tables(p, map, pal, ycc, lab.get());
-  Reader rd(data, n, p, offsets, counts, zl);
+  Reader rd(data, n, p, offsets, counts, zl, jpeg_tables, jpeg_tables_n);
   const int64_t nplanes = p.planes ? p.planes : 1;
   std::vector<uint8_t> buf(size_t(p.block_bytes * nplanes));
   for (int64_t y = 0; y < p.height; y += p.block_h) {
@@ -1324,6 +1355,8 @@ int tiff_decode(const uint8_t* data, int64_t n, const TiffParams* params, const 
         occ = std::min((rows + p.ycc_vs - 1) / p.ycc_vs * p.ycc_vs * p.row_bytes,
                        (rows + p.ycc_vs - 1) / p.ycc_vs * p.sampling_row);
       std::fill(buf.begin(), buf.end(), 0);
+      rd.segment_h = p.tiled ? p.block_h : rows;
+      rd.last_strip = !p.tiled && y + rows == p.height;
       const uint8_t* planes[4];
       if (p.planes == 0) {
         const Status s = rd.first(block, buf.data(), occ);

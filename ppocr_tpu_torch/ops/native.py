@@ -2,7 +2,9 @@
 core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, the BMP
 run-length decoder, ``csrc/bmp_rle.cpp``, the Radiance HDR scanline
 decoder, ``csrc/hdr_rgbe.cpp``, the GIF LZW decoder,
-``csrc/gif_lzw.cpp``, and the TIFF strip and tile decoder, ``csrc/tiff.cpp``.
+``csrc/gif_lzw.cpp``, and the TIFF strip and tile decoder, ``csrc/tiff.cpp``,
+built together with ``csrc/jpeg.cpp`` (its JPEG blocks, through
+``csrc/jpeg_tiff.h``).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -11,9 +13,9 @@ the C++ core is the only backend. It is host code (border following,
 scanline polygon scoring, rotating-calipers min-area rects, closed-form
 unclip), not a GPU kernel.
 
-Each source is compiled at first use with the host compiler into
-``_build/lib<name>-<hash>.so`` (``_build/`` is listed in ``.gitignore``),
-the hash taken over the source and the flags. There is no ``-march=native``
+Each source (with the files it is built with) is compiled at first use
+with the host compiler into ``_build/lib<name>-<hash>.so`` (``_build/`` is
+listed in ``.gitignore``), the hash taken over the files and the flags. There is no ``-march=native``
 among them, so a file built on one host loads on any other. Several worker
 processes may boot together: the build runs under a file lock and the
 library is written under another name and moved into place with
@@ -42,6 +44,9 @@ BMP_RLE_SOURCE = CSRC / "bmp_rle.cpp"
 HDR_SOURCE = CSRC / "hdr_rgbe.cpp"
 GIF_SOURCE = CSRC / "gif_lzw.cpp"
 TIFF_SOURCE = CSRC / "tiff.cpp"
+# the files a library is built with besides its source (a header counts in
+# the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp
+BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h")}
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
@@ -62,12 +67,16 @@ def _cxx() -> str:
 
 
 def build(source: Optional[Path] = None) -> Path:
-    """Compile ``source`` (``csrc/<name>.cpp``, default ``SOURCE``) into
+    """Compile ``source`` (``csrc/<name>.cpp``, default ``SOURCE``), with the
+    ``.cpp`` files ``BUILT_WITH`` names for it, into
     ``_build/lib<name>-<hash>.so`` (skipped when that file exists) and
     return its path. Raises with the compiler's output when the build
     fails."""
     source = source or SOURCE
+    also = BUILT_WITH.get(source, ())
     digest = hashlib.sha1(source.read_bytes())
+    for extra in also:
+        digest.update(extra.read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
     lib = BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
@@ -80,7 +89,7 @@ def build(source: Optional[Path] = None) -> Path:
             return lib
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         run = subprocess.run(
-            [cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(source), *(str(f) for f in also if f.suffix == ".cpp")],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
@@ -327,11 +336,13 @@ class TiffParams(ctypes.Structure):
         (name, ctypes.c_int32) for name in ("tiled", "spp", "bps", "compression", "predictor", "swab", "bitrev",
                                             "mapped", "put", "flip_h", "planes")] + [
         ("plane_index", ctypes.c_int32 * 4), ("ycc_hs", ctypes.c_int32), ("ycc_vs", ctypes.c_int32),
-        ("sampling_row", ctypes.c_int64), ("white", ctypes.c_float * 2), ("group3_options", ctypes.c_int32)]
+        ("sampling_row", ctypes.c_int64), ("white", ctypes.c_float * 2), ("group3_options", ctypes.c_int32),
+        ("jpeg_ycc", ctypes.c_int32)]
 
 
 def load_tiff_library() -> ctypes.CDLL:
-    """Build (if needed) and load the TIFF strip and tile decoder."""
+    """Build (if needed) and load the TIFF strip and tile decoder (with the
+    JPEG decoder its JPEG blocks go to)."""
     global _tiff_lib
     with _lock:
         if _tiff_lib is None:
@@ -339,23 +350,25 @@ def load_tiff_library() -> ctypes.CDLL:
             u8p, u64p, vp = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p
             lib.tiff_decode.restype = ctypes.c_int
             lib.tiff_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(TiffParams), u64p, u64p,
-                                        u8p, u8p, ctypes.POINTER(ctypes.c_int32), vp, vp, vp, ctypes.c_char_p, u8p]
+                                        u8p, u8p, ctypes.POINTER(ctypes.c_int32), vp, vp, vp, ctypes.c_char_p,
+                                        ctypes.c_char_p, ctypes.c_int64, u8p]
             _tiff_lib = lib
     return _tiff_lib
 
 
 def tiff_decode(data: bytes, params: dict, offsets: np.ndarray, counts: np.ndarray, grey_map: np.ndarray,
-                palette: np.ndarray, ycbcr: Optional[np.ndarray] = None, zlib: Optional[ctypes.CDLL] = None
-                ) -> Tuple[int, np.ndarray]:
+                palette: np.ndarray, ycbcr: Optional[np.ndarray] = None, zlib: Optional[ctypes.CDLL] = None,
+                jpeg_tables: Optional[bytes] = None) -> Tuple[int, np.ndarray]:
     """Decode a TIFF image's strips or tiles (``params``: ``TiffParams``'
     fields; ``offsets`` / ``counts``: every strip's or tile's offset and byte
     count; ``grey_map`` [256] uint8, the grey level of a sample; ``palette``
     [256, 3] uint8 RGB; ``ycbcr`` [5, 256] int32, libtiff's YCbCr to RGB
-    tables; ``zlib``: the zlib library, for deflate) → (status,
-    [height, width, 3] BGR uint8, each block at its stored place). Status 0
-    is success; 1: a block's data cannot be read; 2: an uncompressed tile
-    whose byte count is not the tile's size. The image is only meaningful
-    on 0."""
+    tables; ``zlib``: the zlib library, for deflate; ``jpeg_tables``: the
+    JPEGTables tag's bytes, for JPEG) → (status, [height, width, 3] BGR
+    uint8, each block at its stored place). Status 0 is success; 1: a
+    block's data cannot be read; 2: an uncompressed tile whose byte count is
+    not the tile's size; 4: the JPEG codec refuses the first plane's block.
+    The image is only meaningful on 0."""
     p = TiffParams()
     for name, value in params.items():
         if name == "plane_index":
@@ -387,8 +400,8 @@ def tiff_decode(data: bytes, params: dict, offsets: np.ndarray, counts: np.ndarr
     out = np.zeros((p.height, p.width, 3), np.uint8)
     status = lib.tiff_decode(data, len(data), ctypes.byref(p), offs.ctypes.data_as(u64p), cnts.ctypes.data_as(u64p),
                              gmap.ctypes.data_as(u8p), pal.ctypes.data_as(u8p),
-                             ycc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), *fns, version,
-                             out.ctypes.data_as(u8p))
+                             ycc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), *fns, version, jpeg_tables,
+                             len(jpeg_tables or b""), out.ctypes.data_as(u8p))
     if status == 3:
         raise ValueError("tiff_decode: parameters the decoder does not take")
     return status, out

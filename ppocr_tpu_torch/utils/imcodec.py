@@ -86,10 +86,14 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   CMYK, YCbCr at every subsampling libtiff reads, CIE L*a*b* through its
   sRGB display) and its put routines,
   pointer steps included; compressions none, LZW (old-style codes too),
-  PackBits, deflate (zlib's ``inflate`` with libtiff's calls) and the
+  PackBits, deflate (zlib's ``inflate`` with libtiff's calls), the
   CCITT fax codecs of 1-bit images (RLE, RLEW, G3 1D and 2D, G4, as
   tif_fax3.c decodes them, damaged rows and G3 data without EOLs
-  included), the horizontal predictor; the orientation as cv2 turns the
+  included) and JPEG (``csrc/jpeg.cpp`` as tif_jpeg.c drives libjpeg:
+  the JPEGTables tag, contiguous YCbCr converted by libjpeg, the
+  subsampling read from the first block when the tag is absent, cut
+  blocks ended by a fake EOI), the horizontal predictor; the orientation
+  as cv2 turns the
   image (libtiff mirrors each tile, OpenCV turns the whole); a strip that
   fails to decode keeps what it decoded, as libtiff's RGBA reader goes
   on. ``read_image`` reads a file as ``cv2.imread`` maps it: an
@@ -103,7 +107,7 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and, named by their
 sniffed format, what cv2 decodes and this module does not
 (``FORMAT_NAMES``): WebP, JPEG 2000 and AVIF, and TIFF's compressions of
-``TIFF_UNPORTED`` (JPEG, NeXT, ThunderScan, SGI Log). ``None``
+``TIFF_UNPORTED`` (NeXT, ThunderScan, SGI Log). ``None``
 becomes the reference's own error response in the
 service. A JPEG, run-length BMP, HDR, GIF or TIFF decode raises when its
 host C++ cannot be built: a missing compiler is not a bad image.
@@ -1151,7 +1155,7 @@ _TIFF_INTS = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q", 
 _TIFF_SHORT_TYPES = (1, 6, 3, 8, 4, 9, 16, 17)  # the integer types libtiff reads as a SHORT, LONG or LONG8
 # compressions OpenCV's libtiff decodes and this module does not (a known
 # difference), and those it was built without (cv2 refuses them too)
-TIFF_UNPORTED = {7: "JPEG", 32766: "NeXT", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
+TIFF_UNPORTED = {32766: "NeXT", 32809: "ThunderScan", 34676: "SGI LogL", 34677: "SGI LogLuv"}
 _TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, G3, G4, RLEW
 _TIFF_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                         50000: "ZSTD", 50001: "WebP"}
@@ -1159,7 +1163,8 @@ _TIFF_PUT = {"grey": 1, "palette": 2, "rgb8": 3, "rgbua8": 4, "rgb16": 5, "rgbua
              "sepua8": 9, "sep16": 10, "sepua16": 11, "sepcmyk8": 12, "ycbcr": 13, "sepycbcr": 14, "cielab8": 15,
              "cielab16": 16}
 _TIFF_REFUSED = {1: "a strip or tile whose data cannot be read", 2: "an uncompressed tile whose byte count is not "
-                 "the size of its buffer"}
+                 "the size of its buffer", 4: "a JPEG strip or tile that libjpeg or libtiff's JPEG codec refuses"}
+_TIFF_BYTE_ARRAY_TYPES = (1, 2, 6, 7, 3, 8, 4, 9, 16, 17)  # what TIFFReadDirEntryByteArray takes
 
 
 class _TiffDir:
@@ -1311,6 +1316,98 @@ def _ycbcr_tables(luma, ref) -> np.ndarray:
     return t.astype(np.int32)
 
 
+def _jpeg_tables(d: _TiffDir) -> Optional[bytes]:
+    """The JPEGTables tag (347) as TIFFReadDirEntryByteArray reads it: raw
+    bytes, or integers each 0–255; None when it is absent, empty or
+    unreadable (libtiff drops the tag with a warning)."""
+    if 347 not in d.entries:
+        return None
+    typ, count, value = d.entries[347]
+    if typ not in _TIFF_BYTE_ARRAY_TYPES or not 0 < count <= 0x7FFFFFFF // _TIFF_SIZES[typ]:
+        return None
+    raw = d.data[value : value + _TIFF_SIZES[typ] * count]
+    if len(raw) != _TIFF_SIZES[typ] * count:
+        return None
+    if typ in (1, 2, 7):
+        return raw
+    vals = struct.unpack(f"{d.e}{count}{_TIFF_INTS[typ]}", raw)
+    return bytes(vals) if min(vals) >= 0 and max(vals) <= 255 else None
+
+
+def _jpeg_sof_sampling(data: bytes, offset: int, count: int, spp: int):
+    """tif_jpeg.c JPEGFixupTagsSubsampling: the first block's SOF read by
+    libtiff's own marker walk, 2048-byte reads of the block's byte count
+    (a read the file cannot fill ends the walk) → the luma's (h, v) sampling
+    when the chroma's is 1×1 and h and v are 1, 2 or 4, else None (the
+    YCbCrSubsampling default stays)."""
+    if offset == 0:
+        return None
+    buf, at, left = b"", 0, count
+
+    def byte():
+        nonlocal buf, at, offset, left
+        if at == len(buf):
+            if left == 0:
+                return None
+            m = min(2048, left)
+            buf, at = data[offset : offset + m], 0
+            if len(buf) != m:
+                return None
+            offset, left = offset + m, left - m
+        at += 1
+        return buf[at - 1]
+
+    def skip(k):
+        nonlocal buf, at, offset, left
+        if k <= len(buf) - at:
+            at += k
+            return
+        m = k - (len(buf) - at)
+        buf, at = b"", 0
+        if m <= left:
+            offset, left = offset + m, left - m
+        else:
+            left = 0
+
+    def word():
+        a = byte()
+        b = None if a is None else byte()
+        return None if b is None else a << 8 | b
+
+    while True:
+        m = byte()
+        while m is not None and m != 255:
+            m = byte()
+        while m == 255:
+            m = byte()
+        if m is None:
+            return None
+        if m == 0xD8:
+            continue
+        if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:  # segments skipped by their length
+            n = word()
+            if n is None or n < 2:
+                return None
+            if n > 2:
+                skip(n - 2)
+            continue
+        if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA) or word() != 8 + spp * 3:
+            return None
+        skip(7)
+        p = byte()
+        if p is None:
+            return None
+        skip(1)
+        for _ in range(1, spp):
+            skip(1)
+            q = byte()
+            if q is None or q != 0x11:
+                return None
+            skip(1)
+        h, v = p >> 4, p & 15
+        return (h, v) if h in (1, 2, 4) and v in (1, 2, 4) else None
+
+
 def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     """The first directory of a TIFF or BigTIFF file, read as libtiff reads
     it (see ``csrc/tiff.cpp`` for the strips and tiles): the tags libtiff
@@ -1323,7 +1420,13 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     (MinIsBlack, MinIsWhite) at 1, 8 and 16 bits, palette at 1, 4 and 8,
     RGB at 8 and 16 with or without alpha (unassociated alpha is
     premultiplied), CMYK at 8, YCbCr at 8 (subsampled when contiguous) and
-    CIE L*a*b* at 8 and 16 (contiguous). ``mapped``: the file is read as
+    CIE L*a*b* at 8 and 16 (contiguous). Compressions: none, LZW, PackBits,
+    deflate, the CCITT fax codecs and JPEG; old-style JPEG (6) and those of
+    ``_TIFF_NOT_CONFIGURED`` are refused as cv2 refuses them, those of
+    ``TIFF_UNPORTED`` as not decoded. A JPEG image under contiguous YCbCr
+    is read as libtiff's RGBA interface reads it (JPEGCOLORMODE_RGB: libjpeg
+    converts to RGB, and the blocks have the sizes of RGB ones); any other
+    photometric takes the JPEG's components as its samples. ``mapped``: the file is read as
     ``cv2.imread`` maps it (not as ``cv2.imdecode`` streams it), which
     changes the rule for uncompressed tiles and refuses the orientations
     that turn the image."""
@@ -1437,10 +1540,11 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
 
     offsets = strile(offsets_tag)
     row_bytes = _tiff_sizes(tile_w if tiled else width, spp, bps, contig)
-    ycc_sub, sampling_row = (1, 1), 0
+    ycc_sub, sampling_row, sub_fetched = (1, 1), 0, False
     if photometric == 6 and contig and spp == 3:  # YCbCr: rows of subsampled blocks
         sub = d.ints(530) if 530 in e and e[530][1] == 2 and e[530][0] in _TIFF_SHORT_TYPES else None
-        ycc_sub = (sub[0], sub[1]) if sub and max(sub) <= 0xFFFF else (2, 2)
+        sub_fetched = bool(sub) and max(sub) <= 0xFFFF
+        ycc_sub = (sub[0], sub[1]) if sub_fetched else (2, 2)
         hs, vs = ycc_sub
         if hs not in (1, 2, 4) or vs not in (1, 2, 4):
             raise _Refused(f"the YCbCr subsampling {hs}x{vs} (libtiff reads 1, 2 or 4 each way)")
@@ -1479,8 +1583,13 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
         counts = estimate()
     elif (contig and nblocks > 2 and compression == 1 and counts[0] != counts[1] and counts[0] and counts[1]):
         counts = estimate()
+    jpeg_ycc = compression == 7 and photometric == 6 and contig
+    if jpeg_ycc and spp == 3 and not sub_fetched:  # JPEGFixupTagsSubsampling, before the sizes
+        ycc_sub = _jpeg_sof_sampling(data, offsets[0], counts[0], spp) or ycc_sub
     if row_bytes == 0:
         raise _Refused("a zero scanline size")
+    if jpeg_ycc:  # TIFFRGBAImageBegin sets JPEGCOLORMODE_RGB: upsampled scanlines and blocks
+        row_bytes = _tiff_sizes(tile_w if tiled else width, spp, bps, contig)
     # OpenCV's readHeader and readData
     if photometric is None:
         raise _Refused("no PhotometricInterpretation (OpenCV requires it)")
@@ -1547,6 +1656,10 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
             put = "cmyk8" if bps == 8 else None
         elif photometric == 8:
             put = f"cielab{bps}"
+        elif jpeg_ycc:  # RGB from libjpeg, which converts three 8-bit components only: any other fails every block
+            if bps != 8 or spp != 3:
+                raise _Refused(f"a JPEG YCbCr image of {spp} samples at {bps} bits, which libjpeg does not convert")
+            put = "rgb8"
         elif photometric == 6:
             put = "ycbcr" if bps == 8 and spp == 3 and ycc_sub in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2),
                                                                    (1, 1)) else None
@@ -1616,9 +1729,10 @@ def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
                   swab=int(d.e == ">" and bps == 16), bitrev=int(fill_order == 2), mapped=int(mapped),
                   put=_TIFF_PUT[put], flip_h=int(orientation in (2, 3, 6, 7)), planes=planes,
                   plane_index=plane_index, ycc_hs=ycc_sub[0], ycc_vs=ycc_sub[1], sampling_row=sampling_row,
-                  white=white, group3_options=group3_options)
+                  white=white, group3_options=group3_options, jpeg_ycc=int(jpeg_ycc))
     status, img = native.tiff_decode(data, params, offsets, counts, grey_map, palette, ycc_tables,
-                                     _zlib() if compression in (8, 32946) else None)
+                                     _zlib() if compression in (8, 32946) else None,
+                                     _jpeg_tables(d) if compression == 7 else None)
     if status:
         raise _Refused(_TIFF_REFUSED.get(status, f"status {status}"))
     if mapped and orientation >= 5:

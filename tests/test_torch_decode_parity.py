@@ -392,11 +392,14 @@ def _refused():
     }
     for ext, fmt in [(".webp", "webp"), (".avif", "avif")]:
         cases[fmt] = (cv2.imencode(ext, img)[1].tobytes(), imcodec.FORMAT_NAMES[fmt], True)
-    # TIFF is decoded since, but not its JPEG and other compressions
-    # (``imcodec.TIFF_UNPORTED``): a JPEG-in-TIFF file, which cv2 decodes
-    buf = io.BytesIO()
-    Image.fromarray(img[..., ::-1]).save(buf, "TIFF", compression="jpeg")
-    cases["tiff"] = (buf.getvalue(), "compression JPEG (7) is not decoded", True)
+    # TIFF is decoded since, JPEG-compressed too, but not the compressions
+    # of ``imcodec.TIFF_UNPORTED``: a ThunderScan (32809) TIFF of 4-bit
+    # palette indices, which cv2 decodes (its libtiff's NeXT codec takes
+    # only 2-bit samples, which OpenCV refuses: no NeXT TIFF decodes there)
+    from test_torch_tiff import colormap, tiff_bytes
+
+    thunder = tiff_bytes(img[..., 0] >> 4, bits=4, photometric=3, compression=32809, colormap=colormap(4, 1))
+    cases["tiff"] = (thunder, "compression ThunderScan (32809) is not decoded", True)
     # decoded since, refused where cv2 refuses them: a GIF of another
     # version, a PFM signature ended by a carriage return, an XYZE HDR
     gif, pfm, hdr = (cv2.imencode(ext, img)[1].tobytes() for ext in (".gif", ".pfm", ".hdr"))
@@ -414,7 +417,7 @@ def _refused():
 def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog):
     """The refusals that remain. The JPEG, GIF, PFM and HDR ones are cv2's
     own on these files; WebP, JPEG 2000 and AVIF, and a TIFF whose
-    compression is one of ``imcodec.TIFF_UNPORTED`` (JPEG here), are
+    compression is one of ``imcodec.TIFF_UNPORTED`` (ThunderScan here), are
     decoded by cv2 and not by the port: the known difference, held here so
     that it cannot grow unnoticed."""
     data, reason, cv2_decodes = _refused()[name]
@@ -423,7 +426,7 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
         assert imcodec.decode_image(data) is None
     assert reason in caplog.text
     assert set(imcodec.FORMAT_NAMES) == {"webp", "jpeg2000", "avif"}
-    assert set(imcodec.TIFF_UNPORTED) == {7, 32766, 32809, 34676, 34677}
+    assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
 
 
 def test_a_damaged_zlib_stream_under_a_valid_crc_is_the_known_png_difference():

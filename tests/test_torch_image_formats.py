@@ -1302,8 +1302,12 @@ def scene_payloads(scene: np.ndarray) -> dict:
     PackBits and deflate (384 strips of 2 rows each); the scene thresholded
     to 1 bit as PIL's G4, G3 1D, G3 2D (T4Options 1) and CCITT RLE TIFFs and
     as an RLEW TIFF of the fax coder here, and the same at a fax page's
-    1728×2304 (nearest) as PIL's G4."""
+    1728×2304 (nearest) as PIL's G4; the scene as YCbCr JPEG TIFFs (q95
+    4:2:0, abbreviated streams under one JPEGTables tag) in 64-row strips
+    and in 256×256 tiles, and the committed ``jpeg_cases.npz`` scene0 JPEG
+    (the same q95 4:2:0 stream) as the one strip of a TIFF."""
     from test_torch_tiff_fax import fax_tiff, pil_fax
+    from test_torch_tiff_jpeg import jpeg, jpeg_tiff, split_tables, undefined
 
     h, w, _ = scene.shape
     black = (cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY) <= 128).astype(np.uint8)
@@ -1315,7 +1319,17 @@ def scene_payloads(scene: np.ndarray) -> dict:
     rows = np.pad(scene.reshape(h, -1), ((0, 0), (0, -w * 3 % 2))).tobytes()
     tiffs = {f"scene0_tiff_{name}": cv2.imencode(".tiff", scene, [cv2.IMWRITE_TIFF_COMPRESSION, c])[1].tobytes()
              for name, c in (("none", 1), ("lzw", 5), ("packbits", 32773), ("deflate", 8))}
-    return {**tiffs, **fax, "scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
+    rgb = scene[..., ::-1]
+    tables = split_tables(jpeg(rgb[:64], quality=95))[0]
+    strips = [split_tables(jpeg(rgb[y : y + 64], quality=95))[1] for y in range(0, h, 64)]
+    tiles = [split_tables(jpeg(rgb[y : y + 256, x : x + 256], quality=95))[1] for y in range(0, h, 256)
+             for x in range(0, w, 256)]
+    assert h % 256 == 0 and w % 256 == 0 and all(split_tables(jpeg(rgb[y : y + 64], quality=95))[0] == tables
+                                                 for y in range(0, h, 64))
+    jpegs = {"scene0_tiff_jpeg": jpeg_tiff(rgb, strips, rows=64, sub=(2, 2), tables=undefined(tables)),
+             "scene0_tiff_jpeg_tiles": jpeg_tiff(rgb, tiles, tile=(256, 256), sub=(2, 2), tables=undefined(tables)),
+             "scene0_tiff_jpeg_onestrip": jpeg_tiff(rgb, [assets.load_jpeg_cases()[0]["scene0"][0]], sub=(2, 2))}
+    return {**tiffs, **fax, **jpegs, "scene0_bmp24": bmps["bgr"][0], "scene0_grey_rle8": bmps["grey_rle8"][0],
             "scene0_ppm": f"P6\n{w} {h}\n255\n".encode() + np.ascontiguousarray(scene[..., ::-1]).tobytes(),
             "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows)),
             "scene0_pfm": pfm_bytes(scene[..., ::-1].astype(np.float32)),
@@ -1326,8 +1340,9 @@ def scene_payloads(scene: np.ndarray) -> dict:
 def write():
     """Rewrite ``image_cases.npz``: every BMP, netpbm, Sun raster, PFM,
     Radiance HDR and GIF case above and every TIFF kind of
-    ``tests/test_torch_tiff.py`` and ``tests/test_torch_tiff_fax.py``,
-    garbled and cut ones among them (and TIFFs with damaged strip data),
+    ``tests/test_torch_tiff.py``, ``tests/test_torch_tiff_fax.py`` and
+    ``tests/test_torch_tiff_jpeg.py``, garbled and cut ones among them (and
+    TIFFs with damaged strip data or JPEG headers, and cut JPEG blocks),
     damaged PNGs (decoded and refused) and the first serving scene as each
     timing payload, each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
@@ -1390,6 +1405,16 @@ def write():
         kept = [g for g in tiff_garbled(data, 8, seed=i + 150) if small_enough(g)][:3]
         cases.update({f"tiff_fax_{name}_garbled_{k}": g for k, g in enumerate(kept)})
         cases.update({f"tiff_fax_{name}_damaged_{k}": g for k, g in enumerate(fax_damaged(data, 3, seed=i + 170))})
+    from test_torch_tiff_jpeg import GARBLED as JPEG_GARBLED
+    from test_torch_tiff_jpeg import cut_blocks, damaged, jpeg_tiff_cases_cached
+
+    cases.update({f"tiff_jpeg_{k}": v for k, (v, _) in jpeg_tiff_cases_cached().items()})
+    for i, name in enumerate(JPEG_GARBLED):
+        data = jpeg_tiff_cases_cached()[name][0]
+        kept = [g for g in tiff_garbled(data, 8, seed=i + 190) if small_enough(g)][:2]
+        cases.update({f"tiff_jpeg_{name}_garbled_{k}": g for k, g in enumerate(kept)})
+        cases.update({f"tiff_jpeg_{name}_headers_{k}": g for k, g in enumerate(damaged(data, 2, i + 210, True))})
+        cases.update({f"tiff_jpeg_{name}_cut_block_{k}": g for k, g in enumerate(cut_blocks(data, 1, i + 230))})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
@@ -1402,7 +1427,7 @@ def write():
         want[:, written_columns(data, want.shape[1]):] = 0
         same = next((k for k in out if k.endswith("/cv2") and out[k].shape == want.shape
                      and (out[k] == want).all()), None)
-        if same is not None and want.size > 100_000:  # the scene's payloads decode alike
+        if same is not None and (want.size > 100_000 or name.startswith("tiff_jpeg_")):  # many decode alike
             out[f"{name}/same_as"] = np.array(same.rsplit("/", 1)[0])
         else:
             out[f"{name}/cv2"] = want
@@ -1434,10 +1459,14 @@ def fuzz(rounds: int) -> int:
     cut) and 300 files with damaged strip or tile data per codec and
     layout, and the same of the fax kinds of
     ``tests/test_torch_tiff_fax.py`` (its garbled test's kinds, and 300
-    files with damaged coded rows per fax compression and layout). Prints
-    the counts; returns the number of files that differ (a TIFF of a kind
-    the port names as not decoded, which garbling can reach, is counted
-    apart)."""
+    files with damaged coded rows per fax compression and layout), and of
+    the JPEG kinds of ``tests/test_torch_tiff_jpeg.py`` (its garbled test's
+    kinds: 200 changed copies each and every cut; then 150 copies with the
+    JPEG headers damaged, 150 with the blocks damaged anywhere, 100 with a
+    block's byte count cut, and 100 with the JPEGTables tag's bytes changed
+    or cut, where the kind has the tag). Prints the counts; returns the
+    number of files that differ (a TIFF of a kind the port names as not
+    decoded, which garbling can reach, is counted apart)."""
     from test_torch_tiff import COMPRESSIONS, GARBLED, noise, small_enough, tiff_bytes, tiff_cases_cached
     from test_torch_tiff import answers as tiff_answers
     from test_torch_tiff import garbled as tiff_garbled
@@ -1445,8 +1474,10 @@ def fuzz(rounds: int) -> int:
     from test_torch_tiff_fax import GARBLED as FAX_GARBLED
     from test_torch_tiff_fax import damaged as fax_damaged
     from test_torch_tiff_fax import fax_cases_cached, fax_tiff, page
+    from test_torch_tiff_jpeg import GARBLED as JPEG_GARBLED
+    from test_torch_tiff_jpeg import cut_blocks, damaged, jpeg_tiff_cases_cached, tables_changed
 
-    files = bad = known = fax_files = 0
+    files = bad = known = fax_files = jpeg_files = 0
     for r in range(rounds):
         tiffs = []
         for i, name in enumerate(GARBLED):
@@ -1468,6 +1499,15 @@ def fuzz(rounds: int) -> int:
                 data = fax_tiff(page(40, 50, seed=r), kind, **blocks)
                 tiffs += fax_damaged(data, 300, seed=1000 * r + i + 950)
         fax_files += len(tiffs) - n_tiffs
+        n_tiffs = len(tiffs)
+        for i, name in enumerate(JPEG_GARBLED):
+            data = jpeg_tiff_cases_cached()[name][0]
+            seed = 1000 * r + 20 * i + 1100
+            tiffs += [g for g in tiff_garbled(data, 200, seed=seed) if small_enough(g)]
+            tiffs += [data[:k] for k in range(4, len(data))]
+            tiffs += damaged(data, 150, seed + 1, True) + damaged(data, 150, seed + 2, False)
+            tiffs += cut_blocks(data, 100, seed + 3) + tables_changed(data, 100, seed + 4)
+        jpeg_files += len(tiffs) - n_tiffs
         files += len(tiffs)
         got = [tiff_answers(d) for d in tiffs]
         bad += sum(a not in ("none", "equal", "known") for a in got)
@@ -1481,7 +1521,8 @@ def fuzz(rounds: int) -> int:
         datas = [d for k in range(5) for d in lzw_streams(100 * r + k + 10, 600)]
         files += len(datas)
         bad += sum(answers(d) not in ("none", "equal") for d in datas)
-        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs), {bad} differ from cv2 {cv2.__version__} "
+        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs), {bad} differ from "
+              f"cv2 {cv2.__version__} "
               f"({known} TIFFs of a kind named as not decoded)", flush=True)
     return bad
 

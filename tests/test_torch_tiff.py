@@ -14,9 +14,10 @@ last ones partial), both byte orders, BigTIFF, the eight orientations, and
 the directory's odd cases (no RowsPerStrip, no or wrong StripByteCounts,
 several pages). Then garbled and cut files and damaged LZW, PackBits and
 deflate strips. What cv2 refuses the port refuses; the compressions cv2
-decodes and the port does not (JPEG, NeXT, ThunderScan, SGI Log) are a
-known difference, each refused with one log line that names it. The CCITT
-fax compressions are held in ``tests/test_torch_tiff_fax.py``.
+decodes and the port does not (NeXT, ThunderScan, SGI Log) are a known
+difference, each refused with one log line that names it. The CCITT fax
+compressions are held in ``tests/test_torch_tiff_fax.py``, JPEG in
+``tests/test_torch_tiff_jpeg.py``.
 """
 
 import io
@@ -676,7 +677,7 @@ def test_a_damaged_lzw_strip_still_gives_cv2s_image():
 
 
 # compressions and photometric interpretations cv2 decodes and the port does not
-KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (7, 32766, 32809)},
+KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (32766, 32809)},
                      "compression34676": dict(compression=34676, photometric=32844),
                      "compression34677": dict(compression=34677, photometric=32845)}
 
@@ -685,7 +686,7 @@ KNOWN_DIFFERENCES = {**{f"compression{c}": dict(compression=c) for c in (7, 3276
 def test_an_unported_tiff_kind_logs_one_line_naming_it(name, caplog):
     """The known difference: these are refused with one log line that names
     them, whatever cv2 makes of them. The set is pinned."""
-    assert set(imcodec.TIFF_UNPORTED) == {7, 32766, 32809, 34676, 34677}
+    assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
     kw = KNOWN_DIFFERENCES[name]
     spp = 1 if kw.get("compression", 1) in (32809, 34676) else 3
     bits = 8
