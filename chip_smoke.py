@@ -123,15 +123,17 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 13. image formats vs cv2: every committed case of ``assets/image_cases.npz``
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
-    PFM, Radiance HDR, GIF, and TIFF and BigTIFF of every kind the port
-    decodes, CCITT fax and JPEG ones included, garbled and cut files,
-    damaged TIFF strips and JPEG headers among them)
+    PFM, Radiance HDR, GIF, TIFF and BigTIFF of every kind the port
+    decodes, CCITT fax and JPEG ones included, and lossless WebP (simple,
+    extended and animated files, written VP8L streams), garbled, cut and
+    mutated files, damaged TIFF strips and JPEG headers among them)
     decoded with ``decode_image`` (``csrc/bmp_rle.cpp``,
-    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp`` and ``csrc/tiff.cpp`` with
-    ``csrc/jpeg.cpp`` built with the host compiler), each equal to the cv2
-    decode stored beside it (a grey PFM's is [H, W]), or ``None`` where cv2
-    gave ``None``; the case counts by format, the TIFF count, the fax count
-    and the JPEG TIFF count; the host ms to
+    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp``, ``csrc/tiff.cpp`` with
+    ``csrc/jpeg.cpp`` and ``csrc/webp.cpp`` built with the host compiler),
+    each equal to the cv2 decode stored beside it (a grey PFM's is [H, W]),
+    or ``None`` where cv2 gave ``None``; the case counts by format, the
+    TIFF count, the fax count, the JPEG TIFF count and the WebP count
+    (``webp_vs_cv2``); the host ms to
     decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
     binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
     refuses: the time of the refusal), a PFM, a run-length HDR, a GIF and
@@ -140,7 +142,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     and RLEW TIFFs and a 1728×2304 fax page of it as G4, and the scene as
     YCbCr JPEG TIFFs (q95 4:2:0 under JPEGTables, in 64-row strips and in
     256×256 tiles, and phase 11's scene0 JPEG as one strip) beside that
-    bare JPEG, in turns, median of 25 after one untimed; then the same
+    bare JPEG, and the scene as cv2's default (lossless) WebP and its grey
+    in 16 levels as one (colour indexing, two pixels a byte), in turns,
+    median of 25 after one untimed; then the same
     24-bit and RLE8 BMPs, the LZW TIFF (as data) and the uncompressed TIFF
     (by path) through the service (a subprocess as in phase 7) answer the
     words of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the
@@ -152,7 +156,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     ``ctc_topk`` launched by the BMP requests and by the HDR and GIF ones,
     the one-strip JPEG TIFF (as data) answers the words phase 4's worker
     gives on its decode and those of the bare JPEG request, and launches
-    ``ctc_topk`` ("jpeg tiff service"); a
+    ``ctc_topk`` ("jpeg tiff service"), the lossless WebP (as data)
+    answers the words of the PNG of the same pixels and launches
+    ``ctc_topk`` ("webp service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1303,8 +1309,8 @@ class Smoke:
             raise AssertionError("needs the bf16 serving phase's worker")
         t0 = time.perf_counter()
         libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
-                                              native.TIFF_SOURCE)]
-        print(f"bmp rle, hdr, gif and tiff (with jpeg) decoder builds: {time.perf_counter() - t0:.2f} s "
+                                              native.TIFF_SOURCE, native.WEBP_SOURCE)]
+        print(f"bmp rle, hdr, gif, tiff (with jpeg) and webp decoder builds: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
@@ -1313,7 +1319,7 @@ class Smoke:
         jpeg_timed = ("scene0_tiff_jpeg", "scene0_tiff_jpeg_tiles", "scene0_tiff_jpeg_onestrip")
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
-                 "scene0_tiff_deflate") + fax_timed + jpeg_timed
+                 "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1359,6 +1365,11 @@ class Smoke:
         if bare_jpeg not in jpeg_tiff_data or not (decode_image(jpeg_tiff_data) == decode_image(bare_jpeg)).all():
             raise AssertionError("the one-strip JPEG TIFF does not hold the scene0 JPEG's pixels")
         want_jpeg_tiff = self.serving_worker.process(decode_image(jpeg_tiff_data), 0)["words"]
+        # the scene as cv2's default (lossless) WebP, beside the PNG of the same pixels
+        webp_data = cases["scene0_webp"][0]
+        if webp_data[12:16] != b"VP8L":
+            raise AssertionError("scene0_webp is not a lossless (VP8L) WebP")
+        webp_png = encode_png(decode_image(webp_data))
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1428,6 +1439,14 @@ class Smoke:
                             "the one-strip JPEG TIFF vs the bare JPEG request")
                 words["scene0_tiff_jpeg_onestrip"] = len(got_jpeg_tiff["words"])
                 before = service_launches(c)
+                got_webp = c.send_request(req(webp_data))
+                self.launches["webp service"] = launched_webp = launches_since(c, before, "WebP")
+                want = c.send_request(req(webp_png))
+                if not got_webp.get("success") or not want.get("words"):
+                    raise AssertionError(f"lossless WebP: {str(got_webp)[:200]} / {str(want)[:200]}")
+                check_words(got_webp["words"], want["words"], "the lossless WebP vs the PNG of the same pixels")
+                words["scene0_webp"] = len(got_webp["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1460,6 +1479,8 @@ class Smoke:
             "fax_vs_cv2": f"{fax[0]} CCITT fax TIFF cases (RLE, RLEW, G3 1D and 2D, G4) equal cv2's answer, "
             f"{fax[1]} of them None",
             "tiff_jpeg_vs_cv2": f"{jpeg_tiff[0]} JPEG TIFF cases equal cv2's answer, {jpeg_tiff[1]} of them None",
+            "webp_vs_cv2": f"{counts.get('webp', [0, 0])[0]} lossless WebP cases equal cv2's answer, "
+            f"{counts.get('webp', [0, 0])[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1468,9 +1489,9 @@ class Smoke:
             "service_words": words, "launches_of_2_bmp_requests": launched,
             "launches_of_hdr_and_gif_requests": launched_hdr_gif,
             "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
-            "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff,
+            "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff, "launches_of_the_webp_request": launched_webp,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twenty-two payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the twenty-four payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

@@ -2,9 +2,10 @@
 core, ``csrc/dbpost.cpp``, the JPEG decoder, ``csrc/jpeg.cpp``, the BMP
 run-length decoder, ``csrc/bmp_rle.cpp``, the Radiance HDR scanline
 decoder, ``csrc/hdr_rgbe.cpp``, the GIF LZW decoder,
-``csrc/gif_lzw.cpp``, and the TIFF strip and tile decoder, ``csrc/tiff.cpp``,
+``csrc/gif_lzw.cpp``, the TIFF strip and tile decoder, ``csrc/tiff.cpp``,
 built together with ``csrc/jpeg.cpp`` (its JPEG blocks, through
-``csrc/jpeg_tiff.h``).
+``csrc/jpeg_tiff.h``), and the lossless WebP (VP8L) decoder,
+``csrc/webp.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -44,6 +45,7 @@ BMP_RLE_SOURCE = CSRC / "bmp_rle.cpp"
 HDR_SOURCE = CSRC / "hdr_rgbe.cpp"
 GIF_SOURCE = CSRC / "gif_lzw.cpp"
 TIFF_SOURCE = CSRC / "tiff.cpp"
+WEBP_SOURCE = CSRC / "webp.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp
 BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h")}
@@ -55,6 +57,7 @@ _bmp_rle_lib = None
 _hdr_lib = None
 _gif_lib = None
 _tiff_lib = None
+_webp_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -405,3 +408,31 @@ def tiff_decode(data: bytes, params: dict, offsets: np.ndarray, counts: np.ndarr
     if status == 3:
         raise ValueError("tiff_decode: parameters the decoder does not take")
     return status, out
+
+
+def load_webp_library() -> ctypes.CDLL:
+    """Build (if needed) and load the lossless WebP (VP8L) decoder."""
+    global _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            lib = ctypes.CDLL(str(build(WEBP_SOURCE)))
+            lib.vp8l_decode.restype = ctypes.c_int
+            lib.vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
+                                        ctypes.c_int32, ctypes.c_int32]
+            _webp_lib = lib
+    return _webp_lib
+
+
+def vp8l_decode(data: bytes, width: int, height: int) -> Tuple[int, Optional[np.ndarray]]:
+    """A VP8L bitstream (the chunk's payload and whatever follows it) →
+    (status, [height, width, 3] BGR uint8, the alpha dropped, or None).
+    ``width`` and ``height`` are its header's. Status 0 is success; the
+    others are ``csrc/webp.cpp``'s codes."""
+    if width <= 0 or height <= 0:
+        raise ValueError(f"vp8l_decode: {width}x{height}")
+    lib = load_webp_library()
+    out = np.empty((height, width, 3), np.uint8)
+    status = lib.vp8l_decode(data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), width, height)
+    if status == 9:
+        raise ValueError(f"vp8l_decode: {width}x{height} is not the header's size")
+    return status, (None if status else out)

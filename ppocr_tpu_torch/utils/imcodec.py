@@ -100,17 +100,33 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   uncompressed tile must hold exactly its size, an orientation that turns
   the image (5–8) is refused, and RLEW aligns its rows on the mapped
   address.
+* **WebP, lossless** (the RIFF container in Python, the VP8L bitstream in
+  ``csrc/webp.cpp``, host C++ built at first use), as OpenCV 5.0's
+  ``grfmt_webp.cpp`` reads it through its bundled libwebp: the first 32
+  bytes must pass ``WebPGetFeatures``; a still image is decoded as
+  ``WebPDecode`` decodes it (the simple format, the extended format with
+  its VP8X canvas equal to the VP8L size and any metadata chunks, or a
+  bare VP8L chunk or bitstream; the RIFF size checked against the data,
+  trailing bytes ignored, the bit reader free to read past the VP8L chunk
+  into what follows it); the first frame of an animation as
+  ``WebPAnimDecoder`` gives it (the demuxer's rules on every chunk and
+  frame, the frame's pixels at its offset on a zero canvas, no blending,
+  no background colour); alpha is dropped, not blended. The EXIF chunk's
+  orientation is applied where the demuxer accepts the file and the VP8X
+  flags name the chunk, read as a TIFF header from the chunk's first byte
+  (a leading ``Exif\\0\\0`` hides it, as it does from cv2).
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
-over ``imdecode``'s size limits (where cv2 raises), and, named by their
-sniffed format, what cv2 decodes and this module does not
-(``FORMAT_NAMES``): WebP, JPEG 2000 and AVIF, and TIFF's compressions of
-``TIFF_UNPORTED`` (NeXT, ThunderScan, SGI Log). ``None``
-becomes the reference's own error response in the
-service. A JPEG, run-length BMP, HDR, GIF or TIFF decode raises when its
-host C++ cannot be built: a missing compiler is not a bad image.
+over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
+and this module does not: JPEG 2000 and AVIF, named by their sniffed
+format (``FORMAT_NAMES``), TIFF's compressions of ``TIFF_UNPORTED``
+(NeXT, ThunderScan, SGI Log), and lossy WebP (``WEBP_UNPORTED``: a
+``VP8 `` bitstream, with or without ALPH, or as an animation's first
+frame). ``None`` becomes the reference's own error response in the
+service. A JPEG, run-length BMP, HDR, GIF, TIFF or WebP decode raises
+when its host C++ cannot be built: a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -161,6 +177,11 @@ def sniff_format(data: bytes) -> str:
         return "pfm"
     if data[:10] == b"#?RADIANCE" or data[:6] == b"#?RGBE":
         return "hdr"
+    # a bare WebP chunk or bitstream, which libwebp reads without RIFF: VP8L
+    # by its signature byte and version bits, a VP8 key frame by its start code
+    if data[:4] in (b"VP8L", b"VP8 ", b"ALPH") or (data[:1] == b"\x2f" and len(data) >= 5 and data[4] >> 5 == 0) or (
+            data[3:6] == b"\x9d\x01\x2a"):
+        return "webp"
     return "unknown"
 
 
@@ -1787,11 +1808,408 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
     return img
 
 
+# -- WebP ---------------------------------------------------------------------
+# The RIFF container as OpenCV 5.0's grfmt_webp.cpp reads it through its
+# bundled libwebp: src/dec/webp_dec.c for a still image, src/demux/demux.c
+# and src/demux/anim_decode.c for an animation and for the EXIF chunk; the
+# VP8L bitstream in csrc/webp.cpp
+
+WEBP_HEADER_SIZE = 32  # grfmt_webp.cpp: readHeader needs this many bytes
+_WEBP_MAX_CHUNK_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_WEBP_VALID_FLAGS = 0x3E  # demux.c ALL_VALID_FLAGS: alpha, animation, ICCP, EXIF, XMP
+# what cv2 decodes and this module does not, by the bitstream's chunk tag
+WEBP_UNPORTED = {b"VP8 ": "lossy (VP8)"}
+# csrc/webp.cpp's Status codes other than success
+_WEBP_REFUSED = {1: "a VP8L header whose signature or version is wrong",
+                 2: "the VP8L data ends before the image does", 3: "a VP8L transform given twice",
+                 4: "colour cache bits outside 1..11",
+                 5: "a prefix code that is over-subscribed, incomplete or empty",
+                 6: "prefix code lengths past the alphabet",
+                 7: "a backward reference before the first pixel or past the last", 8: "out of memory"}
+
+
+class _WebPError(Exception):
+    """libwebp's BITSTREAM_ERROR, or NOT_ENOUGH_DATA where ``short``."""
+
+    def __init__(self, reason: str, short: bool = False):
+        super().__init__(reason)
+        self.short = short
+
+
+def _u24(data: bytes, at: int) -> int:
+    return int.from_bytes(data[at : at + 3], "little")
+
+
+def _le32(data: bytes, at: int) -> int:
+    return int.from_bytes(data[at : at + 4], "little")
+
+
+def _webp_optional_chunks(data: bytes, pos: int, riff_size: int) -> int:
+    """webp_dec.c ParseOptionalChunks: skips the chunks before the VP8/VP8L
+    chunk (odd sizes padded) and returns its offset."""
+    total = 4 + 8 + 10  # "WEBP" and the VP8X chunk
+    while True:
+        if len(data) - pos < 8:
+            raise _WebPError("the data ends inside the chunks before the image", short=True)
+        size = _le32(data, pos + 4)
+        if size > _WEBP_MAX_CHUNK_PAYLOAD:
+            raise _WebPError(f"a chunk of {size} bytes")
+        disk = (8 + size + 1) & ~1
+        total = (total + disk) & 0xFFFFFFFF  # uint32, as libwebp adds
+        if riff_size and total > riff_size:
+            raise _WebPError("chunks past the RIFF size")
+        if data[pos : pos + 4] in (b"VP8 ", b"VP8L"):
+            return pos
+        if len(data) - pos < disk:
+            raise _WebPError("the data ends inside a chunk before the image", short=True)
+        pos += disk
+
+
+def _vp8_info(data: bytes, pos: int, chunk_size: int):
+    """vp8_dec.c VP8GetInfo: a lossy key frame's width and height."""
+    bits = int.from_bytes(data[pos : pos + 3], "little")
+    w = int.from_bytes(data[pos + 6 : pos + 8], "little") & 0x3FFF
+    h = int.from_bytes(data[pos + 8 : pos + 10], "little") & 0x3FFF
+    if (data[pos + 3 : pos + 6] != b"\x9d\x01\x2a" or bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1
+            or bits >> 5 >= chunk_size or not w or not h):
+        raise _WebPError("a VP8 frame header libwebp refuses")
+    return w, h
+
+
+def _webp_headers(data: bytes, full: bool):
+    """webp_dec.c ParseHeadersInternal, as WebPGetFeatures runs it on the
+    first 32 bytes (``full`` False; a VP8X chunk then answers for the image
+    even where the rest is cut off) or WebPDecode on the whole file.
+    Returns (width, height, animated, lossless, offset of the bitstream);
+    the last two are None where the VP8X chunk answered."""
+    n = len(data)
+    if n < 12:
+        raise _WebPError("fewer than 12 bytes", short=True)
+    riff_size = pos = 0
+    riff = data[:4] == b"RIFF"
+    if riff:  # ParseRIFF
+        if data[8:12] != b"WEBP":
+            raise _WebPError("a RIFF file that is not WEBP")
+        riff_size = _le32(data, 4)
+        if riff_size < 12 or riff_size > _WEBP_MAX_CHUNK_PAYLOAD:
+            raise _WebPError(f"a RIFF size of {riff_size}")
+        if full and riff_size > n - 8:
+            raise _WebPError("the RIFF size passes the end of the data", short=True)
+        pos = 12
+    if n - pos < 8:  # ParseVP8X
+        raise _WebPError("the data ends before the first chunk", short=True)
+    vp8x = data[pos : pos + 4] == b"VP8X"
+    flags = cw = ch = 0
+    if vp8x:
+        if _le32(data, pos + 4) != 10:
+            raise _WebPError("a VP8X chunk whose size is not 10")
+        if n - pos < 18:
+            raise _WebPError("the data ends inside the VP8X chunk", short=True)
+        flags, cw, ch = _le32(data, pos + 8), 1 + _u24(data, pos + 12), 1 + _u24(data, pos + 15)
+        if cw * ch >= 1 << 32:
+            raise _WebPError(f"a {cw}x{ch} canvas")
+        pos += 18
+        if not riff:
+            raise _WebPError("a VP8X chunk outside a RIFF file")
+    animated = bool(flags & 2)
+    if vp8x and animated and not full:
+        return cw, ch, True, None, None
+    try:
+        if n - pos < 4:
+            raise _WebPError("the data ends before the image chunk", short=True)
+        if (riff and vp8x) or (not riff and not vp8x and data[pos : pos + 4] == b"ALPH"):
+            pos = _webp_optional_chunks(data, pos, riff_size)
+        if n - pos < 8:  # ParseVP8Header
+            raise _WebPError("the data ends before the image chunk", short=True)
+        tag = data[pos : pos + 4]
+        if tag in (b"VP8 ", b"VP8L"):
+            size = _le32(data, pos + 4)
+            if riff_size >= 12 and size > riff_size - 12:
+                raise _WebPError(f"a {tag.decode()} chunk larger than the RIFF size")
+            if full and size > n - pos - 8:
+                raise _WebPError(f"the {tag.decode()} chunk passes the end of the data", short=True)
+            pos += 8
+            lossless = tag == b"VP8L"
+        else:  # a bare bitstream: VP8LCheckSignature tells the two apart
+            size = n - pos
+            lossless = size >= 5 and data[pos] == 0x2F and data[pos + 4] >> 5 == 0
+        if size > _WEBP_MAX_CHUNK_PAYLOAD:
+            raise _WebPError(f"a bitstream of {size} bytes")
+        if not lossless:
+            if n - pos < 10:
+                raise _WebPError("the data ends inside the VP8 frame header", short=True)
+            w, h = _vp8_info(data, pos, size)
+        else:  # VP8LGetInfo
+            if n - pos < 5:
+                raise _WebPError("the data ends inside the VP8L header", short=True)
+            head = int.from_bytes(data[pos : pos + 5], "little")
+            if head & 0xFF != 0x2F or head >> 37:
+                raise _WebPError("a VP8L header whose signature or version is wrong")
+            w, h = 1 + ((head >> 8) & 0x3FFF), 1 + ((head >> 22) & 0x3FFF)
+        if vp8x and (cw, ch) != (w, h):
+            raise _WebPError(f"a {cw}x{ch} canvas around a {w}x{h} image")
+    except _WebPError as e:
+        if e.short and vp8x and not full:
+            return cw, ch, animated, None, None
+        raise
+    return w, h, animated, lossless, pos
+
+
+class _WebPFrame:
+    num = 0
+    complete = False
+    alpha = image = None  # (offset, size) of the chunk, its header included
+    x = y = w = h = 0
+
+
+def _webp_demux(data: bytes):
+    """demux.c WebPDemux on the whole file, of the extended format (the
+    simple format stores no chunks and holds no animation): (canvas width,
+    canvas height, flags, frames, the first EXIF payload stored or None).
+    Raises _WebPError where it returns NULL. Every NEED_MORE_DATA is an
+    error here, since the whole file is given."""
+    n = len(data)
+    if n < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":  # ReadHeader
+        raise _WebPError("not a RIFF WEBP file")
+    riff_size = _le32(data, 4)
+    if riff_size < 8 or riff_size > _WEBP_MAX_CHUNK_PAYLOAD or n < riff_size + 8:
+        raise _WebPError("a RIFF size the demuxer refuses")
+    end = riff_size + 8  # nothing past the RIFF payload is read
+    if data[12:16] != b"VP8X":
+        raise _WebPError("the simple format")
+    pos = 20
+
+    def check(size: int):  # SizeIsInvalid, and the data a read needs
+        if size > end - pos:
+            raise _WebPError("a chunk past the RIFF size")
+
+    vsize = _le32(data, 16)  # ParseVP8X
+    if vsize > _WEBP_MAX_CHUNK_PAYLOAD or vsize < 10:
+        raise _WebPError(f"a VP8X chunk of {vsize} bytes")
+    vsize += vsize & 1
+    check(vsize)
+    flags, cw, ch = data[pos], 1 + _u24(data, pos + 4), 1 + _u24(data, pos + 7)
+    if cw * ch >= 1 << 32:
+        raise _WebPError(f"a {cw}x{ch} canvas")
+    pos += vsize
+    check(8)
+    animation = bool(flags & 2)
+    frames = []
+    exif = None
+
+    def add(frame: _WebPFrame):  # AddFrame
+        if frames and not frames[-1].complete:
+            raise _WebPError("a frame after an incomplete one")
+        frames.append(frame)
+
+    def store_frame(num: int, min_size: int, frame: _WebPFrame):  # StoreFrame
+        nonlocal pos
+        check(max(8, min_size))
+        alpha_chunks = image_chunks = 0
+        while True:
+            start = pos
+            tag, size = data[pos : pos + 4], _le32(data, pos + 4)
+            pos += 8
+            if size > _WEBP_MAX_CHUNK_PAYLOAD:
+                raise _WebPError(f"a chunk of {size} bytes")
+            padded = size + (size & 1)
+            check(padded)
+            if tag == b"ALPH" and not alpha_chunks:
+                alpha_chunks = 1
+                frame.alpha, frame.num = (start, 8 + padded), num
+            elif tag in (b"VP8L", b"VP8 "):
+                if tag == b"VP8L" and alpha_chunks:
+                    raise _WebPError("an ALPH chunk before a VP8L chunk")
+                if image_chunks:
+                    pos = start
+                    return
+                image_chunks = 1
+                w, h, _, _, _ = _webp_headers(data[start : start + 8 + padded], full=False)
+                frame.image, frame.w, frame.h, frame.num, frame.complete = (start, 8 + padded), w, h, num, True
+            else:
+                pos = start
+                return
+            pos += padded
+            if pos == end:
+                return
+            check(8)
+
+    anim_chunks = 0
+    while True:  # ParseVP8XChunks
+        start = pos
+        tag, size = data[pos : pos + 4], _le32(data, pos + 4)
+        pos += 8
+        if size > _WEBP_MAX_CHUNK_PAYLOAD:
+            raise _WebPError(f"a chunk of {size} bytes")
+        padded = size + (size & 1)
+        check(padded)
+        if tag == b"VP8X":
+            raise _WebPError("a second VP8X chunk")
+        if tag in (b"ALPH", b"VP8 ", b"VP8L"):  # ParseSingleImage
+            if anim_chunks or animation:
+                raise _WebPError("an image outside the frames of an animation")
+            if frames:
+                raise _WebPError("a second image")
+            pos = start
+            frame = _WebPFrame()
+            store_frame(1, 0, frame)
+            if not flags & 0x10:  # no alpha flag: the ALPH chunk is dropped
+                frame.alpha = None
+            add(frame)
+        elif tag == b"ANIM":
+            if padded < 6:
+                raise _WebPError("an ANIM chunk under 6 bytes")
+            anim_chunks += 1
+            pos += padded
+        elif tag == b"ANMF":  # ParseAnimationFrame
+            if not anim_chunks:
+                raise _WebPError("an ANMF chunk before the ANIM chunk")
+            check(16)
+            if padded < 16:
+                raise _WebPError("an ANMF chunk under 16 bytes")
+            frame = _WebPFrame()
+            frame.x, frame.y = 2 * _u24(data, pos), 2 * _u24(data, pos + 3)
+            w, h = 1 + _u24(data, pos + 6), 1 + _u24(data, pos + 9)
+            if w * h >= 1 << 32:
+                raise _WebPError(f"a {w}x{h} frame")
+            pos += 16
+            first = pos
+            store_frame(len(frames) + 1, padded - 16, frame)
+            if pos - first > padded - 16:
+                raise _WebPError("a frame's chunks past its ANMF chunk")
+            if animation and frame.num:
+                add(frame)
+        else:  # ICCP, EXIF, XMP (stored where the flags name them) and unknown chunks
+            if tag == b"EXIF" and flags & 0x08 and exif is None:
+                exif = data[start + 8 : start + 8 + size]
+            pos += padded
+        if pos == end:
+            break
+        check(8)
+    # IsValidExtendedFormat
+    if not frames:
+        raise _WebPError("no image")
+    if flags & ~_WEBP_VALID_FLAGS:
+        raise _WebPError(f"the VP8X flags {flags:#x}")
+    for f in frames:
+        if not f.complete:
+            raise _WebPError("a frame without an image chunk")
+        if f.alpha is not None and f.alpha[0] > f.image[0]:
+            raise _WebPError("an ALPH chunk after its image")
+        if animation:
+            fits = f.x + f.w <= cw and f.y + f.h <= ch
+        else:
+            fits = (f.x, f.y, f.w, f.h) == (0, 0, cw, ch)
+        if not fits:
+            raise _WebPError(f"a {f.w}x{f.h} frame at ({f.x}, {f.y}) outside the {cw}x{ch} canvas")
+    return cw, ch, flags, frames, exif
+
+
+# ExifReader::parseExifEntry: the tags whose values it reads (a read past
+# the payload ends the parse): strings, and rationals by their count
+_EXIF_STRINGS = (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298)
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3, 0x0214: 6}
+
+
+def _exif_orientation(exif: bytes) -> int:
+    """OpenCV's ExifReader on a WebP EXIF payload, read as a TIFF header from
+    its first byte (a leading ``Exif\\0\\0`` hides it): IFD0's first 0x0112
+    entry's 16-bit value, 0 without one. Two equal bytes 'II' are Intel
+    order; anything else reads as Motorola order. An entry before it whose
+    string or rationals lie past the payload ends the parse, as
+    ExifParsingError does."""
+    n = len(exif)
+    little = n >= 1 and exif[0] == ord("I") and (n == 1 or exif[1] == exif[0])
+
+    def u16(at: int) -> int:
+        if at + 1 >= n:
+            raise IndexError
+        return int.from_bytes(exif[at : at + 2], "little" if little else "big")
+
+    def u32(at: int) -> int:
+        if at + 3 >= n:
+            raise IndexError
+        return int.from_bytes(exif[at : at + 4], "little" if little else "big")
+
+    try:
+        if u16(2) != 0x2A:
+            return 0
+        ifd = u32(4)
+        for k in range(u16(ifd)):
+            entry = ifd + 2 + 12 * k
+            tag = u16(entry)
+            if tag == 0x0112:
+                return u16(entry + 8)
+            if tag in _EXIF_STRINGS:  # getString
+                size = u32(entry + 4)
+                at = u32(entry + 8) if size > 4 else 8
+                if at > n or at + size > n:
+                    raise IndexError
+            elif tag in _EXIF_RATIONALS:  # getResolution, getWhitePoint, ...
+                u32(u32(entry + 8) + 8 * _EXIF_RATIONALS[tag] - 4)
+            elif tag in (0x0128, 0x0213):  # getResolutionUnit, getYCbCrPos
+                u16(entry + 8)
+    except IndexError:  # ExifParsingError: the entries read so far stand
+        pass
+    return 0
+
+
+def _decode_webp(data: bytes) -> np.ndarray:
+    """The header's first 32 bytes (WebPGetFeatures: fewer refuses the file),
+    then a still image (WebPDecode: RIFF size, chunk sizes, VP8X canvas equal
+    to the VP8L size) or the first frame of an animation (WebPAnimDecoder:
+    the frame's VP8L image at its offset on a zero canvas, no blending, no
+    background colour), then the EXIF orientation, where the demuxer
+    accepts the file and the VP8X flags name the chunk. Lossy (VP8)
+    bitstreams are ``WEBP_UNPORTED``."""
+    if len(data) < WEBP_HEADER_SIZE:
+        raise _Refused(f"fewer than {WEBP_HEADER_SIZE} bytes")
+    try:
+        w, h, animated, _, _ = _webp_headers(data[:WEBP_HEADER_SIZE], full=False)
+    except _WebPError as e:
+        raise _Refused(f"a header WebPGetFeatures refuses: {e}")
+    from ..ops import native  # builds csrc/webp.cpp at first use; raises if it cannot
+
+    try:
+        demuxed = _webp_demux(data)
+    except _WebPError as e:
+        if animated:
+            raise _Refused(f"an animation the demuxer refuses: {e}")
+        demuxed = None
+    _check_size(w, h)
+    if animated:
+        cw, ch, _, frames, exif = demuxed
+        first = frames[0]
+        if first.alpha is not None or data[first.image[0] : first.image[0] + 4] != b"VP8L":
+            raise _Refused(f"the first frame of an animation: {WEBP_UNPORTED[b'VP8 ']} is not decoded")
+        start, size = first.image
+        status, frame = native.vp8l_decode(data[start + 8 : start + size], first.w, first.h)
+        if status:
+            raise _Refused(f"the first frame: {_WEBP_REFUSED.get(status, f'status {status}')}")
+        img = np.zeros((ch, cw, 3), np.uint8)
+        img[first.y : first.y + first.h, first.x : first.x + first.w] = frame
+    else:
+        try:
+            w, h, _, lossless, pos = _webp_headers(data, full=True)
+        except _WebPError as e:
+            raise _Refused(str(e))
+        if not lossless:
+            raise _Refused(f"{WEBP_UNPORTED[b'VP8 ']} is not decoded")
+        status, img = native.vp8l_decode(data[pos:], w, h)
+        if status:
+            raise _Refused(_WEBP_REFUSED.get(status, f"status {status}"))
+        exif = demuxed[4] if demuxed else None
+    orientation = _exif_orientation(exif) if exif is not None else 0
+    if orientation in _ORIENT:
+        img = np.ascontiguousarray(_ORIENT[orientation](img))
+    return img
+
+
 # -- entry points -------------------------------------------------------------
 
 _DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
              "sunraster": _decode_sunraster, "pfm": _decode_pfm, "hdr": _decode_hdr,
-             "gif": _decode_gif, "tiff": _decode_tiff}
+             "gif": _decode_gif, "tiff": _decode_tiff, "webp": _decode_webp}
 # the formats that cv2 decodes and this module does not, by their sniffed name
 FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
 

@@ -1305,7 +1305,9 @@ def scene_payloads(scene: np.ndarray) -> dict:
     1728×2304 (nearest) as PIL's G4; the scene as YCbCr JPEG TIFFs (q95
     4:2:0, abbreviated streams under one JPEGTables tag) in 64-row strips
     and in 256×256 tiles, and the committed ``jpeg_cases.npz`` scene0 JPEG
-    (the same q95 4:2:0 stream) as the one strip of a TIFF."""
+    (the same q95 4:2:0 stream) as the one strip of a TIFF; the scene as
+    cv2's default (lossless) WebP, and its grey in 16 levels as one, which
+    the encoder codes with colour indexing, two pixels a byte."""
     from test_torch_tiff_fax import fax_tiff, pil_fax
     from test_torch_tiff_jpeg import jpeg, jpeg_tiff, split_tables, undefined
 
@@ -1334,15 +1336,24 @@ def scene_payloads(scene: np.ndarray) -> dict:
             "scene0_ras": ras_bytes(w, h, 24, 1, rows), "scene0_ras_rle": ras_bytes(w, h, 24, 2, sun_rle(rows)),
             "scene0_pfm": pfm_bytes(scene[..., ::-1].astype(np.float32)),
             "scene0_hdr_rle": cv2.imencode(".hdr", scene.astype(np.float32) / 255)[1].tobytes(),
-            "scene0_gif": scene_gif(scene)}
+            "scene0_gif": scene_gif(scene), "scene0_webp": cv2.imencode(".webp", scene)[1].tobytes(),
+            "scene0_webp_palette": cv2.imencode(".webp", scene_grey16(scene))[1].tobytes()}
+
+
+def scene_grey16(scene: np.ndarray) -> np.ndarray:
+    """The scene's grey in 16 levels, as BGR: at most 16 colours."""
+    grey = cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY) // 16 * 17
+    return np.repeat(grey[..., None], 3, axis=2)
 
 
 def write():
     """Rewrite ``image_cases.npz``: every BMP, netpbm, Sun raster, PFM,
     Radiance HDR and GIF case above and every TIFF kind of
     ``tests/test_torch_tiff.py``, ``tests/test_torch_tiff_fax.py`` and
-    ``tests/test_torch_tiff_jpeg.py``, garbled and cut ones among them (and
-    TIFFs with damaged strip data or JPEG headers, and cut JPEG blocks),
+    ``tests/test_torch_tiff_jpeg.py`` and every lossless WebP case of
+    ``tests/test_torch_webp.py``, garbled and cut ones among them (and
+    TIFFs with damaged strip data or JPEG headers, cut JPEG blocks, and
+    mutated WebPs),
     damaged PNGs (decoded and refused) and the first serving scene as each
     timing payload, each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
@@ -1415,6 +1426,17 @@ def write():
         cases.update({f"tiff_jpeg_{name}_garbled_{k}": g for k, g in enumerate(kept)})
         cases.update({f"tiff_jpeg_{name}_headers_{k}": g for k, g in enumerate(damaged(data, 2, i + 210, True))})
         cases.update({f"tiff_jpeg_{name}_cut_block_{k}": g for k, g in enumerate(cut_blocks(data, 1, i + 230))})
+    import test_torch_webp as webp
+    from test_torch_tiff import answers as tiff_answers
+
+    cases.update({f"webp_{k}": v for k, v in webp.WRITTEN.items()})
+    cases.update({f"webp_{k}": v for k, v in webp.CONTAINERS.items()})
+    cases.update({f"webp_encoded_{k}_{e}": webp.encode(webp.kind_image(k, i), e) for i, k in enumerate(webp.KINDS)
+                  for e in ("cv2", "pil_m6")})
+    for i, (name, data) in enumerate(webp.fuzz_bases().items()):
+        if i % 4 == 0:  # the lossy difference is pinned elsewhere; the card holds cv2's answers
+            cases.update({f"webp_{name}_mutated_{k}": m for k, m in enumerate(webp.mutations(data, 3, seed=i + 250))
+                          if tiff_answers(m) != "known"})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
@@ -1464,9 +1486,13 @@ def fuzz(rounds: int) -> int:
     kinds: 200 changed copies each and every cut; then 150 copies with the
     JPEG headers damaged, 150 with the blocks damaged anywhere, 100 with a
     block's byte count cut, and 100 with the JPEGTables tag's bytes changed
-    or cut, where the kind has the tag). Prints the counts; returns the
-    number of files that differ (a TIFF of a kind the port names as not
-    decoded, which garbling can reach, is counted apart)."""
+    or cut, where the kind has the tag), and 300 mutations (RIFF and chunk
+    sizes, VP8X flags and canvas, ANMF fields, bit flips and cuts inside
+    the VP8L data, random bytes) of each base of
+    ``tests/test_torch_webp.py``'s ``fuzz_bases``. Prints the counts;
+    returns the number of files that differ (a TIFF or WebP of a kind the
+    port names as not decoded, which garbling can reach, is counted
+    apart)."""
     from test_torch_tiff import COMPRESSIONS, GARBLED, noise, small_enough, tiff_bytes, tiff_cases_cached
     from test_torch_tiff import answers as tiff_answers
     from test_torch_tiff import garbled as tiff_garbled
@@ -1477,7 +1503,10 @@ def fuzz(rounds: int) -> int:
     from test_torch_tiff_jpeg import GARBLED as JPEG_GARBLED
     from test_torch_tiff_jpeg import cut_blocks, damaged, jpeg_tiff_cases_cached, tables_changed
 
-    files = bad = known = fax_files = jpeg_files = 0
+    import test_torch_webp as webp
+
+    files = bad = known = fax_files = jpeg_files = webp_files = 0
+    webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
         for i, name in enumerate(GARBLED):
@@ -1521,9 +1550,16 @@ def fuzz(rounds: int) -> int:
         datas = [d for k in range(5) for d in lzw_streams(100 * r + k + 10, 600)]
         files += len(datas)
         bad += sum(answers(d) not in ("none", "equal") for d in datas)
-        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs), {bad} differ from "
-              f"cv2 {cv2.__version__} "
-              f"({known} TIFFs of a kind named as not decoded)", flush=True)
+        datas = [m for i, data in enumerate(webp_bases.values())
+                 for m in webp.mutations(data, 300, 1000 * r + i + 3000)]
+        webp_files += len(datas)
+        files += len(datas)
+        got = [tiff_answers(d) for d in datas]
+        bad += sum(a not in ("none", "equal", "known") for a in got)
+        known += got.count("known")
+        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs), "
+              f"{bad} differ from cv2 {cv2.__version__} "
+              f"({known} TIFFs or WebPs of a kind named as not decoded)", flush=True)
     return bad
 
 
