@@ -124,16 +124,18 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     (BMPs of every depth, compression and header kind, PPM/PGM/PBM/PAM, Sun
     raster, damaged-zlib PNGs, rows over 32 KiB under a small zlib window,
     PFM, Radiance HDR, GIF, TIFF and BigTIFF of every kind the port
-    decodes, CCITT fax and JPEG ones included, and lossless WebP (simple,
-    extended and animated files, written VP8L streams), garbled, cut and
-    mutated files, damaged TIFF strips and JPEG headers among them)
-    decoded with ``decode_image`` (``csrc/bmp_rle.cpp``,
-    ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp``, ``csrc/tiff.cpp`` with
-    ``csrc/jpeg.cpp`` and ``csrc/webp.cpp`` built with the host compiler),
-    each equal to the cv2 decode stored beside it (a grey PFM's is [H, W]),
-    or ``None`` where cv2 gave ``None``; the case counts by format, the
-    TIFF count, the fax count, the JPEG TIFF count and the WebP count
-    (``webp_vs_cv2``); the host ms to
+    decodes, CCITT fax and JPEG ones included, and WebP, lossless (simple,
+    extended and animated files, written VP8L streams) and lossy (cv2's,
+    PIL's and written VP8 frames, with ALPH chunks and as animations'
+    first frames), garbled, cut and mutated files, damaged TIFF strips and
+    JPEG headers among them) decoded with ``decode_image``
+    (``csrc/bmp_rle.cpp``, ``csrc/hdr_rgbe.cpp``, ``csrc/gif_lzw.cpp``,
+    ``csrc/tiff.cpp`` with ``csrc/jpeg.cpp`` and ``csrc/webp.cpp`` with
+    ``csrc/vp8.cpp`` built with the host compiler), each equal to the cv2
+    decode stored beside it (a grey PFM's is [H, W]), or ``None`` where cv2
+    gave ``None``; the case counts by format, the TIFF count, the fax
+    count, the JPEG TIFF count and the lossless and lossy WebP counts
+    (``webp_vs_cv2``, ``webp_lossy_vs_cv2``); the host ms to
     decode the first 768×1024 serving scene as a 24-bit BMP, an RLE8 BMP of its grey, a
     binary PPM, a standard Sun raster, a byte-encoded one (which cv2 5.0
     refuses: the time of the refusal), a PFM, a run-length HDR, a GIF and
@@ -143,8 +145,9 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     YCbCr JPEG TIFFs (q95 4:2:0 under JPEGTables, in 64-row strips and in
     256×256 tiles, and phase 11's scene0 JPEG as one strip) beside that
     bare JPEG, and the scene as cv2's default (lossless) WebP and its grey
-    in 16 levels as one (colour indexing, two pixels a byte), in turns,
-    median of 25 after one untimed; then the same
+    in 16 levels as one (colour indexing, two pixels a byte), and as cv2's
+    q90 lossy WebP, without and with an alpha channel (a lossless ALPH
+    chunk), in turns, median of 25 after one untimed; then the same
     24-bit and RLE8 BMPs, the LZW TIFF (as data) and the uncompressed TIFF
     (by path) through the service (a subprocess as in phase 7) answer the
     words of the PNG of the same pixels (texts exact, boxes ≤ 2 px), the
@@ -158,7 +161,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     gives on its decode and those of the bare JPEG request, and launches
     ``ctc_topk`` ("jpeg tiff service"), the lossless WebP (as data)
     answers the words of the PNG of the same pixels and launches
-    ``ctc_topk`` ("webp service"); a
+    ``ctc_topk`` ("webp service"), and so does the q90 lossy one, with
+    one ``ctc_topk`` launch ("lossy webp service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1310,20 +1314,23 @@ class Smoke:
         t0 = time.perf_counter()
         libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
                                               native.TIFF_SOURCE, native.WEBP_SOURCE)]
-        print(f"bmp rle, hdr, gif, tiff (with jpeg) and webp decoder builds: {time.perf_counter() - t0:.2f} s "
+        print(f"bmp rle, hdr, gif, tiff (with jpeg) and webp (with vp8) decoder builds: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
         fax_timed = ("scene0_tiff_g4", "scene0_tiff_g3", "scene0_tiff_g3_2d", "scene0_tiff_rle", "scene0_tiff_rlew",
                      "page_tiff_g4")
         jpeg_timed = ("scene0_tiff_jpeg", "scene0_tiff_jpeg_tiles", "scene0_tiff_jpeg_onestrip")
+        lossy_timed = ("scene0_webp_q90", "scene0_webp_q90_alpha")
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
-                 "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette")
+                 "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
         jpeg_tiff = [0, 0]  # JPEG TIFF cases, of them None
+        lossy = [0, 0]  # lossy WebP cases, of them None
+        lossless = [0, 0]  # the other WebP cases, of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1333,14 +1340,20 @@ class Smoke:
                 count[0] += 1
                 is_fax = name.startswith("tiff_fax_") or name in fax_timed
                 is_jpeg = name.startswith("tiff_jpeg_") or name in jpeg_timed
+                is_lossy = name.startswith("webp_lossy_") or name in lossy_timed
+                is_lossless = sniff_format(data) == "webp" and not is_lossy
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
+                lossy[0] += is_lossy
+                lossless[0] += is_lossless
                 if want is None:
                     if got is not None:
                         raise AssertionError(f"case {name}: decoded where cv2 gives None")
                     count[1] += 1
                     fax[1] += is_fax
                     jpeg_tiff[1] += is_jpeg
+                    lossy[1] += is_lossy
+                    lossless[1] += is_lossless
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1370,6 +1383,11 @@ class Smoke:
         if webp_data[12:16] != b"VP8L":
             raise AssertionError("scene0_webp is not a lossless (VP8L) WebP")
         webp_png = encode_png(decode_image(webp_data))
+        # the scene as cv2's q90 lossy WebP, beside the PNG of the same pixels
+        lossy_data = cases["scene0_webp_q90"][0]
+        if lossy_data[12:16] != b"VP8 ":
+            raise AssertionError("scene0_webp_q90 is not a lossy (VP8) WebP")
+        lossy_png = encode_png(decode_image(lossy_data))
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1447,6 +1465,16 @@ class Smoke:
                 check_words(got_webp["words"], want["words"], "the lossless WebP vs the PNG of the same pixels")
                 words["scene0_webp"] = len(got_webp["words"])
                 before = service_launches(c)
+                got_lossy = c.send_request(req(lossy_data))
+                self.launches["lossy webp service"] = launched_lossy = launches_since(c, before, "lossy WebP")
+                if launched_lossy["ctc_topk"] != 1:
+                    raise AssertionError(f"the lossy WebP request: {launched_lossy}, not 1 ctc_topk launch")
+                want = c.send_request(req(lossy_png))
+                if not got_lossy.get("success") or not want.get("words"):
+                    raise AssertionError(f"lossy WebP: {str(got_lossy)[:200]} / {str(want)[:200]}")
+                check_words(got_lossy["words"], want["words"], "the lossy WebP vs the PNG of the same pixels")
+                words["scene0_webp_q90"] = len(got_lossy["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1479,8 +1507,9 @@ class Smoke:
             "fax_vs_cv2": f"{fax[0]} CCITT fax TIFF cases (RLE, RLEW, G3 1D and 2D, G4) equal cv2's answer, "
             f"{fax[1]} of them None",
             "tiff_jpeg_vs_cv2": f"{jpeg_tiff[0]} JPEG TIFF cases equal cv2's answer, {jpeg_tiff[1]} of them None",
-            "webp_vs_cv2": f"{counts.get('webp', [0, 0])[0]} lossless WebP cases equal cv2's answer, "
-            f"{counts.get('webp', [0, 0])[1]} of them None",
+            "webp_vs_cv2": f"{lossless[0]} lossless WebP cases equal cv2's answer, {lossless[1]} of them None",
+            "webp_lossy_vs_cv2": f"{lossy[0]} lossy WebP cases (VP8, with ALPH, animations' first frames) equal "
+            f"cv2's answer, {lossy[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1490,8 +1519,9 @@ class Smoke:
             "launches_of_hdr_and_gif_requests": launched_hdr_gif,
             "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
             "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff, "launches_of_the_webp_request": launched_webp,
+            "launches_of_the_lossy_webp_request": launched_lossy,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twenty-four payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the twenty-six payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

@@ -23,6 +23,10 @@
 //     out: height x width x 3 BGR, the alpha dropped; width and height must
 //     be the header's. Written only on success.
 //   Returns 0 or a Status code below.
+//   int vp8l_decode_alpha(...): a lossy WebP's lossless alpha plane
+//     (csrc/webp_alpha.h).
+
+#include "webp_alpha.h"
 
 #include <cstdint>
 #include <cstdlib>
@@ -368,8 +372,10 @@ struct Decoder {
   }
 
   // vp8l_dec.c DecodeImageData: the entropy-coded pixels of a width x
-  // height image
-  void decode_pixels(Entropy& e, int width, int height, uint32_t* data) {
+  // height image. `green_only`: alpha_dec.c's DecodeAlphaData, the 8-bit
+  // path of an alpha plane, which fails only where the data ends before the
+  // last pixel (DecodeImageData also where it ends with it).
+  void decode_pixels(Entropy& e, int width, int height, uint32_t* data, bool green_only = false) {
     const int64_t total = int64_t(width) * height;
     const int len_limit = kNumLiteralCodes + kNumLengthCodes;
     const int cache_size = e.cache_bits ? 1 << e.cache_bits : 0;
@@ -395,7 +401,7 @@ struct Decoder {
         const int red = read_symbol(base + g.table[RED], br);
         const int blue = read_symbol(base + g.table[BLUE], br);
         const int alpha = read_symbol(base + g.table[ALPHA], br);
-        if (br.eos()) fail(END_OF_DATA);
+        if (br.eos() && !green_only) fail(END_OF_DATA);
         const uint32_t argb = (uint32_t(alpha) << 24) | (uint32_t(red) << 16) | (uint32_t(code) << 8) | uint32_t(blue);
         data[at++] = argb;
         insert(argb);
@@ -407,7 +413,7 @@ struct Decoder {
         const int length = copy_value(code - kNumLiteralCodes, br);
         const int dist_symbol = read_symbol(base + g.table[DIST], br);
         const int dist = plane_to_distance(width, copy_value(dist_symbol, br));
-        if (br.eos()) fail(END_OF_DATA);
+        if (br.eos() && !green_only) fail(END_OF_DATA);
         if (at < dist || total - at < length) fail(BAD_COPY);
         for (int k = 0; k < length; k++, at++) {
           data[at] = data[at - dist];
@@ -428,7 +434,7 @@ struct Decoder {
         }
       }
     }
-    if (br.eos()) fail(END_OF_DATA);
+    if (br.eos() && !green_only) fail(END_OF_DATA);
   }
 
   // vp8l_dec.c DecodeImageStream, after the transforms (which only the top
@@ -633,6 +639,18 @@ void color_index_inverse(const Transform& t, uint32_t* px) {
   }
 }
 
+void undo_transforms(const Decoder& dec, uint32_t* px) {
+  for (int k = dec.num_transforms - 1; k >= 0; k--) {  // in the reverse of their order
+    const Transform& t = dec.transforms[k];
+    switch (t.type) {
+      case 0: predictor_inverse(t, px); break;
+      case 1: cross_color_inverse(t, px); break;
+      case 2: add_green(int64_t(t.xsize) * t.ysize, px); break;
+      default: color_index_inverse(t, px); break;
+    }
+  }
+}
+
 Status read_header(Bits& br, int* w, int* h, int* alpha) {
   if (br.read(8) != 0x2f) return BAD_HEADER;
   *w = int(br.read(14)) + 1;
@@ -660,21 +678,38 @@ extern "C" int vp8l_decode(const uint8_t* data, int64_t n, uint8_t* out, int32_t
     std::unique_ptr<uint32_t[]> buf(new uint32_t[full]);
     uint32_t* px = buf.get();
     dec.decode_pixels(top, xsize, h, px);
-    for (int k = dec.num_transforms - 1; k >= 0; k--) {  // undone in reverse order
-      const Transform& t = dec.transforms[k];
-      switch (t.type) {
-        case 0: predictor_inverse(t, px); break;
-        case 1: cross_color_inverse(t, px); break;
-        case 2: add_green(int64_t(t.xsize) * t.ysize, px); break;
-        default: color_index_inverse(t, px); break;
-      }
-    }
+    undo_transforms(dec, px);
     for (size_t i = 0; i < full; i++) {
       const uint32_t argb = px[i];
       out[3 * i] = uint8_t(argb);
       out[3 * i + 1] = uint8_t(argb >> 8);
       out[3 * i + 2] = uint8_t(argb >> 16);
     }
+    return OK;
+  } catch (const Failure& f) {
+    return f.status;
+  } catch (const std::bad_alloc&) {
+    return NO_MEMORY;
+  }
+}
+
+extern "C" int vp8l_decode_alpha(const uint8_t* data, int64_t n, int32_t width, int32_t height, uint8_t* out) {
+  if (n < 0 || width <= 0 || height <= 0) return BAD_ARGUMENT;
+  try {
+    Decoder dec(data, n);
+    int xsize = width;
+    while (dec.br.read(1)) dec.read_transform(&xsize, height);
+    Entropy top;
+    dec.read_entropy(xsize, height, true, top);
+    // vp8l_dec.c Is8bOptimizable, for the colour indexing transform alone
+    bool green_only = dec.num_transforms == 1 && dec.transforms[0].type == 3 && top.cache_bits == 0;
+    for (const Group& g : top.groups)
+      for (int j : {RED, BLUE, ALPHA}) green_only = green_only && top.tables[size_t(g.table[j])].bits == 0;
+    std::unique_ptr<uint32_t[]> buf(new uint32_t[size_t(width) * size_t(height)]);
+    dec.decode_pixels(top, xsize, height, buf.get(), green_only);
+    if (!out) return OK;
+    undo_transforms(dec, buf.get());
+    for (size_t i = 0; i < size_t(width) * size_t(height); i++) out[i] = uint8_t(buf[i] >> 8);
     return OK;
   } catch (const Failure& f) {
     return f.status;

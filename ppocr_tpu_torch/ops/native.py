@@ -4,8 +4,10 @@ run-length decoder, ``csrc/bmp_rle.cpp``, the Radiance HDR scanline
 decoder, ``csrc/hdr_rgbe.cpp``, the GIF LZW decoder,
 ``csrc/gif_lzw.cpp``, the TIFF strip and tile decoder, ``csrc/tiff.cpp``,
 built together with ``csrc/jpeg.cpp`` (its JPEG blocks, through
-``csrc/jpeg_tiff.h``), and the lossless WebP (VP8L) decoder,
-``csrc/webp.cpp``.
+``csrc/jpeg_tiff.h``), and the WebP decoders, lossless (VP8L,
+``csrc/webp.cpp``) and lossy (VP8 with its ALPH plane, ``csrc/vp8.cpp``),
+built together (the lossy one's lossless alpha plane through
+``csrc/webp_alpha.h``).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -46,9 +48,12 @@ HDR_SOURCE = CSRC / "hdr_rgbe.cpp"
 GIF_SOURCE = CSRC / "gif_lzw.cpp"
 TIFF_SOURCE = CSRC / "tiff.cpp"
 WEBP_SOURCE = CSRC / "webp.cpp"
+VP8_SOURCE = CSRC / "vp8.cpp"
 # the files a library is built with besides its source (a header counts in
-# the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp
-BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h")}
+# the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
+# lossy WebP decoder its lossless alpha planes to webp.cpp
+BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h"),
+              WEBP_SOURCE: (VP8_SOURCE, CSRC / "webp_alpha.h")}
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
@@ -411,14 +416,18 @@ def tiff_decode(data: bytes, params: dict, offsets: np.ndarray, counts: np.ndarr
 
 
 def load_webp_library() -> ctypes.CDLL:
-    """Build (if needed) and load the lossless WebP (VP8L) decoder."""
+    """Build (if needed) and load the WebP decoders, lossless (VP8L) and
+    lossy (VP8)."""
     global _webp_lib
     with _lock:
         if _webp_lib is None:
             lib = ctypes.CDLL(str(build(WEBP_SOURCE)))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
             lib.vp8l_decode.restype = ctypes.c_int
-            lib.vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
-                                        ctypes.c_int32, ctypes.c_int32]
+            lib.vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, u8p, ctypes.c_int32, ctypes.c_int32]
+            lib.vp8_decode.restype = ctypes.c_int
+            lib.vp8_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64, u8p, u8p,
+                                       ctypes.c_int32, ctypes.c_int32]
             _webp_lib = lib
     return _webp_lib
 
@@ -436,3 +445,24 @@ def vp8l_decode(data: bytes, width: int, height: int) -> Tuple[int, Optional[np.
     if status == 9:
         raise ValueError(f"vp8l_decode: {width}x{height} is not the header's size")
     return status, (None if status else out)
+
+
+def vp8_decode(data: bytes, width: int, height: int, alpha: Optional[bytes] = None,
+               want_alpha: bool = False) -> Tuple[int, Optional[np.ndarray], Optional[np.ndarray]]:
+    """A VP8 key frame (the chunk's payload and whatever follows it in the
+    data WebPDecode reads) with its ALPH chunk's payload, if any →
+    (status, [height, width, 3] BGR uint8 or None, the [height, width]
+    alpha plane where ``want_alpha``, else None). ``width`` and ``height``
+    are the frame header's. Status 0 is success; the others are
+    ``csrc/vp8.cpp``'s codes."""
+    if width <= 0 or height <= 0:
+        raise ValueError(f"vp8_decode: {width}x{height}")
+    lib = load_webp_library()
+    out = np.empty((height, width, 3), np.uint8)
+    plane = np.empty((height, width), np.uint8) if want_alpha and alpha is not None else None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    status = lib.vp8_decode(data, len(data), alpha, -1 if alpha is None else len(alpha), out.ctypes.data_as(u8p),
+                            None if plane is None else plane.ctypes.data_as(u8p), width, height)
+    if status == 10:
+        raise ValueError(f"vp8_decode: {width}x{height} is not the frame header's size")
+    return status, (None if status else out), (None if status else plane)

@@ -100,15 +100,18 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   uncompressed tile must hold exactly its size, an orientation that turns
   the image (5–8) is refused, and RLEW aligns its rows on the mapped
   address.
-* **WebP, lossless** (the RIFF container in Python, the VP8L bitstream in
-  ``csrc/webp.cpp``, host C++ built at first use), as OpenCV 5.0's
+* **WebP**, lossless and lossy (the RIFF container in Python, the VP8L
+  bitstream in ``csrc/webp.cpp``, the VP8 key frame and its ALPH plane in
+  ``csrc/vp8.cpp``, host C++ built at first use), as OpenCV 5.0's
   ``grfmt_webp.cpp`` reads it through its bundled libwebp: the first 32
   bytes must pass ``WebPGetFeatures``; a still image is decoded as
   ``WebPDecode`` decodes it (the simple format, the extended format with
-  its VP8X canvas equal to the VP8L size and any metadata chunks, or a
-  bare VP8L chunk or bitstream; the RIFF size checked against the data,
-  trailing bytes ignored, the bit reader free to read past the VP8L chunk
-  into what follows it); the first frame of an animation as
+  its VP8X canvas equal to the image's size and any metadata chunks, or a
+  bare VP8L or VP8 chunk or bitstream; the RIFF size checked against the
+  data, trailing bytes ignored, the bitstream free to run past its chunk
+  into what follows it; the last ALPH chunk before a VP8 one decoded, and
+  a bad one refusing the file, whatever the VP8X flags say); the first
+  frame of an animation as
   ``WebPAnimDecoder`` gives it (the demuxer's rules on every chunk and
   frame, the frame's pixels at its offset on a zero canvas, no blending,
   no background colour); alpha is dropped, not blended. The EXIF chunk's
@@ -121,11 +124,9 @@ logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: JPEG 2000 and AVIF, named by their sniffed
-format (``FORMAT_NAMES``), TIFF's compressions of ``TIFF_UNPORTED``
-(NeXT, ThunderScan, SGI Log), and lossy WebP (``WEBP_UNPORTED``: a
-``VP8 `` bitstream, with or without ALPH, or as an animation's first
-frame). ``None`` becomes the reference's own error response in the
-service. A JPEG, run-length BMP, HDR, GIF, TIFF or WebP decode raises
+format (``FORMAT_NAMES``), and TIFF's compressions of ``TIFF_UNPORTED``
+(NeXT, ThunderScan, SGI Log). ``None`` becomes the reference's own error
+response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF or WebP decode raises
 when its host C++ cannot be built: a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
@@ -1812,13 +1813,11 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 # The RIFF container as OpenCV 5.0's grfmt_webp.cpp reads it through its
 # bundled libwebp: src/dec/webp_dec.c for a still image, src/demux/demux.c
 # and src/demux/anim_decode.c for an animation and for the EXIF chunk; the
-# VP8L bitstream in csrc/webp.cpp
+# VP8L bitstream in csrc/webp.cpp, the VP8 one in csrc/vp8.cpp
 
 WEBP_HEADER_SIZE = 32  # grfmt_webp.cpp: readHeader needs this many bytes
 _WEBP_MAX_CHUNK_PAYLOAD = 0xFFFFFFFF - 8 - 1
 _WEBP_VALID_FLAGS = 0x3E  # demux.c ALL_VALID_FLAGS: alpha, animation, ICCP, EXIF, XMP
-# what cv2 decodes and this module does not, by the bitstream's chunk tag
-WEBP_UNPORTED = {b"VP8 ": "lossy (VP8)"}
 # csrc/webp.cpp's Status codes other than success
 _WEBP_REFUSED = {1: "a VP8L header whose signature or version is wrong",
                  2: "the VP8L data ends before the image does", 3: "a VP8L transform given twice",
@@ -1826,6 +1825,16 @@ _WEBP_REFUSED = {1: "a VP8L header whose signature or version is wrong",
                  5: "a prefix code that is over-subscribed, incomplete or empty",
                  6: "prefix code lengths past the alphabet",
                  7: "a backward reference before the first pixel or past the last", 8: "out of memory"}
+# csrc/vp8.cpp's
+_VP8_REFUSED = {1: "a VP8 frame tag or start code libwebp refuses", 2: "a VP8 frame header under 10 bytes",
+                3: "a first VP8 partition longer than the data", 4: "the VP8 segment header ends the first partition",
+                5: "the VP8 filter header ends the first partition",
+                6: "no room for the VP8 token partitions' sizes", 7: "no byte left for the last VP8 token partition",
+                8: "the VP8 intra modes end the first partition", 9: "a VP8 token partition ends inside a macroblock",
+                11: "out of memory",
+                12: "an ALPH chunk of 1 byte or less, or a method, pre-processing or reserved bits out of range",
+                13: "an ALPH chunk's raw plane shorter than the image",
+                14: "an ALPH chunk's lossless plane libwebp refuses"}
 
 
 class _WebPError(Exception):
@@ -1844,10 +1853,12 @@ def _le32(data: bytes, at: int) -> int:
     return int.from_bytes(data[at : at + 4], "little")
 
 
-def _webp_optional_chunks(data: bytes, pos: int, riff_size: int) -> int:
+def _webp_optional_chunks(data: bytes, pos: int, riff_size: int):
     """webp_dec.c ParseOptionalChunks: skips the chunks before the VP8/VP8L
-    chunk (odd sizes padded) and returns its offset."""
+    chunk (odd sizes padded) and returns its offset and the payload's
+    (offset, size) of the last ALPH chunk among them, or None."""
     total = 4 + 8 + 10  # "WEBP" and the VP8X chunk
+    alpha = None
     while True:
         if len(data) - pos < 8:
             raise _WebPError("the data ends inside the chunks before the image", short=True)
@@ -1859,9 +1870,11 @@ def _webp_optional_chunks(data: bytes, pos: int, riff_size: int) -> int:
         if riff_size and total > riff_size:
             raise _WebPError("chunks past the RIFF size")
         if data[pos : pos + 4] in (b"VP8 ", b"VP8L"):
-            return pos
+            return pos, alpha
         if len(data) - pos < disk:
             raise _WebPError("the data ends inside a chunk before the image", short=True)
+        if data[pos : pos + 4] == b"ALPH":
+            alpha = (pos + 8, size)
         pos += disk
 
 
@@ -1880,8 +1893,9 @@ def _webp_headers(data: bytes, full: bool):
     """webp_dec.c ParseHeadersInternal, as WebPGetFeatures runs it on the
     first 32 bytes (``full`` False; a VP8X chunk then answers for the image
     even where the rest is cut off) or WebPDecode on the whole file.
-    Returns (width, height, animated, lossless, offset of the bitstream);
-    the last two are None where the VP8X chunk answered."""
+    Returns (width, height, animated, lossless, offset of the bitstream,
+    the ALPH payload's (offset, size) or None); the last three are None
+    where the VP8X chunk answered."""
     n = len(data)
     if n < 12:
         raise _WebPError("fewer than 12 bytes", short=True)
@@ -1913,12 +1927,13 @@ def _webp_headers(data: bytes, full: bool):
             raise _WebPError("a VP8X chunk outside a RIFF file")
     animated = bool(flags & 2)
     if vp8x and animated and not full:
-        return cw, ch, True, None, None
+        return cw, ch, True, None, None, None
+    alpha = None
     try:
         if n - pos < 4:
             raise _WebPError("the data ends before the image chunk", short=True)
         if (riff and vp8x) or (not riff and not vp8x and data[pos : pos + 4] == b"ALPH"):
-            pos = _webp_optional_chunks(data, pos, riff_size)
+            pos, alpha = _webp_optional_chunks(data, pos, riff_size)
         if n - pos < 8:  # ParseVP8Header
             raise _WebPError("the data ends before the image chunk", short=True)
         tag = data[pos : pos + 4]
@@ -1950,9 +1965,9 @@ def _webp_headers(data: bytes, full: bool):
             raise _WebPError(f"a {cw}x{ch} canvas around a {w}x{h} image")
     except _WebPError as e:
         if e.short and vp8x and not full:
-            return cw, ch, animated, None, None
+            return cw, ch, animated, None, None, None
         raise
-    return w, h, animated, lossless, pos
+    return w, h, animated, lossless, pos, alpha
 
 
 class _WebPFrame:
@@ -2024,7 +2039,7 @@ def _webp_demux(data: bytes):
                     pos = start
                     return
                 image_chunks = 1
-                w, h, _, _, _ = _webp_headers(data[start : start + 8 + padded], full=False)
+                w, h = _webp_headers(data[start : start + 8 + padded], full=False)[:2]
                 frame.image, frame.w, frame.h, frame.num, frame.complete = (start, 8 + padded), w, h, num, True
             else:
                 pos = start
@@ -2157,19 +2172,17 @@ def _exif_orientation(exif: bytes) -> int:
 def _decode_webp(data: bytes) -> np.ndarray:
     """The header's first 32 bytes (WebPGetFeatures: fewer refuses the file),
     then a still image (WebPDecode: RIFF size, chunk sizes, VP8X canvas equal
-    to the VP8L size) or the first frame of an animation (WebPAnimDecoder:
-    the frame's VP8L image at its offset on a zero canvas, no blending, no
-    background colour), then the EXIF orientation, where the demuxer
-    accepts the file and the VP8X flags name the chunk. Lossy (VP8)
-    bitstreams are ``WEBP_UNPORTED``."""
+    to the image's size) or the first frame of an animation (WebPAnimDecoder:
+    WebPDecode of the frame's ALPH and image chunks, its pixels at its
+    offset on a zero canvas, no blending, no background colour), then the
+    EXIF orientation, where the demuxer accepts the file and the VP8X flags
+    name the chunk."""
     if len(data) < WEBP_HEADER_SIZE:
         raise _Refused(f"fewer than {WEBP_HEADER_SIZE} bytes")
     try:
-        w, h, animated, _, _ = _webp_headers(data[:WEBP_HEADER_SIZE], full=False)
+        w, h, animated = _webp_headers(data[:WEBP_HEADER_SIZE], full=False)[:3]
     except _WebPError as e:
         raise _Refused(f"a header WebPGetFeatures refuses: {e}")
-    from ..ops import native  # builds csrc/webp.cpp at first use; raises if it cannot
-
     try:
         demuxed = _webp_demux(data)
     except _WebPError as e:
@@ -2180,28 +2193,36 @@ def _decode_webp(data: bytes) -> np.ndarray:
     if animated:
         cw, ch, _, frames, exif = demuxed
         first = frames[0]
-        if first.alpha is not None or data[first.image[0] : first.image[0] + 4] != b"VP8L":
-            raise _Refused(f"the first frame of an animation: {WEBP_UNPORTED[b'VP8 ']} is not decoded")
         start, size = first.image
-        status, frame = native.vp8l_decode(data[start + 8 : start + size], first.w, first.h)
-        if status:
-            raise _Refused(f"the first frame: {_WEBP_REFUSED.get(status, f'status {status}')}")
         img = np.zeros((ch, cw, 3), np.uint8)
-        img[first.y : first.y + first.h, first.x : first.x + first.w] = frame
+        img[first.y : first.y + first.h, first.x : first.x + first.w] = _decode_webp_bitstream(
+            data[(first.alpha or first.image)[0] : start + size], "the first frame: ")
     else:
-        try:
-            w, h, _, lossless, pos = _webp_headers(data, full=True)
-        except _WebPError as e:
-            raise _Refused(str(e))
-        if not lossless:
-            raise _Refused(f"{WEBP_UNPORTED[b'VP8 ']} is not decoded")
-        status, img = native.vp8l_decode(data[pos:], w, h)
-        if status:
-            raise _Refused(_WEBP_REFUSED.get(status, f"status {status}"))
+        img = _decode_webp_bitstream(data, "")
         exif = demuxed[4] if demuxed else None
     orientation = _exif_orientation(exif) if exif is not None else 0
     if orientation in _ORIENT:
         img = np.ascontiguousarray(_ORIENT[orientation](img))
+    return img
+
+
+def _decode_webp_bitstream(data: bytes, what: str) -> np.ndarray:
+    """WebPDecode: the VP8L bitstream, or the VP8 one with the ALPH chunk
+    before it, each read from its chunk to the end of ``data``."""
+    from ..ops import native  # builds csrc/webp.cpp with csrc/vp8.cpp at first use; raises if it cannot
+
+    try:
+        w, h, _, lossless, pos, alpha = _webp_headers(data, full=True)
+    except _WebPError as e:
+        raise _Refused(f"{what}{e}")
+    if lossless:
+        status, img = native.vp8l_decode(data[pos:], w, h)
+        refused = _WEBP_REFUSED
+    else:
+        status, img, _ = native.vp8_decode(data[pos:], w, h, None if alpha is None else data[alpha[0] : sum(alpha)])
+        refused = _VP8_REFUSED
+    if status:
+        raise _Refused(what + refused.get(status, f"status {status}"))
     return img
 
 

@@ -391,11 +391,8 @@ def _refused():
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
     cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(), imcodec.FORMAT_NAMES["avif"], True)
-    # lossless WebP is decoded since, but not lossy (``imcodec.WEBP_UNPORTED``):
-    # cv2 writes VP8 under a quality of 100 or less
-    lossy = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes()
-    assert lossy[12:16] == b"VP8 "
-    cases["webp"] = (lossy, "lossy (VP8)", True)
+    # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
+    # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
     # of ``imcodec.TIFF_UNPORTED``: a ThunderScan (32809) TIFF of 4-bit
     # palette indices, which cv2 decodes (its libtiff's NeXT codec takes
@@ -416,15 +413,14 @@ def _refused():
     return cases
 
 
-@pytest.mark.parametrize("name", ["lossless", "12-bit", "hierarchical", "webp", "tiff", "jpeg2000", "avif", "gif",
-                                  "pfm", "hdr"])
+@pytest.mark.parametrize("name", ["lossless", "12-bit", "hierarchical", "tiff", "jpeg2000", "avif", "gif", "pfm",
+                                  "hdr"])
 def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog):
     """The refusals that remain. The JPEG, GIF, PFM and HDR ones are cv2's
-    own on these files; JPEG 2000 and AVIF, a lossy WebP
-    (``imcodec.WEBP_UNPORTED``) and a TIFF whose compression is one of
-    ``imcodec.TIFF_UNPORTED`` (ThunderScan here), are decoded by cv2 and not
-    by the port: the known difference, held here so that it cannot grow
-    unnoticed."""
+    own on these files; JPEG 2000 and AVIF and a TIFF whose compression is
+    one of ``imcodec.TIFF_UNPORTED`` (ThunderScan here) are decoded by cv2
+    and not by the port: the known difference, held here so that it cannot
+    grow unnoticed. No WebP is refused for its kind any more."""
     data, reason, cv2_decodes = _refused()[name]
     assert (cv2_decode(data) is not None) == cv2_decodes
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
@@ -432,7 +428,7 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     assert reason in caplog.text
     assert set(imcodec.FORMAT_NAMES) == {"jpeg2000", "avif"}
     assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
-    assert imcodec.WEBP_UNPORTED == {b"VP8 ": "lossy (VP8)"}
+    assert not hasattr(imcodec, "WEBP_UNPORTED")
 
 
 def test_a_damaged_zlib_stream_under_a_valid_crc_is_the_known_png_difference():

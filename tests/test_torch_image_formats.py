@@ -1307,7 +1307,9 @@ def scene_payloads(scene: np.ndarray) -> dict:
     and in 256×256 tiles, and the committed ``jpeg_cases.npz`` scene0 JPEG
     (the same q95 4:2:0 stream) as the one strip of a TIFF; the scene as
     cv2's default (lossless) WebP, and its grey in 16 levels as one, which
-    the encoder codes with colour indexing, two pixels a byte."""
+    the encoder codes with colour indexing, two pixels a byte; the scene as
+    cv2's q90 lossy WebP (VP8), and with its grey in 4 levels as a fourth
+    channel as one (VP8X, a lossless ALPH chunk, VP8)."""
     from test_torch_tiff_fax import fax_tiff, pil_fax
     from test_torch_tiff_jpeg import jpeg, jpeg_tiff, split_tables, undefined
 
@@ -1337,7 +1339,16 @@ def scene_payloads(scene: np.ndarray) -> dict:
             "scene0_pfm": pfm_bytes(scene[..., ::-1].astype(np.float32)),
             "scene0_hdr_rle": cv2.imencode(".hdr", scene.astype(np.float32) / 255)[1].tobytes(),
             "scene0_gif": scene_gif(scene), "scene0_webp": cv2.imencode(".webp", scene)[1].tobytes(),
-            "scene0_webp_palette": cv2.imencode(".webp", scene_grey16(scene))[1].tobytes()}
+            "scene0_webp_palette": cv2.imencode(".webp", scene_grey16(scene))[1].tobytes(),
+            "scene0_webp_q90": cv2.imencode(".webp", scene, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes(),
+            "scene0_webp_q90_alpha": cv2.imencode(".webp", scene_with_alpha(scene), [cv2.IMWRITE_WEBP_QUALITY, 90])[
+                1].tobytes()}
+
+
+def scene_with_alpha(scene: np.ndarray) -> np.ndarray:
+    """The scene as BGRA, its grey in 4 levels as the alpha channel."""
+    grey = cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY) // 64 * 85
+    return np.concatenate([scene, grey[..., None]], axis=2)
 
 
 def scene_grey16(scene: np.ndarray) -> np.ndarray:
@@ -1350,8 +1361,10 @@ def write():
     """Rewrite ``image_cases.npz``: every BMP, netpbm, Sun raster, PFM,
     Radiance HDR and GIF case above and every TIFF kind of
     ``tests/test_torch_tiff.py``, ``tests/test_torch_tiff_fax.py`` and
-    ``tests/test_torch_tiff_jpeg.py`` and every lossless WebP case of
-    ``tests/test_torch_webp.py``, garbled and cut ones among them (and
+    ``tests/test_torch_tiff_jpeg.py``, every lossless WebP case of
+    ``tests/test_torch_webp.py`` and every written lossy one of
+    ``tests/test_torch_webp_lossy.py`` with cv2's and PIL's lossy files of
+    its sizes, garbled and cut ones among them (and
     TIFFs with damaged strip data or JPEG headers, cut JPEG blocks, and
     mutated WebPs),
     damaged PNGs (decoded and refused) and the first serving scene as each
@@ -1427,16 +1440,30 @@ def write():
         cases.update({f"tiff_jpeg_{name}_headers_{k}": g for k, g in enumerate(damaged(data, 2, i + 210, True))})
         cases.update({f"tiff_jpeg_{name}_cut_block_{k}": g for k, g in enumerate(cut_blocks(data, 1, i + 230))})
     import test_torch_webp as webp
-    from test_torch_tiff import answers as tiff_answers
 
     cases.update({f"webp_{k}": v for k, v in webp.WRITTEN.items()})
     cases.update({f"webp_{k}": v for k, v in webp.CONTAINERS.items()})
     cases.update({f"webp_encoded_{k}_{e}": webp.encode(webp.kind_image(k, i), e) for i, k in enumerate(webp.KINDS)
                   for e in ("cv2", "pil_m6")})
+    import test_torch_webp_lossy as lossy
+
+    cases.update({f"webp_lossy_{k}": v for k, v in lossy.WRITTEN.items()})
+    for size in lossy.SIZES:
+        for q in lossy.QUALITIES:
+            for channels in (3, 4):
+                img = lossy.encoded_image(size, list(lossy.SIZES).index(size), channels)
+                cases[f"webp_lossy_cv2_{size}_q{q}_{channels}"] = lossy.cv2_lossy(img, q)
+    for method in range(7):
+        buf = io.BytesIO()
+        Image.fromarray(lossy.noise_image(37, 45, method, 4)[..., [2, 1, 0, 3]]).save(
+            buf, "WEBP", quality=15 * method, method=method, alpha_quality=50 * (method % 3))
+        cases[f"webp_lossy_pil_m{method}"] = buf.getvalue()
+    frame = lossy.vp8_bytes(40, 35, 80)  # its last 19 cuts, the sizes written to match
+    cases.update({f"webp_lossy_cut_{k}": lossy.still(frame[:k]) for k in range(len(frame) - 18, len(frame))})
     for i, (name, data) in enumerate(webp.fuzz_bases().items()):
-        if i % 4 == 0:  # the lossy difference is pinned elsewhere; the card holds cv2's answers
-            cases.update({f"webp_{name}_mutated_{k}": m for k, m in enumerate(webp.mutations(data, 3, seed=i + 250))
-                          if tiff_answers(m) != "known"})
+        if i % 4 == 0 or name.startswith("lossy_"):
+            mutated = webp.mutations(data, 3, seed=i + 250)
+            cases.update({f"webp_{name}_mutated_{k}": m for k, m in enumerate(mutated)})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
@@ -1488,8 +1515,11 @@ def fuzz(rounds: int) -> int:
     block's byte count cut, and 100 with the JPEGTables tag's bytes changed
     or cut, where the kind has the tag), and 300 mutations (RIFF and chunk
     sizes, VP8X flags and canvas, ANMF fields, bit flips and cuts inside
-    the VP8L data, random bytes) of each base of
-    ``tests/test_torch_webp.py``'s ``fuzz_bases``. Prints the counts;
+    the VP8L data, random bytes; in the lossy files VP8 partition sizes,
+    frame header bits, flips in the first and the token partitions, cuts
+    and ALPH header bytes) of each base of
+    ``tests/test_torch_webp.py``'s ``fuzz_bases`` (4,000 of each lossy
+    base). Prints the counts;
     returns the number of files that differ (a TIFF or WebP of a kind the
     port names as not decoded, which garbling can reach, is counted
     apart)."""
@@ -1505,7 +1535,7 @@ def fuzz(rounds: int) -> int:
 
     import test_torch_webp as webp
 
-    files = bad = known = fax_files = jpeg_files = webp_files = 0
+    files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = 0
     webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
@@ -1550,14 +1580,16 @@ def fuzz(rounds: int) -> int:
         datas = [d for k in range(5) for d in lzw_streams(100 * r + k + 10, 600)]
         files += len(datas)
         bad += sum(answers(d) not in ("none", "equal") for d in datas)
-        datas = [m for i, data in enumerate(webp_bases.values())
-                 for m in webp.mutations(data, 300, 1000 * r + i + 3000)]
+        datas = [m for i, (name, data) in enumerate(webp_bases.items())
+                 for m in webp.mutations(data, 4000 if name.startswith("lossy_") else 300, 1000 * r + i + 3000)]
+        lossy_files += sum(4000 for name in webp_bases if name.startswith("lossy_"))
         webp_files += len(datas)
         files += len(datas)
         got = [tiff_answers(d) for d in datas]
         bad += sum(a not in ("none", "equal", "known") for a in got)
         known += got.count("known")
-        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs), "
+        print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs, "
+              f"{lossy_files} of them of the lossy bases), "
               f"{bad} differ from cv2 {cv2.__version__} "
               f"({known} TIFFs or WebPs of a kind named as not decoded)", flush=True)
     return bad

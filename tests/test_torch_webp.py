@@ -11,9 +11,8 @@ over-subscribed and incomplete codes, copies out of range, a transform
 given twice, a bad signature or version. The RIFF writer (``riff``,
 ``vp8x``, ``anmf``, ``exif``) wraps them in the simple format, the extended
 format with metadata chunks and EXIF orientations, and animations. Then
-cut, garbled and XOR-ed files, and files read by path. A lossy (``VP8 ``)
-WebP is the known difference: cv2 decodes it, the port names it
-(``imcodec.WEBP_UNPORTED``).
+cut, garbled and XOR-ed files, and files read by path. Lossy (``VP8 ``)
+WebPs are ``tests/test_torch_webp_lossy.py``'s.
 """
 
 import io
@@ -807,7 +806,7 @@ def test_xor_0x55_into_each_byte_answers_as_cv2():
     assert outcomes.count("equal") > outcomes.count("none")
 
 
-# -- what stays refused ----------------------------------------------------------------
+# -- lossy files, once refused --------------------------------------------------------
 
 
 def lossy_cases() -> dict:
@@ -822,15 +821,16 @@ def lossy_cases() -> dict:
 
 @pytest.mark.parametrize("name", ["vp8", "vp8x_alph_vp8", "animation_of_vp8"])
 def test_a_lossy_webp_is_the_named_known_difference(name, caplog):
-    """cv2 decodes a lossy (``VP8 ``) WebP; the port gives ``None`` and one
-    log line naming it, as ``WEBP_UNPORTED`` pins."""
+    """A lossy (``VP8 ``) WebP, once the known difference, decodes to cv2's
+    pixels with no log line: a still image, one with ALPH, an animation's
+    first frame. No WebP is refused for its kind."""
     data = lossy_cases()[name]
     assert cv2_decode(data) is not None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
-        assert imcodec.decode_image(data) is None
-    assert len(caplog.records) == 1 and "WebP" in caplog.text and "lossy (VP8)" in caplog.text
-    assert answers(data) == "known"
-    assert imcodec.WEBP_UNPORTED == {b"VP8 ": "lossy (VP8)"}
+        assert imcodec.decode_image(data) is not None
+    assert not caplog.records
+    assert answers(data) == "equal"
+    assert not hasattr(imcodec, "WEBP_UNPORTED")
     assert set(imcodec.FORMAT_NAMES) == {"jpeg2000", "avif"}
 
 
@@ -879,14 +879,24 @@ def chunk_offsets(data: bytes) -> list:
 def mutations(data: bytes, n: int, seed: int) -> list:
     """``n`` changed copies of a WebP file: its RIFF size or a chunk's size
     moved, VP8X flags or canvas changed, ANMF fields changed, bits flipped
-    or the file cut inside the VP8L data, or 1–3 bytes set at random."""
+    or the file cut inside the VP8L data, or 1–3 bytes set at random; in a
+    lossy file also (``vp8_mutation``) a token partition's size or the
+    first partition's moved, the frame header's bits flipped, bits flipped
+    in the first partition or in the token partitions, the VP8 data cut
+    (the chunk and RIFF sizes moved with it where the chunk ends the file),
+    or the ALPH header byte changed."""
     rng = np.random.default_rng(seed)
     heads = chunk_offsets(data)
     vp8l = [p for p in heads if data[p : p + 4] == b"VP8L"]
+    vp8 = [p for p in heads if data[p : p + 4] == b"VP8 "]
+    alph = [p for p in heads if data[p : p + 4] == b"ALPH"]
     out = []
     for _ in range(n):
         bad = bytearray(data)
-        kind = rng.integers(0, 7)
+        kind = rng.integers(0, 12 if vp8 else 7)
+        if kind >= 7:
+            out.append(vp8_mutation(data, int(kind) - 7, int(rng.choice(vp8)), alph, rng))
+            continue
         if kind == 0:
             size = struct.unpack("<I", data[4:8])[0]
             bad[4:8] = struct.pack("<I", max(0, size + int(rng.integers(-12, 13))) if rng.random() < 0.8
@@ -923,13 +933,57 @@ def mutations(data: bytes, n: int, seed: int) -> list:
     return out
 
 
+def vp8_mutation(data: bytes, kind: int, at: int, alph: list, rng) -> bytes:
+    """One change of a lossy file's VP8 chunk at ``at`` (or its ALPH chunk)."""
+    bad = bytearray(data)
+    start = at + 8
+    size = struct.unpack("<I", data[at + 4 : start])[0]
+    end = min(len(data), start + size)
+    first = int.from_bytes(data[start : start + 3], "little") >> 5
+    if kind == 0:  # the first partition's size, or a token partition's
+        if rng.random() < 0.3:
+            tag = int.from_bytes(data[start : start + 3], "little")
+            moved = max(0, first + int(rng.integers(-4, 5))) if rng.random() < 0.8 else int(rng.integers(0, 1 << 19))
+            bad[start : start + 3] = ((tag & 31) | (moved << 5)).to_bytes(3, "little")
+        else:
+            k = start + 10 + first + 3 * int(rng.integers(0, 7))
+            if k + 3 <= len(bad):
+                v = int.from_bytes(bad[k : k + 3], "little") + int(rng.integers(-6, 7))
+                bad[k : k + 3] = (v % (1 << 24) if rng.random() < 0.8 else int(rng.integers(0, 1 << 24))).to_bytes(
+                    3, "little")
+    elif kind in (1, 2, 3):  # the frame header, the first partition, the token partitions
+        lo, hi = ((start, start + 10), (start + 10, start + 10 + first), (start + 10 + first, end))[kind - 1]
+        for _ in range(int(rng.integers(1, 4))):
+            k = int(rng.integers(lo, max(lo + 1, hi)))
+            if k < len(bad):
+                bad[k] ^= 1 << int(rng.integers(0, 8))
+    elif kind == 4:  # a cut; where the chunk ends the file, its size and the RIFF's follow
+        k = int(rng.integers(start, len(data) + 1))
+        bad = bad[:k]
+        if end + (size & 1) >= len(data) and rng.random() < 0.7:
+            bad[at + 4 : start] = struct.pack("<I", k - start)
+            bad += b"\0" * ((k - start) & 1)
+            bad[4:8] = struct.pack("<I", len(bad) - 8)
+    elif alph:  # the ALPH header byte
+        k = int(rng.choice(alph)) + 8
+        if k < len(bad):
+            bad[k] = int(rng.integers(0, 256)) if rng.random() < 0.5 else bad[k] ^ (1 << int(rng.integers(0, 8)))
+    else:
+        bad[int(rng.integers(4, len(bad)))] = int(rng.integers(0, 256))
+    return bytes(bad)
+
+
 def fuzz_bases() -> dict:
     """The files the fuzz runs change: every container case, the written
-    streams that decode, and an encoded file of each kind."""
+    streams that decode, an encoded file of each kind, and the lossy bases
+    of ``tests/test_torch_webp_lossy.py``."""
+    import test_torch_webp_lossy as lossy
+
     bases = {f"container_{k}": v for k, v in CONTAINERS.items() if len(v) >= 32}
     bases.update({f"written_{k}": v for k, v in WRITTEN.items() if k not in REFUSED})
     bases.update({f"encoded_{k}": encode(kind_image(k, i), ("cv2", "pil_m6", "pil_exact")[i % 3])
                   for i, k in enumerate(KINDS)})
+    bases.update({f"lossy_{k}": v for k, v in lossy.lossy_fuzz_bases().items()})
     return bases
 
 
