@@ -1,6 +1,8 @@
 """Drive the PyTorch port's fused and staged OCR requests, its IPC service
-(single- and multi-process; PNG, JPEG and BMP payloads) and its training
-path, on one device and over a mesh, on one NVIDIA card and check them.
+(single- and multi-process; PNG, JPEG and BMP payloads), its client's
+``--visualize``, its trace, boot and soak tools, its host utilities and
+its training path, on one device and over a mesh, on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -77,7 +79,14 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    word count, boxes ≤ 2 px and ≥ 0.9 of the texts. Then a second service
    with ``--cpu-workers 2 --warmup incremental`` and the blob-stats
    kernel on: 8 concurrent requests through two worker threads that share
-   the stream, the modules and the kernel's scratch.
+   the stream, the modules and the kernel's scratch. Before the first
+   service shuts down: ``ocr-client scene0.png --visualize
+   out.png`` exits 0, launches ``ctc_topk`` ("visualize" launches), reads
+   phase 4's words, and out.png decodes to ``visualize_boxes`` of the
+   decoded scene and those words (the scene's pixels outside the drawn
+   quads); the golden words of scene0 drawn by ``visualize_boxes`` equal
+   cv2's drawing of them (``assets/visualize_mask.npz``); host ms of the
+   drawing and of the PNG write (median of 7).
 
 8. staged parity: f32, TF32 off, ``fast_path`` off, against the JAX
    package's staged goldens (made with its cv2 postprocess; the port has
@@ -210,7 +219,27 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     48×256 against one rec step: the index equal wherever the top two
     probabilities differ by more than 1e-4, the value rtol 2e-4, and the
     launch counters zeroed just before it read 2 ``ctc_topk`` launches.
-    Two or four cards are not measured.
+    Two or four cards are not measured;
+18. trace: one fused bf16 request of scene0 on phase 4's engine
+    inside ``engine.profile_trace(dir)``: the request reads phase 4's
+    words, the Chrome trace written holds the ``fused.ctc_topk`` span and
+    CUDA events of the ``ctc_topk`` kernel (the counters zeroed just
+    before it show its launch); prints the trace's size and its kernel
+    events;
+19. boot and soak: ``scripts/measure_boot_torch.py --mode
+    incremental`` (the jumbo bundle's serving profile: seconds to the
+    socket, the first OK, every fused step shape run), then
+    ``scripts/soak_torch.py --duration 10 --concurrency 4`` with 30
+    control requests against ``service_main --batch-requests 4 --warmup
+    full``: both JSON summaries printed, 0 errors, the service's request
+    count equal to the client's, ``ctc_topk`` launched;
+20. host utilities: ``ops.structure``'s table and PicoDet decode,
+    ``table_resize`` / ``table_pad``, ``normalize_imagenet_np``,
+    ``get_mini_boxes``, ``unclip_rect`` and ``boxes_from_bitmap`` (with
+    ``min_size``) on the small inputs of ``assets/host_cases.npz``,
+    against the JAX package's answers stored beside them (tolerances in
+    ``Smoke.host_utilities``): none of them reaches for cv2, which the
+    card's machine does not have.
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -220,6 +249,9 @@ It then prints the ``kernels`` JSON line, the card line, and
 from __future__ import annotations
 
 import base64
+import contextlib
+import glob
+import io
 import json
 import logging
 import os
@@ -1043,6 +1075,7 @@ class Smoke:
                 raise AssertionError(f"8 concurrent requests were never coalesced: {stats}")
             if delta["ctc_topk"] < 1:
                 raise AssertionError(f"the service's requests never launched ctc_topk: {delta}")
+            self.visualize_request(c, sock, paths["serving0"])
             shutdown(c, proc, lines)
             print(json.dumps({
                 "service": "serving-jumbo bf16, --batch-requests 4 --warmup full",
@@ -1091,6 +1124,59 @@ class Smoke:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=10)
+
+    def visualize_request(self, c, sock, path):
+        """``ocr-client IMAGE --visualize OUT.png`` against the running
+        service: exit 0, and OUT.png decodes to ``visualize_boxes`` of the
+        decoded image and the response's words (the scene's pixels outside
+        the drawn ones); then the golden words of the scene drawn as cv2
+        draws them (``assets/visualize_mask.npz``); host ms of the drawing
+        and of the PNG write."""
+        import numpy as np
+
+        from ppocr_tpu_torch.cli.client_main import main as client_main
+        from ppocr_tpu_torch.utils.draw import polylines
+        from ppocr_tpu_torch.utils.imcodec import encode_png, read_image
+        from ppocr_tpu_torch.utils.visualize import visualize_boxes
+
+        out = os.path.join(self.tmp.name, "visualized.png")
+        before = service_launches(c)
+        stdout, stderr = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            rc = client_main([path, "--socket", sock, "--timeout", "120000", "--visualize", out])
+        if rc != 0 or "visualization written to" not in stderr.getvalue():
+            raise AssertionError(f"--visualize exited {rc}: {stderr.getvalue()[-500:]}")
+        self.launches["visualize"] = launches_since(c, before, "--visualize")
+        words = json.loads(stdout.getvalue())["words"]
+        check_words(words, self.served["serving0"], "--visualize request")
+        scene, written = read_image(path), read_image(out)
+        if written is None or not np.array_equal(written, visualize_boxes(scene, words)):
+            raise AssertionError("the --visualize PNG is not visualize_boxes of its words")
+        quads = [np.asarray(w["box"], np.int32).reshape(-1, 1, 2) for w in words]
+        drawn = polylines(np.zeros(scene.shape[:2], np.uint8), quads, 1, 2) > 0
+        if not (np.array_equal(written[~drawn], scene[~drawn]) and (written[drawn] == (0, 255, 0)).all()):
+            raise AssertionError("the --visualize PNG changed pixels outside the quads")
+        golden = self.goldens["words"]["serving"][0]
+        mask = self.assets.load_visualize_mask()
+        want = self.scenes["serving"][0].copy()
+        want[mask] = (0, 255, 0)
+        if not np.array_equal(visualize_boxes(self.scenes["serving"][0], golden), want):
+            raise AssertionError("the golden words are not drawn as cv2 draws them")
+        draw_ms, write_ms = [], []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            canvas = visualize_boxes(scene, words)
+            t1 = time.perf_counter()
+            pathlib.Path(out).write_bytes(encode_png(canvas))
+            t2 = time.perf_counter()
+            draw_ms.append((t1 - t0) * 1e3)
+            write_ms.append((t2 - t1) * 1e3)
+        print(json.dumps({
+            "visualize": "ocr-client scene0.png --visualize out.png, serving-jumbo bf16",
+            "words": len(words), "drawn_px": int(drawn.sum()), "golden_words": len(golden),
+            "golden_px_as_cv2": int(mask.sum()), "visualize_boxes_ms_p50": statistics.median(draw_ms),
+            "png_write_ms_p50": statistics.median(write_ms), "png_bytes": os.path.getsize(out),
+            "launches": self.launches["visualize"], "card": card_line()}), flush=True)
 
     # -- 8 ---------------------------------------------------------------
     def staged_parity(self):
@@ -2046,6 +2132,170 @@ class Smoke:
             if proc.poll() is None:
                 proc.wait(timeout=10)
 
+    # -- 18 --------------------------------------------------------------
+    def trace(self):
+        """One fused bf16 request of scene0 inside ``engine.profile_trace``:
+        the trace holds the ``fused.ctc_topk`` span and the hand-written
+        ``ctc_topk`` kernel's CUDA events."""
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCRWorker
+
+        if not self.serving_engines:
+            raise AssertionError("needs the bf16 serving phase's engine")
+        engine = self.serving_engines[False]
+        worker = OCRWorker(engine, 0)
+        scene = self.scenes["serving"][0]
+        worker.process(scene, 0)  # untraced: the profiler's own start-up is not the request's
+        logdir = os.path.join(self.tmp.name, "trace")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()  # the traced request's run starts here
+        t0 = time.perf_counter()
+        with engine.profile_trace(logdir):
+            resp = worker.process(scene, 1)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        self.launches["trace"] = K.launch_counts()
+        check_words(resp["words"], self.served["serving0"], "traced request")
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"profile_trace wrote {files}")
+        events = json.loads(pathlib.Path(files[0]).read_text())["traceEvents"]
+        spans = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        ctc = [e for e in kernels if "ctc_topk_kernel" in e.get("name", "")]
+        if "fused.ctc_topk" not in spans or not ctc or self.launches["trace"]["ctc_topk"] < 1:
+            raise AssertionError(f"the trace lacks ctc_topk: spans {sorted(spans)[:20]}, "
+                                 f"{len(kernels)} kernel events, launches {self.launches['trace']}")
+        print(json.dumps({
+            "trace": "one fused bf16 request of scene0 under engine.profile_trace",
+            "file": os.path.basename(files[0]), "bytes": os.path.getsize(files[0]),
+            "events": len(events), "kernel_events": len(kernels), "ctc_topk_kernel_events": len(ctc),
+            "ctc_topk_kernel_us": [e.get("dur") for e in ctc], "fused_spans": sorted(
+                n for n in spans if n and n.startswith("fused.")),
+            "request_ms_traced": wall_ms, "processing_time_ms": resp["processing_time_ms"],
+            "launches": self.launches["trace"], "card": card_line()}), flush=True)
+
+    # -- 19 --------------------------------------------------------------
+    def boot_and_soak(self):
+        """``scripts/measure_boot_torch.py --mode incremental`` (the jumbo
+        bundle's serving profile booted from nothing), then
+        ``scripts/soak_torch.py --duration 10 --concurrency 4`` with 30
+        control requests against a ``--batch-requests 4 --warmup full``
+        service: both summaries printed, 0 errors."""
+        from ppocr_tpu_torch.serve import OCRIPCClient
+
+        def script(argv, timeout):
+            out = subprocess.run([sys.executable, *argv], cwd=REPO, capture_output=True,
+                                 text=True, timeout=timeout)
+            lines = out.stdout.strip().splitlines()
+            if out.returncode != 0 or not lines:
+                raise AssertionError(f"{argv[0]} exited {out.returncode}:\n{out.stdout[-1500:]}"
+                                     f"\n{out.stderr[-1500:]}")
+            return json.loads(lines[-1])
+
+        boot = script(["scripts/measure_boot_torch.py", "--mode", "incremental", "--timeout", "400"], 500)
+        if "error" in boot or not 0 < boot["t_socket_s"] <= boot["t_first_ok_s"] <= boot["t_all_ready_s"]:
+            raise AssertionError(f"boot: {boot}")
+        self.launches["boot"] = boot["kernel_launches"]
+        print(json.dumps({"boot": boot, "card": card_line()}), flush=True)
+
+        sock = os.path.join(self.tmp.name, "soak.sock")
+        proc, lines = self.start_service(sock, {"--batch-requests": 4, "--warmup": "full"})
+        try:
+            c = OCRIPCClient(sock, timeout_ms=120000)
+            if not c.connect():
+                raise AssertionError("cannot connect to the soak service")
+            before = service_launches(c)
+            soak = script(["scripts/soak_torch.py", "--socket", sock, "--duration", "10",
+                           "--concurrency", "4", "--control-requests", "30", "--pid", str(proc.pid),
+                           "--track-workers"], 300)
+            self.launches["soak"] = launches_since(c, before, "soak")
+            status = json.loads(c.get_service_status()["status"])
+            if c.send_shutdown_command().get("success") is not True:
+                raise AssertionError("soak service: shutdown was not acknowledged")
+            c.disconnect()
+            if proc.wait(timeout=20) != 0:
+                raise AssertionError("soak service: " + "\n".join(lines[-20:]))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        served = soak["requests_ok"] + 30
+        if soak["errors"] or soak["requests_ok"] < 1 or status["failed_requests"]:
+            raise AssertionError(f"soak: {soak}")
+        if status["total_requests"] != served:
+            raise AssertionError(f"soak: the service counted {status['total_requests']}, "
+                                 f"the client {served}")
+        print(json.dumps({"soak": soak, "service_steps": status["workers"][0]["steps"],
+                          "batched_steps": status["workers"][0]["batched_steps"],
+                          "launches": self.launches["soak"], "card": card_line()}), flush=True)
+
+    # -- 20 --------------------------------------------------------------
+    def host_utilities(self):
+        """The host utilities on ``assets/host_cases.npz`` against the JAX
+        package's answers stored beside the inputs (written where cv2 and
+        JAX run, ``tests/test_torch_structure.py --write``): table and
+        PicoDet decode exact, the table resize within one grey level with
+        the same shape and ratio, the pad's shape, the normalizer within
+        1e-6, ``get_mini_boxes`` exact, ``unclip_rect`` within 1e-4 on
+        ≥ 99 % of the quads and 2 px on all, ``boxes_from_bitmap`` for
+        ``min_size`` 1, 3 and 6 within the staged tolerances (counts within
+        one, ≥ 90 % of the boxes within 2 px)."""
+        import numpy as np
+
+        from ppocr_tpu_torch.ops import boxes_from_bitmap, get_mini_boxes, normalize_imagenet_np, unclip_rect
+        from ppocr_tpu_torch.ops.resize import table_pad, table_resize
+        from ppocr_tpu_torch.ops.structure import picodet_decode, table_decode
+
+        c = self.assets.load_host_cases()
+        ans = json.loads(str(c["answers"]))
+        got = table_decode(c["table_probs"], c["table_loc"], ans["labels"], ans["widths"], ans["heights"])
+        if list(map(list, got)) != ans["table"]:
+            raise AssertionError(f"table_decode: {got} vs {ans['table']}")
+        boxes = picodet_decode([c[f"picodet_cls{i}"] for i in range(4)],
+                               [c[f"picodet_reg{i}"] for i in range(4)], ans["layout_labels"],
+                               ori_shape=(96, 128), resize_shape=(64, 64), score_threshold=0.3)
+        if [[b.box, b.type, b.confidence] for b in boxes] != ans["picodet"]:
+            raise AssertionError("picodet_decode differs from the JAX answer")
+        resized, ratio = table_resize(c["table_img"], 64)
+        if (ratio != ans["table_ratio"] or resized.shape != c["table_resized"].shape
+                or np.abs(resized.astype(int) - c["table_resized"]).max() > 1
+                or table_pad(resized, 64).shape != c["table_padded"].shape):
+            raise AssertionError("table_resize / table_pad differ from the JAX answer")
+        norm_err = float(np.abs(normalize_imagenet_np(c["norm_img"]) - c["norm_out"]).max())
+        if norm_err > 1e-6:
+            raise AssertionError(f"normalize_imagenet_np: {norm_err}")
+        for r, want, ssid in zip(c["rects"], c["mini_boxes"], ans["mini_ssid"]):
+            box, got_ssid = get_mini_boxes(((r[0], r[1]), (r[2], r[3]), r[4]))
+            if not np.array_equal(box, want) or got_ssid != ssid:
+                raise AssertionError(f"get_mini_boxes of {r.tolist()}: {box.tolist()} vs {want.tolist()}")
+        close = n = 0
+        for q, want, none in zip(c["quads"], c["unclipped"], c["unclip_none"]):
+            rect = unclip_rect(q, 1.8)
+            if (rect is None) != bool(none):
+                raise AssertionError(f"unclip_rect of {q.tolist()}: None-ness differs")
+            if rect is not None:
+                err = float(np.abs(get_mini_boxes(rect)[0] - want).max())
+                if err > 2:
+                    raise AssertionError(f"unclip_rect of {q.tolist()}: corners {err} px apart")
+                close, n = close + (err <= 1e-4), n + 1
+        if close < 0.99 * n:
+            raise AssertionError(f"unclip_rect: {close} of {n} within 1e-4")
+        counts = {}
+        for min_size, want in ans["boxes"].items():
+            got = boxes_from_bitmap(c["db_prob"], c["db_bitmap"], 0.4, 1.8, "fast", min_size=int(min_size))
+            near = sum(any(np.abs(np.sort(g, 0) - np.sort(np.array(w), 0)).max() <= BOX_TOL for g in got)
+                       for w in want)
+            if abs(len(got) - len(want)) > 1 or near < 0.9 * len(want):
+                raise AssertionError(f"boxes_from_bitmap min_size {min_size}: {got} vs {want}")
+            counts[min_size] = [len(got), len(want)]
+        print(json.dumps({
+            "host_utilities": "the port's answers on assets/host_cases.npz against the JAX package's",
+            "table_tags": [len(t) for t in ans["table"][0]], "picodet_boxes": len(boxes),
+            "table_resized": list(resized.shape), "normalize_max_err": norm_err,
+            "mini_boxes_exact": len(c["rects"]), "unclip_within_1e-4": f"{close}/{n}",
+            "boxes_port_vs_jax": counts}), flush=True)
+
 
 def adam_close(got, want, lr_sum):
     """Two parameter trees after AdamW updates whose rates sum to
@@ -2146,6 +2396,9 @@ def main() -> int:
     smoke.phase("finetune", smoke.finetune)
     smoke.phase("det train", smoke.det_train)
     smoke.phase("train devices", smoke.train_devices)
+    smoke.phase("trace", smoke.trace)
+    smoke.phase("boot and soak", smoke.boot_and_soak)
+    smoke.phase("host utilities", smoke.host_utilities)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:

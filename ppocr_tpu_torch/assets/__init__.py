@@ -26,6 +26,13 @@ a 24-bit BMP, an RLE8 BMP of its grey, a binary PPM and a standard and a
 byte-encoded Sun raster (the smoke run's timing inputs).
 ``tests/test_torch_image_formats.py --write`` regenerates it.
 
+``visualize_mask.npz`` holds the pixels ``cv2.polylines`` draws for the
+golden words of the first serving scene (one bit a pixel), rewritten by
+``tests/test_torch_visualize.py --write``; ``host_cases.npz`` holds small
+inputs of the host utilities (table and PicoDet decode, table resize and
+pad, the normalizers, the DB helpers) beside the JAX package's answers,
+rewritten by ``tests/test_torch_structure.py --write``.
+
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
 5,008-way head) and ``weights/jumbo_keys.txt``. It has no orientation
@@ -52,6 +59,8 @@ SCENES = ASSETS / "scenes.npz"
 GOLDENS = ASSETS / "goldens.json"
 JPEG_CASES = ASSETS / "jpeg_cases.npz"
 IMAGE_CASES = ASSETS / "image_cases.npz"
+VISUALIZE_MASK = ASSETS / "visualize_mask.npz"
+HOST_CASES = ASSETS / "host_cases.npz"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
@@ -131,6 +140,21 @@ def load_image_cases() -> dict:
 
         names = sorted({k.rsplit("/", 1)[0] for k in data.files if k.endswith("/bytes")})
         return {n: (data[f"{n}/bytes"].tobytes(), decode_of(n)) for n in names}
+
+
+def load_visualize_mask() -> np.ndarray:
+    """[H, W] bool: where ``cv2.polylines`` draws the first serving scene's
+    golden words (``visualize_boxes``' colour and thickness)."""
+    with np.load(VISUALIZE_MASK) as data:
+        h, w = (int(v) for v in data["shape"])
+        return np.unpackbits(data["bits"], count=h * w).reshape(h, w).astype(bool)
+
+
+def load_host_cases() -> dict:
+    """{name: array} of ``host_cases.npz``; ``"answers"`` is the JAX
+    package's answers as a JSON string."""
+    with np.load(HOST_CASES) as data:
+        return {k: data[k] for k in data.files}
 
 
 def match_staged_words(got, want, box_tol: int = 2):

@@ -4,8 +4,10 @@ Flag-compatible with the reference client CLI (ocr_client_main.cpp:68-93):
 ``--pipe-name``/``--socket``, ``--timeout`` ms, ``--status``, ``--shutdown``,
 or a positional image path. Prints the raw JSON response, like the
 reference prints the service's reply verbatim. A copy of
-``ppocr_tpu/cli/client_main.py``; ``--visualize`` is accepted and refused
-until ``utils/visualize.py`` is ported (ROADMAP A12).
+``ppocr_tpu/cli/client_main.py``. ``--visualize`` re-reads the image with
+``imcodec.read_image`` (``cv2.imread``'s answer) and writes a PNG through
+``utils.visualize``; any other extension exits 3, where the JAX client
+writes whatever ``cv2.imwrite`` can encode.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--visualize",
         metavar="OUT.png",
-        help="draw the detected word quads on the input image and save "
-        "(not ported yet: ROADMAP A12)",
+        help="draw the detected word quads on the input image and save it as "
+        "a PNG (Utility::VisualizeBboxes analog, utility.cpp:50-102)",
     )
     return p
 
@@ -50,15 +52,10 @@ def main(argv=None) -> int:
     if not (args.status or args.shutdown or args.image):
         parser.print_help()
         return 1
-    if args.visualize:
-        print(
-            "--visualize is not ported to ppocr_tpu_torch yet (ROADMAP A12)",
-            file=sys.stderr,
-        )
-        return 2
 
     from ..serve import OCRIPCClient
 
+    recognized = not (args.status or args.shutdown)
     client = OCRIPCClient(resolve_socket_path(args.socket), args.timeout)
     if not client.connect():
         print(f"Failed to connect to OCR service at {args.socket}", file=sys.stderr)
@@ -82,6 +79,23 @@ def main(argv=None) -> int:
         print(json.dumps(response, ensure_ascii=False, indent=2))
     else:
         print(json.dumps(response, ensure_ascii=False, separators=(",", ":")))
+    if args.visualize and recognized and response.get("success"):
+        from ..utils.imcodec import read_image
+        from ..utils.visualize import visualize_boxes
+
+        img = read_image(args.image)
+        if img is None:
+            print(
+                f"cannot re-read {args.image} for visualization",
+                file=sys.stderr,
+            )
+            return 3
+        try:
+            visualize_boxes(img, response.get("words", []), args.visualize)
+        except (IOError, ValueError) as e:
+            print(f"visualization failed: {e}", file=sys.stderr)
+            return 3
+        print(f"visualization written to {args.visualize}", file=sys.stderr)
     return 0 if response.get("success") else 3
 
 

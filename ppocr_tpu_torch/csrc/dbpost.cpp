@@ -410,14 +410,17 @@ extern "C" {
 // boxes_from_bitmap:
 //   pred   float32 [h*w]  probability map
 //   bitmap uint8   [h*w]  binarized map (0/255 or 0/1)
+//   min_size  a box is kept when max(w, h) of its min-area rect is
+//             >= min_size, and of its unclipped rect >= min_size + 2
+//             (postprocess_op.cpp's 3 and 5 when min_size is 3)
 //   out_boxes int32 [max_boxes*8]  (x0,y0,...,x3,y3 per box)
 //   out_scores float32 [max_boxes]
 // returns number of boxes written.
 int dbpost_boxes_from_bitmap(const float* pred, const uint8_t* bitmap, int w,
                              int h, float box_thresh, float unclip_ratio,
                              int use_slow_score, int max_candidates,
-                             int32_t* out_boxes, float* out_scores,
-                             int max_boxes) {
+                             int min_size, int32_t* out_boxes,
+                             float* out_scores, int max_boxes) {
   std::vector<Contour> contours;
   find_contours(bitmap, w, h, max_candidates, contours);
 
@@ -448,7 +451,7 @@ int dbpost_boxes_from_bitmap(const float* pred, const uint8_t* bitmap, int w,
     // cv::minAreaRect over integer pixel coords treats each point as a
     // lattice point; ssid check uses max(w, h) like the reference
     float ssid = std::max(rect.w, rect.h);
-    if (ssid < 3.0f) continue;
+    if (ssid < (float)min_size) continue;
 
     Pt box[4];
     rect_points(rect, box);
@@ -494,7 +497,7 @@ int dbpost_boxes_from_bitmap(const float* pred, const uint8_t* bitmap, int w,
     expanded.h += 2 * dist;
     if (expanded.w < 1.001f && expanded.h < 1.001f) continue;
     float ssid2 = std::max(expanded.w, expanded.h);
-    if (ssid2 < 5.0f) continue;
+    if (ssid2 < (float)(min_size + 2)) continue;
 
     Pt ebox[4];
     rect_points(expanded, ebox);

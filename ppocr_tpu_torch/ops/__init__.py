@@ -4,7 +4,14 @@ from .ctc import (
     ctc_greedy_collapse,
     ctc_topk_device,
 )
-from .db_postprocess import DBPostProcess, filter_tag_det_res, order_points_clockwise
+from .db_postprocess import (
+    DBPostProcess,
+    boxes_from_bitmap,
+    filter_tag_det_res,
+    get_mini_boxes,
+    order_points_clockwise,
+    unclip_rect,
+)
 from .geometry import (
     bounding_crop,
     get_rotate_crop_image,
@@ -12,7 +19,7 @@ from .geometry import (
     sort_boxes,
     xyxyxyxy2xyxy,
 )
-from .normalize import pack_batch
+from .normalize import normalize_chw_np, normalize_imagenet_np, pack_batch
 from .resize import (
     cls_resize,
     crnn_resize,
@@ -25,6 +32,7 @@ from .resize import (
 __all__ = [
     "DBPostProcess",
     "bounding_crop",
+    "boxes_from_bitmap",
     "cls_resize",
     "crnn_resize",
     "ctc_beam_search",
@@ -36,10 +44,14 @@ __all__ = [
     "det_resize",
     "det_target_shape",
     "filter_tag_det_res",
+    "get_mini_boxes",
     "get_rotate_crop_image",
     "iou_float",
+    "normalize_chw_np",
+    "normalize_imagenet_np",
     "order_points_clockwise",
     "pack_batch",
     "sort_boxes",
+    "unclip_rect",
     "xyxyxyxy2xyxy",
 ]

@@ -126,6 +126,7 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_float,
                 ctypes.c_int,
                 ctypes.c_int,
+                ctypes.c_int,
                 ctypes.POINTER(ctypes.c_int32),
                 fp,
                 ctypes.c_int,
@@ -143,10 +144,13 @@ def boxes_from_bitmap(
     unclip_ratio: float,
     score_mode: str = "slow",
     max_candidates: int = 1000,
+    min_size: int = 3,
 ) -> Tuple[List[np.ndarray], List[float]]:
     """Bitmap → (int64 quads [4, 2] in pred-map coordinates, their scores)
     (postprocess_op.cpp:255-331). The contours come in cv2's bottom-up
-    order and ``max_candidates`` cuts that order. ``bitmap`` must have
+    order and ``max_candidates`` cuts that order. A box is kept when the
+    longer side of its min-area rect is at least ``min_size`` and that of
+    its unclipped rect at least ``min_size + 2``. ``bitmap`` must have
     ``pred``'s shape: the core indexes both with the same dims."""
     lib = load_library()
     pred = np.ascontiguousarray(pred, np.float32)
@@ -169,6 +173,7 @@ def boxes_from_bitmap(
         ctypes.c_float(unclip_ratio),
         1 if score_mode == "slow" else 0,
         max_boxes,
+        int(min_size),
         out_boxes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         out_scores.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         max_boxes,

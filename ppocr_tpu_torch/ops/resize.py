@@ -2,8 +2,9 @@
 (no cv2).
 
 Counterpart of ``ppocr_tpu/ops/resize.py`` ``det_target_shape``,
-``det_resize``, ``det_cap_shape``, ``det_fit_cap``, ``crnn_resize`` and
-``cls_resize``. The JAX package
+``det_resize``, ``det_cap_shape``, ``det_fit_cap``, ``crnn_resize``,
+``cls_resize`` and the structure inputs' ``table_resize``, ``table_pad``
+and ``resize_hw``. The JAX package
 resizes with ``cv2.resize(INTER_LINEAR)``; the machines that serve the
 port need not have cv2, so :func:`resize_bilinear_u8` reproduces cv2's
 uint8 bilinear: half-pixel centres, 11-bit fixed-point weights rounded
@@ -164,3 +165,46 @@ def cls_resize(img: np.ndarray, cls_image_shape=(3, 48, 192)) -> np.ndarray:
     tensor)."""
     _, img_h, img_w = cls_image_shape
     return resize_bilinear_u8(img, _aspect_width(img, img_h, img_w), img_h)
+
+
+def _resize(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """:func:`resize_bilinear_u8`, refusing what ``cv2.resize`` refuses:
+    an empty input or output (its ``inv_scale_x > 0`` assertion)."""
+    if out_w <= 0 or out_h <= 0 or img.size == 0:
+        raise ValueError(
+            f"resize of a {img.shape[:2]} image to {out_h}x{out_w}: cv2.resize "
+            "refuses an empty input or output"
+        )
+    return resize_bilinear_u8(img, out_w, out_h)
+
+
+def table_resize(img: np.ndarray, max_len: int = 488) -> Tuple[np.ndarray, float]:
+    """Long-side resize for table-structure inputs (TableResizeImg,
+    preprocess_op.cpp:139-151): each side times max_len / the longer side,
+    truncated. Returns (resized, ratio); within one grey level of cv2's
+    pixels (see :func:`resize_bilinear_u8`)."""
+    h, w = img.shape[:2]
+    ratio = max_len / (w if w >= h else h)
+    return _resize(img, int(w * ratio), int(h * ratio)), ratio
+
+
+def table_pad(img: np.ndarray, max_len: int = 488) -> np.ndarray:
+    """Bottom/right zero-pad to a square max_len canvas (TablePadImg,
+    preprocess_op.cpp:153-159). A side longer than ``max_len`` raises
+    ``ValueError``, where ``cv2.copyMakeBorder`` fails its assertion on the
+    negative border."""
+    h, w = img.shape[:2]
+    if h > max_len or w > max_len:
+        raise ValueError(
+            f"table_pad: a {h}x{w} image does not fit a {max_len}x{max_len} canvas "
+            "(cv2.copyMakeBorder refuses a negative border)"
+        )
+    out = np.zeros((max_len, max_len) + img.shape[2:], img.dtype)
+    out[:h, :w] = img
+    return out
+
+
+def resize_hw(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Plain resize to h x w (Resize op, preprocess_op.cpp:161-164), within
+    one grey level of ``cv2.resize``."""
+    return _resize(img, w, h)

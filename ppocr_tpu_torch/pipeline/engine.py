@@ -438,6 +438,32 @@ class OCREngine:
         if warmup:
             self.warmup()
 
+    # -- tracing -----------------------------------------------------------
+
+    def profile_trace(self, logdir: str):
+        """A ``torch.profiler`` trace context (SURVEY.md §5: the reference
+        only wall-clocks stages; this captures the host spans and, on a
+        card, the device's kernels, viewable in Perfetto or
+        chrome://tracing)::
+
+            with engine.profile_trace("/tmp/ocr-trace"):
+                worker.process(image, 1)
+
+        It records CPU activity, and CUDA activity when the engine's device
+        is a card, with the port's ``record_function`` spans (``fused.*``,
+        ``staged.*``). On exit it writes one Chrome trace,
+        ``<host>_<pid>.<timestamp>.pt.trace.json``, into ``logdir`` (created
+        if missing); the JAX package's ``jax.profiler.trace`` writes an XPlane
+        under ``logdir/plugins/profile/`` instead. The profiler follows the
+        thread that enters the context: enter it on the thread that runs
+        the request (the engine's own call, not through the service)."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir))
+
     def staged_step_shapes(self, det_shapes: Sequence[Tuple[int, int]] = ()) -> dict:
         """The closed set of staged step shapes: det (H, W) bucket pairs
         (or ``det_shapes``), rec (batch, width) buckets, cls batch buckets

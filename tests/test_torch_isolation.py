@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: every module of ``ppocr_tpu_torch`` and
-``chip_smoke.py`` imports with jax, cv2 and PIL blocked, and loads nothing
-of the JAX package ``ppocr_tpu``."""
+"""The PyTorch port stands alone: every module of ``ppocr_tpu_torch``,
+``chip_smoke.py`` and the port's scripts ``scripts/soak_torch.py`` and
+``scripts/measure_boot_torch.py`` import with jax, cv2 and PIL blocked,
+and load nothing of the JAX package ``ppocr_tpu``."""
 
 import pathlib
 import subprocess
@@ -22,6 +23,9 @@ PROBE = textwrap.dedent(
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    for script in ("soak_torch", "measure_boot_torch"):  # their imports sit at the top
+        spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     leaked = sorted(m for m in sys.modules if m == "ppocr_tpu" or m.startswith("ppocr_tpu."))
     assert not leaked, leaked
     print(" ".join(names))
@@ -43,5 +47,6 @@ def test_port_imports_without_jax_cv2_pil_or_the_jax_package():
     for module in ("ops.native", "ops.geometry", "ops.db_postprocess", "pipeline.sysinfo",
                    "serve.balancer", "pipeline.engine", "pipeline.worker", "train.trainer",
                    "train.finetune", "cli.finetune_main", "utils.imcodec",
-                   "parallel.tensor_parallel", "parallel.dryrun"):
+                   "parallel.tensor_parallel", "parallel.dryrun", "utils.visualize",
+                   "utils.draw", "ops.structure"):
         assert f"ppocr_tpu_torch.{module}" in names

@@ -821,9 +821,45 @@ class TestClientCli:
         assert client_main(["--status", "--socket", str(tmp_path / "none.sock"), "--timeout", "50"]) == 2
         assert client_main([]) == 1
 
-    def test_visualize_is_refused_naming_its_roadmap_item(self, service, scene_paths, capsys):
-        rc = client_main([scene_paths[0], "--socket", service.socket_path, "--visualize", "o.png"])
-        assert rc == 2 and "ROADMAP A12" in capsys.readouterr().err
+    def test_visualize_writes_the_jax_clients_pixels(self, service, scene_paths, tmp_path, capsys):
+        """``--visualize out.png`` exits 0 and writes what the JAX client
+        writes for the same response: ``visualize_boxes`` on cv2's
+        ``imread`` of the image, read back by cv2."""
+        from ppocr_tpu.utils.visualize import visualize_boxes as jax_visualize
+
+        out = tmp_path / "vis.png"
+        argv = [scene_paths[0], "--socket", service.socket_path, "--timeout", "120000"]
+        assert client_main([*argv, "--visualize", str(out)]) == 0
+        captured = capsys.readouterr()
+        response = json.loads(captured.out)
+        assert response["words"] and f"visualization written to {out}" in captured.err
+        want = jax_visualize(cv2.imread(scene_paths[0]), response["words"])
+        np.testing.assert_array_equal(cv2.imread(str(out)), want)
+
+    def test_visualize_of_an_unreadable_image_exits_3(self, service, scene_paths, tmp_path, capsys, monkeypatch):
+        bad = tmp_path / "bad.png"
+        bad.write_bytes(b"not an image")
+        out = tmp_path / "vis.png"
+        argv = ["--socket", service.socket_path, "--timeout", "120000", "--visualize", str(out)]
+        assert client_main([str(bad), *argv]) == 3  # the service cannot decode it
+        assert json.loads(capsys.readouterr().out)["success"] is False
+        # decoded by the service, refused by the re-read: the JAX client's message
+        from ppocr_tpu_torch.utils import imcodec
+
+        monkeypatch.setattr(imcodec, "read_image", lambda path: None)
+        assert client_main([scene_paths[0], *argv]) == 3
+        assert f"cannot re-read {scene_paths[0]} for visualization" in capsys.readouterr().err
+        assert not out.exists()
+
+    @pytest.mark.parametrize("name", ["vis.jpg", "vis"])
+    def test_visualize_to_another_extension_exits_3(self, service, scene_paths, tmp_path, capsys, name):
+        """The port writes PNG only; the JAX client writes any extension
+        cv2.imwrite knows and exits 3 where it fails."""
+        out = tmp_path / name
+        argv = [scene_paths[0], "--socket", service.socket_path, "--timeout", "120000"]
+        assert client_main([*argv, "--visualize", str(out)]) == 3
+        assert "visualization failed: cannot write visualization" in capsys.readouterr().err
+        assert not out.exists()
 
 
 def test_service_main_process_serves_and_shuts_down(model_dir, sock_dir, scene_paths, expected, tmp_path, capsys):

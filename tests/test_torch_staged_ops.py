@@ -268,7 +268,8 @@ def test_db_postprocess_equals_the_cv2_backend_on_a_clean_map(use_dilation):
     assert len(ref) == len(got) == 2
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(r, g)
-    assert not hasattr(torch_db.DBPostProcess(), "backend")  # one backend only
+    # every backend runs the C++ core (tests/test_torch_db_helpers.py)
+    assert torch_db.DBPostProcess().backend == "auto"
 
 
 # -- numpy halves of the postprocess -----------------------------------------
