@@ -5,6 +5,7 @@ its training path, on one device and over a mesh, on one NVIDIA card and
 check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only="synthetic train"   # some phases alone, no result lines
 
 Phases (any failure exits non-zero without the final ``ok`` line):
 
@@ -239,7 +240,40 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     ``min_size``) on the small inputs of ``assets/host_cases.npz``,
     against the JAX package's answers stored beside them (tolerances in
     ``Smoke.host_utilities``): none of them reaches for cv2, which the
-    card's machine does not have.
+    card's machine does not have;
+21. synthetic train (the jumbo recipe's data, made on the card's host
+    from the committed glyph atlas, with no PIL, cv2 or fontTools): 16
+    scenes of ``text_scene_dataset("jumbo", seed)`` (4 seeds × 4) equal
+    ``assets/synthetic_digest.json`` (texts, boxes and the sha256 of the
+    pixels the JAX package renders); then the recipe of
+    ``scripts/train_jumbo_torch.sh`` at full width: ``SceneCropRecDataset``
+    (48×256, ±8° rotation) on ``text_scene_dataset("jumbo", seed=7)``,
+    batch 48, the recognizer warm-started from ``weights/rec_scene_full.npz``
+    with its head re-sized to the 5,008 jumbo classes, under the recipe's
+    cosine schedule, through the recipes' own loop
+    (``train.trainer.run_steps``: the batches made on its
+    ``BatchPrefetcher`` thread while the card steps): 8 steps on batches
+    rendered beforehand, 20 on batches it renders, then 9 more under
+    ``torch.profiler`` (the last 6 traced); every loss finite and the mean
+    of the last 5 below the first. Then the same for
+    ``make_det_train_step`` on ``text_scene_dataset("jumbo").det_batch(8)``
+    (8 prefetched steps; losses finite). Prints the host ms per rendered
+    batch (alone before training, and on the prefetch thread while it
+    runs), the step ms (CUDA events from the batch in hand to the step's
+    return, median after 3 warm steps), the step period (between step
+    ends), the period's stretch when the thread renders
+    (1 − period on batches made beforehand / period on rendered ones),
+    the card's idle share and device busy ms a step read from the trace
+    (the union of kernels, copies and sets over the traced window, which
+    the profiler's own host work stretches) and that busy time against
+    the untraced periods (``card_idle_share_est``), the
+    host's wait in the prefetcher, peak memory, the threads and float32
+    settings the phase starts with, and the kernels' launches in the path
+    (neither hand-written kernel is on it). Last, both scripts,
+    ``scripts/train_synthetic_rec_torch.py`` (the jumbo recipe's flags,
+    batch 48) and ``scripts/train_synthetic_det_torch.py``, run 2 steps
+    each on the card by default, with their evals: the rec npz holds a
+    5,008-class head. No fallback: a failure fails the phase.
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -251,6 +285,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import glob
+import importlib.util
 import io
 import json
 import logging
@@ -361,6 +396,9 @@ class Smoke:
     # batch and crop width; det steps, batch and image side
     FT_STEPS, FT_WARM, FT_BATCH, FT_WIDTH = 120, 10, 32, 320
     DET_STEPS, DET_BATCH, DET_SIZE = 20, 8, 512
+    # the synthetic-data phase: rec and det steps, the warm steps its
+    # timings leave out, and the steps traced after them
+    REC_SYNTH_STEPS, DET_SYNTH_STEPS, SYNTH_WARM, SYNTH_TRACED = 20, 8, 3, 6
 
     def __init__(self):
         self.failures = []
@@ -2296,6 +2334,229 @@ class Smoke:
             "mini_boxes_exact": len(c["rects"]), "unclip_within_1e-4": f"{close}/{n}",
             "boxes_port_vs_jax": counts}), flush=True)
 
+    # -- 21 --------------------------------------------------------------
+    def synthetic_train(self):
+        import hashlib
+
+        import numpy as np
+
+        from ppocr_tpu_torch.models import init_det_params
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.train import make_det_train_step, make_train_step
+        from ppocr_tpu_torch.train import synthetic as S
+        from ppocr_tpu_torch.train.finetune import charset_classes, reinit_ctc_head
+        from ppocr_tpu_torch.train.text_render import load_atlas
+        from ppocr_tpu_torch.train.trainer import cosine_decay_schedule, run_steps
+        from ppocr_tpu_torch.utils.checkpoint import load_params_npz
+
+        digest = self.assets.load_synthetic_digest()
+        load_atlas()  # read once (~0.3 s), outside the per-scene time
+        t0 = time.perf_counter()
+        got_scenes = []
+        for seed in digest["seeds"]:
+            scenes = S.text_scene_dataset("jumbo", seed=seed)
+            for index in range(4):
+                img, placed = scenes.sample_scene()
+                got_scenes.append({
+                    "seed": seed, "index": index, "placed": [[t, list(b)] for t, b in placed],
+                    "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()})
+        scene_ms = (time.perf_counter() - t0) / len(got_scenes) * 1e3
+        for g, w in zip(got_scenes, digest["scenes"]):
+            if g != w:
+                raise AssertionError(f"scene {w['seed']}/{w['index']} differs from the digest: {g} vs {w}")
+        if len(got_scenes) != len(digest["scenes"]):
+            raise AssertionError(f"{len(got_scenes)} scenes against {len(digest['scenes'])} in the digest")
+
+        def timed(make, into):
+            def run():
+                t = time.perf_counter()
+                batch = make()
+                into.append((time.perf_counter() - t) * 1e3)
+                return batch
+            return run
+
+        def steps(step_fn, state, make_batch, n, losses):
+            """``n`` steps of the recipes' loop (``run_steps``) on batches
+            ``make_batch()`` makes on its prefetch thread: (state, busy ms,
+            period ms, host wait ms), the timings of the steps after the
+            warm ones."""
+            starts, ends, waits, mark = [], [], [], [time.perf_counter()]
+
+            def on_batch(step):
+                waits.append((time.perf_counter() - mark[0]) * 1e3)
+                starts.append(torch.cuda.Event(enable_timing=True))
+                starts[-1].record()
+
+            def on_step(step, state, loss):
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+                losses.append(loss)
+                mark[0] = time.perf_counter()
+
+            state = run_steps(step_fn, state, make_batch, n, on_batch=on_batch, on_step=on_step)
+            torch.cuda.synchronize()
+            w = self.SYNTH_WARM
+            busy = [a.elapsed_time(b) for a, b in zip(starts[w + 1:], ends[w + 1:])]
+            period = [a.elapsed_time(b) for a, b in zip(ends[w:], ends[w + 1:])]
+            return state, busy, period, waits[w + 1:]
+
+        def traced(step_fn, state, make_batch, losses):
+            """``SYNTH_TRACED`` prefetched steps under ``torch.profiler``
+            (CPU and CUDA activity), after ``SYNTH_WARM`` untraced ones:
+            (state, the card's idle share of the traced window, its device
+            busy ms a step, the period ms a step under the profiler). The
+            window runs from the first device event of the traced steps to
+            the last; busy is the union of its kernels, copies and sets."""
+            from torch.profiler import ProfilerActivity, profile, schedule
+
+            n = self.SYNTH_WARM + self.SYNTH_TRACED
+            path = os.path.join(self.tmp.name, "synthetic_train.pt.trace.json")
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=self.SYNTH_WARM,
+                                             active=self.SYNTH_TRACED),
+                           on_trace_ready=lambda p: p.export_chrome_trace(path))
+            marks = []
+
+            def on_step(step, state, loss):
+                losses.append(loss)
+                if step == self.SYNTH_WARM:
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                if step == n:
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                prof.step()
+
+            with prof:
+                state = run_steps(step_fn, state, make_batch, n, on_step=on_step)
+            events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+            spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+            if not spans:
+                raise AssertionError(f"the synthetic-train trace holds no device events "
+                                     f"({len(events)} events)")
+            busy, end = 0.0, spans[0][0]
+            for a, b in spans:
+                busy += max(0.0, b - max(a, end))
+                end = max(end, b)
+            window = end - spans[0][0]
+            return (state, 1.0 - busy / window, busy / 1e3 / self.SYNTH_TRACED,
+                    (marks[1] - marks[0]) * 1e3 / self.SYNTH_TRACED)
+
+        def run(init_fn, step_fn, params, make, n_steps):
+            """The step first on batches rendered beforehand (the prefetch
+            thread only hands them over), then ``n_steps`` on batches it
+            renders, then traced steps: the timings of all and every loss."""
+            alone, host, losses = [], [], []
+            pre = [timed(make, alone)() for _ in range(self.SYNTH_WARM + 5)]
+            state = init_fn(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            it = iter(pre)
+            state, busy0, period0, _ = steps(step_fn, state, lambda: next(it), len(pre), losses)
+            state, busy, period, waits = steps(step_fn, state, timed(make, host), n_steps, losses)
+            launches = K.launch_counts()
+            state, idle, device_ms, traced_period = traced(step_fn, state, make, losses)
+            losses = [float(x) for x in losses]
+            return losses, {
+                "host_ms_per_batch_alone": statistics.median(alone),
+                "host_ms_per_batch_on_thread": statistics.median(host),
+                "step_ms_prerendered": statistics.median(busy0),
+                "period_ms_prerendered": statistics.median(period0),
+                "step_ms": statistics.median(busy), "period_ms": statistics.median(period),
+                # how much of the prefetched period the rendering adds: the
+                # period's stretch, read on the host's side of the events
+                "period_stretch_share": 1.0 - statistics.median(period0) / statistics.median(period),
+                # the card's own idle share, from the device trace (its window
+                # is stretched by the profiler's host work), and the traced
+                # device busy ms against the untraced periods
+                "card_idle_share_traced": idle, "device_busy_ms_per_step_traced": device_ms,
+                "period_ms_traced": traced_period,
+                "card_idle_share_est": 1.0 - device_ms / statistics.median(period),
+                "card_idle_share_prerendered_est": 1.0 - device_ms / statistics.median(period0),
+                "host_wait_ms_median": statistics.median(waits),
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches}
+
+        host_state = {
+            "threads": sorted(t.name for t in threading.enumerate()),
+            "torch_threads": torch.get_num_threads(),
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "memory_allocated_bytes_before": torch.cuda.memory_allocated()}
+
+        # the recognizer: the jumbo recipe at full width
+        charset = charset_classes(list(S.jumbo_alphabet()))
+        rec_ds = S.SceneCropRecDataset(charset, S.text_scene_dataset("jumbo", seed=7), img_h=48,
+                                       img_w=256, aug_rotate_deg=8)
+        params = load_params_npz(str(self.assets.WEIGHTS / "rec_scene_full.npz"))
+        params = reinit_ctc_head(params, len(charset), seed=0)
+        _, init_fn, step_fn = make_train_step(
+            learning_rate=cosine_decay_schedule(1e-3, 14000, alpha=0.02))
+        losses, timings = run(init_fn, step_fn, params, lambda: rec_ds.batch(48)[0],
+                              self.REC_SYNTH_STEPS)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"jumbo rec losses: {losses}")
+        if not statistics.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"jumbo rec loss did not fall: {losses[0]} -> {losses[-5:]}")
+        rec = {"what": "SceneCropRecDataset 48x256 rot 8 on text_scene_dataset('jumbo', seed=7), "
+               "batch 48, rec_scene_full.npz with a 5,008-class head, "
+               f"{self.SYNTH_WARM + 5} steps on batches rendered beforehand, then "
+               f"{self.REC_SYNTH_STEPS} through the recipes' run_steps, then "
+               f"{self.SYNTH_WARM + self.SYNTH_TRACED} traced, f32 (cuDNN TF32 on, the default)",
+               **timings, "loss_first_step": losses[0], "loss_mean_last_5": statistics.mean(losses[-5:]),
+               "losses": losses}
+
+        # the detector on the same scenes' det batches
+        det_ds = S.text_scene_dataset("jumbo")
+        _, init_fn, step_fn = make_det_train_step(learning_rate=1e-3)
+        losses, timings = run(init_fn, step_fn, init_det_params(0), lambda: det_ds.det_batch(8)[0],
+                              self.DET_SYNTH_STEPS)
+        if not all(0 < x < 14 for x in losses):  # the clipped BCE is at most −log(1e-6)
+            raise AssertionError(f"jumbo det losses: {losses}")
+        det = {"what": "text_scene_dataset('jumbo').det_batch(8), 192x192 scenes at 96x96, "
+               f"init_det_params(0), {self.SYNTH_WARM + 5} steps on batches rendered beforehand, "
+               f"then {self.DET_SYNTH_STEPS} through run_steps, then "
+               f"{self.SYNTH_WARM + self.SYNTH_TRACED} traced", **timings, "losses": losses}
+
+        # the two scripts themselves, on the card by default: 2 steps each,
+        # the rec script's numpy greedy eval, both npz written in the JAX layout
+        scripts = {}
+        for name, argv in (
+            ("train_synthetic_rec_torch", ["--scene-crops", "--alphabet", "jumbo", "--img-w", "256",
+                                           "--aug-rotate", "8", "--batch", "48", "--steps", "2",
+                                           "--init-weights",
+                                           str(self.assets.WEIGHTS / "rec_scene_full.npz")]),
+            ("train_synthetic_det_torch", ["--alphabet", "jumbo", "--batch", "8", "--steps", "2",
+                                           "--eval-scenes", "4"]),
+        ):
+            out = os.path.join(self.tmp.name, f"{name}.npz")
+            spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = module.main([*argv, "--out", out])
+            wall = time.perf_counter() - t
+            printed = buf.getvalue().splitlines()
+            got = load_params_npz(out)
+            if rc != 0 or not any(x.startswith(("eval: ", "eval over ")) for x in printed):
+                raise AssertionError(f"{name} exited {rc}: {printed[-10:]}")
+            scripts[name] = {"wall_s": wall, "printed": [x for x in printed if x.startswith(
+                ("step", "eval", "saved"))], "npz_bytes": os.path.getsize(out), "trees": sorted(got)}
+        classes = np.asarray(load_params_npz(
+            os.path.join(self.tmp.name, "train_synthetic_rec_torch.npz"))["head"]["fc"]["b"]).shape[0]
+        if classes != len(charset):
+            raise AssertionError(f"the rec script wrote a {classes}-class head, not {len(charset)}")
+
+        print(json.dumps({"synthetic_train": {"digest_scenes": len(got_scenes),
+                                              "host_ms_per_scene": scene_ms, "host_state": host_state,
+                                              "rec": rec, "det": det, "scripts": scripts},
+                          "card": card_line()}), flush=True)
+
 
 def adam_close(got, want, lr_sum):
     """Two parameter trees after AdamW updates whose rates sum to
@@ -2377,33 +2638,42 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card_line()}", flush=True)
     smoke = Smoke()
-    smoke.phase("build", smoke.build)
-    smoke.phase("launch floor", smoke.floor)
-    smoke.phase("ctc_topk vs plain", smoke.check_ctc_topk)
-    smoke.phase("blob_stats vs plain", smoke.check_blob_stats)
-    smoke.phase("f32 parity", smoke.parity)
-    smoke.phase("bf16 serving", smoke.serving)
-    smoke.phase("devices", smoke.devices)
-    smoke.phase("fused options", smoke.options)
-    smoke.phase("service", smoke.service)
-    smoke.phase("staged parity", smoke.staged_parity)
-    smoke.phase("staged serving", smoke.staged_serving)
-    smoke.phase("processes", smoke.processes)
-    smoke.phase("jpeg vs cv2", smoke.jpeg_vs_cv2)
-    smoke.phase("jpeg service", smoke.jpeg_service)
-    smoke.phase("image formats vs cv2", smoke.image_formats)
-    smoke.phase("train parity", smoke.train_parity)
-    smoke.phase("finetune", smoke.finetune)
-    smoke.phase("det train", smoke.det_train)
-    smoke.phase("train devices", smoke.train_devices)
-    smoke.phase("trace", smoke.trace)
-    smoke.phase("boot and soak", smoke.boot_and_soak)
-    smoke.phase("host utilities", smoke.host_utilities)
+    phases = [
+        ("build", smoke.build),
+        ("launch floor", smoke.floor),
+        ("ctc_topk vs plain", smoke.check_ctc_topk),
+        ("blob_stats vs plain", smoke.check_blob_stats),
+        ("f32 parity", smoke.parity),
+        ("bf16 serving", smoke.serving),
+        ("devices", smoke.devices),
+        ("fused options", smoke.options),
+        ("service", smoke.service),
+        ("staged parity", smoke.staged_parity),
+        ("staged serving", smoke.staged_serving),
+        ("processes", smoke.processes),
+        ("jpeg vs cv2", smoke.jpeg_vs_cv2),
+        ("jpeg service", smoke.jpeg_service),
+        ("image formats vs cv2", smoke.image_formats),
+        ("train parity", smoke.train_parity),
+        ("finetune", smoke.finetune),
+        ("det train", smoke.det_train),
+        ("train devices", smoke.train_devices),
+        ("trace", smoke.trace),
+        ("boot and soak", smoke.boot_and_soak),
+        ("host utilities", smoke.host_utilities),
+        ("synthetic train", smoke.synthetic_train),
+    ]
+    only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
+    for name, fn in phases:
+        if not only or name in only:
+            smoke.phase(name, fn)
     smoke.tmp.cleanup()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if smoke.failures:
         print(f"chip_smoke: failed phases: {smoke.failures}", file=sys.stderr)
         return 1
+    if only:  # some phases alone: no result lines
+        return 0
     # launches: the sum over the main paths' runs, each counted from 0
     for name, kern in smoke.kernels.items():
         kern["launches_by_path"] = {path: c.get(name, 0) for path, c in smoke.launches.items()}

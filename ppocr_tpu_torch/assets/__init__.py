@@ -33,6 +33,14 @@ inputs of the host utilities (table and PicoDet decode, table resize and
 pad, the normalizers, the DB helpers) beside the JAX package's answers,
 rewritten by ``tests/test_torch_structure.py --write``.
 
+``glyph_atlas.npz`` holds what Pillow reads from the six DejaVu faces to
+draw the synthetic training text (glyph masks, control boxes, advances,
+cmaps and the HarfBuzz lookups that act on the jumbo characters), made
+where Pillow, fontTools and the fonts are by ``python
+scripts/make_glyph_atlas_torch.py``; ``synthetic_digest.json`` holds the
+texts, boxes and pixel hashes of scenes the JAX package renders, rewritten
+by ``python tests/test_torch_synthetic.py --write``.
+
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
 5,008-way head) and ``weights/jumbo_keys.txt``. It has no orientation
@@ -61,6 +69,8 @@ JPEG_CASES = ASSETS / "jpeg_cases.npz"
 IMAGE_CASES = ASSETS / "image_cases.npz"
 VISUALIZE_MASK = ASSETS / "visualize_mask.npz"
 HOST_CASES = ASSETS / "host_cases.npz"
+GLYPH_ATLAS = ASSETS / "glyph_atlas.npz"
+SYNTHETIC_DIGEST = ASSETS / "synthetic_digest.json"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
@@ -155,6 +165,21 @@ def load_host_cases() -> dict:
     package's answers as a JSON string."""
     with np.load(HOST_CASES) as data:
         return {k: data[k] for k in data.files}
+
+
+def load_glyph_atlas():
+    """(meta dict, {name: array}) of ``glyph_atlas.npz``: the DejaVu glyph
+    masks and layout tables ``train.text_render`` draws from."""
+    with np.load(GLYPH_ATLAS) as data:
+        meta = json.loads(data["meta"].tobytes().decode("utf-8"))
+        return meta, {k: data[k] for k in data.files if k != "meta"}
+
+
+def load_synthetic_digest() -> dict:
+    """The 16 jumbo scenes of ``synthetic_digest.json``: each one's seed,
+    index, placed (text, box) list and the sha256 of its pixels as the
+    JAX package renders them."""
+    return json.loads(SYNTHETIC_DIGEST.read_text(encoding="utf-8"))
 
 
 def match_staged_words(got, want, box_tol: int = 2):

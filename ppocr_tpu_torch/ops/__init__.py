@@ -2,6 +2,7 @@ from .ctc import (
     ctc_beam_search,
     ctc_beam_topk_device,
     ctc_greedy_collapse,
+    ctc_greedy_decode_np,
     ctc_topk_device,
 )
 from .db_postprocess import (
@@ -38,6 +39,7 @@ __all__ = [
     "ctc_beam_search",
     "ctc_beam_topk_device",
     "ctc_greedy_collapse",
+    "ctc_greedy_decode_np",
     "ctc_topk_device",
     "det_cap_shape",
     "det_fit_cap",

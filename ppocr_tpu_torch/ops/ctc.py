@@ -12,7 +12,7 @@ host.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +141,19 @@ def ctc_greedy_collapse(
             np.nan,
         )
     return out_indices, conf.astype(np.float32)
+
+
+def ctc_greedy_decode_np(
+    probs: np.ndarray, charset: Sequence[str]
+) -> Tuple[List[str], np.ndarray]:
+    """Full host reference decode: [N, T, V] probs → (texts, confidences).
+
+    ``charset`` is the label list with blank at index 0 (see
+    :func:`ppocr_tpu_torch.pipeline.charset.load_charset`). Items with no
+    kept timesteps return "" with NaN confidence.
+    """
+    idx = probs.argmax(-1).astype(np.int32)
+    val = probs.max(-1)
+    kept, conf = ctc_greedy_collapse(idx, val)
+    texts = ["".join(charset[i] for i in k) for k in kept]
+    return texts, conf

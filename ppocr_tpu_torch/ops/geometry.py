@@ -4,7 +4,9 @@ Counterpart of ``ppocr_tpu/ops/geometry.py``, which calls cv2 for the
 bounding rect and the perspective warp. Here ``bounding_crop`` takes the
 min/max of the points itself, and ``get_rotate_crop_image`` carries its
 own ``getPerspectiveTransform`` (an 8×8 solve) and ``warpPerspective``
-(inverse map, constant black border, bilinear in f32).
+(inverse map, constant black border, bilinear in f32); the synthetic
+training crops' rotation has ``getRotationMatrix2D`` and ``warpAffine``
+(constant border of any value) alike.
 
 Tolerance to cv2, held by ``tests/test_torch_staged_ops.py`` against
 OpenCV 5.0, which interpolates in floating point: the warp is within 1
@@ -91,30 +93,79 @@ def warp_perspective(img: np.ndarray, m: np.ndarray, width: int, height: int) ->
     if width <= 0 or height <= 0:
         raise ValueError(f"warp_perspective: empty output size {(width, height)}")
     inv = _invert3(np.asarray(m, np.float64)).astype(np.float32)
-    h, w = img.shape[:2]
     xs = np.arange(width, dtype=np.float32)[None, :]
     ys = np.arange(height, dtype=np.float32)[:, None]
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         den = inv[2, 0] * xs + inv[2, 1] * ys + inv[2, 2]
         fx = np.nan_to_num((inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]) / den)
         fy = np.nan_to_num((inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]) / den)
+    return _sample_bilinear(img, fx, fy, 0)
+
+
+def _sample_bilinear(img: np.ndarray, fx: np.ndarray, fy: np.ndarray, border_value) -> np.ndarray:
+    """uint8 H×W×C (or H×W) image sampled at f32 source positions, cv2's
+    bilinear with a constant border: a tap outside the image reads
+    ``border_value``; the result is rounded to nearest."""
+    h, w = img.shape[:2]
     x0, y0 = np.floor(fx), np.floor(fy)
     ax = (fx - x0)[..., None]
     ay = (fy - y0)[..., None]
-    # the image is zero-padded by two pixels before and one after, so that
-    # s = −2 (and anything further out) and s = w find both taps in the
-    # padding
-    sx = np.clip(x0, -2, w).astype(np.int64) + 2
-    sy = np.clip(y0, -2, h).astype(np.int64) + 2
+    # the image is padded by two pixels of border before and one after, so
+    # that s = −2 (and anything further out) and s = w find both taps in
+    # the padding
+    sx = np.clip(x0, -2, w).astype(np.intp) + 2
+    sy = np.clip(y0, -2, h).astype(np.intp) + 2
     sx1 = np.minimum(sx + 1, w + 2)
     sy1 = np.minimum(sy + 1, h + 2)
     src = img if img.ndim == 3 else img[..., None]
-    pad = np.zeros((h + 3, w + 3, src.shape[2]), np.float32)
+    c = src.shape[2]
+    pad = np.empty((h + 3, w + 3, c), np.float32)
+    pad[...] = np.asarray(border_value, np.float32).ravel()[:c] if np.ndim(border_value) \
+        else np.float32(border_value)
     pad[2:-1, 2:-1] = src
-    top = pad[sy, sx] * (1 - ax) + pad[sy, sx1] * ax
-    bot = pad[sy1, sx] * (1 - ax) + pad[sy1, sx1] * ax
+    flat = pad.reshape(-1, c)
+    row, row1 = sy * (w + 3), sy1 * (w + 3)
+    top = flat.take(row + sx, axis=0) * (1 - ax) + flat.take(row + sx1, axis=0) * ax
+    bot = flat.take(row1 + sx, axis=0) * (1 - ax) + flat.take(row1 + sx1, axis=0) * ax
     out = np.clip(np.rint(top * (1 - ay) + bot * ay), 0, 255).astype(np.uint8)
     return out if img.ndim == 3 else out[..., 0]
+
+
+def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: 2×3 (f64) rotation by ``angle`` degrees
+    (counter-clockwise) about ``center``, scaled by ``scale``."""
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    cx, cy = center
+    return np.array(
+        [[alpha, beta, (1 - alpha) * cx - beta * cy],
+         [-beta, alpha, beta * cx + (1 - alpha) * cy]],
+        np.float64,
+    )
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, width: int, height: int,
+                border_value=0) -> np.ndarray:
+    """``cv2.warpAffine(img, m, (width, height), borderValue=border_value)``
+    for a uint8 H×W×C (or H×W) image: bilinear, constant border. The 2×3
+    matrix is inverted as cv2 inverts it (f64); positions and weights are
+    f32, a tap outside the image reads ``border_value``, the result is
+    rounded to nearest."""
+    if width <= 0 or height <= 0:
+        raise ValueError(f"warp_affine: empty output size {(width, height)}")
+    m = np.asarray(m, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    b1 = -a11 * m[0, 2] - a12 * m[1, 2]
+    b2 = -a21 * m[0, 2] - a22 * m[1, 2]
+    inv = np.array([[a11, a12, b1], [a21, a22, b2]], np.float64).astype(np.float32)
+    xs = np.arange(width, dtype=np.float32)[None, :]
+    ys = np.arange(height, dtype=np.float32)[:, None]
+    fx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    fy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    return _sample_bilinear(img, fx, fy, border_value)
 
 
 def get_rotate_crop_image(img: np.ndarray, box: Sequence[Sequence[int]]) -> np.ndarray:

@@ -386,3 +386,24 @@ class BatchPrefetcher:
             except Exception:
                 pass
             self._t.join(timeout=0.05)
+
+
+def run_steps(step_fn, state, make_batch, steps: int, *, on_batch=None, on_step=None):
+    """``steps`` updates of ``step_fn`` on the batches ``make_batch()``
+    makes on a :class:`BatchPrefetcher` thread while the device steps: the
+    loop of the synthetic-data recipes. ``on_batch(step)`` runs once the
+    step's batch is in hand, before the step is launched;
+    ``on_step(step, state, loss)`` runs after ``step_fn`` returns (the loss
+    still on the device). Returns the last state."""
+    prefetch = BatchPrefetcher(make_batch)
+    try:
+        for step in range(1, steps + 1):
+            batch = prefetch.next()
+            if on_batch is not None:
+                on_batch(step)
+            state, loss = step_fn(state, batch)
+            if on_step is not None:
+                on_step(step, state, loss)
+    finally:
+        prefetch.close()
+    return state

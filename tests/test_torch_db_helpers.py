@@ -206,8 +206,8 @@ def test_db_postprocess_takes_the_jax_backends(backend):
 
 
 def test_ops_exports_the_jax_names_but_the_greedy_numpy_decoder():
-    """``ctc_greedy_decode_np`` belongs to ROADMAP A11; everything else
-    ``ppocr_tpu.ops`` exports, the port exports too."""
-    assert set(torch_ops.__all__) == set(jax_ops.__all__) - {"ctc_greedy_decode_np"}
+    """Everything ``ppocr_tpu.ops`` exports, the port exports too, the
+    greedy numpy decoder included."""
+    assert torch_ops.__all__ == jax_ops.__all__
     for name in torch_ops.__all__:
         assert getattr(torch_ops, name) is not None

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: every module of ``ppocr_tpu_torch``,
-``chip_smoke.py`` and the port's scripts ``scripts/soak_torch.py`` and
-``scripts/measure_boot_torch.py`` import with jax, cv2 and PIL blocked,
-and load nothing of the JAX package ``ppocr_tpu``."""
+``chip_smoke.py`` and the port's scripts ``scripts/soak_torch.py``,
+``scripts/measure_boot_torch.py``, ``scripts/train_synthetic_rec_torch.py``
+and ``scripts/train_synthetic_det_torch.py`` import with jax, cv2, PIL and
+fontTools blocked, and load nothing of the JAX package ``ppocr_tpu``; the
+glyph atlas reads and draws there too. Only the atlas's generator,
+``scripts/make_glyph_atlas_torch.py``, imports PIL and fontTools."""
 
 import pathlib
 import subprocess
@@ -13,7 +16,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PROBE = textwrap.dedent(
     """
     import importlib, importlib.util, pkgutil, sys
-    for name in ("jax", "jaxlib", "cv2", "PIL"):
+    for name in ("jax", "jaxlib", "cv2", "PIL", "fontTools"):
         sys.modules[name] = None  # any import of them raises ImportError
     import ppocr_tpu_torch
     names = ["ppocr_tpu_torch"] + [
@@ -23,9 +26,14 @@ PROBE = textwrap.dedent(
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
-    for script in ("soak_torch", "measure_boot_torch"):  # their imports sit at the top
+    scripts = ("soak_torch", "measure_boot_torch", "train_synthetic_rec_torch",
+               "train_synthetic_det_torch")
+    for script in scripts:  # their imports sit at the top
         spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    from ppocr_tpu_torch.train import text_render
+    font = text_render.load_atlas().font("DejaVuSans.ttf", 28)
+    assert font.getbbox("Ab") == (0, 5, 37, 26), font.getbbox("Ab")  # Pillow's textbbox
     leaked = sorted(m for m in sys.modules if m == "ppocr_tpu" or m.startswith("ppocr_tpu."))
     assert not leaked, leaked
     print(" ".join(names))
@@ -48,5 +56,5 @@ def test_port_imports_without_jax_cv2_pil_or_the_jax_package():
                    "serve.balancer", "pipeline.engine", "pipeline.worker", "train.trainer",
                    "train.finetune", "cli.finetune_main", "utils.imcodec",
                    "parallel.tensor_parallel", "parallel.dryrun", "utils.visualize",
-                   "utils.draw", "ops.structure"):
+                   "utils.draw", "ops.structure", "train.synthetic", "train.text_render"):
         assert f"ppocr_tpu_torch.{module}" in names

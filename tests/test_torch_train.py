@@ -12,6 +12,7 @@ dataset's skip rules. Tolerances are stated where they are used.
 
 import copy
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -342,6 +343,32 @@ def test_the_batch_prefetcher_hands_over_batches_and_errors_in_order():
         pf.next()
     pf.close()
     assert not pf._t.is_alive()
+
+
+def test_run_steps_calls_its_hooks_around_each_step_and_passes_errors_on():
+    made, calls = iter(range(4)), []
+
+    def make():
+        i = next(made)
+        if i == 3:
+            raise ValueError("the fourth batch")
+        return {"i": i}
+
+    def step_fn(state, batch):
+        calls.append(("step", batch["i"]))
+        return state + 1, float(batch["i"])
+
+    state = TT.run_steps(step_fn, 0, make, 3, on_batch=lambda k: calls.append(("batch", k)),
+                         on_step=lambda k, st, loss: calls.append(("done", k, st, loss)))
+    assert state == 3
+    assert calls == [("batch", 1), ("step", 0), ("done", 1, 1, 0.0),
+                     ("batch", 2), ("step", 1), ("done", 2, 2, 1.0),
+                     ("batch", 3), ("step", 2), ("done", 3, 3, 2.0)]
+    made = iter(range(4))
+    before = set(threading.enumerate())
+    with pytest.raises(ValueError, match="fourth"):
+        TT.run_steps(step_fn, 0, make, 5)
+    assert set(threading.enumerate()) <= before  # its prefetch thread has ended
 
 
 def test_training_entry_points_refuse_a_mesh_and_default_to_the_card():
