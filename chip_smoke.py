@@ -11,7 +11,8 @@ Phases (any failure exits non-zero without the final ``ok`` line):
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build
    (``nvcc`` for sm_90a from ``ppocr_tpu_torch/csrc``) and the build of
-   the host postprocess library (``csrc/dbpost.cpp``, host compiler);
+   the host postprocess library (``csrc/dbpost.cpp``, host compiler) and
+   of the host warps (``csrc/warp.cpp``);
 2. each hand-written kernel against its plain PyTorch version on the card
    (``ctc_topk``: index and value exact; ``blob_stats``: count and bbox
    exact, prob mass rtol 1e-5) at the serving shapes and at the edges of
@@ -245,7 +246,10 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     from the committed glyph atlas, with no PIL, cv2 or fontTools): 16
     scenes of ``text_scene_dataset("jumbo", seed)`` (4 seeds × 4) equal
     ``assets/synthetic_digest.json`` (texts, boxes and the sha256 of the
-    pixels the JAX package renders); then the recipe of
+    pixels the JAX package renders), and 2 rotated ``SceneCropRecDataset``
+    batches (seed 7, 48×256, ±8°, batch 48) equal its ``rotated_batches``
+    hashes (``csrc/warp.cpp``'s warpAffine against cv2's pixels); then the
+    recipe of
     ``scripts/train_jumbo_torch.sh`` at full width: ``SceneCropRecDataset``
     (48×256, ±8° rotation) on ``text_scene_dataset("jumbo", seed=7)``,
     batch 48, the recognizer warm-started from ``weights/rec_scene_full.npz``
@@ -273,7 +277,21 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     ``scripts/train_synthetic_rec_torch.py`` (the jumbo recipe's flags,
     batch 48) and ``scripts/train_synthetic_det_torch.py``, run 2 steps
     each on the card by default, with their evals: the rec npz holds a
-    5,008-class head. No fallback: a failure fails the phase.
+    5,008-class head. No fallback: a failure fails the phase;
+22. jumbo gate: the trained-jumbo accuracy gate of
+    ``ppocr_tpu_torch.train.eval_jumbo`` on the card, f32 with TF32 off,
+    over the committed bundle: 34 held-out scenes of each of seeds 90210,
+    777 and 31337 through the staged and the fused gate configs, the wide
+    banner of ``assets/jumbo_banner.npz`` (Pillow's drawing, committed)
+    through the staged width buckets and the fused path's widest tier,
+    and the staged head indices of 8 scenes of seed 777. Every bar of the
+    gate must hold (≥ 200 words; det recall; staged ≥ 0.90 normalized and
+    ≥ 0.62 raw; fused ≥ 0.90 and within 2 words of staged; banner
+    similarity ≥ 0.75 on both paths; head indices above 4,000, more than
+    60 distinct). Prints each path's exact, normalized, total, det found
+    and ms per scene (the first scene's warm-up included) beside the CPU
+    figures of ``tests/test_torch_e2e_jumbo.py``; the kernels' launches
+    over the whole phase are its path "jumbo gate".
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -450,6 +468,10 @@ class Smoke:
         if lib.parent != K.BUILD_DIR or not lib.exists():
             raise AssertionError(f"the host library is not under the build dir: {lib}")
         print(f"host postprocess library build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+        t0 = time.perf_counter()
+        native.load_warp_library()
+        print(f"host warp library build: {time.perf_counter() - t0:.2f} s "
+              f"({native.build(native.WARP_SOURCE).name})")
 
     # -- 2 ---------------------------------------------------------------
     def floor(self):
@@ -2366,6 +2388,17 @@ class Smoke:
                 raise AssertionError(f"scene {w['seed']}/{w['index']} differs from the digest: {g} vs {w}")
         if len(got_scenes) != len(digest["scenes"]):
             raise AssertionError(f"{len(got_scenes)} scenes against {len(digest['scenes'])} in the digest")
+        # the rotated rec batches: cv2 5.0's warpAffine replayed by csrc/warp.cpp
+        rotated = digest["rotated_batches"]
+        rotated_ds = S.SceneCropRecDataset(
+            charset_classes(list(S.jumbo_alphabet())),
+            S.text_scene_dataset("jumbo", seed=rotated["seed"]), img_h=rotated["img_h"],
+            img_w=rotated["img_w"], aug_rotate_deg=rotated["aug_rotate_deg"])
+        got_batches = [self.assets.rec_batch_sha256(*rotated_ds.batch(rotated["batch"]))
+                       for _ in range(rotated["batches"])]
+        if got_batches != rotated["sha256"]:
+            raise AssertionError(f"rotated batches differ from the digest: {got_batches} vs "
+                                 f"{rotated['sha256']}")
 
         def timed(make, into):
             def run():
@@ -2553,9 +2586,60 @@ class Smoke:
             raise AssertionError(f"the rec script wrote a {classes}-class head, not {len(charset)}")
 
         print(json.dumps({"synthetic_train": {"digest_scenes": len(got_scenes),
+                                              "digest_rotated_batches": len(got_batches),
                                               "host_ms_per_scene": scene_ms, "host_state": host_state,
                                               "rec": rec, "det": det, "scripts": scripts},
                           "card": card_line()}), flush=True)
+
+
+    # -- 22 --------------------------------------------------------------
+    # the port's words on the CPU (tests/test_torch_e2e_jumbo.py, and
+    # scripts/eval_jumbo_torch.py --device cpu): what the card's are read beside
+    JUMBO_GATE_CPU = {"staged": {"exact": 135, "norm_exact": 195, "total": 211, "det_found": 211},
+                      "fused": {"exact": 144, "norm_exact": 195, "total": 211, "det_found": 211}}
+
+    def jumbo_gate(self):
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker
+        from ppocr_tpu_torch.train import eval_jumbo as G
+
+        banner = self.assets.load_jumbo_banner()
+        with f32_exact():
+            staged_eng = OCREngine(self.model_dir, G.gate_config())
+            fused_eng = OCREngine(self.model_dir, G.fused_config())
+            banner_workers = {fused: OCRWorker(OCREngine(self.model_dir, G.banner_config(fused)), 0)
+                              for fused in (False, True)}
+            torch.cuda.synchronize()
+            K.reset_launch_counts()  # the gate's run starts here
+            staged = G.score(OCRWorker(staged_eng, 0))
+            fused = G.score(OCRWorker(fused_eng, 0))
+            banner_words = {fused: w.process(banner, 1 + fused)["words"]
+                            for fused, w in banner_workers.items()}
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        self.launches["jumbo gate"] = counts
+        seen = G.head_indices(staged, staged_eng.charset)
+        sims = {("fused" if f else "staged"): G.banner_similarity(w) for f, w in banner_words.items()}
+        failed = G.bar_failures(staged, fused) + G.head_failures(seen)
+        failed += [f"banner {path}: similarity {v:.3f} below {G.MIN_BANNER_SIMILARITY}"
+                   for path, v in sims.items() if v < G.MIN_BANNER_SIMILARITY]
+        if counts.get("ctc_topk", 0) < 1:
+            failed.append(f"ctc_topk was not launched: {counts}")
+        for path, sc in (("staged", staged), ("fused", fused)):
+            print(f"jumbo gate {path} (card, f32, TF32 off): {sc.norm_exact}/{sc.total} normalized "
+                  f"({sc.normalized:.4f}), {sc.exact} raw ({sc.raw:.4f}), det found "
+                  f"{sc.det_found}/{sc.det_gt}, {sc.summary()['ms_per_scene']:.2f} ms per scene; "
+                  f"CPU: {self.JUMBO_GATE_CPU[path]}", flush=True)
+        print(json.dumps({"jumbo_gate": {
+            "staged": staged.summary(), "fused": fused.summary(), "cpu": self.JUMBO_GATE_CPU,
+            "banner_similarity": sims, "banner_words": {
+                ("fused" if f else "staged"): [x["text"] for x in w] for f, w in banner_words.items()},
+            "head_indices": {"max": max(seen, default=0), "distinct": len(seen)},
+            "misses": {"staged": len(staged.misses), "fused": len(fused.misses)},
+            "launches": counts, "bars_missed": failed}, "card": card_line()},
+            ensure_ascii=False), flush=True)
+        if failed:
+            raise AssertionError(f"the jumbo gate's bars: {failed}")
 
 
 def adam_close(got, want, lr_sum):
@@ -2662,6 +2746,7 @@ def main() -> int:
         ("boot and soak", smoke.boot_and_soak),
         ("host utilities", smoke.host_utilities),
         ("synthetic train", smoke.synthetic_train),
+        ("jumbo gate", smoke.jumbo_gate),
     ]
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
     for name, fn in phases:

@@ -38,8 +38,11 @@ draw the synthetic training text (glyph masks, control boxes, advances,
 cmaps and the HarfBuzz lookups that act on the jumbo characters), made
 where Pillow, fontTools and the fonts are by ``python
 scripts/make_glyph_atlas_torch.py``; ``synthetic_digest.json`` holds the
-texts, boxes and pixel hashes of scenes the JAX package renders, rewritten
-by ``python tests/test_torch_synthetic.py --write``.
+texts, boxes and pixel hashes of scenes the JAX package renders and the
+hashes of rotated rec batches it makes, rewritten by ``python
+tests/test_torch_synthetic.py --write``; ``jumbo_banner.npz`` holds the
+jumbo gate's wide banner as Pillow draws it, rewritten by ``python
+tests/test_torch_e2e_jumbo.py --write``.
 
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
@@ -53,6 +56,7 @@ crop takes the mirrored sampling grid.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import shutil
 from pathlib import Path
@@ -71,6 +75,7 @@ VISUALIZE_MASK = ASSETS / "visualize_mask.npz"
 HOST_CASES = ASSETS / "host_cases.npz"
 GLYPH_ATLAS = ASSETS / "glyph_atlas.npz"
 SYNTHETIC_DIGEST = ASSETS / "synthetic_digest.json"
+JUMBO_BANNER = ASSETS / "jumbo_banner.npz"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
@@ -176,10 +181,29 @@ def load_glyph_atlas():
 
 
 def load_synthetic_digest() -> dict:
-    """The 16 jumbo scenes of ``synthetic_digest.json``: each one's seed,
-    index, placed (text, box) list and the sha256 of its pixels as the
-    JAX package renders them."""
+    """``synthetic_digest.json``: the 16 jumbo scenes (each one's seed,
+    index, placed (text, box) list and the sha256 of its pixels as the JAX
+    package renders them) under "scenes", and under "rotated_batches" the
+    ``rec_batch_sha256`` of the first rotated ``SceneCropRecDataset``
+    batches it makes (the dataset's arguments beside them)."""
     return json.loads(SYNTHETIC_DIGEST.read_text(encoding="utf-8"))
+
+
+def load_jumbo_banner() -> np.ndarray:
+    """The jumbo gate's wide banner (``train.eval_jumbo.BANNER_TEXT`` at
+    56 px, as Pillow draws it): [H, W, 3] uint8."""
+    with np.load(JUMBO_BANNER) as data:
+        return data["banner"]
+
+
+def rec_batch_sha256(batch: dict, texts) -> str:
+    """sha256 of a rec training batch: its uint8 images, int32 labels,
+    f32 label paddings and its texts, in that order."""
+    h = hashlib.sha256()
+    for key, dtype in (("images", np.uint8), ("labels", np.int32), ("label_paddings", np.float32)):
+        h.update(np.ascontiguousarray(batch[key], dtype).tobytes())
+    h.update("\n".join(texts).encode("utf-8"))
+    return h.hexdigest()
 
 
 def match_staged_words(got, want, box_tol: int = 2):

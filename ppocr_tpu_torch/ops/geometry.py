@@ -3,25 +3,31 @@
 Counterpart of ``ppocr_tpu/ops/geometry.py``, which calls cv2 for the
 bounding rect and the perspective warp. Here ``bounding_crop`` takes the
 min/max of the points itself, and ``get_rotate_crop_image`` carries its
-own ``getPerspectiveTransform`` (an 8×8 solve) and ``warpPerspective``
-(inverse map, constant black border, bilinear in f32); the synthetic
-training crops' rotation has ``getRotationMatrix2D`` and ``warpAffine``
-(constant border of any value) alike.
+own ``getPerspectiveTransform`` (cv2's 8×8 LU solve) and
+``warpPerspective`` (inverse map, constant black border, bilinear); the
+synthetic training crops' rotation has ``getRotationMatrix2D`` and
+``warpAffine`` (constant border of any value) alike.
 
-Tolerance to cv2, held by ``tests/test_torch_staged_ops.py`` against
-OpenCV 5.0, which interpolates in floating point: the warp is within 1
-grey level of ``cv2.warpPerspective`` on every pixel and equal on at
-least 99 % of them; equality is not promised. OpenCV 4.x up to 4.10
-rounds the source coordinates to 1/32 px and the weights to 2^15 instead,
-which moves high-contrast pixels by several grey levels against either of
-the two. The other functions are exact.
+Every function is bit-equal to OpenCV 5.0.0, held so by
+``tests/test_torch_staged_ops.py`` and ``tests/test_torch_synthetic.py``:
+the warps replay its floating-point arithmetic step for step in
+``csrc/warp.cpp`` (built with the host compiler at first use, see
+``ops/native.py``). OpenCV 4.x up to 4.10 rounds the source
+coordinates to 1/32 px and the weights to 2^15 instead, which moves
+high-contrast pixels by several grey levels against 5.0.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 import numpy as np
+
+from . import native
+
+_LU_EPS = np.finfo(np.float64).eps * 100  # cv::solve's DECOMP_LU pivot floor
+
 
 def xyxyxyxy2xyxy(box: Sequence[Sequence[int]]) -> List[int]:
     """Quad → axis-aligned [left, top, right, bottom] (utility.cpp:329-348)."""
@@ -53,18 +59,48 @@ def bounding_crop(img: np.ndarray, box: Sequence[Sequence[int]]) -> np.ndarray:
 
 def get_perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """``cv2.getPerspectiveTransform``: the 3×3 matrix (f64, m[2, 2] = 1)
-    that maps the four ``src`` points onto the four ``dst`` points."""
-    src = np.asarray(src, np.float64)
-    dst = np.asarray(dst, np.float64)
-    a = np.zeros((8, 8), np.float64)
-    b = np.zeros(8, np.float64)
+    that maps the four ``src`` points onto the four ``dst`` points.
+
+    The points are f32 (cv::Point2f) and the system's product terms are
+    f32 products, as cv2 fills them; the 8×8 system is solved as cv2's
+    ``DECOMP_LU`` solves one this small (``LUImpl``: Gaussian elimination
+    with partial pivoting in f64, then back substitution), so the matrix
+    is bit-equal to cv2's. A singular system (repeated or collinear
+    points) gives zeros with m[2, 2] = 1 here; cv2 then falls back to an
+    SVD solve, which is not replayed."""
+    src = np.asarray(src, np.float32)
+    dst = np.asarray(dst, np.float32)
+    a = [[0.0] * 8 for _ in range(8)]
+    b = [0.0] * 8
     for i in range(4):
         x, y = src[i]
         u, v = dst[i]
-        a[i] = (x, y, 1, 0, 0, 0, -x * u, -y * u)
-        a[i + 4] = (0, 0, 0, x, y, 1, -x * v, -y * v)
-        b[i], b[i + 4] = u, v
-    return np.append(np.linalg.solve(a, b), 1.0).reshape(3, 3)
+        a[i][:3] = a[i + 4][3:6] = float(x), float(y), 1.0
+        a[i][6], a[i][7] = float(-x * u), float(-y * u)
+        a[i + 4][6], a[i + 4][7] = float(-x * v), float(-y * v)
+        b[i], b[i + 4] = float(u), float(v)
+    for i in range(8):
+        k = i
+        for j in range(i + 1, 8):
+            if abs(a[j][i]) > abs(a[k][i]):
+                k = j
+        if abs(a[k][i]) < _LU_EPS:
+            return np.diag([0.0, 0.0, 1.0])
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, 8):
+            alpha = a[j][i] * d
+            for k in range(i + 1, 8):
+                a[j][k] += alpha * a[i][k]
+            b[j] += alpha * b[i]
+    for i in range(7, -1, -1):
+        s = b[i]
+        for k in range(i + 1, 8):
+            s -= a[i][k] * b[k]
+        b[i] = s / a[i][i]
+    return np.array(b + [1.0], np.float64).reshape(3, 3)
 
 
 def _invert3(m: np.ndarray) -> np.ndarray:
@@ -87,56 +123,38 @@ def _invert3(m: np.ndarray) -> np.ndarray:
 
 def warp_perspective(img: np.ndarray, m: np.ndarray, width: int, height: int) -> np.ndarray:
     """``cv2.warpPerspective(img, m, (width, height))`` for a uint8 H×W×C
-    image: bilinear, constant black border. Each output pixel's source
-    position comes from the inverted matrix; a tap outside the image reads
-    0. Positions and weights are f32, the result is rounded to nearest."""
+    (or H×W) image: bilinear, constant black border, bit-equal to cv2 5.0
+    (``csrc/warp.cpp`` replays its arithmetic). Each output pixel's source
+    position comes from the inverted matrix (f64, cast to f32); a tap
+    outside the image reads 0."""
     if width <= 0 or height <= 0:
         raise ValueError(f"warp_perspective: empty output size {(width, height)}")
     inv = _invert3(np.asarray(m, np.float64)).astype(np.float32)
-    xs = np.arange(width, dtype=np.float32)[None, :]
-    ys = np.arange(height, dtype=np.float32)[:, None]
-    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
-        den = inv[2, 0] * xs + inv[2, 1] * ys + inv[2, 2]
-        fx = np.nan_to_num((inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]) / den)
-        fy = np.nan_to_num((inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]) / den)
-    return _sample_bilinear(img, fx, fy, 0)
+    return _warp(img, inv, width, height, True, 0)
 
 
-def _sample_bilinear(img: np.ndarray, fx: np.ndarray, fy: np.ndarray, border_value) -> np.ndarray:
-    """uint8 H×W×C (or H×W) image sampled at f32 source positions, cv2's
-    bilinear with a constant border: a tap outside the image reads
-    ``border_value``; the result is rounded to nearest."""
-    h, w = img.shape[:2]
-    x0, y0 = np.floor(fx), np.floor(fy)
-    ax = (fx - x0)[..., None]
-    ay = (fy - y0)[..., None]
-    # the image is padded by two pixels of border before and one after, so
-    # that s = −2 (and anything further out) and s = w find both taps in
-    # the padding
-    sx = np.clip(x0, -2, w).astype(np.intp) + 2
-    sy = np.clip(y0, -2, h).astype(np.intp) + 2
-    sx1 = np.minimum(sx + 1, w + 2)
-    sy1 = np.minimum(sy + 1, h + 2)
+def _warp(img: np.ndarray, inv: np.ndarray, width: int, height: int, perspective: bool,
+          border_value) -> np.ndarray:
+    """``native.warp_bilinear`` on an H×W×C or H×W image, the border value
+    read as cv2 reads a Scalar: a number is (v, 0, 0, 0), a shorter
+    sequence is padded with zeros, each value rounded and saturated to
+    uint8."""
     src = img if img.ndim == 3 else img[..., None]
-    c = src.shape[2]
-    pad = np.empty((h + 3, w + 3, c), np.float32)
-    pad[...] = np.asarray(border_value, np.float32).ravel()[:c] if np.ndim(border_value) \
-        else np.float32(border_value)
-    pad[2:-1, 2:-1] = src
-    flat = pad.reshape(-1, c)
-    row, row1 = sy * (w + 3), sy1 * (w + 3)
-    top = flat.take(row + sx, axis=0) * (1 - ax) + flat.take(row + sx1, axis=0) * ax
-    bot = flat.take(row1 + sx, axis=0) * (1 - ax) + flat.take(row1 + sx1, axis=0) * ax
-    out = np.clip(np.rint(top * (1 - ay) + bot * ay), 0, 255).astype(np.uint8)
+    bv = np.zeros(4, np.float64)
+    values = np.atleast_1d(np.asarray(border_value, np.float64))[:4]
+    bv[: values.size] = values
+    bv = np.clip(np.rint(bv), 0, 255)[: src.shape[2]]
+    out = native.warp_bilinear(src, inv, width, height, perspective, bv)
     return out if img.ndim == 3 else out[..., 0]
 
 
 def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
     """``cv2.getRotationMatrix2D``: 2×3 (f64) rotation by ``angle`` degrees
-    (counter-clockwise) about ``center``, scaled by ``scale``."""
-    a = np.deg2rad(angle)
-    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
-    cx, cy = center
+    (counter-clockwise) about ``center`` (f32, a cv::Point2f), scaled by
+    ``scale``; libm's cos and sin, as cv2 calls them."""
+    a = float(angle) * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = (float(np.float32(v)) for v in center)
     return np.array(
         [[alpha, beta, (1 - alpha) * cx - beta * cy],
          [-beta, alpha, beta * cx + (1 - alpha) * cy]],
@@ -147,10 +165,10 @@ def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
 def warp_affine(img: np.ndarray, m: np.ndarray, width: int, height: int,
                 border_value=0) -> np.ndarray:
     """``cv2.warpAffine(img, m, (width, height), borderValue=border_value)``
-    for a uint8 H×W×C (or H×W) image: bilinear, constant border. The 2×3
-    matrix is inverted as cv2 inverts it (f64); positions and weights are
-    f32, a tap outside the image reads ``border_value``, the result is
-    rounded to nearest."""
+    for a uint8 H×W×C (or H×W) image: bilinear, constant border, bit-equal
+    to cv2 5.0. The 2×3 matrix is inverted as cv2 inverts it (f64, cast to
+    f32); a tap outside the image reads ``border_value`` (read as cv2 reads
+    a Scalar)."""
     if width <= 0 or height <= 0:
         raise ValueError(f"warp_affine: empty output size {(width, height)}")
     m = np.asarray(m, np.float64).reshape(2, 3)
@@ -160,12 +178,8 @@ def warp_affine(img: np.ndarray, m: np.ndarray, width: int, height: int,
     a12, a21 = -m[0, 1] * d, -m[1, 0] * d
     b1 = -a11 * m[0, 2] - a12 * m[1, 2]
     b2 = -a21 * m[0, 2] - a22 * m[1, 2]
-    inv = np.array([[a11, a12, b1], [a21, a22, b2]], np.float64).astype(np.float32)
-    xs = np.arange(width, dtype=np.float32)[None, :]
-    ys = np.arange(height, dtype=np.float32)[:, None]
-    fx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
-    fy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
-    return _sample_bilinear(img, fx, fy, border_value)
+    inv = np.array([[a11, a12, b1], [a21, a22, b2], [0, 0, 1]], np.float64).astype(np.float32)
+    return _warp(img, inv, width, height, False, border_value)
 
 
 def get_rotate_crop_image(img: np.ndarray, box: Sequence[Sequence[int]]) -> np.ndarray:

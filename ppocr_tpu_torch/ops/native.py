@@ -7,7 +7,8 @@ built together with ``csrc/jpeg.cpp`` (its JPEG blocks, through
 ``csrc/jpeg_tiff.h``), and the WebP decoders, lossless (VP8L,
 ``csrc/webp.cpp``) and lossy (VP8 with its ALPH plane, ``csrc/vp8.cpp``),
 built together (the lossy one's lossless alpha plane through
-``csrc/webp_alpha.h``).
+``csrc/webp_alpha.h``), and the bilinear warps of ``ops/geometry.py``,
+``csrc/warp.cpp`` (cv2 5.0's ``warpAffine`` / ``warpPerspective``).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -49,6 +50,7 @@ GIF_SOURCE = CSRC / "gif_lzw.cpp"
 TIFF_SOURCE = CSRC / "tiff.cpp"
 WEBP_SOURCE = CSRC / "webp.cpp"
 VP8_SOURCE = CSRC / "vp8.cpp"
+WARP_SOURCE = CSRC / "warp.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
 # lossy WebP decoder its lossless alpha planes to webp.cpp
@@ -63,6 +65,7 @@ _hdr_lib = None
 _gif_lib = None
 _tiff_lib = None
 _webp_lib = None
+_warp_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -471,3 +474,37 @@ def vp8_decode(data: bytes, width: int, height: int, alpha: Optional[bytes] = No
     if status == 10:
         raise ValueError(f"vp8_decode: {width}x{height} is not the frame header's size")
     return status, (None if status else out), (None if status else plane)
+
+
+def load_warp_library() -> ctypes.CDLL:
+    """Build (if needed) and load the bilinear warps."""
+    global _warp_lib
+    with _lock:
+        if _warp_lib is None:
+            lib = ctypes.CDLL(str(build(WARP_SOURCE)))
+            u8p, fp = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+            lib.warp_bilinear_u8.restype = ctypes.c_int
+            lib.warp_bilinear_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
+                                             ctypes.c_int, fp, ctypes.c_int, fp]
+            _warp_lib = lib
+    return _warp_lib
+
+
+def warp_bilinear(img: np.ndarray, inverse: np.ndarray, width: int, height: int, perspective: bool,
+                  border: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, C] image (C 1 to 4) sampled bilinearly at the positions
+    the f32 3×3 ``inverse`` maps each pixel of the [height, width, C] output
+    to, as cv2 5.0 warps; a tap outside the image reads ``border`` (C
+    values)."""
+    src = np.ascontiguousarray(img, np.uint8)
+    h, w, cn = src.shape
+    m = np.ascontiguousarray(inverse, np.float32).reshape(9)
+    bv = np.ascontiguousarray(border, np.float32).reshape(cn)
+    out = np.empty((height, width, cn), np.uint8)
+    u8p, fp = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+    status = load_warp_library().warp_bilinear_u8(
+        src.ctypes.data_as(u8p), h, w, cn, out.ctypes.data_as(u8p), height, width, m.ctypes.data_as(fp),
+        int(perspective), bv.ctypes.data_as(fp))
+    if status:
+        raise ValueError(f"warp_bilinear: {img.shape} image to {height}x{width}")
+    return out

@@ -9,8 +9,10 @@ resizes with ``cv2.resize(INTER_LINEAR)``; the machines that serve the
 port need not have cv2, so :func:`resize_bilinear_u8` reproduces cv2's
 uint8 bilinear: half-pixel centres, 11-bit fixed-point weights rounded
 from f32, edge clamping, and the vectorised vertical pass's shifts. The
-tests hold it to cv2 within one grey level: cv2 may finish a row's
-ragged tail with a scalar rounding that can differ by 1.
+tests hold it to cv2 within one grey level, and ``crnn_resize`` and
+``cls_resize`` exactly on ``tests/test_torch_staged_ops.py``'s crops (no
+value of theirs differs): cv2 may finish a row's ragged tail with a
+scalar rounding that can differ by 1.
 """
 
 from __future__ import annotations

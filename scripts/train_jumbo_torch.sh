@@ -27,6 +27,14 @@ timeout 14400 python3 -u scripts/train_synthetic_rec_torch.py \
   --init-weights weights/rec_scene_full.npz --device cuda \
   --out runs/rec_scene_jumbo_torch.npz 2>&1 | tail -40
 
-# 3) serve it: copy runs/rec_scene_jumbo_torch.npz to
+# 3) gate — the trained-jumbo accuracy gate on both paths, on the card (f32,
+#    TF32 off): the held-out protocol of ppocr_tpu_torch/train/eval_jumbo.py
+#    (seeds 90210, 777, 31337 × 34 scenes). Exits non-zero below its bars
+#    (staged ≥ 0.90 normalized and ≥ 0.62 raw, fused ≥ 0.90 and within 2
+#    words of staged, det recall), which stops this script here.
+python3 -u scripts/eval_jumbo_torch.py --both --device cuda \
+  --rec runs/rec_scene_jumbo_torch.npz
+
+# 4) serve it: copy runs/rec_scene_jumbo_torch.npz to
 #    <model_dir>/rec/weights.npz beside weights/jumbo_keys.txt as <model_dir>/rec/ppocr_keys_v1.txt, with
 #    weights/det_synthetic_text.npz as <model_dir>/det/weights.npz.

@@ -56,5 +56,6 @@ def test_port_imports_without_jax_cv2_pil_or_the_jax_package():
                    "serve.balancer", "pipeline.engine", "pipeline.worker", "train.trainer",
                    "train.finetune", "cli.finetune_main", "utils.imcodec",
                    "parallel.tensor_parallel", "parallel.dryrun", "utils.visualize",
-                   "utils.draw", "ops.structure", "train.synthetic", "train.text_render"):
+                   "utils.draw", "ops.structure", "train.synthetic", "train.text_render",
+                   "train.eval_jumbo"):
         assert f"ppocr_tpu_torch.{module}" in names
