@@ -291,7 +291,27 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     60 distinct). Prints each path's exact, normalized, total, det found
     and ms per scene (the first scene's warm-up included) beside the CPU
     figures of ``tests/test_torch_e2e_jumbo.py``; the kernels' launches
-    over the whole phase are its path "jumbo gate".
+    over the whole phase are its path "jumbo gate";
+23. cv2 digits: the digit datasets, which the JAX package draws with
+    cv2's Hershey fonts (cv2 5.0: its embedded Rubik face), drawn on the
+    card's host by ``train/cv2_text.py`` (``csrc/cv2_text.cpp``, built
+    here with the host compiler): 16 ``SyntheticSceneDataset`` scenes,
+    2 ``SyntheticRecDataset`` batches and 2 digit ``SceneCropRecDataset``
+    batches (±8°) equal the "cv2" section of
+    ``assets/synthetic_digest.json`` (the JAX package's renders); the
+    host ms of a 48-line rec batch, a digit scene and one ``put_text``
+    (``scripts/time_cv2_text_torch.py``'s workloads); the rec step on
+    digit lines (48×192, batch 32, a 6,625-class head) and the det step
+    on digit scenes (batch 16) timed with CUDA events (median of 10 after
+    3 warm steps); ``--alphabet digits`` of both training scripts (rec
+    lines and scene crops, det) for 3 steps each on the card; then the
+    digits gate's 12 scenes (``train.eval_digits``, seed 424) served from
+    ``weights/det_synthetic_digits.npz`` + ``rec_scene_digits.npz`` with a
+    placeholder keys file, staged and fused, f32 with TF32 off, every
+    scene's words held to the JAX package's (``assets/digits_words.json``;
+    texts exact, boxes <= 2 px, confidence <= 2e-3). No accuracy bar: the
+    gate's bars need the reference charset. The kernels' launches over the
+    served scenes are its path "cv2 digits".
 
 It then prints the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}`` last. Weights are the repo's jumbo bundle
@@ -2642,6 +2662,152 @@ class Smoke:
             raise AssertionError(f"the jumbo gate's bars: {failed}")
 
 
+    # -- 23 --------------------------------------------------------------
+    # digit-line steps timed a phase (the first CV2_DIGITS_WARM untimed)
+    CV2_DIGITS_STEPS, CV2_DIGITS_WARM = 13, 3
+
+    def cv2_digits(self):
+        import hashlib
+
+        import numpy as np
+
+        from ppocr_tpu_torch.models import init_det_params, init_rec_params
+        from ppocr_tpu_torch.ops import kernels as K
+        from ppocr_tpu_torch.ops import native
+        from ppocr_tpu_torch.pipeline import OCREngine, OCRWorker
+        from ppocr_tpu_torch.train import eval_digits as G
+        from ppocr_tpu_torch.train import make_det_train_step, make_train_step
+        from ppocr_tpu_torch.train import synthetic as S
+        from ppocr_tpu_torch.train.finetune import charset_classes
+        from ppocr_tpu_torch.utils.checkpoint import load_params_npz
+
+        t0 = time.perf_counter()
+        lib = native.build(native.CV2_TEXT_SOURCE)
+        native.load_cv2_text_library()
+        build_s = time.perf_counter() - t0
+        if lib.parent != K.BUILD_DIR or not lib.exists():
+            raise AssertionError(f"the text library is not under the build dir: {lib}")
+        print(f"host text library build: {build_s:.2f} s ({lib.name})", flush=True)
+
+        # the card's host draws what the JAX package drew with cv2
+        digest = self.assets.load_synthetic_digest()
+        want = digest["cv2"]
+        digits = charset_classes(list("0123456789"))
+        got_scenes = []
+        for seed in digest["seeds"]:
+            scenes = S.SyntheticSceneDataset(seed=seed)
+            for index in range(4):
+                img, placed = scenes.sample_scene()
+                got_scenes.append({"seed": seed, "index": index, "placed": [[t, list(b)] for t, b in placed],
+                                   "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()})
+        if got_scenes != want["scenes"]:
+            bad = [w for g, w in zip(got_scenes, want["scenes"]) if g != w]
+            raise AssertionError(f"{len(bad)} digit scenes differ from the digest, first {bad[:1]}")
+        spec = want["rec_batches"]
+        rec_ds = S.SyntheticRecDataset(digits, img_h=spec["img_h"], img_w=spec["img_w"], seed=spec["seed"])
+        got = [self.assets.rec_batch_sha256(*rec_ds.batch(spec["batch"])) for _ in range(spec["batches"])]
+        if got != spec["sha256"]:
+            raise AssertionError(f"SyntheticRecDataset batches differ from the digest: {got}")
+        spec = want["crop_batches"]
+        crop_ds = S.SceneCropRecDataset(digits, S.SyntheticSceneDataset(seed=spec["seed"]), img_h=spec["img_h"],
+                                        img_w=spec["img_w"], aug_rotate_deg=spec["aug_rotate_deg"])
+        got = [self.assets.rec_batch_sha256(*crop_ds.batch(spec["batch"])) for _ in range(spec["batches"])]
+        if got != spec["sha256"]:
+            raise AssertionError(f"digit SceneCropRecDataset batches differ from the digest: {got}")
+
+        # host time of the drawing (scripts/time_cv2_text_torch.py's workloads)
+        spec_t = importlib.util.spec_from_file_location("time_cv2_text_torch",
+                                                        REPO / "scripts" / "time_cv2_text_torch.py")
+        timer = importlib.util.module_from_spec(spec_t)
+        spec_t.loader.exec_module(timer)
+        host_ms = {f"{name}_ms": timer._median_ms(fn, 20)
+                   for name, fn in timer.workloads(S, S.put_text).items()}
+
+        def step_times(init_fn, step_fn, params, make):
+            """Per-step device ms (CUDA events from the batch in hand to the
+            step's return) after CV2_DIGITS_WARM untimed steps, and losses."""
+            state = init_fn(params)
+            pairs, losses = [], []
+            for i in range(self.CV2_DIGITS_STEPS):
+                batch = make()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, loss = step_fn(state, batch)
+                end.record()
+                losses.append(loss)
+                if i >= self.CV2_DIGITS_WARM:
+                    pairs.append((start, end))
+            torch.cuda.synchronize()
+            losses = [float(x) for x in losses]
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"losses: {losses}")
+            return statistics.median(a.elapsed_time(b) for a, b in pairs), losses
+
+        # the reference head's 6,625 classes, the digits where a charset has them
+        charset = ["blank"] + list("0123456789") + G.placeholder_keys()[10:] + [" "]
+        lines = S.SyntheticRecDataset(charset, img_h=48, img_w=192, seed=0)
+        _, init_fn, step_fn = make_train_step(learning_rate=1e-3)
+        rec_ms, rec_losses = step_times(init_fn, step_fn, init_rec_params(seed=0), lambda: lines.batch(32)[0])
+        scenes = S.SyntheticSceneDataset(seed=0)
+        _, init_fn, step_fn = make_det_train_step(learning_rate=1e-3)
+        det_ms, det_losses = step_times(init_fn, step_fn, init_det_params(0), lambda: scenes.det_batch(16)[0])
+
+        # the scripts' digit modes, on the card by default
+        keys = os.path.join(self.tmp.name, "digit_keys.txt")
+        with open(keys, "w", encoding="utf-8") as f:
+            f.write("\n".join(charset[1:-1]) + "\n")
+        scripts = {}
+        for name, script, argv in (
+            ("rec_lines", "train_synthetic_rec_torch", ["--alphabet", "digits", "--charset-file", keys]),
+            ("rec_scene_crops", "train_synthetic_rec_torch", ["--alphabet", "digits", "--scene-crops",
+                                                              "--img-w", "160", "--charset-file", keys]),
+            ("det", "train_synthetic_det_torch", ["--alphabet", "digits", "--eval-scenes", "4"]),
+        ):
+            out = os.path.join(self.tmp.name, f"digits_{name}.npz")
+            spec_s = importlib.util.spec_from_file_location(script, REPO / "scripts" / f"{script}.py")
+            module = importlib.util.module_from_spec(spec_s)
+            spec_s.loader.exec_module(module)
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = module.main([*argv, "--steps", "3", "--out", out])
+            printed = buf.getvalue().splitlines()
+            load_params_npz(out)
+            if rc != 0 or not any(x.startswith(("eval: ", "eval over ")) for x in printed):
+                raise AssertionError(f"{script} {name} exited {rc}: {printed[-10:]}")
+            scripts[name] = {"wall_s": time.perf_counter() - t,
+                             "printed": [x for x in printed if x.startswith(("step", "eval"))]}
+
+        # the digits gate's scenes through both paths, f32, TF32 off
+        model_dir = str(self.assets.make_digits_model_dir(self.tmp.name + "/digits"))
+        committed = self.assets.load_digits_words()
+        with f32_exact():
+            workers = {path: OCRWorker(OCREngine(model_dir, G.gate_config() if path == "staged"
+                                                 else G.fused_config()), 0) for path in ("staged", "fused")}
+            torch.cuda.synchronize()
+            K.reset_launch_counts()  # the digits path's run starts here
+            served = {path: G.serve(w) for path, w in workers.items()}
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        self.launches["cv2 digits"] = counts
+        if counts.get("ctc_topk", 0) < 1:
+            raise AssertionError(f"the digit scenes never launched ctc_topk: {counts}")
+        for path, (scenes_served, _) in served.items():
+            for i, (g, w) in enumerate(zip(scenes_served, committed[path])):
+                if g["placed"] != w["placed"]:
+                    raise AssertionError(f"{path} scene {i}: placed {g['placed']} vs {w['placed']}")
+                check_words(g["words"], w["words"], f"cv2 digits {path} scene {i}")
+        print(json.dumps({"cv2_digits": {
+            "build_s": build_s, "digest": {"scenes": len(got_scenes), "rec_batches": 2, "crop_batches": 2},
+            "host_ms": host_ms, "rec_step_ms": rec_ms, "det_step_ms": det_ms,
+            "rec_step": "SyntheticRecDataset digit lines 48x192, batch 32, 6,625-class head, f32",
+            "det_step": "SyntheticSceneDataset(seed=0).det_batch(16), 96x96, f32",
+            "rec_losses": rec_losses, "det_losses": det_losses, "scripts": scripts,
+            "served": {path: {"scenes": len(sc), "words": sum(len(x["words"]) for x in sc),
+                              "ms_per_scene": sec * 1e3 / len(sc)} for path, (sc, sec) in served.items()},
+            "launches": counts}, "card": card_line()}, ensure_ascii=False), flush=True)
+
+
 def adam_close(got, want, lr_sum):
     """Two parameter trees after AdamW updates whose rates sum to
     ``lr_sum``, made on two devices. Adam divides each gradient element
@@ -2747,6 +2913,7 @@ def main() -> int:
         ("host utilities", smoke.host_utilities),
         ("synthetic train", smoke.synthetic_train),
         ("jumbo gate", smoke.jumbo_gate),
+        ("cv2 digits", smoke.cv2_digits),
     ]
     only = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
     for name, fn in phases:

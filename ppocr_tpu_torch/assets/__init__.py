@@ -39,10 +39,26 @@ cmaps and the HarfBuzz lookups that act on the jumbo characters), made
 where Pillow, fontTools and the fonts are by ``python
 scripts/make_glyph_atlas_torch.py``; ``synthetic_digest.json`` holds the
 texts, boxes and pixel hashes of scenes the JAX package renders and the
-hashes of rotated rec batches it makes, rewritten by ``python
-tests/test_torch_synthetic.py --write``; ``jumbo_banner.npz`` holds the
+hashes of rotated rec batches it makes (and of its cv2-font digit
+datasets), rewritten by ``python tests/test_torch_synthetic.py --write``; ``jumbo_banner.npz`` holds the
 jumbo gate's wide banner as Pillow draws it, rewritten by ``python
 tests/test_torch_e2e_jumbo.py --write``.
+
+``cv2_text.npz`` holds what cv2 5.0's ``putText`` draws its upright
+Hershey fonts from: the cmap of the upright face cv2 embeds, "Rubik for
+OpenCV Light" (Rubik, SIL Open Font License 1.1, as cv2 5.0 carries it
+in its library), and at each weight those fonts select (400, 600, 800)
+every glyph's outline with TrueType variations applied as cv2 applies
+them (stb_truetype's vertex list), its box and its advance. It is made
+where cv2 is by ``python scripts/make_cv2_text_assets_torch.py``, which
+holds the port's drawing to cv2 before it writes.
+
+``digits_words.json`` holds the words the JAX package's ``OCRWorker``
+reads from the digits gate's 12 scenes (``train.eval_digits``) on the
+staged and the fused path, from the "digits bundle"
+(``make_digits_model_dir``: ``weights/det_synthetic_digits.npz``,
+``weights/rec_scene_digits.npz`` and a placeholder keys file), rewritten
+by ``python tests/test_torch_e2e_digits.py --write``.
 
 The "jumbo bundle" is the repo's self-contained trained model set:
 ``weights/det_synthetic_text.npz``, ``weights/rec_scene_jumbo.npz`` (a
@@ -76,11 +92,17 @@ HOST_CASES = ASSETS / "host_cases.npz"
 GLYPH_ATLAS = ASSETS / "glyph_atlas.npz"
 SYNTHETIC_DIGEST = ASSETS / "synthetic_digest.json"
 JUMBO_BANNER = ASSETS / "jumbo_banner.npz"
+CV2_TEXT = ASSETS / "cv2_text.npz"
+DIGITS_WORDS = ASSETS / "digits_words.json"
 WEIGHTS = ASSETS.parent.parent / "weights"
 JUMBO_BUNDLE = {
     "det/weights.npz": WEIGHTS / "det_synthetic_text.npz",
     "rec/weights.npz": WEIGHTS / "rec_scene_jumbo.npz",
     "rec/ppocr_keys_v1.txt": WEIGHTS / "jumbo_keys.txt",
+}
+DIGITS_BUNDLE = {
+    "det/weights.npz": WEIGHTS / "det_synthetic_digits.npz",
+    "rec/weights.npz": WEIGHTS / "rec_scene_digits.npz",
 }
 CLS_SEED = 4  # seed of the stand-in classifier of the ``enable_cls`` checks
 # the fused path's options; goldens.json holds a config "small+<option>" each
@@ -115,6 +137,27 @@ def make_jumbo_model_dir(dst, cls_seed=None) -> Path:
     if cls_seed is not None:
         save_params_npz(str(dst / "cls" / "weights.npz"), init_cls_params(cls_seed))
     return dst
+
+
+def make_digits_model_dir(dst) -> Path:
+    """Lay the digits bundle out as a model dir under ``dst``, its keys
+    file ``train.eval_digits.placeholder_keys()`` (the reference charset's
+    line count, not its characters)."""
+    from ..train.eval_digits import placeholder_keys
+
+    dst = Path(dst)
+    for rel, src in DIGITS_BUNDLE.items():
+        (dst / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, dst / rel)
+    (dst / "rec" / "ppocr_keys_v1.txt").write_text("\n".join(placeholder_keys()) + "\n", encoding="utf-8")
+    return dst
+
+
+def load_digits_words() -> dict:
+    """``digits_words.json``: {"staged": [...], "fused": [...]}, a scene's
+    placed lines and the JAX package's words each, and the gate's seed and
+    scene count."""
+    return json.loads(DIGITS_WORDS.read_text(encoding="utf-8"))
 
 
 def load_scenes() -> dict:
@@ -183,9 +226,12 @@ def load_glyph_atlas():
 def load_synthetic_digest() -> dict:
     """``synthetic_digest.json``: the 16 jumbo scenes (each one's seed,
     index, placed (text, box) list and the sha256 of its pixels as the JAX
-    package renders them) under "scenes", and under "rotated_batches" the
+    package renders them) under "scenes", under "rotated_batches" the
     ``rec_batch_sha256`` of the first rotated ``SceneCropRecDataset``
-    batches it makes (the dataset's arguments beside them)."""
+    batches it makes (the dataset's arguments beside them), and under
+    "cv2" the same for the cv2 Hershey-font datasets: 16 digit
+    ``SyntheticSceneDataset`` scenes, 2 ``SyntheticRecDataset`` batches
+    and 2 digit ``SceneCropRecDataset`` batches."""
     return json.loads(SYNTHETIC_DIGEST.read_text(encoding="utf-8"))
 
 
@@ -194,6 +240,14 @@ def load_jumbo_banner() -> np.ndarray:
     56 px, as Pillow draws it): [H, W, 3] uint8."""
     with np.load(JUMBO_BANNER) as data:
         return data["banner"]
+
+
+def load_cv2_text():
+    """(meta dict, {name: array}) of ``cv2_text.npz``: upright Rubik's cmap
+    and per-weight glyph tables ``train.cv2_text`` draws from."""
+    with np.load(CV2_TEXT) as data:
+        meta = json.loads(data["meta"].tobytes().decode("utf-8"))
+        return meta, {k: data[k] for k in data.files if k != "meta"}
 
 
 def rec_batch_sha256(batch: dict, texts) -> str:

@@ -8,7 +8,9 @@ built together with ``csrc/jpeg.cpp`` (its JPEG blocks, through
 ``csrc/webp.cpp``) and lossy (VP8 with its ALPH plane, ``csrc/vp8.cpp``),
 built together (the lossy one's lossless alpha plane through
 ``csrc/webp_alpha.h``), and the bilinear warps of ``ops/geometry.py``,
-``csrc/warp.cpp`` (cv2 5.0's ``warpAffine`` / ``warpPerspective``).
+``csrc/warp.cpp`` (cv2 5.0's ``warpAffine`` / ``warpPerspective``), and
+the text drawing of ``train/cv2_text.py``, ``csrc/cv2_text.cpp`` (cv2
+5.0's ``putText`` with its upright Rubik face).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -51,6 +53,7 @@ TIFF_SOURCE = CSRC / "tiff.cpp"
 WEBP_SOURCE = CSRC / "webp.cpp"
 VP8_SOURCE = CSRC / "vp8.cpp"
 WARP_SOURCE = CSRC / "warp.cpp"
+CV2_TEXT_SOURCE = CSRC / "cv2_text.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
 # lossy WebP decoder its lossless alpha planes to webp.cpp
@@ -66,6 +69,7 @@ _gif_lib = None
 _tiff_lib = None
 _webp_lib = None
 _warp_lib = None
+_cv2_text_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -508,3 +512,20 @@ def warp_bilinear(img: np.ndarray, inverse: np.ndarray, width: int, height: int,
     if status:
         raise ValueError(f"warp_bilinear: {img.shape} image to {height}x{width}")
     return out
+
+
+def load_cv2_text_library() -> ctypes.CDLL:
+    """Build (if needed) and load the text drawing of ``train/cv2_text.py``."""
+    global _cv2_text_lib
+    with _lock:
+        if _cv2_text_lib is None:
+            lib = ctypes.CDLL(str(build(CV2_TEXT_SOURCE)))
+            u8p, i16p, i32p = (ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int16),
+                               ctypes.POINTER(ctypes.c_int32))
+            lib.cv2_text_draw.restype = ctypes.c_int
+            lib.cv2_text_draw.argtypes = [i32p, ctypes.c_int, ctypes.c_longlong, u8p, i16p, i32p, i16p, i16p,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, u8p,
+                                          i32p]
+            _cv2_text_lib = lib
+    return _cv2_text_lib

@@ -1,17 +1,20 @@
-"""Synthetic text data for recognizer and detector training, drawn with the
-DejaVu faces as the JAX package draws it.
+"""Synthetic text data for recognizer and detector training, drawn as the
+JAX package draws it.
 
 Counterpart of ``ppocr_tpu/train/synthetic.py``. The JAX package renders
-with two backends: Pillow + TrueType (DejaVu) for the ``ascii``, ``full``
-and ``jumbo`` scene datasets, and cv2's Hershey fonts for the digit
-datasets. The port has the first: :class:`AtlasTextRenderer`
-(``train/text_render.py``) gives Pillow's boxes and pixels from the
-committed glyph atlas, so the same seeds give the same texts, boxes,
-shrink masks and scene pixels on a machine without PIL, cv2 or fontTools.
-The cv2 half — ``render_line``, ``SyntheticRecDataset`` and a scene
-dataset without a renderer — raises :class:`CV2FontsNotPorted`: cv2 5.0
-draws its ``FONT_HERSHEY_*`` as filled TrueType outlines from three faces
-embedded in its library, a renderer of its own (ROADMAP A11.2).
+with two backends, and the port has both: Pillow + TrueType (DejaVu) for
+the ``ascii``, ``full`` and ``jumbo`` scene datasets, through
+:class:`AtlasTextRenderer` (``train/text_render.py``: Pillow's boxes and
+pixels from the committed glyph atlas), and cv2's Hershey fonts for
+``render_line``, :class:`SyntheticRecDataset` and the digit scenes (a
+:class:`SyntheticSceneDataset` without a renderer), through
+``train/cv2_text.py``: cv2 5.0 draws those fonts as TrueType outlines of
+the upright Rubik face it embeds, and the port replays that from the
+committed ``assets/cv2_text.npz``. The same seeds give the same texts,
+boxes, shrink masks and pixels on a machine without PIL, cv2 or
+fontTools. A character upright Rubik does not map (the ``full``
+alphabet's Greek, say) raises :class:`CV2FallbackFaceNotPorted`
+(ROADMAP A17) before any draw from the seed.
 
 Every random draw happens in the JAX package's order, from the same
 ``numpy.random.Generator`` calls, so a seeded stream is the JAX stream.
@@ -29,6 +32,17 @@ import numpy as np
 
 from ..ops.geometry import get_rotation_matrix_2d, warp_affine
 from ..ops.resize import crnn_resize, resize_bilinear_u8
+from .cv2_text import (  # noqa: F401  (CV2FontsNotPorted: the refusals' base class)
+    FONT_HERSHEY_COMPLEX,
+    FONT_HERSHEY_DUPLEX,
+    FONT_HERSHEY_SIMPLEX,
+    LINE_AA,
+    CV2FallbackFaceNotPorted,
+    CV2FontsNotPorted,
+    get_text_size,
+    put_text,
+    rubik_covers,
+)
 from .text_render import (  # noqa: F401  (PILTextRenderer: the JAX package's name)
     DEJAVU_DIR,
     DEJAVU_FONTS,
@@ -61,18 +75,6 @@ class ReferenceCharsetMissing(FileNotFoundError):
         super().__init__(
             f"{what} reads the reference models' charset (ppocr_keys_v1.txt): pass its "
             "path (charset_file=..., or --charset-file in the training scripts)"
-        )
-
-
-class CV2FontsNotPorted(NotImplementedError):
-    """The cv2 Hershey-font renderer is not ported yet (ROADMAP A11.2)."""
-
-    def __init__(self, what: str):
-        super().__init__(
-            f"{what} draws with cv2 5.0's Hershey fonts (filled TrueType outlines of "
-            "the faces embedded in cv2), which the port does not render yet: ROADMAP "
-            "A11.2. The DejaVu datasets (text_scene_dataset 'ascii', 'full', 'jumbo') "
-            "are ported."
         )
 
 
@@ -306,9 +308,28 @@ def text_scene_dataset(mode: str, seed: int = 0, charset_file: Optional[str] = N
     )
 
 
-def render_line(text: str, img_h: int = 48, img_w: int = 320, rng=None) -> np.ndarray:
-    """The JAX package's cv2 Hershey line renderer: not ported (A11.2)."""
-    raise CV2FontsNotPorted("render_line")
+def render_line(
+    text: str,
+    img_h: int = 48,
+    img_w: int = 320,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Render one line, black-on-white with slight jitter, HWC uint8."""
+    rng = rng or np.random.default_rng(0)
+    img = np.full((img_h, img_w, 3), 255, np.uint8)
+    scale = img_h / 40.0
+    x = int(rng.integers(2, 8))
+    y = int(img_h - rng.integers(8, 14))
+    put_text(img, text, (x, y), FONT_HERSHEY_SIMPLEX, scale, (0, 0, 0), 2, LINE_AA)
+    return img
+
+
+def _check_rubik(what: str, *alphabets: Optional[str]) -> None:
+    """Refuse, before any draw, an alphabet cv2 would draw from another face."""
+    for alphabet in alphabets:
+        if alphabet and not rubik_covers(alphabet):
+            missing = "".join(sorted({c for c in alphabet if not rubik_covers(c)}))
+            raise CV2FallbackFaceNotPorted(f"{what} over characters {missing!r}")
 
 
 class SyntheticSceneDataset:
@@ -317,7 +338,15 @@ class SyntheticSceneDataset:
     Scenes are rendered at a source resolution, downscaled to the det
     input geometry like the serving resize, and supervised with the DB
     shrink mask — each text rect inset by ``d = area·(1−r²)/perimeter``
-    (r = 0.4), which the serving unclip re-expands."""
+    (r = 0.4), which the serving unclip re-expands. Without a
+    ``renderer`` the lines are cv2 Hershey text (``fonts``, scale
+    uniform in [0.9, 1.3], thickness 2), as the digit datasets draw."""
+
+    FONTS = (
+        FONT_HERSHEY_SIMPLEX,
+        FONT_HERSHEY_DUPLEX,
+        FONT_HERSHEY_COMPLEX,
+    )
 
     def __init__(
         self,
@@ -337,7 +366,7 @@ class SyntheticSceneDataset:
         seed: int = 0,
     ):
         if renderer is None:  # before any draw from the seed's stream
-            raise CV2FontsNotPorted("SyntheticSceneDataset without a renderer")
+            _check_rubik("SyntheticSceneDataset", alphabet, core_alphabet)
         self.alphabet = alphabet
         self.src_hw = src_hw
         self.det_hw = det_hw
@@ -345,7 +374,8 @@ class SyntheticSceneDataset:
         self.min_len = min_len
         self.max_len = max_len
         self.shrink_ratio = shrink_ratio
-        self.renderer = renderer  # ``fonts`` are the cv2 digit datasets' (A11.2)
+        self.fonts = tuple(fonts) if fonts is not None else self.FONTS
+        self.renderer = renderer  # None: the cv2 Hershey fonts
         # most positions draw from the "core" (alphanumerics)
         self.core_alphabet = core_alphabet
         self.core_frac = core_frac
@@ -381,10 +411,16 @@ class SyntheticSceneDataset:
         return text
 
     def _measure(self, text: str):
-        """(draw_ctx, tight (tw, th)) of one line."""
-        font = self.renderer.pick_font(text, self.rng)
-        dx0, dy0, dx1, dy1 = self.renderer.measure(text, font)
-        return (font, dx0, dy0), (dx1 - dx0, dy1 - dy0)
+        """(draw_ctx, tight (tw, th)) of one line under either backend."""
+        if self.renderer is not None:
+            font = self.renderer.pick_font(text, self.rng)
+            dx0, dy0, dx1, dy1 = self.renderer.measure(text, font)
+            return ("pil", font, dx0, dy0), (dx1 - dx0, dy1 - dy0)
+        scale = float(self.rng.uniform(0.9, 1.3))
+        thickness = 2
+        font = int(self.fonts[int(self.rng.integers(len(self.fonts)))])
+        (tw, th), _base = get_text_size(text, font, scale, thickness)
+        return ("cv2", font, scale, thickness), (tw, th)
 
     def sample_scene(
         self,
@@ -392,7 +428,8 @@ class SyntheticSceneDataset:
         """One source-resolution scene → (HWC uint8, [(text, (x0,y0,x1,y1))]).
 
         Lines are placed without overlap (including a margin so the det
-        blobs stay separable); boxes are the ``textbbox`` rects."""
+        blobs stay separable); boxes are tight text-extent rects
+        (``getTextSize`` / ``textbbox``)."""
         h, w = self.src_hw
         img = np.full((h, w, 3), 255, np.uint8)
         placed: List[Tuple[str, Tuple[int, int, int, int]]] = []
@@ -417,10 +454,14 @@ class SyntheticSceneDataset:
                     for _, b in placed
                 )
                 if not clash:
-                    font, dx0, dy0 = ctx
-                    # place the tight bbox at (x0, y0): offset the draw
-                    # origin by the bbox's own origin offsets
-                    self.renderer.draw(img, (x0 - dx0, y0 - dy0), text, font, (0, 0, 0))
+                    if ctx[0] == "pil":
+                        _, font, dx0, dy0 = ctx
+                        # place the tight bbox at (x0, y0): offset the draw
+                        # origin by the bbox's own origin offsets
+                        self.renderer.draw(img, (x0 - dx0, y0 - dy0), text, font, (0, 0, 0))
+                    else:
+                        _, font, scale, thickness = ctx
+                        put_text(img, text, (x0, y0 + th), font, scale, (0, 0, 0), thickness, LINE_AA)
                     placed.append((text, box))
                     break
         return img, placed
@@ -500,10 +541,49 @@ class SyntheticSceneDataset:
 
 
 class SyntheticRecDataset:
-    """The JAX package's cv2 Hershey line dataset: not ported (A11.2)."""
+    """Batches of (raw uint8 images, padded labels, label paddings) of
+    lines drawn by :func:`render_line`."""
 
-    def __init__(self, charset: Sequence[str], alphabet: str = "0123456789", *args, **kw):
-        raise CV2FontsNotPorted("SyntheticRecDataset")
+    def __init__(
+        self,
+        charset: Sequence[str],
+        alphabet: str = "0123456789",
+        img_h: int = 48,
+        img_w: int = 320,
+        min_len: int = 1,
+        max_len: int = 8,
+        seed: int = 0,
+    ):
+        self.char_to_idx = {c: i for i, c in enumerate(charset)}
+        missing = [c for c in alphabet if c not in self.char_to_idx]
+        if missing:
+            raise ValueError(f"alphabet chars not in charset: {missing}")
+        _check_rubik("SyntheticRecDataset", alphabet)  # before any draw from the seed
+        self.alphabet = alphabet
+        self.img_h = img_h
+        self.img_w = img_w
+        self.min_len = min_len
+        self.max_len = max_len
+        self.rng = np.random.default_rng(seed)
+
+    def sample_text(self) -> str:
+        n = int(self.rng.integers(self.min_len, self.max_len + 1))
+        return "".join(self.rng.choice(list(self.alphabet), size=n))
+
+    def batch(self, batch_size: int) -> Tuple[Dict[str, np.ndarray], List[str]]:
+        texts = [self.sample_text() for _ in range(batch_size)]
+        # raw uint8; normalization happens on device
+        # (trainer.normalize_rec_images)
+        x = np.stack(
+            [render_line(t, self.img_h, self.img_w, self.rng) for t in texts]
+        )
+        labels = np.zeros((batch_size, self.max_len), np.int32)
+        pad = np.ones((batch_size, self.max_len), np.float32)
+        for i, t in enumerate(texts):
+            for j, ch in enumerate(t):
+                labels[i, j] = self.char_to_idx[ch]
+                pad[i, j] = 0.0
+        return {"images": x, "labels": labels, "label_paddings": pad}, texts
 
 
 class SceneCropRecDataset:

@@ -8,9 +8,10 @@ Counterpart of ``scripts/train_synthetic_det.py``, with its flags and
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none) or, on request, on the CPU (``--device cpu``). The scenes are the
-port's ``train/synthetic.py`` (the committed glyph atlas, drawn as the JAX
-package draws them with Pillow); ``--alphabet digits`` draws with cv2's
-fonts and raises ``CV2FontsNotPorted`` (ROADMAP A11.2); ``ascii`` and
+port's ``train/synthetic.py``, drawn as the JAX package draws them:
+``--alphabet digits`` (the default, ``weights/det_synthetic_digits.npz``'s
+data) as cv2 5.0 draws its Hershey fonts (``train/cv2_text.py``), the
+others from the committed glyph atlas as Pillow draws them; ``ascii`` and
 ``full`` read the reference charset named by ``--charset-file`` (without it
 they raise ``ReferenceCharsetMissing``). The output npz is in the JAX layout:
 copy it to ``<model_dir>/det/weights.npz`` to serve it with either package.
@@ -88,7 +89,7 @@ def main(argv=None) -> int:
     p.add_argument("--src-w", type=int, default=192)
     p.add_argument("--eval-scenes", type=int, default=32)
     p.add_argument("--alphabet", choices=["digits", "ascii", "full", "jumbo"], default="digits",
-                   help="digits = cv2 Hershey digit lines (not ported: A11.2); ascii / full = "
+                   help="digits = cv2 Hershey digit lines; ascii / full = "
                    "DejaVu lines over the reference charset (94 / ~218 classes); jumbo = "
                    "every DejaVu-drawable char (~5,000 classes: det is class-agnostic, this "
                    "widens the glyph-shape distribution)")
@@ -101,14 +102,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     args = p.parse_args(argv)
 
-    if args.alphabet == "digits":
-        raise synthetic.CV2FontsNotPorted("--alphabet digits")
     device = resolve_device(args.device)
 
     def make_ds(seed):
         kw = dict(src_hw=(args.src_h, args.src_w), det_hw=(args.det_h, args.det_w))
         if args.max_len:
             kw["max_len"] = args.max_len
+        if args.alphabet == "digits":
+            return synthetic.SyntheticSceneDataset(seed=seed, **kw)
         return synthetic.text_scene_dataset(args.alphabet, seed=seed,
                                             charset_file=args.charset_file, **kw)
 

@@ -9,13 +9,21 @@ Counterpart of ``scripts/train_synthetic_rec.py``, with its flags and
 
 It runs on the card (``--device cuda``, the default; it raises when there
 is none) or, on request, on the CPU (``--device cpu``). The data is the
-port's ``train/synthetic.py``, drawn from the committed glyph atlas as
-the JAX package draws it with Pillow; the batches are made on a host
-thread (``BatchPrefetcher``) while the card steps. ``--alphabet digits``
-and every cv2-font dataset raise ``CV2FontsNotPorted`` (ROADMAP A11.2);
-``ascii`` and ``full`` read the reference charset, which the JAX script
-reads from a fixed path and this one from ``--charset-file`` (without it
-they raise ``ReferenceCharsetMissing``).
+port's ``train/synthetic.py``, drawn as the JAX package draws it: the
+DejaVu scenes (``--scene-crops`` with ``ascii``, ``full`` or ``jumbo``)
+from the committed glyph atlas (Pillow's drawing), and the cv2 Hershey
+lines (``--alphabet digits``, and the direct lines of ``ascii``) through
+``train/cv2_text.py`` (cv2 5.0's drawing with its upright Rubik face). The
+direct lines of ``full`` need characters upright Rubik lacks and raise
+``CV2FallbackFaceNotPorted`` (ROADMAP A17). The batches are made on a
+host thread (``BatchPrefetcher``) while the card steps. ``digits``,
+``ascii`` and ``full`` train against the reference charset, which the
+JAX script reads from a fixed path and this one from ``--charset-file``
+(without it they raise ``ReferenceCharsetMissing``):
+
+    python scripts/train_synthetic_rec_torch.py --scene-crops --alphabet digits \\
+        --img-w 160 --charset-file ppocr_keys_v1.txt --out runs/rec_scene_digits.npz
+
 The output npz is in the JAX layout: copy it to ``<model_dir>/rec/
 weights.npz`` (with ``weights/jumbo_keys.txt`` as its charset for the
 jumbo alphabet) to serve it with either package.
@@ -58,8 +66,9 @@ def main(argv=None) -> int:
                    help="oversample near-homoglyph chars: fraction of sampled lines "
                    "that get one such char injected (training only)")
     p.add_argument("--alphabet", choices=["digits", "ascii", "full", "jumbo"], default="digits",
-                   help="digits = cv2 Hershey digit lines (not ported: A11.2); ascii / full = "
-                   "DejaVu lines over the reference charset (94 / ~218 classes of the "
+                   help="digits = cv2 Hershey digit lines (scenes with --scene-crops); ascii / "
+                   "full = DejaVu scene lines with --scene-crops, else cv2 Hershey lines (full: "
+                   "not drawn, A17), over the reference charset (94 / ~218 classes of the "
                    "6,625-way head); jumbo = every DejaVu-drawable char (~5,000 classes) "
                    "against a re-sized head and weights/jumbo_keys.txt")
     p.add_argument("--max-len", type=int, default=None)
@@ -69,15 +78,13 @@ def main(argv=None) -> int:
                    "whenever its size differs from the target charset)")
     p.add_argument("--out", required=True, help="where the weights npz is written")
     p.add_argument("--charset-file", default=None,
-                   help="the reference charset (ppocr_keys_v1.txt) that --alphabet ascii / "
-                   "full read")
+                   help="the reference charset (ppocr_keys_v1.txt) that --alphabet digits / "
+                   "ascii / full read")
     p.add_argument("--save-every", type=int, default=0,
                    help="write the params to --out every N steps (0 = only at the end)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     args = p.parse_args(argv)
 
-    if args.alphabet == "digits":  # both of its datasets draw with cv2's fonts
-        raise synthetic.CV2FontsNotPorted("--alphabet digits")
     device = resolve_device(args.device)
     if args.alphabet == "jumbo":
         if not args.scene_crops:
@@ -96,6 +103,8 @@ def main(argv=None) -> int:
                 kw["hard_chars"] = synthetic.jumbo_hard_chars()
             else:
                 kw["hard_chars"] = "".join(c for fam in synthetic.HOMOGLYPHS for c in fam)
+        if args.alphabet == "digits":
+            return synthetic.SyntheticSceneDataset(seed=7, **kw)
         return synthetic.text_scene_dataset(args.alphabet, seed=7,
                                             charset_file=args.charset_file, **kw)
 
@@ -103,8 +112,11 @@ def main(argv=None) -> int:
         ds = synthetic.SceneCropRecDataset(charset, make_scenes(), img_h=args.img_h,
                                            img_w=args.img_w, aug_rotate_deg=args.aug_rotate)
     else:
-        alphabet = synthetic.dejavu_alphabet(args.charset_file,
-                                             ascii_only=args.alphabet == "ascii")
+        if args.alphabet == "digits":
+            alphabet = "0123456789"
+        else:
+            alphabet = synthetic.dejavu_alphabet(args.charset_file,
+                                                 ascii_only=args.alphabet == "ascii")
         ds = synthetic.SyntheticRecDataset(charset, alphabet=alphabet, img_h=args.img_h,
                                            img_w=args.img_w)
 

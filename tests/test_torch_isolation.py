@@ -1,10 +1,14 @@
 """The PyTorch port stands alone: every module of ``ppocr_tpu_torch``,
 ``chip_smoke.py`` and the port's scripts ``scripts/soak_torch.py``,
-``scripts/measure_boot_torch.py``, ``scripts/train_synthetic_rec_torch.py``
-and ``scripts/train_synthetic_det_torch.py`` import with jax, cv2, PIL and
+``scripts/measure_boot_torch.py``, ``scripts/train_synthetic_rec_torch.py``,
+``scripts/train_synthetic_det_torch.py`` and
+``scripts/time_cv2_text_torch.py`` import with jax, cv2, PIL and
 fontTools blocked, and load nothing of the JAX package ``ppocr_tpu``; the
-glyph atlas reads and draws there too. Only the atlas's generator,
-``scripts/make_glyph_atlas_torch.py``, imports PIL and fontTools."""
+glyph atlas reads and draws there too, and so does cv2's text drawing
+(``train/cv2_text.py`` from ``assets/cv2_text.npz``, its C++ built at
+first use). Only the generators, ``scripts/make_glyph_atlas_torch.py``
+(PIL and fontTools) and ``scripts/make_cv2_text_assets_torch.py`` (cv2
+and fontTools), import them."""
 
 import pathlib
 import subprocess
@@ -27,13 +31,18 @@ PROBE = textwrap.dedent(
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     scripts = ("soak_torch", "measure_boot_torch", "train_synthetic_rec_torch",
-               "train_synthetic_det_torch")
+               "train_synthetic_det_torch", "time_cv2_text_torch")
     for script in scripts:  # their imports sit at the top
         spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
     from ppocr_tpu_torch.train import text_render
     font = text_render.load_atlas().font("DejaVuSans.ttf", 28)
     assert font.getbbox("Ab") == (0, 5, 37, 26), font.getbbox("Ab")  # Pillow's textbbox
+    import numpy as np
+    from ppocr_tpu_torch.train import cv2_text
+    assert cv2_text.get_text_size("0123", 0, 1.0, 2) == ((73, 27), 1)  # cv2.getTextSize
+    img = cv2_text.put_text(np.full((40, 90, 3), 255, np.uint8), "0123", (5, 30), 0, 1.0, (0, 0, 0), 2)
+    assert int(img.sum()) == 2175876, int(img.sum())  # cv2.putText's pixels
     leaked = sorted(m for m in sys.modules if m == "ppocr_tpu" or m.startswith("ppocr_tpu."))
     assert not leaked, leaked
     print(" ".join(names))
@@ -57,5 +66,5 @@ def test_port_imports_without_jax_cv2_pil_or_the_jax_package():
                    "train.finetune", "cli.finetune_main", "utils.imcodec",
                    "parallel.tensor_parallel", "parallel.dryrun", "utils.visualize",
                    "utils.draw", "ops.structure", "train.synthetic", "train.text_render",
-                   "train.eval_jumbo"):
+                   "train.eval_jumbo", "train.cv2_text", "train.eval_digits"):
         assert f"ppocr_tpu_torch.{module}" in names

@@ -25,12 +25,20 @@ Pillow, the DejaVu faces and cv2. With the same seeds they must give:
   own results also equal their pinned files (``weights/jumbo_keys.txt``,
   ``weights/jumbo_homoglyphs.txt``); the port is held to the JAX result.
 
-The cv2 Hershey-font entry points raise ``CV2FontsNotPorted`` (ROADMAP
-A11.2). ``assets/synthetic_digest.json`` holds the texts, boxes and pixel
+The cv2 Hershey-font half (``render_line``, ``SyntheticRecDataset`` and
+the digit ``SyntheticSceneDataset``, drawn through ``train/cv2_text.py``)
+must give exactly the JAX package's pixels, texts, boxes, det batches,
+shrink masks and ``SceneCropRecDataset`` batches (rotated too), for
+``render_line`` at img_h 32, 48 and 64 and ``SyntheticRecDataset`` over
+digits and ASCII; over the ``full`` alphabet (Greek: cv2 draws it from
+WenQuanYi) it raises ``CV2FallbackFaceNotPorted`` (ROADMAP A17) before any
+draw. ``assets/synthetic_digest.json`` holds the texts, boxes and pixel
 hashes of 16 jumbo scenes the JAX package renders, and the hashes of 2
-rotated ``SceneCropRecDataset`` batches it makes, which the smoke run holds
-the port to on the card's host; ``python tests/test_torch_synthetic.py
---write`` rewrites it.
+rotated ``SceneCropRecDataset`` batches it makes; under "cv2", 16 digit
+scenes, 2 ``SyntheticRecDataset`` batches and 2 digit
+``SceneCropRecDataset`` batches. The smoke run holds the port to them on
+the card's host; ``python tests/test_torch_synthetic.py --write`` rewrites
+it.
 """
 
 import functools
@@ -260,15 +268,95 @@ def test_the_reference_charset_modes_want_its_path(call):
         call()
 
 
-@pytest.mark.parametrize("call", [
-    lambda: T.render_line("123"),
-    lambda: T.SyntheticRecDataset(list("0123456789")),
-    lambda: T.SyntheticSceneDataset(seed=0),
-    lambda: T.SyntheticSceneDataset(alphabet="0123", renderer=None, seed=1),
-], ids=["render_line", "SyntheticRecDataset", "scene_dataset_default", "scene_dataset_no_renderer"])
-def test_cv2_font_entry_points_raise_a11_2(call):
-    with pytest.raises(T.CV2FontsNotPorted, match="A11.2"):
-        call()
+# the four entry points of the cv2 Hershey fonts, each drawing something
+# the JAX package draws too
+CV2_ENTRY_POINTS = {
+    "render_line": lambda M: M.render_line("1234567", 48, 320, np.random.default_rng(5)),
+    "SyntheticRecDataset": lambda M: M.SyntheticRecDataset(list("0123456789"), seed=4).batch(8),
+    "scene_dataset_default": lambda M: M.SyntheticSceneDataset(seed=0).sample_scene(),
+    "scene_dataset_no_renderer": lambda M: M.SyntheticSceneDataset(alphabet="0123", renderer=None,
+                                                                   seed=1).det_batch(4),
+}
+
+
+def assert_equal_results(got, want):
+    """Two results made of arrays, dicts, lists, tuples and scalars."""
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    elif isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert_equal_results(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert_equal_results(g, w)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("name", CV2_ENTRY_POINTS)
+def test_cv2_font_entry_points_match_jax(name):
+    call = CV2_ENTRY_POINTS[name]
+    assert_equal_results(call(T), call(J))
+
+
+@pytest.mark.parametrize("img_h", [32, 48, 64])
+def test_render_line_matches_jax(img_h):
+    rng = np.random.default_rng(img_h)
+    for _ in range(40):
+        text = "".join(rng.choice(list("0123456789"), int(rng.integers(1, 9))))
+        seed = int(rng.integers(1 << 30))
+        np.testing.assert_array_equal(T.render_line(text, img_h, 320, np.random.default_rng(seed)),
+                                      J.render_line(text, img_h, 320, np.random.default_rng(seed)))
+
+
+@pytest.mark.parametrize("alphabet", ["digits", "ascii"])
+def test_rec_dataset_batches_match_jax(alphabet):
+    chars = "0123456789" if alphabet == "digits" else J.ASCII_ALPHABET
+    charset = charset_classes(list(J.ASCII_ALPHABET))
+    a = J.SyntheticRecDataset(charset, alphabet=chars, img_w=192, seed=11)
+    b = T.SyntheticRecDataset(charset, alphabet=chars, img_w=192, seed=11)
+    for _ in range(3):
+        (want, texts_a), (got, texts_b) = a.batch(32), b.batch(32)
+        assert texts_b == texts_a
+        assert_equal_results(got, want)
+
+
+def test_rec_dataset_refuses_an_alphabet_rubik_lacks():
+    """The ``full`` alphabet's Greek is WenQuanYi's in cv2 (A17): refused
+    at construction, before any draw from the seed."""
+    alphabet = J.ASCII_ALPHABET + "αβΩ"
+    with pytest.raises(T.CV2FallbackFaceNotPorted, match="A17"):
+        T.SyntheticRecDataset(list(alphabet), alphabet=alphabet)
+    with pytest.raises(T.CV2FallbackFaceNotPorted, match="A17"):
+        T.SyntheticSceneDataset(alphabet="12α", seed=0)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 424])
+def test_digit_scenes_match_jax(seed):
+    a, b = J.SyntheticSceneDataset(seed=seed), T.SyntheticSceneDataset(seed=seed)
+    for _ in range(60):
+        (img_a, placed_a), (img_b, placed_b) = a.sample_scene(), b.sample_scene()
+        assert placed_b == placed_a
+        np.testing.assert_array_equal(img_b, img_a)
+        boxes = [box for _, box in placed_a]
+        np.testing.assert_array_equal(b.shrink_mask(boxes), a.shrink_mask(boxes))
+    (want, scenes_a), (got, scenes_b) = a.det_batch(8), b.det_batch(8)
+    assert_equal_results(got, want)
+    assert [p for _, p in scenes_b] == [p for _, p in scenes_a]
+
+
+@pytest.mark.parametrize("rotate", [0.0, 8.0])
+def test_digit_scene_crop_batches_match_jax(rotate):
+    charset = charset_classes(list("0123456789"))
+    a = J.SceneCropRecDataset(charset, J.SyntheticSceneDataset(seed=7), aug_rotate_deg=rotate)
+    b = T.SceneCropRecDataset(charset, T.SyntheticSceneDataset(seed=7), aug_rotate_deg=rotate)
+    for _ in range(3):
+        (want, texts_a), (got, texts_b) = a.batch(32), b.batch(32)
+        assert texts_b == texts_a
+        assert_equal_results(got, want)
 
 
 def test_unknown_mode_raises():
@@ -352,10 +440,53 @@ def test_rotated_batches_equal_the_digest(package):
     assert digest_batches(J if package == "jax" else T, spec) == rotated["sha256"]
 
 
+# the cv2 section: digit scenes, SyntheticRecDataset batches (digits, the
+# rec script's 48x192) and digit SceneCropRecDataset batches (48x160, ±8°)
+CV2_REC = {"seed": 3, "img_h": 48, "img_w": 192, "batch": 48, "batches": 2}
+CV2_CROPS = {"seed": 7, "img_h": 48, "img_w": 160, "aug_rotate_deg": 8.0, "batch": 48, "batches": 2}
+
+
+def digit_scenes(module):
+    """The cv2 digest's 16 digit scenes, drawn by ``module``."""
+    out = []
+    for seed in DIGEST_SEEDS:
+        ds = module.SyntheticSceneDataset(seed=seed)
+        for index in range(4):
+            img, placed = ds.sample_scene()
+            out.append({"seed": seed, "index": index,
+                        "placed": [[t, list(b)] for t, b in placed],
+                        "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()})
+    return out
+
+
+def digit_rec_batches(module, spec=CV2_REC) -> list:
+    ds = module.SyntheticRecDataset(charset_classes(list("0123456789")), img_h=spec["img_h"],
+                                    img_w=spec["img_w"], seed=spec["seed"])
+    return [rec_batch_sha256(*ds.batch(spec["batch"])) for _ in range(spec["batches"])]
+
+
+def digit_crop_batches(module, spec=CV2_CROPS) -> list:
+    ds = module.SceneCropRecDataset(charset_classes(list("0123456789")),
+                                    module.SyntheticSceneDataset(seed=spec["seed"]), img_h=spec["img_h"],
+                                    img_w=spec["img_w"], aug_rotate_deg=spec["aug_rotate_deg"])
+    return [rec_batch_sha256(*ds.batch(spec["batch"])) for _ in range(spec["batches"])]
+
+
+def cv2_digest(module) -> dict:
+    return {"scene": "SyntheticSceneDataset(seed=seed).sample_scene()", "scenes": digit_scenes(module),
+            "rec_batches": {**CV2_REC, "sha256": digit_rec_batches(module)},
+            "crop_batches": {**CV2_CROPS, "sha256": digit_crop_batches(module)}}
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_digit_renders_equal_the_digest(package):
+    assert cv2_digest(J if package == "jax" else T) == load_synthetic_digest()["cv2"]
+
+
 def write_digest() -> None:
     digest = {"mode": "jumbo", "scene": "text_scene_dataset('jumbo', seed).sample_scene()",
               "seeds": list(DIGEST_SEEDS), "scenes": digest_scenes(J),
-              "rotated_batches": {**ROTATED, "sha256": digest_batches(J)}}
+              "rotated_batches": {**ROTATED, "sha256": digest_batches(J)}, "cv2": cv2_digest(J)}
     SYNTHETIC_DIGEST.write_text(json.dumps(digest, ensure_ascii=False, indent=1) + "\n",
                                 encoding="utf-8")
     print(f"wrote {SYNTHETIC_DIGEST}")

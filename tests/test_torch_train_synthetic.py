@@ -10,8 +10,12 @@ parity tests' rtol 1e-5; the npz each writes must load and serve in the
 port's engine. The modes that read the reference charset take it from
 ``--charset-file`` (a small one written here) and start from the JAX
 loss too; without the flag they raise ``ReferenceCharsetMissing``. The
-cv2-font modes raise the A11.2 error, and without ``--device`` the
-scripts want a card.
+cv2-font modes (``--alphabet digits`` of both scripts, direct lines and
+scene crops, and the direct ``ascii`` lines) take a step on the CPU from
+the JAX loss of the JAX package's first batch; the direct ``full`` lines
+(Greek, which cv2 draws from WenQuanYi) raise ``CV2FallbackFaceNotPorted``
+(ROADMAP A17) before any step. Without ``--device`` the scripts want a
+card.
 """
 
 import functools
@@ -37,7 +41,7 @@ from ppocr_tpu_torch import assets
 from ppocr_tpu_torch.pipeline.config import PipelineConfig
 from ppocr_tpu_torch.pipeline.engine import OCREngine
 from ppocr_tpu_torch.pipeline.worker import OCRWorker
-from ppocr_tpu_torch.train.synthetic import CV2FontsNotPorted, ReferenceCharsetMissing
+from ppocr_tpu_torch.train.synthetic import CV2FallbackFaceNotPorted, ReferenceCharsetMissing
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 REC = REPO / "scripts" / "train_synthetic_rec_torch.py"
@@ -139,12 +143,44 @@ def test_det_script_reads_the_charset_file_and_starts_from_the_jax_loss(tmp_path
     np.testing.assert_allclose(first_loss(stdout), want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("path,extra", [(REC, []), (REC, ["--scene-crops"]), (DET, [])],
-                         ids=["rec_lines", "rec_scene_crops", "det"])
-def test_the_digit_modes_raise_the_a11_2_error(tmp_path, path, extra):
-    with pytest.raises(CV2FontsNotPorted, match="A11.2"):
-        load_script(path).main(["--alphabet", "digits", "--device", "cpu",
-                                "--out", str(tmp_path / "w.npz"), *extra])
+def jax_first_loss(path, extra, charset_file):
+    """The JAX loss of the JAX package's first batch of the dataset the
+    script draws from, at the scripts' initial parameters."""
+    if path == DET:
+        batch, _ = J.SyntheticSceneDataset(seed=0).det_batch(2)
+        return float(jax.jit(det_train_loss)(jax_init_det_params(seed=0), batch))
+    charset = load_charset(charset_file)
+    if "--scene-crops" in extra:
+        ds = J.SceneCropRecDataset(charset, J.SyntheticSceneDataset(seed=7), img_h=48, img_w=64)
+    else:
+        alphabet = "0123456789" if "digits" in extra else J.dejavu_alphabet(ascii_only=True)
+        ds = J.SyntheticRecDataset(charset, alphabet=alphabet, img_h=48, img_w=64)
+    batch, _ = ds.batch(4)
+    params = reinit_ctc_head(jax_init_rec_params(seed=0), len(charset), seed=0)
+    return float(jax.jit(ctc_train_loss)(params, batch))
+
+
+@pytest.mark.parametrize("path,extra", [
+    (REC, ["--alphabet", "digits"]),
+    (REC, ["--alphabet", "digits", "--scene-crops"]),
+    (DET, ["--alphabet", "digits"]),
+    (REC, ["--alphabet", "ascii"]),
+], ids=["rec_lines", "rec_scene_crops", "det", "rec_ascii_lines"])
+def test_the_cv2_font_modes_train_from_the_jax_loss(tmp_path, charset_file, path, extra):
+    if path == DET:
+        args = ["--batch", "2", "--eval-scenes", "1"]
+    else:
+        args = ["--batch", "4", "--img-w", "64", "--charset-file", charset_file]
+    stdout = run(path, *extra, *args, "--steps", "1", "--device", "cpu", "--out", str(tmp_path / "w.npz"))
+    assert "saved weights" in stdout
+    np.testing.assert_allclose(first_loss(stdout), jax_first_loss(path, extra, charset_file), rtol=1e-5)
+
+
+def test_the_full_lines_are_refused_before_a_step(tmp_path, charset_file):
+    with pytest.raises(CV2FallbackFaceNotPorted, match="A17"):
+        load_script(REC).main(["--alphabet", "full", "--charset-file", charset_file, "--device", "cpu",
+                               "--steps", "1", "--out", str(tmp_path / "w.npz")])
+    assert not (tmp_path / "w.npz").exists()
 
 
 @pytest.mark.parametrize("path,args", [
