@@ -173,7 +173,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     ``ctc_topk`` ("jpeg tiff service"), the lossless WebP (as data)
     answers the words of the PNG of the same pixels and launches
     ``ctc_topk`` ("webp service"), and so does the q90 lossy one, with
-    one ``ctc_topk`` launch ("lossy webp service"); a
+    one ``ctc_topk`` launch ("lossy webp service"), and the JPEG
+    2000 cases (JP2 and raw codestreams decoded by ``csrc/jpeg2000.cpp``,
+    the ``jpeg2000_vs_cv2`` count), the host ms of the scene as cv2's
+    default (lossless) ``.jp2`` and as an irreversible (9/7) J2K beside the
+    bare JPEG, and the scene as an irreversible JP2 (as data) against the
+    PNG of the same pixels with one ``ctc_topk`` launch ("jpeg2000
+    service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1479,8 +1485,9 @@ class Smoke:
             raise AssertionError("needs the bf16 serving phase's worker")
         t0 = time.perf_counter()
         libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
-                                              native.TIFF_SOURCE, native.WEBP_SOURCE)]
-        print(f"bmp rle, hdr, gif, tiff (with jpeg) and webp (with vp8) decoder builds: {time.perf_counter() - t0:.2f} s "
+                                              native.TIFF_SOURCE, native.WEBP_SOURCE, native.JPEG2000_SOURCE)]
+        print(f"bmp rle, hdr, gif, tiff (with jpeg), webp (with vp8) and jpeg2000 decoder builds: "
+              f"{time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
         counts = {}  # format → [cases, of them None]
@@ -1488,15 +1495,18 @@ class Smoke:
                      "page_tiff_g4")
         jpeg_timed = ("scene0_tiff_jpeg", "scene0_tiff_jpeg_tiles", "scene0_tiff_jpeg_onestrip")
         lossy_timed = ("scene0_webp_q90", "scene0_webp_q90_alpha")
+        j2k_timed = ("scene0_jp2", "scene0_j2k_lossy")
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
-                 "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed
+                 "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
+            + j2k_timed
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
         jpeg_tiff = [0, 0]  # JPEG TIFF cases, of them None
         lossy = [0, 0]  # lossy WebP cases, of them None
         lossless = [0, 0]  # the other WebP cases, of them None
+        j2k = [0, 0]  # JPEG 2000 cases (JP2 and raw codestreams), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1508,6 +1518,8 @@ class Smoke:
                 is_jpeg = name.startswith("tiff_jpeg_") or name in jpeg_timed
                 is_lossy = name.startswith("webp_lossy_") or name in lossy_timed
                 is_lossless = sniff_format(data) == "webp" and not is_lossy
+                is_j2k = sniff_format(data) == "jpeg2000"
+                j2k[0] += is_j2k
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1520,6 +1532,7 @@ class Smoke:
                     jpeg_tiff[1] += is_jpeg
                     lossy[1] += is_lossy
                     lossless[1] += is_lossless
+                    j2k[1] += is_j2k
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1554,6 +1567,11 @@ class Smoke:
         if lossy_data[12:16] != b"VP8 ":
             raise AssertionError("scene0_webp_q90 is not a lossy (VP8) WebP")
         lossy_png = encode_png(decode_image(lossy_data))
+        # the scene as Pillow's irreversible (9/7) JP2, beside the PNG of the same pixels
+        j2k_data = cases["scene0_jp2_lossy"][0]
+        if sniff_format(j2k_data) != "jpeg2000" or j2k_data[:4] == b"\xff\x4f\xff\x51":
+            raise AssertionError("scene0_jp2_lossy is not a JP2 file")
+        j2k_png = encode_png(decode_image(j2k_data))
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1641,6 +1659,16 @@ class Smoke:
                 check_words(got_lossy["words"], want["words"], "the lossy WebP vs the PNG of the same pixels")
                 words["scene0_webp_q90"] = len(got_lossy["words"])
                 before = service_launches(c)
+                got_j2k = c.send_request(req(j2k_data))
+                self.launches["jpeg2000 service"] = launched_j2k = launches_since(c, before, "JPEG 2000")
+                if launched_j2k["ctc_topk"] != 1:
+                    raise AssertionError(f"the JPEG 2000 request: {launched_j2k}, not 1 ctc_topk launch")
+                want = c.send_request(req(j2k_png))
+                if not got_j2k.get("success") or not want.get("words"):
+                    raise AssertionError(f"JPEG 2000: {str(got_j2k)[:200]} / {str(want)[:200]}")
+                check_words(got_j2k["words"], want["words"], "the lossy JP2 vs the PNG of the same pixels")
+                words["scene0_jp2_lossy"] = len(got_j2k["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1676,6 +1704,8 @@ class Smoke:
             "webp_vs_cv2": f"{lossless[0]} lossless WebP cases equal cv2's answer, {lossless[1]} of them None",
             "webp_lossy_vs_cv2": f"{lossy[0]} lossy WebP cases (VP8, with ALPH, animations' first frames) equal "
             f"cv2's answer, {lossy[1]} of them None",
+            "jpeg2000_vs_cv2": f"{j2k[0]} JPEG 2000 cases (JP2 and raw codestreams, cv2's, Pillow's and "
+            f"libopenjp2's files, written boxes and markers, damaged files) equal cv2's answer, {j2k[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1686,8 +1716,9 @@ class Smoke:
             "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
             "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff, "launches_of_the_webp_request": launched_webp,
             "launches_of_the_lossy_webp_request": launched_lossy,
+            "launches_of_the_jpeg2000_request": launched_j2k,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twenty-six payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the twenty-eight payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

@@ -10,7 +10,8 @@ built together (the lossy one's lossless alpha plane through
 ``csrc/webp_alpha.h``), and the bilinear warps of ``ops/geometry.py``,
 ``csrc/warp.cpp`` (cv2 5.0's ``warpAffine`` / ``warpPerspective``), and
 the text drawing of ``train/cv2_text.py``, ``csrc/cv2_text.cpp`` (cv2
-5.0's ``putText`` with its upright Rubik face).
+5.0's ``putText`` with its upright Rubik face), and the JPEG 2000
+codestream decoder, ``csrc/jpeg2000.cpp`` (OpenJPEG 2.5.3's).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -54,6 +55,7 @@ WEBP_SOURCE = CSRC / "webp.cpp"
 VP8_SOURCE = CSRC / "vp8.cpp"
 WARP_SOURCE = CSRC / "warp.cpp"
 CV2_TEXT_SOURCE = CSRC / "cv2_text.cpp"
+JPEG2000_SOURCE = CSRC / "jpeg2000.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
 # lossy WebP decoder its lossless alpha planes to webp.cpp
@@ -70,6 +72,7 @@ _tiff_lib = None
 _webp_lib = None
 _warp_lib = None
 _cv2_text_lib = None
+_jpeg2000_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -529,3 +532,60 @@ def load_cv2_text_library() -> ctypes.CDLL:
                                           i32p]
             _cv2_text_lib = lib
     return _cv2_text_lib
+
+
+def load_jpeg2000_library() -> ctypes.CDLL:
+    """Build (if needed) and load the JPEG 2000 codestream decoder."""
+    global _jpeg2000_lib
+    with _lock:
+        if _jpeg2000_lib is None:
+            lib = ctypes.CDLL(str(build(JPEG2000_SOURCE)))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.j2k_header.restype = ctypes.c_int
+            lib.j2k_header.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, i32p,
+                                       ctypes.c_char_p, ctypes.c_int]
+            lib.j2k_decode.restype = ctypes.c_int
+            lib.j2k_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, i32p,
+                                       ctypes.c_int64, i32p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+            _jpeg2000_lib = lib
+    return _jpeg2000_lib
+
+
+def j2k_header(codestream: bytes, ihdr_w: int = 0, ihdr_h: int = 0):
+    """A JPEG 2000 codestream's main header (the data from its SOC to the
+    end of the file) → (status, (x0, y0, x1, y1, numcomps, [(prec, sgnd,
+    dx, dy)] of the first four components) or None, OpenJPEG's reason).
+    ``ihdr_w`` / ``ihdr_h``: a JP2 file's ihdr size, which SIZ must match
+    (0 for a bare codestream). Status 0 is success; the others are
+    ``csrc/jpeg2000.cpp``'s ``Status`` codes (3: a feature not decoded)."""
+    lib = load_jpeg2000_library()
+    info = np.zeros(21, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    status = lib.j2k_header(codestream, len(codestream), ihdr_w, ihdr_h,
+                            info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
+    if status:
+        return status, None, msg.value.decode(errors="replace")
+    n = int(info[4])
+    comps = [tuple(int(v) for v in info[5 + 4 * i : 9 + 4 * i]) for i in range(min(n, 4))]
+    return 0, (int(info[0]), int(info[1]), int(info[2]), int(info[3]), n, comps), ""
+
+
+def j2k_decode(codestream: bytes, ihdr_w: int, ihdr_h: int, numcomps: int, width: int, height: int,
+               threads: int = 0):
+    """Decode a codestream whose header ``j2k_header`` read (origin 0, no
+    sub-sampled component, ``numcomps`` of 1 to 4) → (status, [numcomps,
+    height, width] int32 samples or None, OpenJPEG's reason). ``threads``:
+    the host threads that decode code-blocks and wavelet rows (0: the
+    cores, at most 8); the samples do not depend on it."""
+    lib = load_jpeg2000_library()
+    out = np.empty((numcomps, height, width), np.int32)
+    info = np.zeros(8, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    status = lib.j2k_decode(codestream, len(codestream), ihdr_w, ihdr_h, out.ctypes.data_as(i32p), out.size,
+                            info.ctypes.data_as(i32p), threads, msg, len(msg))
+    if status == 4:
+        raise ValueError(f"j2k_decode: a {numcomps}x{height}x{width} output the header does not describe")
+    if status:
+        return status, None, msg.value.decode(errors="replace")
+    return 0, out, ""

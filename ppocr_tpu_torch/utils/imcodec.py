@@ -118,15 +118,30 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   orientation is applied where the demuxer accepts the file and the VP8X
   flags name the chunk, read as a TIFF header from the chunk's first byte
   (a leading ``Exif\\0\\0`` hides it, as it does from cv2).
+* **JPEG 2000**, JP2 files and raw J2K codestreams (the JP2 boxes, the
+  palette and channel definitions and cv2's hand-over in Python, the
+  codestream in ``csrc/jpeg2000.cpp``, host C++ built at first use), as
+  OpenCV 5.0's ``grfmt_jpeg2000_openjpeg.cpp`` reads them through
+  OpenJPEG 2.5.3 in strict mode: the boxes by jp2.c's rules (the
+  codestream runs from the jp2c box to the end of the data), every
+  progression order and POC, tiles and tile-parts, precincts, layers,
+  SOP/EPH, PPM/PPT, the code-block mode switches, ROI, the 5/3 and 9/7
+  wavelets, the RCT and ICT, with OpenJPEG's arithmetic; a cut file is
+  refused. cv2 then takes 1 to 4 unsigned components of 8 bits or more,
+  no image origin other than 0 and no sub-sampled component: sRGB (or an
+  unknown colour space) from three or four components, grey from the
+  first, sYCC through its integer YUV conversion, each sample shifted
+  right by the largest precision less 8.
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
-and this module does not: JPEG 2000 and AVIF, named by their sniffed
-format (``FORMAT_NAMES``), and TIFF's compressions of ``TIFF_UNPORTED``
-(NeXT, ThunderScan, SGI Log). ``None`` becomes the reference's own error
-response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF or WebP decode raises
+and this module does not: AVIF, named by its sniffed format
+(``FORMAT_NAMES``), TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
+ThunderScan, SGI Log) and JPEG 2000's HT code-blocks (``J2K_UNPORTED``).
+``None`` becomes the reference's own error response in the service. A
+JPEG, run-length BMP, HDR, GIF, TIFF, WebP or JPEG 2000 decode raises
 when its host C++ cannot be built: a missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
@@ -2226,11 +2241,379 @@ def _decode_webp_bitstream(data: bytes, what: str) -> np.ndarray:
     return img
 
 
+# -- JPEG 2000 ------------------------------------------------------------------
+
+J2K_MAGIC = b"\xff\x4f\xff\x51"
+# what cv2 5.0 decodes in a JPEG 2000 file and this module does not, by the
+# decoder's UNPORTED reason (ROADMAP A18): HT (Part 15) code-blocks
+J2K_UNPORTED = {"HT (Part 15) code-blocks": "A18"}
+_J2K_COLOURS = {16: "sRGB", 17: "grey", 18: "sYCC", 24: "e-YCC", 12: "CMYK"}
+_JP2_SIGNATURE, _JP2_FILE_TYPE, _JP2_HEADER = 1, 2, 4
+
+
+class _Jp2Header:
+    """What opj_jp2_read_header keeps of the boxes before the codestream."""
+
+    def __init__(self):
+        self.state = 0
+        self.has_jp2h = self.has_ihdr = False
+        self.ihdr = None  # (w, h, numcomps)
+        self.bpc = 0
+        self.has_colr = False
+        self.enumcs = 0
+        self.pclr = None  # the palette: [entries, columns] int64
+        self.cmap = None  # [(cmp, mtyp, pcol)]
+        self.cdef = None  # [[cn, typ, asoc]]
+
+
+def _jp2_ihdr(h: _Jp2Header, body: bytes):
+    if h.ihdr is not None:  # "Ignoring ihdr box. First ihdr box already read"
+        return
+    if len(body) != 14:
+        raise _Refused("a JP2 ihdr box whose size is not 14 (Bad image header box)")
+    ih, iw, nc = struct.unpack(">IIH", body[:10])
+    if iw < 1 or ih < 1 or nc < 1:
+        raise _Refused(f"a JP2 ihdr box of {iw}x{ih} with {nc} components")
+    if nc > 16384:
+        raise _Refused("a JP2 ihdr box with an invalid number of components")
+    h.ihdr = (iw, ih, nc)
+    h.bpc = body[10]
+    h.has_ihdr = True
+
+
+def _jp2_colr(h: _Jp2Header, body: bytes):
+    if len(body) < 3:
+        raise _Refused("a JP2 colr box of fewer than 3 bytes")
+    if h.has_colr:  # only the first colr box counts
+        return
+    meth = body[0]
+    if meth == 1:
+        if len(body) < 7:
+            raise _Refused("a JP2 colr box of fewer than 7 bytes")
+        h.enumcs = struct.unpack(">I", body[3:7])[0]
+        h.has_colr = True
+    elif meth == 2:  # an ICC profile: the colour space stays unknown
+        h.has_colr = True
+
+
+def _jp2_bpcc(h: _Jp2Header, body: bytes):
+    if len(body) != (h.ihdr[2] if h.ihdr else 0):
+        raise _Refused("a JP2 bpcc box of another size than the component count")
+
+
+def _jp2_pclr(h: _Jp2Header, body: bytes):
+    if h.pclr is not None:
+        raise _Refused("a second JP2 pclr box")
+    if len(body) < 3:
+        raise _Refused("a JP2 pclr box of fewer than 3 bytes")
+    ne, npc = struct.unpack(">HB", body[:3])
+    if not 1 <= ne <= 1024:
+        raise _Refused(f"a JP2 pclr box with {ne} entries")
+    if npc == 0:
+        raise _Refused("a JP2 pclr box with no palette column")
+    if len(body) < 3 + npc:
+        raise _Refused("a JP2 pclr box too short for its columns")
+    sizes = [(b & 0x7F) + 1 for b in body[3 : 3 + npc]]
+    nbytes = [min((s + 7) >> 3, 4) for s in sizes]
+    entries = np.zeros((ne, npc), np.int64)
+    at = 3 + npc
+    for e in range(ne):
+        for c in range(npc):
+            if len(body) < at + nbytes[c]:
+                raise _Refused("a JP2 pclr box too short for its entries")
+            entries[e, c] = int.from_bytes(body[at : at + nbytes[c]], "big")
+            at += nbytes[c]
+    h.pclr = entries
+
+
+def _jp2_cmap(h: _Jp2Header, body: bytes):
+    if h.pclr is None:
+        raise _Refused("a JP2 cmap box before the pclr box")
+    if h.cmap is not None:
+        raise _Refused("a second JP2 cmap box")
+    npc = h.pclr.shape[1]
+    if len(body) < 4 * npc:
+        raise _Refused("a JP2 cmap box too short")
+    h.cmap = [struct.unpack(">HBB", body[4 * i : 4 * i + 4]) for i in range(npc)]
+
+
+def _jp2_cdef(h: _Jp2Header, body: bytes):
+    if h.cdef is not None:
+        raise _Refused("a second JP2 cdef box")
+    if len(body) < 2:
+        raise _Refused("a JP2 cdef box of fewer than 2 bytes")
+    n = struct.unpack(">H", body[:2])[0]
+    if n == 0:
+        raise _Refused("a JP2 cdef box with no channel")
+    if len(body) < 2 + 6 * n:
+        raise _Refused("a JP2 cdef box too short")
+    h.cdef = [list(struct.unpack(">HHH", body[2 + 6 * i : 8 + 6 * i])) for i in range(n)]
+
+
+_JP2_IMAGE_BOXES = {b"ihdr": _jp2_ihdr, b"colr": _jp2_colr, b"bpcc": _jp2_bpcc, b"pclr": _jp2_pclr,
+                    b"cmap": _jp2_cmap, b"cdef": _jp2_cdef}
+
+
+def _jp2_jp2h(h: _Jp2Header, body: bytes):
+    if not h.state & _JP2_FILE_TYPE:
+        raise _Refused("a JP2 header box before the file type box")
+    has_ihdr = False
+    pos = 0
+    while pos < len(body):  # opj_jp2_read_boxhdr_char on what is left
+        left = len(body) - pos
+        if left < 8:
+            raise _Refused("a box of fewer than 8 bytes inside the JP2 header box")
+        length, kind = struct.unpack(">I4s", body[pos : pos + 8])
+        head = 8
+        if length == 1:
+            if left < 16:
+                raise _Refused("an XL box of fewer than 16 bytes inside the JP2 header box")
+            hi, length = struct.unpack(">II", body[pos + 8 : pos + 16])
+            head = 16
+            if hi:
+                raise _Refused("a box of 2^32 bytes or more inside the JP2 header box")
+        if length == 0:
+            raise _Refused("a box of undefined size inside the JP2 header box")
+        if length < head or length > left:
+            raise _Refused("a box length inside the JP2 header box that does not fit")
+        handler = _JP2_IMAGE_BOXES.get(kind)
+        if handler:
+            handler(h, body[pos + head : pos + length])
+        if kind == b"ihdr":
+            has_ihdr = True
+        pos += length
+    if not has_ihdr:
+        raise _Refused("a JP2 header box with no ihdr box")
+    h.state |= _JP2_HEADER
+    h.has_jp2h = True
+
+
+def _jp2_signature(h: _Jp2Header, body: bytes):
+    if h.state:
+        raise _Refused("a JP2 signature box that is not the first box")
+    if len(body) != 4 or body != b"\r\n\x87\n":
+        raise _Refused("a JP2 signature box with a bad size or magic number")
+    h.state |= _JP2_SIGNATURE
+
+
+def _jp2_ftyp(h: _Jp2Header, body: bytes):
+    if h.state != _JP2_SIGNATURE:
+        raise _Refused("a JP2 file type box that is not the second box")
+    if len(body) < 8 or (len(body) - 8) % 4:
+        raise _Refused("a JP2 file type box of a bad size")
+    h.state |= _JP2_FILE_TYPE
+
+
+_JP2_BOXES = {b"jP  ": _jp2_signature, b"ftyp": _jp2_ftyp, b"jp2h": _jp2_jp2h}
+
+
+def _jp2_header(data: bytes):
+    """opj_jp2_read_header_procedure: the boxes up to the codestream box →
+    (the codestream's offset, _Jp2Header). The codestream runs to the end of
+    the data, whatever the jp2c box's length says."""
+    h = _Jp2Header()
+    pos, n = 0, len(data)
+    while True:
+        if n - pos < 8:  # opj_jp2_read_boxhdr fails: the procedure ends there
+            pos = n
+            break
+        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        pos += 8
+        head = 8
+        if length == 0:
+            length = n - pos + 8
+        elif length == 1:
+            if n - pos < 8:
+                pos = n
+                break
+            hi, length = struct.unpack(">II", data[pos : pos + 8])
+            pos += 8
+            head = 16
+            if hi:
+                break
+        if kind == b"jp2c":
+            if h.state & _JP2_HEADER:
+                break
+            raise _Refused("a codestream box before the JP2 header box")
+        if length < head:
+            raise _Refused(f"a JP2 box of an invalid size ({length})")
+        size = length - head
+        handler = _JP2_BOXES.get(kind)
+        if handler is None and kind in _JP2_IMAGE_BOXES:  # a misplaced image box
+            if h.state & _JP2_HEADER:
+                handler = _JP2_IMAGE_BOXES[kind]
+            else:
+                if size > n - pos:
+                    raise _Refused("a JP2 box that runs past the end of the data")
+                pos += size
+                continue
+        if handler is not None:
+            if size > n - pos:
+                raise _Refused("a JP2 box that runs past the end of the data")
+            handler(h, data[pos : pos + size])
+            pos += size
+        else:
+            if not h.state & _JP2_SIGNATURE:
+                raise _Refused("a JP2 file whose first box is not the signature box")
+            if not h.state & _JP2_FILE_TYPE:
+                raise _Refused("a JP2 file whose second box is not the file type box")
+            if size > n - pos:
+                raise _Refused("a JP2 box that runs past the end of the data")
+            pos += size
+    if not h.has_jp2h:
+        raise _Refused("a JP2 file with no JP2 header box")
+    if not h.has_ihdr:
+        raise _Refused("a JP2 file with no ihdr box")
+    return pos, h
+
+
+def _jp2_check_color(h: _Jp2Header, numcomps: int):
+    """opj_jp2_check_color, before the palette and channel definitions apply."""
+    if h.cdef is not None:
+        nr = numcomps
+        if h.pclr is not None and h.cmap is not None:
+            nr = h.pclr.shape[1]
+        for cn, _, asoc in h.cdef:
+            if cn >= nr:
+                raise _Refused("a JP2 cdef box naming a channel past the image's")
+            if asoc != 65535 and asoc > 0 and asoc - 1 >= nr:
+                raise _Refused("a JP2 cdef box associating a channel past the image's")
+        for c in range(nr - 1, -1, -1):
+            if not any(cn == c for cn, _, _ in h.cdef):
+                raise _Refused("a JP2 cdef box with incomplete channel definitions")
+    if h.pclr is not None and h.cmap is not None:
+        npc = h.pclr.shape[1]
+        sane = True
+        used = [False] * npc
+        for i, (cmp, mtyp, pcol) in enumerate(h.cmap):
+            if cmp >= numcomps:
+                sane = False
+        for i, (cmp, mtyp, pcol) in enumerate(h.cmap):
+            if mtyp not in (0, 1) or pcol >= npc or (used[pcol] and mtyp == 1) or (mtyp == 0 and pcol != 0) or (
+                    mtyp == 1 and pcol != i):
+                sane = False
+            else:
+                used[pcol] = True
+        for i, (cmp, mtyp, pcol) in enumerate(h.cmap):
+            if not used[i] and mtyp != 0:
+                sane = False
+        if sane and numcomps == 1 and not all(used):  # "Component mapping seems wrong. Trying to correct."
+            h.cmap = [(cmp, 1, i) for i, (cmp, _, _) in enumerate(h.cmap)]
+        if not sane:
+            raise _Refused("a JP2 cmap box that maps the components wrongly")
+
+
+def _jp2_apply(h: _Jp2Header, comps: list) -> list:
+    """opj_jp2_apply_pclr, then opj_jp2_apply_cdef: the decoded components'
+    int32 planes → the image's after them."""
+    if h.pclr is not None and h.cmap is not None:
+        entries = h.pclr
+        new = []
+        for cmp, mtyp, pcol in h.cmap:
+            if mtyp == 0:
+                new.append(comps[cmp])
+            else:
+                k = np.clip(comps[cmp], 0, len(entries) - 1)
+                new.append(entries[:, pcol].astype(np.uint32).view(np.int32)[k])
+        comps = new
+    if h.cdef is not None:
+        info = [list(c) for c in h.cdef]
+        for i, (cn, typ, asoc) in enumerate(info):
+            if cn >= len(comps) or asoc in (0, 65535):
+                continue
+            acn = asoc - 1
+            if acn >= len(comps):
+                continue
+            if cn != acn and typ == 0:
+                comps[cn], comps[acn] = comps[acn], comps[cn]
+                for later in info[i + 1 :]:
+                    if later[0] == cn:
+                        later[0] = acn
+                    elif later[0] == acn:
+                        later[0] = cn
+    return comps
+
+
+def _yuv_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(COLOR_YUV2BGR) on 8-bit planes: 14-bit fixed point."""
+    u = u - 128
+    v = v - 128
+
+    def descale(x):
+        return (x + (1 << 13)) >> 14
+
+    b = y + descale(u * 33292)
+    g = y + descale(u * -6472 + v * -9519)
+    r = y + descale(v * 18678)
+    return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
+
+
+def _decode_jpeg2000(data: bytes) -> np.ndarray:
+    """OpenCV 5.0's grfmt_jpeg2000_openjpeg.cpp over OpenJPEG 2.5.3: the JP2
+    boxes (or a bare codestream), the main header, cv2's header checks and
+    size limits, the decode (``csrc/jpeg2000.cpp``), the JP2 palette and
+    channel definitions, then cv2's hand-over to BGR by the colour space:
+    sRGB (and an unknown or unspecified one) from the first three
+    components, grey from the first, sYCC through cv2's YUV conversion;
+    samples above 8 bits shifted right by the largest precision less 8."""
+    from ..ops import native  # builds csrc/jpeg2000.cpp at first use; raises if it cannot
+
+    jp2 = None
+    offset, ihdr = 0, (0, 0)
+    if data[:4] != J2K_MAGIC:
+        offset, jp2 = _jp2_header(data)
+        ihdr = jp2.ihdr[:2]
+    codestream = data[offset:]
+    status, header, reason = native.j2k_header(codestream, *ihdr)
+    if status:
+        raise _Refused(_j2k_reason(status, reason))
+    x0, y0, x1, y1, numcomps, comps = header
+    if not 1 <= numcomps <= 4:
+        raise _Refused(f"{numcomps} components (cv2 reads 1 to 4)")
+    if any(sgnd for _, sgnd, _, _ in comps):
+        raise _Refused("a signed component (cv2 refuses them)")
+    max_prec = max(prec for prec, _, _, _ in comps)
+    if max_prec < 8:
+        raise _Refused(f"a precision of {max_prec} bits (cv2 refuses precisions below 8)")
+    _check_size(x1 - x0, y1 - y0)
+    if x0 or y0 or any(dx != 1 or dy != 1 for _, _, dx, dy in comps):
+        raise _Refused("an image origin other than 0 or a sub-sampled component (cv2: tiles are not supported)")
+    status, planes, reason = native.j2k_decode(codestream, *ihdr, numcomps, x1, y1)
+    if status:
+        raise _Refused(_j2k_reason(status, reason))
+    space = "unknown"
+    planes = list(planes)
+    if jp2 is not None:
+        _jp2_check_color(jp2, numcomps)
+        space = _J2K_COLOURS.get(jp2.enumcs, "unknown")
+        planes = _jp2_apply(jp2, planes)
+    shift = max_prec - 8  # the header's: a palette's entries are shifted by the indices' precision
+    chans = [(p >> shift if shift else p).astype(np.uint8) for p in planes]  # static_cast<uchar>: the low byte
+    if space in ("unknown", "sRGB"):
+        if len(chans) < 3:
+            raise _Refused(f"{len(chans)} components in an sRGB image (cv2 converts 3 or 4)")
+        return np.ascontiguousarray(np.stack([chans[2], chans[1], chans[0]], -1))
+    if space == "grey":
+        return np.ascontiguousarray(np.stack([chans[0]] * 3, -1))
+    if space == "sYCC":
+        if len(chans) < 3:
+            raise _Refused(f"{len(chans)} components in an sYCC image (cv2 converts 3 or more)")
+        return _yuv_to_bgr(*(c.astype(np.int64) for c in chans[:3]))
+    raise _Refused(f"the colour space {space} (cv2: unsupported color space conversion)")
+
+
+def _j2k_reason(status: int, reason: str) -> str:
+    if status == 3:
+        return f"{reason} (ROADMAP {J2K_UNPORTED.get(reason, 'A18')}): the feature is not decoded"
+    return f"OpenJPEG refuses it: {reason}"
+
+
 # -- entry points -------------------------------------------------------------
 
 _DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
              "sunraster": _decode_sunraster, "pfm": _decode_pfm, "hdr": _decode_hdr,
-             "gif": _decode_gif, "tiff": _decode_tiff, "webp": _decode_webp}
+             "gif": _decode_gif, "tiff": _decode_tiff, "webp": _decode_webp,
+             "jpeg2000": _decode_jpeg2000}
 # the formats that cv2 decodes and this module does not, by their sniffed name
 FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
 

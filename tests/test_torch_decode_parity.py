@@ -407,9 +407,15 @@ def _refused():
     cases["gif"] = (b"GIF90a" + gif[6:], "the version", False)
     cases["pfm"] = (pfm.replace(b"PF\n", b"PF\r", 1), "no line break", False)
     cases["hdr"] = (hdr.replace(b"rle_rgbe", b"rle_xyze", 1), "no FORMAT=32-bit_rle_rgbe line", False)
+    # JPEG 2000 is decoded since (tests/test_torch_jpeg2000.py), but not HT
+    # (Part 15) code-blocks, ``imcodec.J2K_UNPORTED``: Pillow's JP2 with the
+    # HT bit set in its COD marker's code-block style is refused with a line
+    # naming them (cv2's HT decoder cannot read the MQ-coded blocks either)
     buf = io.BytesIO()
     Image.fromarray(img[..., ::-1]).save(buf, "JPEG2000")
-    cases["jpeg2000"] = (buf.getvalue(), "JPEG 2000", True)
+    jp2 = bytearray(buf.getvalue())
+    jp2[jp2.index(b"\xff\x52") + 12] |= 0x40
+    cases["jpeg2000"] = (bytes(jp2), "HT (Part 15) code-blocks (ROADMAP A18)", False)
     return cases
 
 
@@ -417,16 +423,18 @@ def _refused():
                                   "hdr"])
 def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog):
     """The refusals that remain. The JPEG, GIF, PFM and HDR ones are cv2's
-    own on these files; JPEG 2000 and AVIF and a TIFF whose compression is
-    one of ``imcodec.TIFF_UNPORTED`` (ThunderScan here) are decoded by cv2
-    and not by the port: the known difference, held here so that it cannot
-    grow unnoticed. No WebP is refused for its kind any more."""
+    own on these files; AVIF and a TIFF whose compression is one of
+    ``imcodec.TIFF_UNPORTED`` (ThunderScan here) are decoded by cv2 and not
+    by the port: the known difference, held here so that it cannot grow
+    unnoticed. A JPEG 2000 file is refused only for what
+    ``imcodec.J2K_UNPORTED`` names (HT code-blocks here). No WebP is
+    refused for its kind any more."""
     data, reason, cv2_decodes = _refused()[name]
     assert (cv2_decode(data) is not None) == cv2_decodes
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     assert reason in caplog.text
-    assert set(imcodec.FORMAT_NAMES) == {"jpeg2000", "avif"}
+    assert set(imcodec.FORMAT_NAMES) == {"avif"}
     assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
     assert not hasattr(imcodec, "WEBP_UNPORTED")
 

@@ -1366,9 +1366,11 @@ def write():
     ``tests/test_torch_webp_lossy.py`` with cv2's and PIL's lossy files of
     its sizes, garbled and cut ones among them (and
     TIFFs with damaged strip data or JPEG headers, cut JPEG blocks, and
-    mutated WebPs),
+    mutated WebPs), the JPEG 2000 spread of ``tests/test_torch_jpeg2000.py``
+    (``written_cases``: mutated and cut files among them),
     damaged PNGs (decoded and refused) and the first serving scene as each
-    timing payload, each beside cv2's decode (a grey PFM's is [H, W]) or a
+    timing payload (the JPEG 2000 ones from ``tests/test_torch_jpeg2000.py``'s
+    ``scene_payloads``), each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
     2 or 4 the columns cv2 does not write are stored as 0, as the port
     gives them."""
@@ -1464,7 +1466,11 @@ def write():
         if i % 4 == 0 or name.startswith("lossy_"):
             mutated = webp.mutations(data, 3, seed=i + 250)
             cases.update({f"webp_{name}_mutated_{k}": m for k, m in enumerate(mutated)})
+    import test_torch_jpeg2000 as j2k
+
+    cases.update({f"jpeg2000_{k}": v for k, v in j2k.written_cases().items()})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
+    cases.update(j2k.scene_payloads(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
         out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
@@ -1519,10 +1525,12 @@ def fuzz(rounds: int) -> int:
     frame header bits, flips in the first and the token partitions, cuts
     and ALPH header bytes) of each base of
     ``tests/test_torch_webp.py``'s ``fuzz_bases`` (4,000 of each lossy
-    base). Prints the counts;
-    returns the number of files that differ (a TIFF or WebP of a kind the
-    port names as not decoded, which garbling can reach, is counted
-    apart)."""
+    base), and the JPEG 2000 family of ``tests/test_torch_jpeg2000.py``
+    (``fuzz_files``: 3,000 mutations of each of its 14 bases and every cut,
+    ~50,000 files a round). Prints the counts;
+    returns the number of files that differ (a TIFF, WebP or JPEG 2000
+    file of a kind the port names as not decoded, which garbling can reach,
+    is counted apart)."""
     from test_torch_tiff import COMPRESSIONS, GARBLED, noise, small_enough, tiff_bytes, tiff_cases_cached
     from test_torch_tiff import answers as tiff_answers
     from test_torch_tiff import garbled as tiff_garbled
@@ -1535,7 +1543,9 @@ def fuzz(rounds: int) -> int:
 
     import test_torch_webp as webp
 
-    files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = 0
+    import test_torch_jpeg2000 as j2k
+
+    files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = j2k_files = j2k_bad = 0
     webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
@@ -1588,10 +1598,17 @@ def fuzz(rounds: int) -> int:
         got = [tiff_answers(d) for d in datas]
         bad += sum(a not in ("none", "equal", "known") for a in got)
         known += got.count("known")
+        datas = j2k.fuzz_files(r)
+        j2k_files += len(datas)
+        files += len(datas)
+        got = [tiff_answers(d) for d in datas]
+        j2k_bad += sum(a not in ("none", "equal", "known") for a in got)
+        bad += sum(a not in ("none", "equal", "known") for a in got)
+        known += got.count("known")
         print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs, "
-              f"{lossy_files} of them of the lossy bases), "
+              f"{lossy_files} of them of the lossy bases, {j2k_files} JPEG 2000 files, {j2k_bad} of them differing), "
               f"{bad} differ from cv2 {cv2.__version__} "
-              f"({known} TIFFs or WebPs of a kind named as not decoded)", flush=True)
+              f"({known} TIFFs, WebPs or JPEG 2000 files of a kind named as not decoded)", flush=True)
     return bad
 
 
