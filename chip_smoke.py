@@ -179,7 +179,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     default (lossless) ``.jp2`` and as an irreversible (9/7) J2K beside the
     bare JPEG, and the scene as an irreversible JP2 (as data) against the
     PNG of the same pixels with one ``ctc_topk`` launch ("jpeg2000
-    service"); a
+    service"), and the AVIF cases (lossless 8-bit stills decoded by
+    ``csrc/av1.cpp``, the ``avif_vs_cv2`` count), the host ms of the scene
+    as cv2's lossless AVIF, and that file (as data) against the PNG of the
+    same pixels: the same words exactly, with one ``ctc_topk`` launch
+    ("avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -333,6 +337,7 @@ import importlib.util
 import io
 import json
 import logging
+import math
 import os
 import pathlib
 import signal
@@ -1485,8 +1490,9 @@ class Smoke:
             raise AssertionError("needs the bf16 serving phase's worker")
         t0 = time.perf_counter()
         libs = [native.build(src) for src in (native.BMP_RLE_SOURCE, native.HDR_SOURCE, native.GIF_SOURCE,
-                                              native.TIFF_SOURCE, native.WEBP_SOURCE, native.JPEG2000_SOURCE)]
-        print(f"bmp rle, hdr, gif, tiff (with jpeg), webp (with vp8) and jpeg2000 decoder builds: "
+                                              native.TIFF_SOURCE, native.WEBP_SOURCE, native.JPEG2000_SOURCE,
+                                              native.AV1_SOURCE)]
+        print(f"bmp rle, hdr, gif, tiff (with jpeg), webp (with vp8), jpeg2000 and av1 decoder builds: "
               f"{time.perf_counter() - t0:.2f} s "
               f"({', '.join(lib.name for lib in libs)})")
         cases = self.assets.load_image_cases()
@@ -1499,7 +1505,7 @@ class Smoke:
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
-            + j2k_timed
+            + j2k_timed + ("scene0_avif",)
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1507,6 +1513,7 @@ class Smoke:
         lossy = [0, 0]  # lossy WebP cases, of them None
         lossless = [0, 0]  # the other WebP cases, of them None
         j2k = [0, 0]  # JPEG 2000 cases (JP2 and raw codestreams), of them None
+        avif = [0, 0]  # AVIF cases, of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1519,7 +1526,9 @@ class Smoke:
                 is_lossy = name.startswith("webp_lossy_") or name in lossy_timed
                 is_lossless = sniff_format(data) == "webp" and not is_lossy
                 is_j2k = sniff_format(data) == "jpeg2000"
+                is_avif = sniff_format(data) == "avif"
                 j2k[0] += is_j2k
+                avif[0] += is_avif
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1533,6 +1542,7 @@ class Smoke:
                     lossy[1] += is_lossy
                     lossless[1] += is_lossless
                     j2k[1] += is_j2k
+                    avif[1] += is_avif
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1572,6 +1582,11 @@ class Smoke:
         if sniff_format(j2k_data) != "jpeg2000" or j2k_data[:4] == b"\xff\x4f\xff\x51":
             raise AssertionError("scene0_jp2_lossy is not a JP2 file")
         j2k_png = encode_png(decode_image(j2k_data))
+        # the scene as cv2's lossless AVIF, beside the PNG of the same pixels
+        avif_data = cases["scene0_avif"][0]
+        if sniff_format(avif_data) != "avif" or not (decode_image(avif_data) == cases["scene0_avif"][1]).all():
+            raise AssertionError("scene0_avif is not an AVIF that decodes to cv2's pixels")
+        avif_png = encode_png(decode_image(avif_data))
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1669,6 +1684,18 @@ class Smoke:
                 check_words(got_j2k["words"], want["words"], "the lossy JP2 vs the PNG of the same pixels")
                 words["scene0_jp2_lossy"] = len(got_j2k["words"])
                 before = service_launches(c)
+                got_avif = c.send_request(req(avif_data))
+                self.launches["avif service"] = launched_avif = launches_since(c, before, "AVIF")
+                if launched_avif["ctc_topk"] != 1:
+                    raise AssertionError(f"the AVIF request: {launched_avif}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_png))
+                if not got_avif.get("success") or not want.get("words"):
+                    raise AssertionError(f"AVIF: {str(got_avif)[:200]} / {str(want)[:200]}")
+                check_words(got_avif["words"], want["words"], "the lossless AVIF vs the PNG of the same pixels")
+                if [(w["text"], w["box"]) for w in got_avif["words"]] != [(w["text"], w["box"]) for w in want["words"]]:
+                    raise AssertionError("the lossless AVIF's words are not the PNG's: the texts and boxes must be equal")
+                words["scene0_avif"] = len(got_avif["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1706,6 +1733,8 @@ class Smoke:
             f"cv2's answer, {lossy[1]} of them None",
             "jpeg2000_vs_cv2": f"{j2k[0]} JPEG 2000 cases (JP2 and raw codestreams, cv2's, Pillow's and "
             f"libopenjp2's files, written boxes and markers, damaged files) equal cv2's answer, {j2k[1]} of them None",
+            "avif_vs_cv2": f"{avif[0]} AVIF cases (cv2's lossless files, the intra tool corpus, written boxes and "
+            f"items, damaged files) equal cv2's answer, {avif[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1716,9 +1745,9 @@ class Smoke:
             "launches_of_2_tiff_requests": launched_tiff, "launches_of_the_g4_fax_request": launched_fax,
             "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff, "launches_of_the_webp_request": launched_webp,
             "launches_of_the_lossy_webp_request": launched_lossy,
-            "launches_of_the_jpeg2000_request": launched_j2k,
+            "launches_of_the_jpeg2000_request": launched_j2k, "launches_of_the_avif_request": launched_avif,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twenty-eight payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the twenty-nine payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)
@@ -1943,7 +1972,9 @@ class Smoke:
         torch.cuda.synchronize()
         losses = [float(x) for x in losses]
         step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(ends[4:], ends[5:]))
-        if not all(0 < x < 14 for x in losses):  # the clipped BCE is at most −log(1e-6) ≈ 13.8
+        # the balanced BCE is two clipped means, the positive and the
+        # negative pixels', each at most −log(1e-6) ≈ 13.8
+        if not all(0 < x < 2 * -math.log(1e-6) for x in losses):
             raise AssertionError(f"det train losses: {losses}")
         print(json.dumps({
             "det_train": f"make_det_train_step, init_det_params(0), batch {n} x {size}x{size}, "
@@ -2598,7 +2629,7 @@ class Smoke:
         _, init_fn, step_fn = make_det_train_step(learning_rate=1e-3)
         losses, timings = run(init_fn, step_fn, init_det_params(0), lambda: det_ds.det_batch(8)[0],
                               self.DET_SYNTH_STEPS)
-        if not all(0 < x < 14 for x in losses):  # the clipped BCE is at most −log(1e-6)
+        if not all(0 < x < 2 * -math.log(1e-6) for x in losses):  # as in det_train
             raise AssertionError(f"jumbo det losses: {losses}")
         det = {"what": "text_scene_dataset('jumbo').det_batch(8), 192x192 scenes at 96x96, "
                f"init_det_params(0), {self.SYNTH_WARM + 5} steps on batches rendered beforehand, "

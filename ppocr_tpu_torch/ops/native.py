@@ -11,7 +11,9 @@ built together (the lossy one's lossless alpha plane through
 ``csrc/warp.cpp`` (cv2 5.0's ``warpAffine`` / ``warpPerspective``), and
 the text drawing of ``train/cv2_text.py``, ``csrc/cv2_text.cpp`` (cv2
 5.0's ``putText`` with its upright Rubik face), and the JPEG 2000
-codestream decoder, ``csrc/jpeg2000.cpp`` (OpenJPEG 2.5.3's).
+codestream decoder, ``csrc/jpeg2000.cpp`` (OpenJPEG 2.5.3's), and the
+AV1 decoder of lossless still pictures, ``csrc/av1.cpp`` (libaom 3.14.1's,
+with the default tables of ``csrc/av1_tables.h``).
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -56,11 +58,13 @@ VP8_SOURCE = CSRC / "vp8.cpp"
 WARP_SOURCE = CSRC / "warp.cpp"
 CV2_TEXT_SOURCE = CSRC / "cv2_text.cpp"
 JPEG2000_SOURCE = CSRC / "jpeg2000.cpp"
+AV1_SOURCE = CSRC / "av1.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
 # lossy WebP decoder its lossless alpha planes to webp.cpp
 BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h"),
-              WEBP_SOURCE: (VP8_SOURCE, CSRC / "webp_alpha.h")}
+              WEBP_SOURCE: (VP8_SOURCE, CSRC / "webp_alpha.h"),
+              AV1_SOURCE: (CSRC / "av1_tables.h",)}
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
@@ -73,6 +77,7 @@ _webp_lib = None
 _warp_lib = None
 _cv2_text_lib = None
 _jpeg2000_lib = None
+_av1_lib = None
 _lock = threading.Lock()  # detect runs in the service's worker threads
 
 
@@ -586,6 +591,65 @@ def j2k_decode(codestream: bytes, ihdr_w: int, ihdr_h: int, numcomps: int, width
                             info.ctypes.data_as(i32p), threads, msg, len(msg))
     if status == 4:
         raise ValueError(f"j2k_decode: a {numcomps}x{height}x{width} output the header does not describe")
+    if status:
+        return status, None, msg.value.decode(errors="replace")
+    return 0, out, ""
+
+
+AV1_INFO = ("width", "height", "bit_depth", "mono", "ss_x", "ss_y", "color_primaries", "transfer", "matrix",
+            "color_range", "profile", "still_picture", "reduced_header", "base_q_idx", "tiles", "allow_intrabc",
+            "allow_screen_content_tools", "use_128x128")
+# the tool counters of ``av1_decode(..., stats=...)`` (``csrc/av1.cpp``'s ST_*)
+AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "angle_delta": 37, "palette_y": 38,
+             "palette_uv": 39, "filter_intra": 40, "intrabc": 41, "tiles": 42, "blocks": 43, "palette_cache": 44,
+             "segment_id": 45, "edge_upsample": 46, "edge_filter": 47, "golomb": 48}
+
+
+def load_av1_library() -> ctypes.CDLL:
+    """Build (if needed) and load the AV1 decoder."""
+    global _av1_lib
+    with _lock:
+        if _av1_lib is None:
+            lib = ctypes.CDLL(str(build(AV1_SOURCE)))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.av1_info.restype = ctypes.c_int
+            lib.av1_info.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32p, ctypes.c_char_p, ctypes.c_int]
+            lib.av1_decode.restype = ctypes.c_int
+            lib.av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                                       i32p, ctypes.c_char_p, ctypes.c_int]
+            _av1_lib = lib
+    return _av1_lib
+
+
+def av1_info(stream: bytes):
+    """An AV1 stream's sequence header and first frame header → (status,
+    int32 [len(AV1_INFO)] or None, libaom's reason). Status 0 is success;
+    the others are ``csrc/av1.cpp``'s ``Status`` codes (3: a feature not
+    decoded, the reason its name)."""
+    lib = load_av1_library()
+    info = np.zeros(len(AV1_INFO), np.int32)
+    msg = ctypes.create_string_buffer(256)
+    status = lib.av1_info(stream, len(stream), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
+    if status:
+        return status, None, msg.value.decode(errors="replace")
+    return 0, info, ""
+
+
+def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = None):
+    """Decode a stream whose headers ``av1_info`` read → (status, [1 or 3,
+    height, width] uint8 planes (Y, U, V) or None, libaom's reason).
+    ``stats``: an int32 array of 64 that gets the tool counters
+    (``AV1_STATS``)."""
+    lib = load_av1_library()
+    planes = 1 if info[3] else 3
+    out = np.empty((planes, int(info[1]), int(info[0])), np.uint8)
+    if stats is None:
+        stats = np.zeros(64, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+                            stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
+    if status == 4:
+        raise ValueError(f"av1_decode: a {planes}x{info[1]}x{info[0]} output the stream does not describe")
     if status:
         return status, None, msg.value.decode(errors="replace")
     return 0, out, ""

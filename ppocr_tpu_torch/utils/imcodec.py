@@ -132,17 +132,31 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   unknown colour space) from three or four components, grey from the
   first, sYCC through its integer YUV conversion, each sample shifted
   right by the largest precision less 8.
+* **AVIF**, lossless 8-bit stills (the ISOBMFF boxes and cv2's hand-over
+  in Python, the AV1 stream in ``csrc/av1.cpp``, host C++ built at first
+  use), as OpenCV 5.0's ``grfmt_avif.cpp`` reads them through libavif
+  1.4.2 over libaom 3.14.1: the boxes by libavif's rules with its strict
+  checks off (brands, the meta box's unique boxes, ``iloc`` versions 0–2
+  from the file or ``idat``, ``ipma`` essential flags, every image
+  item's ``ispe``), cv2's signature check over the first 500 bytes, the
+  primary item and its alpha item (decoded, a bad one refusing the file,
+  then dropped); the AV1 intra syntax of a coded-lossless key frame as
+  libaom decodes it; then one channel (the Y plane as it is) where the
+  ``av1C`` says monochrome, else libavif's identity-matrix, full-range
+  YUV to BGR.
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
 refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
-and this module does not: AVIF, named by its sniffed format
-(``FORMAT_NAMES``), TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
-ThunderScan, SGI Log) and JPEG 2000's HT code-blocks (``J2K_UNPORTED``).
-``None`` becomes the reference's own error response in the service. A
-JPEG, run-length BMP, HDR, GIF, TIFF, WebP or JPEG 2000 decode raises
-when its host C++ cannot be built: a missing compiler is not a bad image.
+and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
+ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
+the AVIF kinds of ``AVIF_UNPORTED`` (lossy, subsampled, 10/12-bit, grid
+and sequence files among them); no sniffed format is without a decoder
+(``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
+response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
+JPEG 2000 or AVIF decode raises when its host C++ cannot be built: a
+missing compiler is not a bad image.
 
 ``encode_png`` writes 8-bit grey, BGR or BGRA arrays as PNG (filter types
 0–2 only), for tests and for request payloads made from arrays.
@@ -187,7 +201,7 @@ def sniff_format(data: bytes) -> str:
         return "pnm"
     if data[:4] == b"\x59\xa6\x6a\x95":
         return "sunraster"
-    if data[4:12] in (b"ftypavif", b"ftypavis"):
+    if data[4:8] == b"ftyp" and _avif_brand(data):
         return "avif"
     if data[:1] == b"P" and data[1:2] in (b"F", b"f") and data[2:3].isspace():
         return "pfm"
@@ -199,6 +213,15 @@ def sniff_format(data: bytes) -> str:
             data[3:6] == b"\x9d\x01\x2a"):
         return "webp"
     return "unknown"
+
+
+def _avif_brand(data: bytes) -> bool:
+    """cv2 takes a file as AVIF when libavif parses its start: an ftyp box
+    first whose major or compatible brands name 'avif' or 'avis'."""
+    size = int.from_bytes(data[:4], "big")
+    end = min(len(data), size) if size >= 8 else len(data)
+    brands = [data[8:12]] + [data[k:k + 4] for k in range(16, end - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
 
 
 # every sniffed format's display name; those without a decoder in
@@ -2608,12 +2631,611 @@ def _j2k_reason(status: int, reason: str) -> str:
     return f"OpenJPEG refuses it: {reason}"
 
 
+# -- AVIF -----------------------------------------------------------------------
+
+# what cv2 5.0 decodes in an AVIF file and this module does not, by the
+# reason logged, with its ROADMAP item
+AVIF_UNPORTED = {
+    "lossy frames (qindex > 0)": "A14.7b",
+    "4:2:0 and 4:2:2 chroma": "A14.7b",
+    "a matrix other than identity": "A14.7b",
+    "limited range": "A14.7b",
+    "superres and film grain": "A14.7b",
+    "10/12-bit samples": "A14.7c",
+    "grids": "A14.7c",
+    "image sequences' first frame": "A14.7c",
+    "layered images (a1op, lsel)": "A14.7c",
+    "a frame scaled to its ispe size": "A14.7c",
+    "premultiplied alpha (prem)": "A14.7c",
+}
+_AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+# the properties libavif parses; any other is opaque, and an opaque one
+# marked essential hides its item
+_AVIF_PARSED = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi", b"a1op", b"lsel",
+                b"a1lx", b"clli")
+_AVIF_MUST_BE_ESSENTIAL = (b"a1op", b"lsel", b"clap", b"irot", b"imir")
+
+
+def _avif_unported(what: str) -> _Refused:
+    return _Refused(f"{what} (ROADMAP {AVIF_UNPORTED[what]}): the feature is not decoded")
+
+
+class _AvifStream:
+    """libavif's avifROStream over ``data[pos:end]``: a read past the end
+    fails the parse."""
+
+    def __init__(self, data: bytes, pos: int, end: int, what: str):
+        self.data, self.pos, self.end, self.what = data, pos, end, what
+        self.bit = 0  # bits of the current byte already read by bits()
+
+    def take(self, n: int) -> bytes:
+        self.bit = 0
+        if n > self.end - self.pos:
+            raise _Refused(f"libavif refuses it: Box[{self.what}] ends too early")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big")
+
+    def bits(self, count: int) -> int:
+        v = 0
+        for _ in range(count):
+            if self.bit == 0 and self.pos >= self.end:
+                raise _Refused(f"libavif refuses it: Box[{self.what}] ends too early")
+            v = (v << 1) | ((self.data[self.pos] >> (7 - self.bit)) & 1)
+            self.bit += 1
+            if self.bit == 8:
+                self.bit = 0
+                self.pos += 1
+        return v
+
+    def version(self, enforce=None):
+        version, flags = self.uint(1), self.uint(3)
+        if enforce is not None and version != enforce:
+            raise _Refused(f"libavif refuses it: Box[{self.what}] version {version}")
+        return version, flags
+
+    def string(self) -> bytes:
+        zero = self.data.find(b"\0", self.pos, self.end)
+        if zero < 0:
+            raise _Refused(f"libavif refuses it: Box[{self.what}] has a string without its NULL")
+        out = self.data[self.pos:zero]
+        self.pos = zero + 1
+        return out
+
+    def left(self) -> int:
+        return self.end - self.pos
+
+    def box_header(self, top: bool = False, file_end: int = 0):
+        """avifROStreamReadBoxHeaderPartial (and, below the top level, the
+        check that the box fits in its parent): (type, payload start,
+        payload end)."""
+        size = self.uint(4)
+        kind = self.take(4)
+        header = 8
+        if size == 1:
+            size = self.uint(8)
+            header = 16
+        if kind == b"uuid":
+            self.take(16)
+            header += 16
+        if size == 0:
+            if not top:
+                raise _Refused(f"libavif refuses it: Box[{self.what}] holds a box of size 0")
+            size = header + (file_end - self.pos)
+        if size < header:
+            raise _Refused(f"libavif refuses it: a box of size {size} in Box[{self.what}]")
+        if not top and size - header > self.end - self.pos:
+            raise _Refused(f"libavif refuses it: Box[{self.what}] holds a box that runs past it")
+        return kind, self.pos, self.pos + size - header
+
+
+class _AvifItem:
+    def __init__(self, item_id: int):
+        self.id = item_id
+        self.type = b""
+        self.extents = []  # (offset, length)
+        self.size = 0
+        self.idat = False
+        self.props = []  # (type, value, essential)
+        self.unsupported_essential = False
+        self.ipma_seen = False
+        self.thumb_for = self.aux_for = self.prem_by = 0
+
+    def prop(self, kind: bytes):
+        return next((v for k, v, _ in self.props if k == kind), None)
+
+    def skipped(self) -> bool:  # avifDecoderItemShouldBeSkipped
+        return (not self.size or self.unsupported_essential or self.type not in (b"av01", b"grid")
+                or self.thumb_for != 0)
+
+
+class _AvifMeta:
+    def __init__(self):
+        self.items = {}  # id → item, in the order libavif creates them
+        self.props = []  # (type, value)
+        self.primary = 0
+        self.idat = None
+
+    def item(self, item_id: int) -> _AvifItem:
+        if item_id not in self.items:
+            self.items[item_id] = _AvifItem(item_id)
+        return self.items[item_id]
+
+
+def _avif_property(kind: bytes, s: _AvifStream):
+    """The value of a property libavif parses (a failure refuses the file)."""
+    if kind == b"ispe":
+        s.version(0)
+        return s.uint(4), s.uint(4)
+    if kind == b"auxC":
+        s.version(0)
+        return s.string()
+    if kind == b"colr":
+        ctype = s.take(4)
+        if ctype == b"nclx":
+            cp, tc, mc = s.uint(2), s.uint(2), s.uint(2)
+            full = s.bits(1)
+            if s.bits(7):
+                raise _Refused("libavif refuses it: Box[colr] contains nonzero reserved bits")
+            return ("nclx", cp, tc, mc, full)
+        return ("icc",) if ctype in (b"rICC", b"prof") else ("other",)
+    if kind == b"av1C":
+        if s.bits(1) != 1:
+            raise _Refused("libavif refuses it: av1C contains illegal marker")
+        if s.bits(7) != 1:
+            raise _Refused("libavif refuses it: av1C contains illegal version")
+        profile, _level, _tier, high, twelve, mono, ssx, ssy, _pos = (s.bits(3), s.bits(5), s.bits(1), s.bits(1),
+                                                                      s.bits(1), s.bits(1), s.bits(1), s.bits(1),
+                                                                      s.bits(2))
+        s.take(1)
+        return {"depth": 12 if twelve else (10 if high else 8), "mono": mono, "ss": (ssx, ssy), "profile": profile}
+    if kind == b"pixi":
+        s.version(0)
+        n = s.uint(1)
+        if not 1 <= n <= 4:
+            raise _Refused(f"libavif refuses it: Box[pixi] contains unsupported plane count [{n}]")
+        depths = [s.uint(1) for _ in range(n)]
+        if any(d != depths[0] for d in depths):
+            raise _Refused("libavif refuses it: Box[pixi] contains mismatched plane depths")
+        return depths
+    if kind == b"irot":
+        v = s.uint(1)
+        if v & 0xFC:
+            raise _Refused("libavif refuses it: Box[irot] contains nonzero reserved bits")
+        return v & 3
+    if kind == b"imir":
+        v = s.uint(1)
+        if v & 0xFE:
+            raise _Refused("libavif refuses it: Box[imir] contains nonzero reserved bits")
+        return v & 1
+    if kind == b"clap":
+        return [s.uint(4) for _ in range(8)]
+    if kind == b"pasp":
+        return s.uint(4), s.uint(4)
+    if kind == b"a1op":
+        v = s.uint(1)
+        if v > 31:
+            raise _Refused(f"libavif refuses it: Box[a1op] contains an unsupported operating point [{v}]")
+        return v
+    if kind == b"lsel":
+        v = s.uint(2)
+        if v != 0xFFFF and v >= 4:
+            raise _Refused(f"libavif refuses it: Box[lsel] contains an unsupported layer [{v}]")
+        return v
+    if kind == b"a1lx":
+        s.bits(7)
+        large = s.bits(1)
+        return [s.uint(4 if large else 2) for _ in range(3)]
+    if kind == b"clli":
+        return s.uint(2), s.uint(2)
+    return None
+
+
+def _avif_iloc(meta: _AvifMeta, s: _AvifStream):
+    version, _ = s.version()
+    if version > 2:
+        raise _Refused(f"libavif refuses it: Box[iloc] has an unsupported version [{version}]")
+    offset_size, length_size, base_size = s.bits(4), s.bits(4), s.bits(4)
+    index_size = s.bits(4)  # reserved in version 0
+    if version == 0:
+        index_size = 0
+    if any(v not in (0, 4, 8) for v in (offset_size, length_size, base_size, index_size)):
+        raise _Refused("libavif refuses it: Box[iloc] has an invalid size")
+    count = s.uint(2 if version < 2 else 4)
+    for _ in range(count):
+        item_id = s.uint(2 if version < 2 else 4)
+        if item_id == 0:
+            raise _Refused("libavif refuses it: Box[iloc] has an invalid item ID [0]")
+        item = meta.item(item_id)
+        if item.extents:
+            raise _Refused(f"libavif refuses it: Item ID [{item_id}] contains duplicate sets of extents")
+        if version in (1, 2):
+            if s.bits(12):
+                raise _Refused("libavif refuses it: Box[iloc] has a non null reserved field")
+            method = s.bits(4)
+            if method not in (0, 1):
+                raise _Refused(f"libavif refuses it: Box[iloc] has an unsupported construction method [{method}]")
+            item.idat = method == 1
+        s.uint(2)  # data_reference_index
+        base = s.uint(base_size)
+        for _ in range(s.uint(2)):
+            # an extent_index is not read, whatever index_size says (libavif)
+            off, length = s.uint(offset_size), s.uint(length_size)
+            if off > (1 << 64) - 1 - base:
+                raise _Refused(f"libavif refuses it: Item ID [{item_id}] contains an extent offset which overflows")
+            item.extents.append((base + off, length))
+            item.size += length
+
+
+def _avif_iinf(meta: _AvifMeta, s: _AvifStream):
+    version, _ = s.version()
+    if version > 1:
+        raise _Refused(f"libavif refuses it: Box[iinf] has an unsupported version {version}")
+    for _ in range(s.uint(2 if version == 0 else 4)):
+        kind, start, end = s.box_header()
+        if kind != b"infe":
+            raise _Refused("libavif refuses it: Box[iinf] contains a box that isn't type 'infe'")
+        e = _AvifStream(s.data, start, end, "infe")
+        v, _ = e.version()
+        if v not in (2, 3):
+            raise _Refused(f"libavif refuses it: Box[infe]: Expecting box version 2 or 3, got version {v}")
+        item_id = e.uint(2 if v == 2 else 4)
+        if item_id == 0:
+            raise _Refused("libavif refuses it: Box[infe] has an invalid item ID [0]")
+        e.uint(2)  # item_protection_index
+        item_type = e.take(4)
+        e.string()  # item_name
+        if item_type == b"mime":
+            e.string()
+        meta.item(item_id).type = item_type
+        s.pos = end
+
+
+def _avif_iref(meta: _AvifMeta, s: _AvifStream):
+    version, _ = s.version()
+    while s.left() >= 1:
+        kind, _start, _end = s.box_header()
+        if version > 1:
+            break  # an unsupported iref version is skipped
+        from_id = s.uint(2 if version == 0 else 4)
+        if from_id == 0:
+            raise _Refused("libavif refuses it: Box[iref] has an invalid item ID [0]")
+        for _ in range(s.uint(2)):
+            to_id = s.uint(2 if version == 0 else 4)
+            if to_id == 0:
+                raise _Refused("libavif refuses it: Box[iref] has an invalid item ID [0]")
+            item = meta.item(from_id)
+            if kind == b"thmb":
+                item.thumb_for = to_id
+            elif kind == b"auxl":
+                item.aux_for = to_id
+            elif kind == b"dimg":
+                meta.item(to_id)
+            elif kind == b"prem":
+                item.prem_by = to_id
+
+
+def _avif_iprp(meta: _AvifMeta, s: _AvifStream):
+    kind, start, end = s.box_header()
+    if kind != b"ipco":
+        raise _Refused("libavif refuses it: Failed to find Box[ipco] as the first box in Box[iprp]")
+    c = _AvifStream(s.data, start, end, "ipco")
+    while c.left() >= 1:
+        pkind, pstart, pend = c.box_header()
+        value = _avif_property(pkind, _AvifStream(s.data, pstart, pend, pkind.decode("latin-1"))) \
+            if pkind in _AVIF_PARSED else None
+        meta.props.append((pkind, value))
+        c.pos = pend
+    s.pos = end
+    seen = []
+    while s.left() >= 1:
+        kind, start, end = s.box_header()
+        if kind != b"ipma":
+            raise _Refused("libavif refuses it: Box[iprp] contains a box that isn't type 'ipma'")
+        a = _AvifStream(s.data, start, end, "ipma")
+        version, flags = a.version()
+        if (version, flags) in seen:
+            raise _Refused("libavif refuses it: Multiple Box[ipma] with a given pair of values of version and flags")
+        if len(seen) == 2:
+            raise _Refused("libavif refuses it: Exceeded possible count of unique ipma version and flags tuples")
+        seen.append((version, flags))
+        prev = 0
+        for _ in range(a.uint(4)):
+            item_id = a.uint(2 if version < 1 else 4)
+            if item_id == 0:
+                raise _Refused("libavif refuses it: Box[ipma] has an invalid item ID [0]")
+            if item_id <= prev:
+                raise _Refused("libavif refuses it: Box[ipma] item IDs are not ordered by increasing ID")
+            prev = item_id
+            item = meta.item(item_id)
+            if item.ipma_seen:
+                raise _Refused(f"libavif refuses it: Duplicate Box[ipma] for item ID [{item_id}]")
+            item.ipma_seen = True
+            for _ in range(a.uint(1)):
+                essential = a.bits(1)
+                index = a.bits(15 if flags & 1 else 7)
+                if index == 0:
+                    if essential:
+                        raise _Refused(f"libavif refuses it: Item ID [{item_id}] has an essential property "
+                                       "association with index 0")
+                    continue
+                index -= 1
+                if index >= len(meta.props):
+                    raise _Refused(f"libavif refuses it: Box[ipma] for item ID [{item_id}] contains an illegal "
+                                   f"property index [{index}]")
+                pkind, value = meta.props[index]
+                if pkind == b"a1lx" and essential:
+                    raise _Refused("libavif refuses it: an a1lx property association marked essential")
+                if pkind in _AVIF_PARSED:
+                    if not essential and pkind in _AVIF_MUST_BE_ESSENTIAL:
+                        raise _Refused(f"libavif refuses it: Item ID [{item_id}] has a {pkind.decode()} property "
+                                       "association which must be marked essential, but is not")
+                elif essential:
+                    item.unsupported_essential = True
+                item.props.append((pkind, value, essential))
+        s.pos = end
+
+
+def _avif_meta(meta: _AvifMeta, data: bytes, start: int, end: int):
+    """avifParseMetaBox: hdlr first, each unique box at most once."""
+    s = _AvifStream(data, start, end, "meta")
+    s.version(0)
+    seen = set()
+    first = True
+    while s.left() >= 1:
+        kind, bstart, bend = s.box_header()
+        b = _AvifStream(data, bstart, bend, kind.decode("latin-1"))
+        if first:
+            if kind != b"hdlr":
+                raise _Refused("libavif refuses it: Box[meta] does not have a Box[hdlr] as its first child box")
+            b.version(0)
+            if b.uint(4) != 0:
+                raise _Refused("libavif refuses it: Box[hdlr] contains a pre_defined value that is nonzero")
+            if b.take(4) != b"pict":
+                raise _Refused("libavif refuses it: Box[hdlr] handler_type is not 'pict'")
+            b.take(12)
+            b.string()
+            first = False
+            seen.add(kind)
+        elif kind in (b"hdlr", b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref"):
+            if kind in seen:
+                raise _Refused(f"libavif refuses it: Box[meta] contains a duplicate unique box of type "
+                               f"'{kind.decode()}'")
+            seen.add(kind)
+            if kind == b"iloc":
+                _avif_iloc(meta, b)
+            elif kind == b"pitm":
+                version, _ = b.version()
+                meta.primary = b.uint(2 if version == 0 else 4)
+            elif kind == b"idat":
+                meta.idat = data[bstart:bend]
+            elif kind == b"iprp":
+                _avif_iprp(meta, b)
+            elif kind == b"iinf":
+                _avif_iinf(meta, b)
+            else:
+                _avif_iref(meta, b)
+        s.pos = bend
+    if first:
+        raise _Refused("libavif refuses it: Box[meta] has no child boxes")
+
+
+def _avif_parse(data: bytes):
+    """avifParse over the whole file: the top-level boxes until ftyp and
+    what its brands need (meta for 'avif', moov for 'avis') are seen →
+    (meta, major brand, whether a moov box was seen)."""
+    pos = 0
+    ftyp = None
+    meta = None
+    moov = False
+    needs_meta = needs_moov = False
+    while True:
+        if pos > len(data):
+            raise _Refused("libavif refuses it: a box runs past the end of the data")
+        if pos == len(data):
+            break
+        s = _AvifStream(data, pos, min(len(data), pos + 32), "file")
+        kind, start, end = s.box_header(top=True, file_end=len(data))
+        if kind in (b"ftyp", b"meta", b"moov") and end > len(data):
+            raise _Refused(f"libavif refuses it: the {kind.decode()} box is cut (truncated data)")
+        pos = end
+        if kind == b"ftyp":
+            if ftyp is not None:
+                raise _Refused("libavif refuses it: a second ftyp box")
+            if end - start < 8 or (end - start - 8) % 4:
+                raise _Refused("libavif refuses it: Box[ftyp] is malformed")
+            brands = [data[start:start + 4]] + [data[k:k + 4] for k in range(start + 8, end, 4)]
+            if b"avif" not in brands and b"avis" not in brands:
+                raise _Refused("libavif refuses it: the ftyp box names neither 'avif' nor 'avis'")
+            ftyp = brands
+            needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
+        elif kind == b"meta":
+            if meta is not None:
+                raise _Refused("libavif refuses it: a second meta box")
+            meta = _AvifMeta()
+            _avif_meta(meta, data, start, end)
+        elif kind == b"moov":
+            moov = True
+        if ftyp is not None and (not needs_meta or meta is not None) and (not needs_moov or moov):
+            return meta, ftyp[0], moov
+    if ftyp is None:
+        raise _Refused("libavif refuses it: no ftyp box")
+    raise _Refused("libavif refuses it: the data ends before the meta (or moov) box (truncated data)")
+
+
+AVIF_SIGNATURE_SIZE = 500  # grfmt_avif.cpp: the bytes cv2's AVIF signature check parses
+
+
+def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
+    """cv2 takes a file for AVIF when avifDecoderParse over its first 500
+    bytes (an IO that fails a read past them and gives a short one across
+    them) ends in success or in truncated data. The full parse succeeded,
+    so what is left to fail is a read that starts past the window: a
+    top-level box header before the boxes the brands need are complete,
+    or, when those boxes end inside the window and the primary item has
+    no nclx colour box, the item data libavif reads for the sequence
+    header's colour description."""
+    window = min(AVIF_SIGNATURE_SIZE, len(data))
+    pos = 0
+    needs_meta = needs_moov = None
+    seen = set()
+    while True:
+        if pos > window:
+            return False
+        if pos == window:
+            return True
+        s = _AvifStream(data, pos, min(window, pos + 32), "file")
+        try:
+            kind, start, end = s.box_header(top=True, file_end=len(data))
+        except _Refused:
+            return False
+        if kind in (b"ftyp", b"meta", b"moov") and end > window:
+            return True
+        if kind == b"ftyp":
+            brands = [data[start:start + 4]] + [data[k:k + 4] for k in range(start + 8, end, 4)]
+            needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
+        seen.add(kind)
+        pos = end
+        if needs_meta is not None and (not needs_meta or b"meta" in seen) and (not needs_moov or b"moov" in seen):
+            break
+    if color.idat or any(k == b"colr" and v[0] == "nclx" for k, v, _ in color.props):
+        return True
+    for off, length in color.extents:
+        if off > window:
+            return False
+        if off + length > window:
+            return True
+    return True
+
+
+def _avif_item_data(meta: _AvifMeta, item: _AvifItem, data: bytes) -> bytes:
+    """avifDecoderItemRead: the extents in order, from the file or idat."""
+    out = []
+    for off, length in item.extents:
+        if item.idat:
+            idat = meta.idat or b""
+            if not idat:
+                raise _Refused(f"libavif refuses it: item {item.id} is in an idat box that is missing or empty")
+            if off > len(idat) or length > len(idat) - off:
+                raise _Refused(f"libavif refuses it: item {item.id} has an impossible extent in the idat buffer")
+            out.append(idat[off:off + length])
+        else:
+            if off > len(data):
+                raise _Refused(f"libavif refuses it: item {item.id} has an extent past the end (truncated data?)")
+            chunk = data[off:off + length]
+            if len(chunk) != length:
+                raise _Refused(f"libavif refuses it: item {item.id} tried to read {length} bytes, but only "
+                               f"received {len(chunk)} bytes")
+            out.append(chunk)
+    return b"".join(out)
+
+
+def _avif_check_properties(item: _AvifItem):
+    """avifDecoderItemValidateProperties (cv2 turns libavif's strict checks
+    off): an av1C, and a pixi, where there is one, of the av1C's depth."""
+    av1c = item.prop(b"av1C")
+    if av1c is None:
+        raise _Refused(f"libavif refuses it: item {item.id} is missing its mandatory av1C property")
+    pixi = item.prop(b"pixi")
+    if pixi is not None and any(d != av1c["depth"] for d in pixi):
+        raise _Refused(f"libavif refuses it: item {item.id}'s pixi depth does not match its av1C")
+    return av1c
+
+
+def _decode_av1(stream: bytes, what: str, size, max_area: int = 0) -> tuple:
+    """The AV1 item through ``csrc/av1.cpp`` → ([planes, H, W] uint8, info).
+    A frame of another size than ``size`` (the image's ispe), which libavif
+    scales to it, is named before it is decoded; with ``size`` None a frame
+    of any size up to ``max_area`` samples is decoded."""
+    from ..ops import native  # builds csrc/av1.cpp at first use; raises if it cannot
+
+    status, info, reason = native.av1_info(stream)
+    if status == 3:
+        raise _avif_unported(reason)
+    if status:
+        raise _Refused(f"libaom refuses the {what}: {reason}")
+    if (int(info[0]), int(info[1])) != size and (size is not None or int(info[0]) * int(info[1]) > max_area):
+        raise _avif_unported("a frame scaled to its ispe size")
+    status, planes, reason = native.av1_decode(stream, info)
+    if status == 3:
+        raise _avif_unported(reason)
+    if status:
+        raise _Refused(f"libaom refuses the {what}: {reason}")
+    return planes, info
+
+
+def _decode_avif(data: bytes) -> np.ndarray:
+    """OpenCV 5.0's grfmt_avif.cpp over libavif 1.4.2 and libaom 3.14.1:
+    the boxes by libavif's rules (strict checks off), the primary item and
+    its alpha item, cv2's channel count from the av1C (one for a
+    monochrome one, whose Y plane is taken as it is), then libavif's
+    identity-matrix, full-range YUV to BGR; the alpha item is decoded, and
+    a bad one refuses the file, but dropped."""
+    meta, major, moov = _avif_parse(data)
+    if major == b"avis" or (major != b"avif" and moov):
+        raise _avif_unported("image sequences' first frame")
+    for item in meta.items.values():  # avifDecoderReset harvests every image item's ispe
+        if item.skipped():
+            continue
+        ispe = item.prop(b"ispe")
+        if ispe is None:
+            if item.prop(b"auxC") not in _AVIF_ALPHA_URNS:
+                raise _Refused(f"libavif refuses it: Item ID [{item.id}] is missing a mandatory ispe property")
+        elif not ispe[0] or not ispe[1] or ispe[0] > 32768 or ispe[1] > 32768 or ispe[0] * ispe[1] > 16384 * 16384:
+            raise _Refused(f"libavif refuses it: Item ID [{item.id}] has an ispe of {ispe[0]}x{ispe[1]}")
+    color = next((it for it in meta.items.values() if not it.skipped() and it.id == meta.primary), None)
+    if color is None:
+        raise _Refused("libavif refuses it: Primary item not found")
+    if not _avif_signature(data, meta, color):
+        raise _Refused("cv2 does not take it for AVIF: its signature check needs a read past the first "
+                       f"{AVIF_SIGNATURE_SIZE} bytes")
+    if color.type == b"grid":
+        raise _avif_unported("grids")
+    alpha = next((it for it in meta.items.values() if not it.skipped() and it.aux_for == color.id
+                  and it.prop(b"auxC") in _AVIF_ALPHA_URNS), None)
+    av1c = _avif_check_properties(color)
+    if alpha is not None:
+        _avif_check_properties(alpha)
+    ispe = color.prop(b"ispe")
+    if ispe is None:
+        raise _Refused("libavif refuses it: the primary item has no ispe property")
+    width, height = ispe
+    _check_size(width, height)
+    if alpha is not None and alpha.prop(b"ispe") not in (None, ispe):
+        raise _Refused("libavif refuses it: the alpha item's ispe differs from the color item's")
+    for item in (color, alpha):
+        if item is not None and ((item.prop(b"a1op") or 0) != 0 or item.prop(b"lsel") not in (None, 0xFFFF)):
+            raise _avif_unported("layered images (a1op, lsel)")
+    if av1c["depth"] != 8:
+        raise _avif_unported("10/12-bit samples")
+    if av1c["mono"] and alpha is not None:  # cv2 reads two channels, which it cannot convert
+        raise _Refused("a monochrome av1C with an alpha item (cv2 asserts on two channels)")
+    planes, info = _decode_av1(_avif_item_data(meta, color, data), "color item", (width, height))
+    if alpha is not None:  # libavif scales an alpha plane of another size; its samples are dropped
+        _decode_av1(_avif_item_data(meta, alpha, data), "alpha item", None, 4 * width * height)
+        if color.prem_by == alpha.id:
+            raise _avif_unported("premultiplied alpha (prem)")
+    if av1c["mono"]:  # cv2 reads one channel: the Y plane as it is
+        return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, -1))
+    nclx = next((v for k, v, _ in color.props if k == b"colr" and v[0] == "nclx"), None)
+    matrix, full_range = (nclx[3], nclx[4]) if nclx is not None else (int(info[8]), int(info[9]))
+    if not full_range:
+        raise _avif_unported("limited range")
+    if len(planes) == 1:  # a monochrome frame: libavif's grey
+        return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, -1))
+    if matrix != 0:
+        raise _avif_unported("a matrix other than identity")
+    return np.ascontiguousarray(np.stack([planes[1], planes[0], planes[2]], -1))  # identity: G = Y, B = U, R = V
+
+
 # -- entry points -------------------------------------------------------------
 
 _DECODERS = {"png": _decode_png, "bmp": _decode_bmp, "jpeg": _decode_jpeg, "pnm": _decode_netpbm,
              "sunraster": _decode_sunraster, "pfm": _decode_pfm, "hdr": _decode_hdr,
              "gif": _decode_gif, "tiff": _decode_tiff, "webp": _decode_webp,
-             "jpeg2000": _decode_jpeg2000}
+             "jpeg2000": _decode_jpeg2000, "avif": _decode_avif}
 # the formats that cv2 decodes and this module does not, by their sniffed name
 FORMAT_NAMES = {k: v for k, v in FORMAT_LABELS.items() if k not in _DECODERS}
 

@@ -1,0 +1,107 @@
+"""Host time of the port's AVIF decoder (``utils/imcodec.py`` with
+``csrc/av1.cpp``) on the first 768×1024 serving scene, beside cv2's where
+cv2 is installed.
+
+    python3 scripts/time_avif_torch.py [--repeats 25]
+
+The payload is the committed one of ``assets/image_cases.npz``: the scene
+as cv2's lossless AVIF at its default speed (``scene0_avif``). Times, in
+turns, with the median of ``--repeats`` runs each after one untimed (which
+builds ``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
+Python, the AV1 decode on one host thread), the AV1 stream's decode alone
+(``native.av1_decode``), both checked equal to the committed cv2 answer,
+and, where cv2 5.0.0 (the version the port replays) imports,
+``cv2.imdecode`` at cv2's own thread count and at
+``cv2.setNumThreads(1)``; another cv2 (or none) is named in the output and
+not timed. Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import platform
+import statistics
+import struct
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import numpy as np  # noqa: E402
+
+PAYLOAD = "scene0_avif"
+
+
+def av1_stream(data: bytes) -> bytes:
+    """The primary item's bytes of a file as cv2 writes it (iloc version 0,
+    4-byte offsets and lengths, item 1 first)."""
+    at = data.index(b"iloc") + 4
+    off, length = struct.unpack(">II", data[at + 14:at + 22])
+    return data[off:off + length]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--repeats", type=int, default=25)
+    args = p.parse_args(argv)
+    from ppocr_tpu_torch import assets
+    from ppocr_tpu_torch.ops import native
+    from ppocr_tpu_torch.utils import imcodec
+
+    data, want = assets.load_image_cases()[PAYLOAD]
+    stream = av1_stream(data)
+    status, info, reason = native.av1_info(stream)
+    if status:
+        raise SystemExit(f"{PAYLOAD}: {reason}")
+    planes = native.av1_decode(stream, info)[1]
+    if not (imcodec.decode_image(data) == want).all() or not (np.stack([planes[1], planes[0], planes[2]], -1)
+                                                               == want).all():
+        raise SystemExit(f"{PAYLOAD}: the port's decode differs from the committed cv2 answer")
+    runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": lambda: native.av1_decode(stream, info)}
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    version = None if cv2 is None else cv2.__version__
+    threads = None
+    if version != "5.0.0":  # another cv2 (or none) is named, not timed
+        cv2 = None
+    if cv2 is not None:
+        threads = cv2.getNumThreads()
+        buf = np.frombuffer(data, np.uint8)
+        if not (cv2.imdecode(buf, cv2.IMREAD_COLOR) == want).all():
+            raise SystemExit(f"{PAYLOAD}: this cv2's decode differs from the committed one")
+        runs["cv2"] = lambda: cv2.imdecode(buf, cv2.IMREAD_COLOR)
+
+        def single():
+            cv2.setNumThreads(1)
+            try:
+                cv2.imdecode(buf, cv2.IMREAD_COLOR)
+            finally:
+                cv2.setNumThreads(threads)
+        runs["cv2_1thread"] = single
+    out = {k: [] for k in runs}
+    for fn in runs.values():
+        fn()  # one untimed each
+    for _ in range(args.repeats):
+        for k, fn in runs.items():  # in turns
+            t = time.perf_counter()
+            fn()
+            out[k].append((time.perf_counter() - t) * 1e3)
+    ms = {k: statistics.median(v) for k, v in out.items()}
+    result = {"ms": ms, "bytes": len(data), "size": list(want.shape), "cv2_version": version,
+              "cv2_timed": cv2 is not None, "cv2_threads": threads,
+              "host": {"machine": platform.machine(), "processor": platform.processor(), "cpus": os.cpu_count(),
+                       "python": platform.python_version()}}
+    if cv2 is not None:
+        result["port_over_cv2"] = ms["port"] / ms["cv2"]
+        result["port_over_cv2_1thread"] = ms["port"] / ms["cv2_1thread"]
+    print(json.dumps({"avif_host_ms": result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

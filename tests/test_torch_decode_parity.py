@@ -390,7 +390,10 @@ def _refused():
         "12-bit": (base[:sof + 3] + bytes([12]) + base[sof + 4:], "precision", False),
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
-    cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(), imcodec.FORMAT_NAMES["avif"], True)
+    # AVIF is decoded since, lossless 8-bit stills (tests/test_torch_avif.py),
+    # but not lossy frames, ``imcodec.AVIF_UNPORTED``: cv2's default
+    # (quality 95) file is refused with a line naming them and A14.7b
+    cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(), "(ROADMAP A14.7b)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
@@ -423,18 +426,20 @@ def _refused():
                                   "hdr"])
 def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog):
     """The refusals that remain. The JPEG, GIF, PFM and HDR ones are cv2's
-    own on these files; AVIF and a TIFF whose compression is one of
-    ``imcodec.TIFF_UNPORTED`` (ThunderScan here) are decoded by cv2 and not
+    own on these files; a TIFF whose compression is one of
+    ``imcodec.TIFF_UNPORTED`` (ThunderScan here) is decoded by cv2 and not
     by the port: the known difference, held here so that it cannot grow
     unnoticed. A JPEG 2000 file is refused only for what
-    ``imcodec.J2K_UNPORTED`` names (HT code-blocks here). No WebP is
-    refused for its kind any more."""
+    ``imcodec.J2K_UNPORTED`` names (HT code-blocks here), an AVIF file only
+    for what ``imcodec.AVIF_UNPORTED`` names (a lossy, 4:2:0 frame here).
+    No WebP is refused for its kind any more, and no format is left
+    undecoded (``imcodec.FORMAT_NAMES`` is empty)."""
     data, reason, cv2_decodes = _refused()[name]
     assert (cv2_decode(data) is not None) == cv2_decodes
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     assert reason in caplog.text
-    assert set(imcodec.FORMAT_NAMES) == {"avif"}
+    assert not imcodec.FORMAT_NAMES
     assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
     assert not hasattr(imcodec, "WEBP_UNPORTED")
 

@@ -2,14 +2,18 @@
 ``chip_smoke.py`` and the port's scripts ``scripts/soak_torch.py``,
 ``scripts/measure_boot_torch.py``, ``scripts/train_synthetic_rec_torch.py``,
 ``scripts/train_synthetic_det_torch.py`` and
-``scripts/time_cv2_text_torch.py`` and ``scripts/time_jpeg2000_torch.py``
+``scripts/time_cv2_text_torch.py``, ``scripts/time_jpeg2000_torch.py`` and
+``scripts/time_avif_torch.py``
 import with jax, cv2, PIL, fontTools and glymur blocked, and load nothing of the
 JAX package ``ppocr_tpu``; the glyph atlas reads and draws there too, and
 so does cv2's text drawing (``train/cv2_text.py`` from
 ``assets/cv2_text.npz``, its C++ built at first use), and the committed
-JPEG 2000 cases decode to cv2's stored answers (``csrc/jpeg2000.cpp``). Only the generators, ``scripts/make_glyph_atlas_torch.py``
-(PIL and fontTools) and ``scripts/make_cv2_text_assets_torch.py`` (cv2
-and fontTools), import them."""
+JPEG 2000 and AVIF cases decode to cv2's stored answers
+(``csrc/jpeg2000.cpp``, ``csrc/av1.cpp``). Only the generators,
+``scripts/make_glyph_atlas_torch.py`` (PIL and fontTools),
+``scripts/make_cv2_text_assets_torch.py`` (cv2 and fontTools) and
+``scripts/make_av1_tables_torch.py`` (cv2, to find its libaom), import
+them."""
 
 import pathlib
 import subprocess
@@ -32,7 +36,7 @@ PROBE = textwrap.dedent(
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     scripts = ("soak_torch", "measure_boot_torch", "train_synthetic_rec_torch",
-               "train_synthetic_det_torch", "time_cv2_text_torch", "time_jpeg2000_torch")
+               "train_synthetic_det_torch", "time_cv2_text_torch", "time_jpeg2000_torch", "time_avif_torch")
     for script in scripts:  # their imports sit at the top
         spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -49,6 +53,10 @@ PROBE = textwrap.dedent(
     j2k = {k: v for k, v in assets.load_image_cases().items() if k.startswith("jpeg2000_") and v[1] is not None}
     assert len(j2k) >= 20
     for name, (data, want) in j2k.items():  # csrc/jpeg2000.cpp built at first use
+        assert (imcodec.decode_image(data) == want).all(), name
+    avif = {k: v for k, v in assets.load_image_cases().items() if k.startswith("avif_") and v[1] is not None}
+    assert len(avif) >= 20
+    for name, (data, want) in avif.items():  # csrc/av1.cpp built at first use
         assert (imcodec.decode_image(data) == want).all(), name
     leaked = sorted(m for m in sys.modules if m == "ppocr_tpu" or m.startswith("ppocr_tpu."))
     assert not leaked, leaked
