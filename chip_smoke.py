@@ -179,11 +179,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     default (lossless) ``.jp2`` and as an irreversible (9/7) J2K beside the
     bare JPEG, and the scene as an irreversible JP2 (as data) against the
     PNG of the same pixels with one ``ctc_topk`` launch ("jpeg2000
-    service"), and the AVIF cases (lossless 8-bit stills decoded by
-    ``csrc/av1.cpp``, the ``avif_vs_cv2`` count), the host ms of the scene
-    as cv2's lossless AVIF, and that file (as data) against the PNG of the
-    same pixels: the same words exactly, with one ``ctc_topk`` launch
-    ("avif service"); a
+    service"), and the AVIF cases (8-bit stills decoded by
+    ``csrc/av1.cpp``, lossless and lossy 4:4:4 or monochrome with the
+    in-loop filters off: the ``avif_vs_cv2`` and ``avif_lossy_vs_cv2``
+    counts), the host ms of the scene as cv2's lossless AVIF and as a lossy
+    4:4:4 one (q90, filters off), and each file (as data) against the PNG
+    of cv2's pixels: the same words exactly, with one ``ctc_topk`` launch
+    each ("avif service", "lossy avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1505,7 +1507,7 @@ class Smoke:
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
-            + j2k_timed + ("scene0_avif",)
+            + j2k_timed + ("scene0_avif", "scene0_avif_lossy")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1514,6 +1516,7 @@ class Smoke:
         lossless = [0, 0]  # the other WebP cases, of them None
         j2k = [0, 0]  # JPEG 2000 cases (JP2 and raw codestreams), of them None
         avif = [0, 0]  # AVIF cases, of them None
+        avif_lossy = [0, 0]  # of them lossy (4:4:4 or monochrome, the in-loop filters off), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1527,8 +1530,10 @@ class Smoke:
                 is_lossless = sniff_format(data) == "webp" and not is_lossy
                 is_j2k = sniff_format(data) == "jpeg2000"
                 is_avif = sniff_format(data) == "avif"
+                is_avif_lossy = name.startswith("avif_lossy_") or name == "scene0_avif_lossy"
                 j2k[0] += is_j2k
                 avif[0] += is_avif
+                avif_lossy[0] += is_avif_lossy
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1543,6 +1548,7 @@ class Smoke:
                     lossless[1] += is_lossless
                     j2k[1] += is_j2k
                     avif[1] += is_avif
+                    avif_lossy[1] += is_avif_lossy
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1587,6 +1593,13 @@ class Smoke:
         if sniff_format(avif_data) != "avif" or not (decode_image(avif_data) == cases["scene0_avif"][1]).all():
             raise AssertionError("scene0_avif is not an AVIF that decodes to cv2's pixels")
         avif_png = encode_png(decode_image(avif_data))
+        # the scene as a lossy 4:4:4 AVIF with the in-loop filters off,
+        # beside the PNG of cv2's pixels of that file
+        avif_lossy_data = cases["scene0_avif_lossy"][0]
+        if sniff_format(avif_lossy_data) != "avif" or not (decode_image(avif_lossy_data)
+                                                          == cases["scene0_avif_lossy"][1]).all():
+            raise AssertionError("scene0_avif_lossy is not an AVIF that decodes to cv2's pixels")
+        avif_lossy_png = encode_png(cases["scene0_avif_lossy"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1696,6 +1709,19 @@ class Smoke:
                     raise AssertionError("the lossless AVIF's words are not the PNG's: the texts and boxes must be equal")
                 words["scene0_avif"] = len(got_avif["words"])
                 before = service_launches(c)
+                got_avif_lossy = c.send_request(req(avif_lossy_data))
+                self.launches["lossy avif service"] = launched_avif_lossy = launches_since(c, before, "lossy AVIF")
+                if launched_avif_lossy["ctc_topk"] != 1:
+                    raise AssertionError(f"the lossy AVIF request: {launched_avif_lossy}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_lossy_png))
+                if not got_avif_lossy.get("success") or not want.get("words"):
+                    raise AssertionError(f"lossy AVIF: {str(got_avif_lossy)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_lossy["words"], want["words"], "the lossy AVIF vs the PNG of cv2's pixels")
+                if ([(w["text"], w["box"]) for w in got_avif_lossy["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the lossy AVIF's words are not the PNG's: the texts and boxes must be equal")
+                words["scene0_avif_lossy"] = len(got_avif_lossy["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1734,7 +1760,11 @@ class Smoke:
             "jpeg2000_vs_cv2": f"{j2k[0]} JPEG 2000 cases (JP2 and raw codestreams, cv2's, Pillow's and "
             f"libopenjp2's files, written boxes and markers, damaged files) equal cv2's answer, {j2k[1]} of them None",
             "avif_vs_cv2": f"{avif[0]} AVIF cases (cv2's lossless files, the intra tool corpus, written boxes and "
-            f"items, damaged files) equal cv2's answer, {avif[1]} of them None",
+            f"items, lossy 4:4:4 and monochrome streams with the in-loop filters off, damaged files) equal cv2's "
+            f"answer, {avif[1]} of them None",
+            "avif_lossy_vs_cv2": f"{avif_lossy[0]} of them lossy (Pillow's 4:4:4 streams at speeds 0-9, q30-95, "
+            f"with quantiser matrices, delta q, IntraBC, tiles; cv2's monochrome; alpha; damaged), "
+            f"{avif_lossy[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1746,8 +1776,9 @@ class Smoke:
             "launches_of_the_jpeg_tiff_request": launched_jpeg_tiff, "launches_of_the_webp_request": launched_webp,
             "launches_of_the_lossy_webp_request": launched_lossy,
             "launches_of_the_jpeg2000_request": launched_j2k, "launches_of_the_avif_request": launched_avif,
+            "launches_of_the_lossy_avif_request": launched_avif_lossy,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the twenty-nine payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

@@ -1,34 +1,44 @@
-// AV1 still-picture decoder for coded-lossless 8-bit key frames, as libaom
-// 3.14.1 decodes them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
+// AV1 still-picture decoder for 8-bit 4:4:4 and monochrome key frames,
+// lossless or lossy with the in-loop filters off, as libaom 3.14.1 decodes
+// them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
 //
 // The layers follow libaom's files, and so do the names in the comments:
 //   * obu.c / obu_util.c: OBU headers and sizes, the sequence header, the
 //     frame header and tile group OBUs, their trailing bits and padding
 //     (aom_decode_frame_from_obus), and av1_dx_iface.c's peek at the stream
 //     and its loop over the frames of one buffer;
-//   * decodeframe.c: the uncompressed header (tile info, quantisation,
-//     segmentation, delta q / lf, CodedLossless, loop filter, CDEF and
-//     restoration parameters as far as they are read, film grain), the tile
-//     buffers and the per-tile checks (overflow after each superblock, the
-//     trailing bits after the symbol coder);
+//   * decodeframe.c: the uncompressed header (tile info, quantisation with
+//     its matrix levels, segmentation, delta q / lf, CodedLossless, the loop
+//     filter, CDEF and restoration parameters, tx mode, film grain), the
+//     tile buffers and the per-tile checks (overflow after each superblock,
+//     the trailing bits after the symbol coder), the transform blocks of a
+//     block by 64x64 chunk and plane, and an IntraBC block's var-tx tree
+//     (decode_reconstruct_tx);
 //   * entdec.c / daala reader: the symbol decoder, its tell() and overflow,
 //     and the CDF adaptation (entropy.h update_cdf);
 //   * decodemv.c / mvref_common.c: key-frame mode info, palette (with the
 //     colour cache of the above and left blocks), filter intra, CFL alphas,
-//     IntraBC with its reference-DV stack and its validity rules;
-//   * decodetxb.c: the coefficients of TX_4X4 (the only transform size of a
-//     lossless frame), 2-D class contexts, Golomb;
-//   * reconintra.c / cfl.c / idct (iwht4x4): DC, the directional modes with
-//     the edge filter and upsampling, smooth, Paeth, CFL, palette and filter
-//     intra, then the inverse Walsh-Hadamard transform added with a clamp to
-//     8 bits.
+//     IntraBC with its reference-DV stack and its validity rules, the
+//     transform size (read_selected_tx_size, read_tx_size_vartx) and type
+//     (av1_read_tx_type);
+//   * decodetxb.c: the coefficients of every transform size, their
+//     contexts in the three classes, Golomb, and the dequantisation with
+//     quantiser matrices;
+//   * reconintra.c / cfl.c: DC, the directional modes with the edge filter
+//     and upsampling, smooth, Paeth, CFL, palette and filter intra at the
+//     transform size;
+//   * av1_inv_txfm1d.c / av1_inv_txfm2d.c and the lowbd x86 transforms
+//     libaom dispatches (av1_inv_txfm_avx2.c / _ssse3.c): every inverse
+//     transform; idct (iwht4x4) for lossless blocks. The result is added
+//     with a clamp to 8 bits.
 //
 // The default CDFs and constant tables come from av1_tables.h, written from
 // libaom 3.14.1's library by scripts/make_av1_tables_torch.py.
 //
-// What this decoder does not decode (a lossy frame, subsampled chroma, more
-// than 8 bits, superres, film grain, a frame other than one shown key
-// frame) gives status UNPORTED before any pixel is decoded.
+// What this decoder does not decode (a frame whose deblocking, CDEF or loop
+// restoration would run, subsampled chroma, more than 8 bits, superres,
+// film grain, a frame other than one shown key frame) gives status
+// UNPORTED before any pixel is decoded.
 
 #include <algorithm>
 #include <cstdint>
@@ -72,11 +82,7 @@ const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
 const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
 const int kIntrabcDelayPixels = 256, kIntrabcDelaySb64 = 4;
 
-int log2i(int v) {
-    int l = 0;
-    while ((1 << (l + 1)) <= v) l++;
-    return l;
-}
+int log2i(int v) { return v > 0 ? 31 - __builtin_clz((unsigned)v) : 0; }
 
 int block_size(int w4, int h4) {
     for (int b = 0; b < BLOCK_SIZES_ALL; b++)
@@ -326,13 +332,18 @@ struct FrameHeader {
     int context_update_tile_id = 0, tile_size_bytes = 4;
     // quantisation and segmentation
     int base_q_idx = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0, dq_vac = 0, using_qmatrix = 0;
+    int qm_level[3] = {15, 15, 15};  // qm_y, qm_u, qm_v (15: flat)
     int seg_enabled = 0, feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
     int seg_id_pre_skip = 0, last_active_seg_id = 0;
     int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0, delta_lf_multi = 0;
     int lossless[8] = {0};
     int coded_lossless = 0, all_lossless = 0;
-    int reduced_tx_set = 0;
+    int reduced_tx_set = 0, tx_mode_select = 0;
     int apply_grain = 0;
+    // the in-loop filters' parameters, read to decide whether a filter runs
+    int loop_filter_level[4] = {0, 0, 0, 0};
+    int cdef_bits = 0, cdef_y_strength0 = 0, cdef_uv_strength0 = 0;
+    int restoration_type[3] = {0, 0, 0};  // lr_type as coded: 0 is RESTORE_NONE
 };
 
 int qindex_of(const FrameHeader& fh, int seg) {
@@ -553,9 +564,9 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     }
     fh.using_qmatrix = rb.bit1();
     if (fh.using_qmatrix) {
-        rb.f(4);
-        rb.f(4);
-        if (s.separate_uv_delta_q) rb.f(4);
+        fh.qm_level[0] = rb.f(4);
+        fh.qm_level[1] = rb.f(4);
+        fh.qm_level[2] = s.separate_uv_delta_q ? (int)rb.f(4) : fh.qm_level[1];
     }
     // segmentation_params()
     fh.seg_enabled = rb.bit1();
@@ -603,7 +614,12 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     // loop_filter_params()
     if (!fh.coded_lossless && !fh.allow_intrabc) {
         int l0 = rb.f(6), l1 = rb.f(6);
-        if (num_planes > 1 && (l0 || l1)) rb.f(12);
+        fh.loop_filter_level[0] = l0;
+        fh.loop_filter_level[1] = l1;
+        if (num_planes > 1 && (l0 || l1)) {
+            fh.loop_filter_level[2] = rb.f(6);
+            fh.loop_filter_level[3] = rb.f(6);
+        }
         rb.f(3);
         if (rb.bit1() && rb.bit1()) {
             for (int i = 0; i < 8; i++)
@@ -615,14 +631,18 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     // cdef_params()
     if (!fh.coded_lossless && !fh.allow_intrabc && s.enable_cdef) {
         rb.f(2);
-        int bits = rb.f(2);
-        for (int i = 0; i < (1 << bits); i++) rb.f(num_planes > 1 ? 12 : 6);
+        fh.cdef_bits = rb.f(2);
+        for (int i = 0; i < (1 << fh.cdef_bits); i++) {
+            int y = rb.f(6), uv = num_planes > 1 ? (int)rb.f(6) : 0;
+            if (i == 0) fh.cdef_y_strength0 = y, fh.cdef_uv_strength0 = uv;
+        }
     }
     // lr_params()
     if (!fh.all_lossless && !fh.allow_intrabc && s.enable_restoration) {
         int uses_lr = 0, uses_chroma_lr = 0;
         for (int i = 0; i < num_planes; i++) {
-            if (rb.f(2)) {
+            fh.restoration_type[i] = rb.f(2);
+            if (fh.restoration_type[i]) {
                 uses_lr = 1;
                 if (i > 0) uses_chroma_lr = 1;
             }
@@ -637,7 +657,7 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
         }
     }
     // read_tx_mode()
-    if (!fh.coded_lossless) rb.bit1();
+    if (!fh.coded_lossless) fh.tx_mode_select = rb.bit1();
     // frame_reference_mode(), skip_mode_params(), allow_warped_motion: none in an intra frame
     fh.reduced_tx_set = rb.bit1();
     read_film_grain(rb, s, fh);
@@ -762,6 +782,8 @@ struct Cdfs {
     uint16_t dv[143];  // nmv_context: joints, then two components
     uint16_t txb_skip[5][13][3], eob_extra[5][2][9][3], dc_sign[2][3][3], eob16[2][2][6];
     uint16_t base_eob[5][2][4][4], base[5][2][42][5], br[5][2][21][5];
+    uint16_t eob32[2][2][7], eob64[2][2][8], eob128[2][2][9], eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
+    uint16_t tx_size[4][3][4], txfm_partition[21][3], intra_ext_tx[3][4][13][17], inter_ext_tx[4][4][17];
 
     void init(int q_ctx) {
         using namespace av1tab;
@@ -793,8 +815,297 @@ struct Cdfs {
         memcpy(base_eob, coeff_base_eob_cdfs[q_ctx], sizeof base_eob);
         memcpy(base, coeff_base_cdfs[q_ctx], sizeof base);
         memcpy(br, coeff_br_cdfs[q_ctx], sizeof br);
+        memcpy(eob32, eob_multi32_cdfs[q_ctx], sizeof eob32);
+        memcpy(eob64, eob_multi64_cdfs[q_ctx], sizeof eob64);
+        memcpy(eob128, eob_multi128_cdfs[q_ctx], sizeof eob128);
+        memcpy(eob256, eob_multi256_cdfs[q_ctx], sizeof eob256);
+        memcpy(eob512, eob_multi512_cdfs[q_ctx], sizeof eob512);
+        memcpy(eob1024, eob_multi1024_cdfs[q_ctx], sizeof eob1024);
+        memcpy(tx_size, tx_size_cdf, sizeof tx_size);
+        memcpy(txfm_partition, txfm_partition_cdf, sizeof txfm_partition);
+        memcpy(intra_ext_tx, intra_ext_tx_cdf, sizeof intra_ext_tx);
+        memcpy(inter_ext_tx, inter_ext_tx_cdf, sizeof inter_ext_tx);
     }
 };
+
+// -- the inverse transforms (av1_inv_txfm1d.c, av1_inv_txfm2d.c) ----------------------------
+
+enum { TX_4X4 = 0, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16,
+       TX_32X64, TX_64X32, TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16, TX_SIZES_ALL };
+enum { DCT_DCT = 0, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+       FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, TX_TYPES };
+enum { TX1D_DCT = 0, TX1D_ADST, TX1D_FLIPADST, TX1D_IDTX };  // vtx_tab / htx_tab
+enum { TX_CLASS_2D = 0, TX_CLASS_HORIZ, TX_CLASS_VERT };
+const int kTxW[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64};
+const int kTxH[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16};
+const int kInvCosBit = 12, kNewSqrt2 = 5793, kNewInvSqrt2 = 2896;
+
+int tx_class(int type) {
+    if (type == V_DCT || type == V_ADST || type == V_FLIPADST) return TX_CLASS_VERT;
+    if (type == H_DCT || type == H_ADST || type == H_FLIPADST) return TX_CLASS_HORIZ;
+    return TX_CLASS_2D;
+}
+
+// av1_get_adjusted_tx_size: a side of 64 codes and dequantises as 32
+int adjusted_tx_size(int t) {
+    switch (t) {
+        case TX_64X64: case TX_32X64: case TX_64X32: return TX_32X32;
+        case TX_16X64: return TX_16X32;
+        case TX_64X16: return TX_32X16;
+        default: return t;
+    }
+}
+
+int32_t clamp_bits(int64_t v, int bits) {  // clamp_value
+    const int64_t hi = (1LL << (bits - 1)) - 1, lo = -(1LL << (bits - 1));
+    return (int32_t)(v < lo ? lo : (v > hi ? hi : v));
+}
+int32_t round_shift(int64_t v, int bits) { return bits ? (int32_t)((v + (1LL << (bits - 1))) >> bits) : (int32_t)v; }
+// the x86 path libaom dispatches computes in 16-bit lanes that saturate
+// every rotation, negation and identity output
+int32_t half_btf(int w0, int32_t in0, int w1, int32_t in1) {
+    return clamp_bits(round_shift((int64_t)w0 * in0 + (int64_t)w1 * in1, kInvCosBit), 16);
+}
+
+// The 1-D inverse DCT of n = 2^k points in libaom's butterfly order, written
+// by recursion: the even half is the DCT of n/2 points, the odd half a chain
+// of rotations and add/sub stages; every add/sub is clamped to ``r`` bits.
+// ``t`` holds the bit-reversed input.
+void idct_rotate_first(int32_t* o, int m, int n) {  // the odd half's first rotations
+    const int16_t* c = av1tab::cospi;
+    const int s = 64 / n;
+    for (int k = 0; k < m / 2; k++) {
+        int coef = 0;  // the coefficient index at odd position k: brev over log2(n) bits of m + k
+        for (int v = m + k, bits = n; bits > 1; bits >>= 1, v >>= 1) coef = (coef << 1) | (v & 1);
+        int32_t a = o[k], b = o[m - 1 - k];
+        o[k] = half_btf(c[64 - s * coef], a, -c[s * coef], b);
+        o[m - 1 - k] = half_btf(c[s * coef], a, c[64 - s * coef], b);
+    }
+}
+
+void idct_addsub(int32_t* o, int m, int block, int r) {
+    for (int q = 0; q * block < m; q++)
+        for (int i = 0; i < block / 2; i++) {
+            int lo = q * block + i, hi = q * block + block - 1 - i;
+            int32_t a = o[lo], b = o[hi];
+            if (q & 1) {
+                o[lo] = clamp_bits((int64_t)b - a, r);
+                o[hi] = clamp_bits((int64_t)a + b, r);
+            } else {
+                o[lo] = clamp_bits((int64_t)a + b, r);
+                o[hi] = clamp_bits((int64_t)a - b, r);
+            }
+        }
+}
+
+void idct_rotate_groups(int32_t* o, int m, int g) {  // after the add/sub stage of blocks of g
+    const int16_t* c = av1tab::cospi;
+    int kk = m / (4 * g), lk = 0;
+    while ((1 << lk) < kk) lk++;
+    for (int j = 0; j < kk; j++) {
+        int rev = 0;
+        for (int v = j, b = 0; b < lk; b++, v >>= 1) rev = (rev << 1) | (v & 1);
+        int th = (16 / kk) * (1 + 4 * rev);
+        for (int e = j * 2 * g + g / 2; e < j * 2 * g + g; e++) {  // the second quarter
+            int32_t a = o[e], b = o[m - 1 - e];
+            o[e] = half_btf(-c[th], a, c[64 - th], b);
+            o[m - 1 - e] = half_btf(c[64 - th], a, c[th], b);
+        }
+        for (int e = j * 2 * g + g; e < j * 2 * g + g + g / 2; e++) {  // the third quarter
+            int32_t a = o[e], b = o[m - 1 - e];
+            o[e] = half_btf(-c[64 - th], a, -c[th], b);
+            o[m - 1 - e] = half_btf(-c[th], a, c[64 - th], b);
+        }
+    }
+}
+
+void idct_rec(int32_t* t, int n, int r) {
+    const int16_t* c = av1tab::cospi;
+    if (n == 2) {
+        int32_t a = t[0], b = t[1];
+        t[0] = half_btf(c[32], a, c[32], b);
+        t[1] = half_btf(c[32], a, -c[32], b);
+        return;
+    }
+    const int m = n / 2;
+    idct_rec(t, m, r);
+    int32_t* o = t + m;
+    idct_rotate_first(o, m, n);
+    if (m > 2) {
+        for (int block = 2; block <= m / 2; block *= 2) {
+            idct_addsub(o, m, block, r);
+            if (block < m / 2) {
+                idct_rotate_groups(o, m, block);
+            } else {
+                for (int e = m / 4; e < m / 2; e++) {
+                    int32_t a = o[e], b = o[m - 1 - e];
+                    o[e] = half_btf(-c[32], a, c[32], b);
+                    o[m - 1 - e] = half_btf(c[32], a, c[32], b);
+                }
+            }
+        }
+    }
+    for (int i = 0; i < m; i++) {
+        int32_t e = t[i], odd = o[m - 1 - i];
+        t[i] = clamp_bits((int64_t)e + odd, r);
+        t[n - 1 - i] = clamp_bits((int64_t)e - odd, r);
+    }
+}
+
+void idct(const int32_t* in, int32_t* out, int n, int r) {
+    int lg = 0;
+    while ((1 << lg) < n) lg++;
+    for (int i = 0; i < n; i++) {
+        int rev = 0;
+        for (int v = i, b = 0; b < lg; b++, v >>= 1) rev = (rev << 1) | (v & 1);
+        out[i] = in[rev];
+    }
+    idct_rec(out, n, r);
+}
+
+void iadst4(const int32_t* in, int32_t* out) {
+    const int16_t* sp = av1tab::sinpi;
+    int64_t x0 = in[0], x1 = in[1], x2 = in[2], x3 = in[3];
+    if (!(x0 | x1 | x2 | x3)) {
+        out[0] = out[1] = out[2] = out[3] = 0;
+        return;
+    }
+    int64_t s0 = sp[1] * x0, s1 = sp[2] * x0, s2 = sp[3] * x1, s3 = sp[4] * x2, s4 = sp[1] * x2, s5 = sp[2] * x3,
+            s6 = sp[4] * x3;
+    // libaom computes these in 32 bits; for inputs of 16 bits they fit
+    int64_t s7 = (x0 - x2) + x3;
+    s0 = s0 + s3;
+    s1 = s1 - s4;
+    s3 = s2;
+    s2 = sp[3] * s7;
+    s0 = s0 + s5;
+    s1 = s1 - s6;
+    int64_t y0 = s0 + s3, y1 = s1 + s3, y2 = s2, y3 = s0 + s1;
+    y3 = y3 - s3;
+    const int64_t y[4] = {y0, y1, y2, y3};
+    for (int i = 0; i < 4; i++) {
+        out[i] = round_shift(y[i], kInvCosBit);
+        out[i] = clamp_bits(out[i], 16);
+    }
+}
+
+// av1_iadst8 / av1_iadst16: the input permuted, rotations of pairs, then for
+// blocks of n, n/2, ... 4: add/sub between the block's halves and rotations
+// in its second half (by 8/56 and 40/24, then 16/48, then 32), the output
+// permuted with alternate signs
+void iadst_n(const int32_t* in, int32_t* out, int n, int r) {
+    const int16_t* c = av1tab::cospi;
+    static const int ang4[2][2] = {{16, 48}, {48, 16}};
+    static const int ang8[4][2] = {{8, 56}, {40, 24}, {56, 8}, {24, 40}};
+    int32_t b[16];
+    for (int k = 0; k < n / 2; k++) {
+        b[2 * k] = in[n - 1 - 2 * k];
+        b[2 * k + 1] = in[2 * k];
+    }
+    for (int k = 0; k < n / 2; k++) {
+        const int th = (32 / n) * (1 + 4 * k);
+        const int32_t x = b[2 * k], y = b[2 * k + 1];
+        b[2 * k] = half_btf(c[th], x, c[64 - th], y);
+        b[2 * k + 1] = half_btf(c[64 - th], x, -c[th], y);
+    }
+    for (int half = n / 2; half >= 2; half /= 2) {
+        for (int base = 0; base < n; base += 2 * half)
+            for (int i = 0; i < half; i++) {
+                const int32_t x = b[base + i], y = b[base + half + i];
+                b[base + i] = clamp_bits((int64_t)x + y, r);
+                b[base + half + i] = clamp_bits((int64_t)x - y, r);
+            }
+        for (int base = 0; base < n; base += 2 * half) {
+            int32_t* v = b + base + half;
+            for (int p = 0; p < half / 2; p++) {
+                const int32_t x = v[2 * p], y = v[2 * p + 1];
+                if (half == 2) {
+                    v[0] = half_btf(c[32], x, c[32], y);
+                    v[1] = half_btf(c[32], x, -c[32], y);
+                    continue;
+                }
+                const int* ang = half == 4 ? ang4[p] : ang8[p];
+                if (p < half / 4) {
+                    v[2 * p] = half_btf(c[ang[0]], x, c[ang[1]], y);
+                    v[2 * p + 1] = half_btf(c[ang[1]], x, -c[ang[0]], y);
+                } else {
+                    v[2 * p] = half_btf(-c[ang[0]], x, c[ang[1]], y);
+                    v[2 * p + 1] = half_btf(c[ang[1]], x, c[ang[0]], y);
+                }
+            }
+        }
+    }
+    static const int8_t perm8[8] = {0, 4, 6, 2, 3, 7, 5, 1};
+    static const int8_t perm16[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
+    const int8_t* perm = n == 8 ? perm8 : perm16;
+    for (int i = 0; i < n; i++) {
+        out[i] = (i & 1) ? -b[perm[i]] : b[perm[i]];
+        out[i] = clamp_bits(out[i], 16);
+    }
+}
+
+int32_t identity_scale(int32_t v, int n) {  // av1_iidentity{4,8,16,32}_c
+    if (n == 4) return round_shift((int64_t)kNewSqrt2 * v, 12);
+    if (n == 8) return (int32_t)((int64_t)v * 2);
+    if (n == 16) return round_shift((int64_t)kNewSqrt2 * 2 * v, 12);
+    return (int32_t)((int64_t)v * 4);
+}
+
+void iidentity(const int32_t* in, int32_t* out, int n) {
+    for (int i = 0; i < n; i++) out[i] = clamp_bits(identity_scale(in[i], n), 16);
+}
+
+void inv_txfm1d(int kind, const int32_t* in, int32_t* out, int n, int r) {
+    if (kind == TX1D_DCT) idct(in, out, n, r);
+    else if (kind == TX1D_IDTX) iidentity(in, out, n);
+    else if (n == 4) iadst4(in, out);
+    else iadst_n(in, out, n, r);
+}
+
+// av1_inv_txfm2d_add_c with bd = 8: ``coef`` in libaom's layout (column by
+// column, tx_size_high[adjusted] values each; a 64-sample side holds its
+// first 32 coefficients), added to ``dst`` with a clip to 8 bits.
+// The arithmetic is that of the path libaom dispatches on x86
+// (av1_lowbd_inv_txfm2d_add_ssse3 / _avx2, which agree): the same stages in
+// 16-bit lanes that saturate, where an identity row transform and the row
+// shift are one rounding. libaom's C path parts from it only where a value
+// leaves 16 bits, which damaged coefficients reach.
+void inverse_transform_add(const int32_t* coef, int tx_size, int tx_type, uint8_t* dst, int stride) {
+    const int w = kTxW[tx_size], h = kTxH[tx_size];
+    const int cw = std::min(w, 32), ch = std::min(h, 32);
+    const int8_t* shift = av1tab::inv_txfm_shift[tx_size];
+    int lw = 0, lh = 0;
+    while ((1 << lw) < w) lw++;
+    while ((1 << lh) < h) lh++;
+    const bool rect2 = std::abs(lw - lh) == 1;
+    const int vtx = av1tab::vtx_tab[tx_type], htx = av1tab::htx_tab[tx_type];
+    const bool ud_flip = vtx == TX1D_FLIPADST, lr_flip = htx == TX1D_FLIPADST;
+    static thread_local int32_t buf[64 * 64];
+    int32_t tin[64], tout[64];
+    for (int r = 0; r < h; r++) {
+        for (int c = 0; c < w; c++) {
+            int32_t v = (r < ch && c < cw) ? coef[c * ch + r] : 0;
+            if (rect2) v = round_shift((int64_t)v * kNewInvSqrt2, 12);
+            tin[c] = clamp_bits(v, 16);  // bd + 8
+        }
+        if (htx == TX1D_IDTX) {  // the identity row and its shift: one rounding, then 16 bits
+            for (int c = 0; c < w; c++)
+                buf[r * w + c] = clamp_bits(round_shift(identity_scale(tin[c], w), -shift[0]), 16);
+        } else {
+            inv_txfm1d(htx, tin, buf + r * w, w, 16);
+            for (int c = 0; c < w; c++) buf[r * w + c] = round_shift(buf[r * w + c], -shift[0]);
+        }
+    }
+    for (int c = 0; c < w; c++) {
+        for (int r = 0; r < h; r++) tin[r] = clamp_bits(buf[r * w + (lr_flip ? w - 1 - c : c)], 16);
+        inv_txfm1d(vtx, tin, tout, h, 16);
+        for (int r = 0; r < h; r++) {
+            int32_t v = round_shift(tout[ud_flip ? h - 1 - r : r], -shift[1]);
+            uint8_t* d = dst + (size_t)r * stride + c;
+            *d = clip_pixel((int)std::max<int64_t>(-1024, std::min<int64_t>(1024, (int64_t)*d + v)));
+        }
+    }
+}
 
 // offsets in the nmv_context rows
 const int kMvJoints = 0, kMvComp = 5, kMvCompSize = 69;
@@ -831,7 +1142,13 @@ enum {
     ST_EDGE_UPSAMPLE = 46,   // directional predictions with an upsampled edge
     ST_EDGE_FILTER = 47,     // directional predictions with a filtered edge
     ST_GOLOMB = 48,
-    ST_COUNT = 64
+    ST_TX_SIZE = 49,         // 19 transform sizes, by libaom's TX_SIZE
+    ST_TX_TYPE = 68,         // 16 transform types (of blocks with coefficients)
+    ST_QM = 84,              // transform blocks dequantised through a quantiser matrix
+    ST_DELTA_Q = 85,         // non-zero delta q read
+    ST_VARTX_SPLIT = 86,     // var-tx split flags set
+    ST_RESIDUAL = 87,        // transform blocks with coefficients
+    ST_COUNT = 128
 };
 
 struct Frame {
@@ -842,7 +1159,11 @@ struct Frame {
     std::vector<BlockInfo> blocks;
     std::vector<int32_t> grid;  // block index of each 4x4 unit, -1 before it is decoded
     std::vector<uint8_t> above_ctx[3], left_ctx[3];  // libaom's entropy contexts: cul_level | dc sign << 3
+    std::vector<uint8_t> above_txfm;                 // the txfm contexts: transform widths above
+    uint8_t left_txfm[32];                           // and heights to the left, in the superblock
+    std::vector<uint8_t> tx_type_map;                // the luma transform type at each 4x4 unit
     int32_t* stats;
+    int sb_mask;
 
     // the tile
     int row_start = 0, row_end = 0, col_start = 0, col_end = 0;
@@ -859,6 +1180,14 @@ struct Frame {
     BlockInfo* b = nullptr;
     int angle_y = 0, angle_uv = 0, use_filter_intra = 0, filter_mode = 0, cfl_u = 0, cfl_v = 0;
     uint8_t map_y[64][64], map_uv[64][64];
+    int tx_size = TX_4X4, max_blocks_w = 1, max_blocks_h = 1;  // the luma transform; the block's 4x4 units in the frame
+    uint8_t vartx[32][32];                                    // the luma transform size at each 4x4 unit
+    int dequant[3][2] = {{0, 0}, {0, 0}, {0, 0}}, qm_level[3] = {15, 15, 15};
+    int cur_tx_type = DCT_DCT;
+    int32_t coef[32 * 32];
+    uint8_t levels[36 * 36];
+    uint16_t cfl_q3[32][32];
+    int cfl_w = 0, cfl_h = 0;
 
     Frame(const SeqHeader& s_, const FrameHeader& fh_, int32_t* st) : s(s_), fh(fh_), stats(st) {
         num_planes = s.mono ? 1 : 3;
@@ -872,6 +1201,9 @@ struct Frame {
             left_ctx[p].assign(mi_rows + 64, 0);
         }
         grid.assign((size_t)mi_rows * mi_cols, -1);
+        tx_type_map.assign((size_t)mi_rows * mi_cols, DCT_DCT);
+        above_txfm.assign(mi_cols + 64, 64);
+        sb_mask = s.use_128 ? 31 : 15;
         blocks.reserve(1024);
     }
 
@@ -906,12 +1238,14 @@ struct Frame {
         current_q = fh.base_q_idx;
         for (int p = 0; p < num_planes; p++)
             std::fill(above_ctx[p].begin() + col_start, above_ctx[p].begin() + std::min<size_t>(col_end + 32, above_ctx[p].size()), 0);
+        std::fill(above_txfm.begin() + col_start, above_txfm.begin() + std::min<size_t>(col_end + 32, above_txfm.size()), 64);
         std::fill(delta_lf, delta_lf + 4, 0);
         int sb4 = s.use_128 ? 32 : 16;
         int sb_size = s.use_128 ? BLOCK_128X128 : BLOCK_64X64;
         for (int r = row_start; r < row_end; r += sb4) {
             for (int p = 0; p < num_planes; p++)
                 std::fill(left_ctx[p].begin() + r, left_ctx[p].begin() + std::min<size_t>(r + sb4 + 32, left_ctx[p].size()), 0);
+            std::fill(left_txfm, left_txfm + 32, 64);
             for (int c = col_start; c < col_end; c += sb4) {
                 read_deltas = fh.delta_q_present;
                 clear_block_decoded(r, c, sb4);
@@ -1047,8 +1381,12 @@ struct Frame {
         for (int y = r; y < r_end; y++)
             for (int x = c; x < c_end; x++) grid[(size_t)y * mi_cols + x] = idx;
         stats[ST_BLOCKS]++;
+        max_blocks_w = std::min(bw4, mi_cols - c);
+        max_blocks_h = std::min(bh4, mi_rows - r);
         mode_info();
         palette_tokens();
+        read_block_tx_size();
+        set_dequant();
         if (b->skip) reset_block_context();
         if (b->intrabc) predict_intrabc();
         residual();
@@ -1095,8 +1433,8 @@ struct Frame {
             if (angle_y) stats[ST_ANGLE_DELTA]++;
         }
         if (num_planes > 1) {
-            // is_cfl_allowed: in a lossless block, where the 4:4:4 chroma block is 4x4
-            int cfl_allowed = bsize == BLOCK_4X4;
+            // is_cfl_allowed: a block of at most 32x32, or a lossless one of 4x4
+            int cfl_allowed = fh.lossless[b->seg_id] ? bsize == BLOCK_4X4 : (bw4 <= 8 && bh4 <= 8);
             b->uvmode = (int8_t)sym(cdf.uv_mode[cfl_allowed][b->ymode], cfl_allowed ? 14 : 13);
             stats[ST_UVMODE + b->uvmode]++;
             if (b->uvmode == UV_CFL_PRED) read_cfl_alphas();
@@ -1171,7 +1509,8 @@ struct Frame {
         if (abs) {
             int sign = lit(1);
             int reduced = sign ? -abs : abs;
-            current_q = clip3(1, 255, current_q + (reduced << fh.delta_q_res));
+            current_q = clip3(1, 255, current_q + reduced * (1 << fh.delta_q_res));
+            stats[ST_DELTA_Q]++;
         }
     }
 
@@ -1189,7 +1528,7 @@ struct Frame {
             if (abs) {
                 int sign = lit(1);
                 int reduced = sign ? -abs : abs;
-                delta_lf[i] = clip3(-63, 63, delta_lf[i] + (reduced << fh.delta_lf_res));
+                delta_lf[i] = clip3(-63, 63, delta_lf[i] + reduced * (1 << fh.delta_lf_res));
             }
         }
     }
@@ -1606,54 +1945,195 @@ struct Frame {
         }
     }
 
-    // -- residual: 4x4 transform blocks, by 64x64 chunk and plane --------------------------
-    void residual() {
-        int width_chunks = std::max(1, bw4 >> 4), height_chunks = std::max(1, bh4 >> 4);
-        for (int cy = 0; cy < height_chunks; cy++)
-            for (int cx = 0; cx < width_chunks; cx++) {
-                for (int p = 0; p < num_planes; p++) {
-                    int sub_x = p ? s.ss_x : 0, sub_y = p ? s.ss_y : 0;
-                    int num4w = bw4 >> sub_x, num4h = bh4 >> sub_y;  // 4:4:4 / 4:0:0
-                    int base_x = (mi_col >> sub_x) * 4, base_y = (mi_row >> sub_y) * 4;
-                    for (int y = 0; y < std::min(num4h, 16 >> sub_y); y++)
-                        for (int x = 0; x < std::min(num4w, 16 >> sub_x); x++)
-                            transform_block(p, base_x, base_y, x + ((cx << 4) >> sub_x), y + ((cy << 4) >> sub_y));
-                }
-            }
+    // -- the transform size (decodemv.c / decodeframe.c) ----------------------------------------
+    static int sqr_tx_size_of(int side) {  // get_sqr_tx_size
+        return side >= 64 ? TX_64X64 : side == 32 ? TX_32X32 : side == 16 ? TX_16X16 : side == 8 ? TX_8X8 : TX_4X4;
     }
 
-    void transform_block(int p, int base_x, int base_y, int x, int y) {
-        int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
-        int sub_x = p ? s.ss_x : 0, sub_y = p ? s.ss_y : 0;
-        int row = (start_y << sub_y) >> 2, col = (start_x << sub_x) >> 2;
-        int sb_mask = s.use_128 ? 31 : 15;
-        int sbr = row & sb_mask, sbc = col & sb_mask;
-        int max_x = mi_cols * 4 - 1, max_y = mi_rows * 4 - 1;
-        if (start_x >= (max_x >> sub_x) + 1 || start_y >= (max_y >> sub_y) + 1) return;
+    int max_rect_tx() const { return av1tab::max_txsize_rect_lookup[bsize]; }
+
+    // read_selected_tx_size: a depth below the largest rectangle, its
+    // context from the txfm contexts above and left (a block size where the
+    // neighbour is an IntraBC block)
+    int read_selected_tx_size() {
+        const int max_tx = max_rect_tx();
+        int depth_max = 0, cat = 0;
+        for (int t = max_tx; t != TX_4X4; t = av1tab::sub_tx_size_map[t]) {
+            if (depth_max < 2) depth_max++;
+            cat++;
+        }
+        cat -= 1;
+        const int max_w = kTxW[max_tx], max_h = kTxH[max_tx];
+        int above = above_txfm[mi_col] >= max_w, left = left_txfm[mi_row & 31] >= max_h;
+        if (avail_u && at(mi_row - 1, mi_col).intrabc) above = kBw4[at(mi_row - 1, mi_col).bsize] * 4 >= max_w;
+        if (avail_l && at(mi_row, mi_col - 1).intrabc) left = kBh4[at(mi_row, mi_col - 1).bsize] * 4 >= max_h;
+        int ctx = avail_u && avail_l ? above + left : avail_u ? above : avail_l ? left : 0;
+        int depth = sym(cdf.tx_size[cat][ctx], depth_max + 1);
+        int t = max_tx;
+        for (int d = 0; d < depth; d++) t = av1tab::sub_tx_size_map[t];
+        return t;
+    }
+
+    void set_txfm_ctx(int tx_w, int tx_h) {  // set_txfm_ctxs
+        for (int i = 0; i < bw4; i++) above_txfm[mi_col + i] = (uint8_t)tx_w;
+        for (int i = 0; i < bh4; i++) left_txfm[(mi_row & 31) + i] = (uint8_t)tx_h;
+    }
+
+    // read_tx_size_vartx: the split flags of an IntraBC block's transform
+    // tree, at most two levels below the largest rectangle
+    void read_vartx(int t, int depth, int row, int col) {
+        if (row >= max_blocks_h || col >= max_blocks_w) return;
+        const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
+        auto leaf = [&](int size, int update_as) {
+            for (int y = row; y < std::min(row + (kTxH[update_as] >> 2), 32); y++)
+                for (int x = col; x < std::min(col + (kTxW[update_as] >> 2), 32); x++) vartx[y][x] = (uint8_t)size;
+            tx_size = size;
+            for (int i = 0; i < (kTxW[update_as] >> 2); i++) above_txfm[mi_col + col + i] = (uint8_t)kTxW[size];
+            for (int i = 0; i < (kTxH[update_as] >> 2); i++) left_txfm[((mi_row + row) & 31) + i] = (uint8_t)kTxH[size];
+        };
+        if (depth == 2) {
+            leaf(t, t);
+            return;
+        }
+        // txfm_partition_context
+        int above = above_txfm[mi_col + col] < kTxW[t], left = left_txfm[(mi_row + row) & 31] < kTxH[t];
+        int max_sqr = sqr_tx_size_of(std::max(bw4, bh4) * 4);
+        int category = (av1tab::txsize_sqr_up_map[t] != max_sqr && max_sqr > TX_8X8) + (TX_64X64 - max_sqr) * 2;
+        int ctx = category * 3 + above + left;
+        if (sym(cdf.txfm_partition[ctx], 2)) {
+            stats[ST_VARTX_SPLIT]++;
+            const int sub = av1tab::sub_tx_size_map[t];
+            if (sub == TX_4X4) {
+                leaf(sub, t);
+                return;
+            }
+            const int sw4 = kTxW[sub] >> 2, sh4 = kTxH[sub] >> 2;
+            for (int y = 0; y < h4; y += sh4)
+                for (int x = 0; x < w4; x += sw4) read_vartx(sub, depth + 1, row + y, col + x);
+        } else {
+            leaf(t, t);
+        }
+    }
+
+    // the transform size syntax of parse_decode_block
+    void read_block_tx_size() {
+        const bool lossless = fh.lossless[b->seg_id], select = fh.tx_mode_select;
+        if (b->intrabc && select && bsize > BLOCK_4X4 && !b->skip && !lossless) {
+            const int max_tx = max_rect_tx();
+            const int w4 = kTxW[max_tx] >> 2, h4 = kTxH[max_tx] >> 2;
+            for (int y = 0; y < bh4; y += h4)
+                for (int x = 0; x < bw4; x += w4) read_vartx(max_tx, 0, y, x);
+            return;
+        }
+        if (lossless) {
+            tx_size = TX_4X4;
+        } else if (bsize > BLOCK_4X4 && select && (!b->intrabc || !b->skip)) {
+            tx_size = read_selected_tx_size();
+        } else {
+            tx_size = max_rect_tx();  // tx_size_from_tx_mode (TX_MODE_LARGEST, or an IntraBC block that skips)
+        }
+        for (int y = 0; y < bh4; y++)
+            for (int x = 0; x < bw4; x++) vartx[y][x] = (uint8_t)tx_size;
+        if (b->skip && b->intrabc)
+            set_txfm_ctx(bw4 * 4, bh4 * 4);
+        else
+            set_txfm_ctx(kTxW[tx_size], kTxH[tx_size]);
+    }
+
+    // the block's quantisers: its qindex (the superblock's delta and the
+    // segment's), the 8-bit dc / ac lookups with the plane's deltas, and the
+    // quantiser matrix level where one applies
+    void set_dequant() {
+        const int seg = b->seg_id;
+        int q = fh.delta_q_present ? current_q : fh.base_q_idx;
+        if (fh.seg_enabled && fh.feature_enabled[seg][0]) q = clip3(0, 255, q + fh.feature_data[seg][0]);
+        const int dc_delta[3] = {fh.dq_ydc, fh.dq_udc, fh.dq_vdc}, ac_delta[3] = {0, fh.dq_uac, fh.dq_vac};
+        for (int p = 0; p < num_planes; p++) {
+            dequant[p][0] = av1tab::dc_qlookup[clip3(0, 255, q + dc_delta[p])];
+            dequant[p][1] = av1tab::ac_qlookup[clip3(0, 255, q + ac_delta[p])];
+            qm_level[p] = (fh.using_qmatrix && !fh.lossless[seg]) ? fh.qm_level[p] : 15;
+        }
+    }
+
+    // -- residual: transform blocks by 64x64 chunk and plane (decode_token_recon_block) ---------
+    int plane_tx_size(int p) const {  // av1_get_tx_size
+        if (fh.lossless[b->seg_id]) return TX_4X4;
+        if (p == 0) return tx_size;
+        return adjusted_tx_size(max_rect_tx());
+    }
+
+    void residual() {
+        const int width_chunks = std::max(1, bw4 >> 4), height_chunks = std::max(1, bh4 >> 4);
+        const bool lossless = fh.lossless[b->seg_id];
+        cfl_w = cfl_h = 0;
+        for (int cy = 0; cy < height_chunks; cy++)
+            for (int cx = 0; cx < width_chunks; cx++)
+                for (int p = 0; p < num_planes; p++) {
+                    if (b->intrabc && !lossless && !b->skip && p == 0) {
+                        const int t = max_rect_tx();
+                        const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
+                        for (int y = cy * 16; y < std::min(bh4, cy * 16 + 16); y += h4)
+                            for (int x = cx * 16; x < std::min(bw4, cx * 16 + 16); x += w4) transform_tree(t, x, y);
+                        continue;
+                    }
+                    const int t = plane_tx_size(p);
+                    const int step_x = kTxW[t] >> 2, step_y = kTxH[t] >> 2;
+                    for (int y = cy * 16; y < std::min(bh4, cy * 16 + 16); y += step_y)
+                        for (int x = cx * 16; x < std::min(bw4, cx * 16 + 16); x += step_x) transform_block(p, t, x, y);
+                }
+    }
+
+    // decode_reconstruct_tx: an IntraBC block's luma down its var-tx tree
+    void transform_tree(int t, int x, int y) {
+        if (y >= max_blocks_h || x >= max_blocks_w) return;
+        if (t == vartx[y][x]) {
+            transform_block(0, t, x, y);
+            return;
+        }
+        const int sub = av1tab::sub_tx_size_map[t];
+        const int sw4 = kTxW[sub] >> 2, sh4 = kTxH[sub] >> 2;
+        const int row_end = std::min(kTxH[t] >> 2, max_blocks_h - y), col_end = std::min(kTxW[t] >> 2, max_blocks_w - x);
+        for (int r = 0; r < row_end; r += sh4)
+            for (int c = 0; c < col_end; c += sw4) transform_tree(sub, x + c, y + r);
+    }
+
+    void transform_block(int p, int t, int x4, int y4) {
+        const int start_x = (mi_col + x4) * 4, start_y = (mi_row + y4) * 4;
+        if (start_x >= mi_cols * 4 || start_y >= mi_rows * 4) return;
+        const int w = kTxW[t], h = kTxH[t], step_x = w >> 2, step_y = h >> 2;
+        const int sbr = (mi_row + y4) & sb_mask, sbc = (mi_col + x4) & sb_mask;
+        stats[ST_TX_SIZE + t]++;
         if (!b->intrabc) {
             if (b->pal_size[p != 0]) {
                 uint8_t (*map)[64] = p ? map_uv : map_y;
-                for (int i = 0; i < 4; i++)
-                    for (int j = 0; j < 4; j++) *px(p, start_y + i, start_x + j) = b->pal[p][map[y * 4 + i][x * 4 + j]];
+                for (int i = 0; i < h; i++)
+                    for (int j = 0; j < w; j++) *px(p, start_y + i, start_x + j) = b->pal[p][map[y4 * 4 + i][x4 * 4 + j]];
             } else {
-                bool is_cfl = p > 0 && b->uvmode == UV_CFL_PRED;
-                int mode = p == 0 ? (int)b->ymode : (is_cfl ? (int)DC_PRED : (int)b->uvmode);
-                bool have_left = avail_l || x > 0, have_above = avail_u || y > 0;
-                bool have_ar = decoded[p][(sbr >> sub_y) - 1 + 1][(sbc >> sub_x) + 1 + 1];
-                bool have_bl = decoded[p][(sbr >> sub_y) + 1 + 1][(sbc >> sub_x) - 1 + 1];
-                predict_intra(p, start_x, start_y, have_left, have_above, have_ar, have_bl, mode);
-                if (is_cfl) predict_cfl(p, start_x, start_y);
+                const bool is_cfl = p > 0 && b->uvmode == UV_CFL_PRED;
+                const int mode = p == 0 ? (int)b->ymode : (is_cfl ? (int)DC_PRED : (int)b->uvmode);
+                const bool have_left = avail_l || x4 > 0, have_above = avail_u || y4 > 0;
+                const bool have_ar = decoded[p][sbr - 1 + 1][sbc + step_x + 1];
+                const bool have_bl = decoded[p][sbr + step_y + 1][sbc - 1 + 1];
+                predict_intra(p, start_x, start_y, t, have_left, have_above, have_ar, have_bl, mode);
+                if (is_cfl) predict_cfl(p, start_x, start_y, w, h);
             }
         }
         if (!b->skip) {
-            int32_t coef[16];
-            int eob = coeffs(p, start_x, start_y, coef);
-            if (eob > 0) reconstruct(p, start_x, start_y, coef, eob);
+            int eob = coeffs(p, t, x4, y4);
+            if (eob > 0) {
+                stats[ST_RESIDUAL]++;
+                if (fh.lossless[b->seg_id])
+                    reconstruct_wht(p, start_x, start_y, eob);
+                else
+                    inverse_transform_add(coef, t, cur_tx_type, px(p, start_y, start_x), stride);
+            }
         }
-        decoded[p][(sbr >> sub_y) + 1][(sbc >> sub_x) + 1] = 1;
+        if (p == 0 && num_planes > 1 && !b->intrabc && b->uvmode == UV_CFL_PRED) cfl_store(start_x, start_y, x4, y4, w, h);
+        for (int i = 0; i < step_y; i++)
+            for (int j = 0; j < step_x; j++) decoded[p][sbr + i + 1][sbc + j + 1] = 1;
     }
 
-    // -- intra prediction (reconintra.c), on 4x4 blocks --------------------------------------
+    // -- intra prediction (reconintra.c), at the transform size ---------------------------------
     bool is_smooth(int r, int c, int p) const {
         const BlockInfo& n = at(r, c);
         int mode;
@@ -1666,11 +2146,13 @@ struct Frame {
         return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED;
     }
 
-    void predict_intra(int p, int x, int y, bool have_left, bool have_above, bool have_ar, bool have_bl, int mode) {
-        const int w = 4, h = 4;
+    void predict_intra(int p, int x, int y, int t, bool have_left, bool have_above, bool have_ar, bool have_bl,
+                       int mode) {
+        const int w = kTxW[t], h = kTxH[t];
+        int pred[64][64];
         int sub_x = p ? s.ss_x : 0, sub_y = p ? s.ss_y : 0;
         int max_x = ((mi_cols * 4) >> sub_x) - 1, max_y = ((mi_rows * 4) >> sub_y) - 1;
-        int above_buf[48], left_buf[48];
+        int above_buf[160], left_buf[160];
         int* above = above_buf + 16;
         int* left = left_buf + 16;
         for (int i = 0; i < w + h; i++) {
@@ -1700,41 +2182,47 @@ struct Frame {
         else
             above[-1] = 128;
         left[-1] = above[-1];
-        int pred[4][4];
         if (p == 0 && use_filter_intra) {
-            filter_intra(above, left, pred);
+            filter_intra(above, left, w, h, pred);
         } else if (mode >= V_PRED && mode <= D67_PRED) {
-            directional(p, x, y, have_left, have_above, mode, above, left, pred, max_x, max_y);
+            directional(p, x, y, w, h, have_left, have_above, mode, above, left, max_x, max_y, pred);
         } else if (mode == SMOOTH_PRED) {
-            const uint8_t* wts = av1tab::smooth_weights;  // the 4-sample weights come first
+            const uint8_t* wh = av1tab::smooth_weights + h - 4;
+            const uint8_t* ww = av1tab::smooth_weights + w - 4;
             for (int i = 0; i < h; i++)
                 for (int j = 0; j < w; j++) {
-                    int v = wts[i] * above[j] + (256 - wts[i]) * left[h - 1] + wts[j] * left[i] + (256 - wts[j]) * above[w - 1];
+                    int v = wh[i] * above[j] + (256 - wh[i]) * left[h - 1] + ww[j] * left[i] + (256 - ww[j]) * above[w - 1];
                     pred[i][j] = round2(v, 9);
                 }
         } else if (mode == SMOOTH_V_PRED) {
-            const uint8_t* wts = av1tab::smooth_weights;
+            const uint8_t* wh = av1tab::smooth_weights + h - 4;
             for (int i = 0; i < h; i++)
-                for (int j = 0; j < w; j++) pred[i][j] = round2(wts[i] * above[j] + (256 - wts[i]) * left[h - 1], 8);
+                for (int j = 0; j < w; j++) pred[i][j] = round2(wh[i] * above[j] + (256 - wh[i]) * left[h - 1], 8);
         } else if (mode == SMOOTH_H_PRED) {
-            const uint8_t* wts = av1tab::smooth_weights;
+            const uint8_t* ww = av1tab::smooth_weights + w - 4;
             for (int i = 0; i < h; i++)
-                for (int j = 0; j < w; j++) pred[i][j] = round2(wts[j] * left[i] + (256 - wts[j]) * above[w - 1], 8);
+                for (int j = 0; j < w; j++) pred[i][j] = round2(ww[j] * left[i] + (256 - ww[j]) * above[w - 1], 8);
         } else if (mode == DC_PRED) {
             int avg;
             if (have_left && have_above) {
                 int sum = 0;
                 for (int k = 0; k < w; k++) sum += above[k];
                 for (int k = 0; k < h; k++) sum += left[k];
-                avg = (sum + ((w + h) >> 1)) / (w + h);
+                if (w == h) {
+                    avg = (sum + w) >> (log2i(w) + 1);
+                } else {  // dc_predictor_rect: a multiply and shift for 1:2 and 1:4
+                    int shift1 = log2i(std::min(w, h));
+                    int mult = (std::max(w, h) == 2 * std::min(w, h)) ? 0x5556 : 0x3334;
+                    avg = (((sum + ((w + h) >> 1)) >> shift1) * mult) >> 16;
+                }
             } else if (have_left) {
                 int sum = 0;
                 for (int k = 0; k < h; k++) sum += left[k];
-                avg = clip3(0, 255, (sum + (h >> 1)) >> 2);
+                avg = (sum + (h >> 1)) >> log2i(h);
             } else if (have_above) {
                 int sum = 0;
                 for (int k = 0; k < w; k++) sum += above[k];
-                avg = clip3(0, 255, (sum + (w >> 1)) >> 2);
+                avg = (sum + (w >> 1)) >> log2i(w);
             } else {
                 avg = 128;
             }
@@ -1758,29 +2246,23 @@ struct Frame {
             for (int j = 0; j < w; j++) *px(p, y + i, x + j) = (uint8_t)pred[i][j];
     }
 
-    void filter_intra(const int* above, const int* left, int pred[4][4]) {
-        // the recursive filter on 4x2 cells (w4 = 1, h2 = 2)
-        for (int i2 = 0; i2 < 2; i2++) {
-            int pv[7];
-            for (int i = 0; i < 7; i++) {
-                if (i < 5) {
-                    if (i2 == 0)
-                        pv[i] = above[i - 1];
-                    else if (i == 0)
-                        pv[i] = left[(i2 << 1) - 1];
-                    else
-                        pv[i] = pred[(i2 << 1) - 1][i - 1];
-                } else {
-                    pv[i] = left[(i2 << 1) + i - 5];
+    // av1_filter_intra_predictor_c: the recursive filter on 4x2 cells
+    void filter_intra(const int* above, const int* left, int w, int h, int (*pred)[64]) {
+        int buf[33][33];
+        for (int r = 0; r < h; r++) buf[r + 1][0] = left[r];
+        for (int c = 0; c <= w; c++) buf[0][c] = above[c - 1];
+        for (int r = 1; r < h + 1; r += 2)
+            for (int c = 1; c < w + 1; c += 4) {
+                const int pv[7] = {buf[r - 1][c - 1], buf[r - 1][c], buf[r - 1][c + 1], buf[r - 1][c + 2],
+                                   buf[r - 1][c + 3], buf[r][c - 1], buf[r + 1][c - 1]};
+                for (int k = 0; k < 8; k++) {
+                    int pr = 0;
+                    for (int t = 0; t < 7; t++) pr += av1tab::filter_intra_taps[filter_mode][k][t] * pv[t];
+                    buf[r + (k >> 2)][c + (k & 3)] = clip3(0, 255, round2signed(pr, 4));
                 }
             }
-            for (int i = 0; i < 2; i++)
-                for (int j = 0; j < 4; j++) {
-                    int pr = 0;
-                    for (int k = 0; k < 7; k++) pr += av1tab::filter_intra_taps[filter_mode][(i << 2) + j][k] * pv[k];
-                    pred[(i2 << 1) + i][j] = clip3(0, 255, round2signed(pr, 4));
-                }
-        }
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) pred[r][c] = buf[r + 1][c + 1];
     }
 
     int filter_type(int p) const {
@@ -1828,7 +2310,7 @@ struct Frame {
 
     static void edge_filter(int* buf, int sz, int strength) {  // buf[-1 .. sz - 2]
         if (!strength) return;
-        int edge[80];
+        int edge[160];
         for (int i = 0; i < sz; i++) edge[i] = buf[i - 1];
         for (int i = 1; i < sz; i++) {
             int sum = 0;
@@ -1847,7 +2329,7 @@ struct Frame {
     }
 
     static void upsample(int* buf, int num_px) {  // buf[-1 .. num_px - 1] → buf[-2 .. 2 num_px - 2]
-        int dup[80];
+        int dup[40];
         dup[0] = buf[-1];
         for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
         dup[num_px + 2] = buf[num_px - 1];
@@ -1860,9 +2342,8 @@ struct Frame {
         }
     }
 
-    void directional(int p, int x, int y, bool have_left, bool have_above, int mode, int* above, int* left,
-                     int pred[4][4], int max_x, int max_y) {
-        const int w = 4, h = 4;
+    void directional(int p, int x, int y, int w, int h, bool have_left, bool have_above, int mode, int* above,
+                     int* left, int max_x, int max_y, int (*pred)[64]) {
         int angle = kModeToAngle[mode] + (p == 0 ? angle_y : angle_uv) * 3;
         int up_above = 0, up_left = 0;
         if (s.enable_intra_edge_filter) {
@@ -1958,128 +2439,273 @@ struct Frame {
         }
     }
 
-    void predict_cfl(int p, int x, int y) {  // 4:4:4, a 4x4 block: its own luma
-        int alpha = p == 1 ? cfl_u : cfl_v;
-        int lq3[4][4], sum = 0;
-        for (int i = 0; i < 4; i++)
-            for (int j = 0; j < 4; j++) {
-                lq3[i][j] = *px(0, y + i, x + j) << 3;
-                sum += lq3[i][j];
-            }
-        int avg = (sum + 8) >> 4;
-        for (int i = 0; i < 4; i++)
-            for (int j = 0; j < 4; j++) {
+    // -- chroma from luma (cfl.c), 4:4:4: the block's reconstructed luma -----------------------
+    void cfl_store(int x, int y, int x4, int y4, int w, int h) {  // cfl_store_tx
+        const int col = x4 * 4, row = y4 * 4;
+        if (col == 0 && row == 0) {
+            cfl_w = w;
+            cfl_h = h;
+        } else {
+            cfl_w = std::max(col + w, cfl_w);
+            cfl_h = std::max(row + h, cfl_h);
+        }
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) cfl_q3[row + i][col + j] = (uint16_t)(*px(0, y + i, x + j) << 3);
+    }
+
+    void predict_cfl(int p, int x, int y, int w, int h) {
+        // cfl_pad: the columns and rows past what the luma wrote repeat its last
+        if (w > cfl_w) {
+            for (int i = 0; i < cfl_h; i++)
+                for (int j = cfl_w; j < w; j++) cfl_q3[i][j] = cfl_q3[i][cfl_w - 1];
+            cfl_w = w;
+        }
+        if (h > cfl_h) {
+            for (int i = cfl_h; i < h; i++)
+                for (int j = 0; j < w; j++) cfl_q3[i][j] = cfl_q3[cfl_h - 1][j];
+            cfl_h = h;
+        }
+        const int alpha = p == 1 ? cfl_u : cfl_v;
+        const int num_pel_log2 = log2i(w) + log2i(h);
+        int sum = 1 << (num_pel_log2 - 1);
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) sum += cfl_q3[i][j];
+        const int avg = sum >> num_pel_log2;
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++) {
                 uint8_t* d = px(p, y + i, x + j);
-                *d = clip_pixel(*d + round2signed(alpha * (lq3[i][j] - avg), 6));
+                *d = clip_pixel(*d + round2signed(alpha * (cfl_q3[i][j] - avg), 6));
             }
     }
 
-    // -- coefficients (decodetxb.c) for TX_4X4, class 2-D -----------------------------------
-    int coeffs(int p, int start_x, int start_y, int32_t* coef) {
-        int x4 = start_x >> 2, y4 = start_y >> 2;
-        int ptype = p > 0;
-        uint8_t a = above_ctx[p][x4], l = left_ctx[p][y4];
+    // -- coefficients (decodetxb.c) ----------------------------------------------------------------
+    // the transform type (av1_read_tx_type for luma, av1_get_tx_type)
+    int read_tx_type(int t, int x4, int y4) {
+        const int seg = b->seg_id;
+        uint8_t& slot = tx_type_map[(size_t)(mi_row + y4) * mi_cols + (mi_col + x4)];
+        slot = DCT_DCT;
+        const bool inter = b->intrabc;
+        const int set_type = ext_tx_set_type(t, inter);
+        if (!(fh.seg_enabled && fh.feature_enabled[seg][6]) && qindex_of(fh, seg) != 0 &&
+            av1tab::num_ext_tx_set[set_type] > 1) {
+            const int eset = av1tab::ext_tx_set_index[inter][set_type];
+            const int sq = av1tab::txsize_sqr_map[t];
+            int symbol;
+            if (inter) {
+                symbol = sym(cdf.inter_ext_tx[eset][sq], av1tab::num_ext_tx_set[set_type]);
+            } else {
+                const int mode = use_filter_intra ? av1tab::fimode_to_intradir[filter_mode] : b->ymode;
+                symbol = sym(cdf.intra_ext_tx[eset][sq][mode], av1tab::num_ext_tx_set[set_type]);
+            }
+            slot = av1tab::ext_tx_inv[set_type][symbol];
+        }
+        return slot;
+    }
+
+    int ext_tx_set_type(int t, bool inter) const {  // av1_get_ext_tx_set_type
+        const int up = av1tab::txsize_sqr_up_map[t];
+        if (up > TX_32X32) return 0;  // EXT_TX_SET_DCTONLY
+        if (up == TX_32X32) return inter ? 1 : 0;  // EXT_TX_SET_DCT_IDTX
+        if (fh.reduced_tx_set) return inter ? 1 : 2;  // EXT_TX_SET_DTT4_IDTX
+        return av1tab::ext_tx_set_lookup[inter][av1tab::txsize_sqr_map[t] == TX_16X16];
+    }
+
+    int get_tx_type(int p, int t, int x4, int y4) {
+        if (fh.lossless[b->seg_id] || av1tab::txsize_sqr_up_map[t] > TX_32X32) return DCT_DCT;
+        const int luma = tx_type_map[(size_t)(mi_row + y4) * mi_cols + (mi_col + x4)];
+        if (p == 0) return luma;
+        int type = b->intrabc ? luma : av1tab::intra_mode_to_tx_type[b->uvmode == UV_CFL_PRED ? (int)DC_PRED : (int)b->uvmode];
+        if (!av1tab::ext_tx_used[ext_tx_set_type(t, b->intrabc)][type]) type = DCT_DCT;
+        return type;
+    }
+
+    // av1_read_coeffs_txb with get_txb_ctx and av1_set_entropy_contexts:
+    // fills ``coef`` (dequantised, libaom's layout) and ``cur_tx_type``;
+    // returns the eob
+    int coeffs(int p, int t, int x4, int y4) {
+        const int ax = mi_col + x4, ly = mi_row + y4;  // 4:4:4 / 4:0:0: the plane's 4-sample units
+        const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
+        const int ptype = p > 0;
+        const uint8_t* a = &above_ctx[p][ax];
+        const uint8_t* l = &left_ctx[p][ly];
+        // get_txb_ctx
+        int dc_sum = 0;
+        for (int k = 0; k < w4; k++) dc_sum += (a[k] >> 3) == 1 ? -1 : (a[k] >> 3) == 2 ? 1 : 0;
+        for (int k = 0; k < h4; k++) dc_sum += (l[k] >> 3) == 1 ? -1 : (l[k] >> 3) == 2 ? 1 : 0;
+        const int dc_ctx = dc_sum < 0 ? 1 : dc_sum > 0 ? 2 : 0;
         int skip_ctx;
         if (p == 0) {
-            if (bsize == BLOCK_4X4) {
+            if (bw4 == w4 && bh4 == h4) {
                 skip_ctx = 0;
             } else {
                 static const uint8_t skip_contexts[5][5] = {
                     {1, 2, 2, 2, 3}, {2, 4, 4, 4, 5}, {2, 4, 4, 4, 5}, {2, 4, 4, 4, 5}, {3, 5, 5, 5, 6}};
-                int top = std::min(a & 7, 4), left = std::min(l & 7, 4);
-                skip_ctx = skip_contexts[top][left];
+                int top = 0, left = 0;
+                for (int k = 0; k < w4; k++) top |= a[k];
+                for (int k = 0; k < h4; k++) left |= l[k];
+                skip_ctx = skip_contexts[std::min(top & 7, 4)][std::min(left & 7, 4)];
             }
         } else {
-            skip_ctx = (a != 0) + (l != 0) + (bsize != BLOCK_4X4 ? 10 : 7);
+            int above_ec = 0, left_ec = 0;
+            for (int k = 0; k < w4; k++) above_ec |= a[k] != 0;
+            for (int k = 0; k < h4; k++) left_ec |= l[k] != 0;
+            skip_ctx = above_ec + left_ec + (bw4 * bh4 > w4 * h4 ? 10 : 7);
         }
-        for (int i = 0; i < 16; i++) coef[i] = 0;
-        int all_zero = sym(cdf.txb_skip[0][skip_ctx], 2);
+        const int txs_ctx = (av1tab::txsize_sqr_map[t] + av1tab::txsize_sqr_up_map[t] + 1) >> 1;
+        const int adj = adjusted_tx_size(t);
+        const int cw = kTxW[adj], ch = kTxH[adj];
+        int bhl = log2i(ch);
+        int all_zero = sym(cdf.txb_skip[txs_ctx][skip_ctx], 2);
+        int cul = 0, dc_val = 0, eob = 0;
         if (all_zero) {
-            above_ctx[p][x4] = 0;
-            left_ctx[p][y4] = 0;
-            return 0;
-        }
-        const int16_t* scan = av1tab::default_scan_4x4;
-        int eob_pt = sym(cdf.eob16[ptype][0], 5) + 1;
-        int eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
-        int eob_shift = eob_pt - 3;
-        if (eob_shift >= 0) {
-            if (sym(cdf.eob_extra[0][ptype][eob_pt - 3], 2)) eob += 1 << eob_shift;
-            for (int i = 1; i < std::max(0, eob_pt - 2); i++) {
-                eob_shift = std::max(0, eob_pt - 2) - 1 - i;
-                if (lit(1)) eob += 1 << eob_shift;
+            if (p == 0) tx_type_map[(size_t)ly * mi_cols + ax] = DCT_DCT;
+        } else {
+            if (p == 0) read_tx_type(t, x4, y4);
+            cur_tx_type = get_tx_type(p, t, x4, y4);
+            stats[ST_TX_TYPE + cur_tx_type]++;
+            const int cls = tx_class(cur_tx_type);
+            const int scan_kind = cls == TX_CLASS_2D ? 0 : cls == TX_CLASS_VERT ? 1 : 2;
+            const int16_t* scan = av1tab::scan_data + av1tab::scan_start[t][scan_kind];
+            const int8_t* nz_offset = av1tab::nz_map_ctx_offset_data + av1tab::nz_map_ctx_offset_start[t];
+            // the eob
+            const int eob_ctx = cls == TX_CLASS_2D ? 0 : 1;
+            int eob_pt;
+            switch (log2i(cw * ch) - 4) {
+                case 0: eob_pt = sym(cdf.eob16[ptype][eob_ctx], 5) + 1; break;
+                case 1: eob_pt = sym(cdf.eob32[ptype][eob_ctx], 6) + 1; break;
+                case 2: eob_pt = sym(cdf.eob64[ptype][eob_ctx], 7) + 1; break;
+                case 3: eob_pt = sym(cdf.eob128[ptype][eob_ctx], 8) + 1; break;
+                case 4: eob_pt = sym(cdf.eob256[ptype][eob_ctx], 9) + 1; break;
+                case 5: eob_pt = sym(cdf.eob512[ptype][eob_ctx], 10) + 1; break;
+                default: eob_pt = sym(cdf.eob1024[ptype][eob_ctx], 11) + 1; break;
             }
-        }
-        int level[6][6] = {{0}};  // [row][col] with two rows / columns of padding
-        for (int c = eob - 1; c >= 0; c--) {
-            int pos = scan[c], rr = pos >> 2, cc = pos & 3;
-            int lv;
-            if (c == eob - 1) {
-                int ctx = c == 0 ? 0 : c <= 2 ? 1 : c <= 4 ? 2 : 3;
-                lv = sym(cdf.base_eob[0][ptype][ctx], 3) + 1;
-            } else {
-                int mag = std::min(level[rr][cc + 1], 3) + std::min(level[rr + 1][cc], 3) +
-                          std::min(level[rr + 1][cc + 1], 3) + std::min(level[rr][cc + 2], 3) + std::min(level[rr + 2][cc], 3);
-                int ctx = std::min((mag + 1) >> 1, 4);
-                static const int8_t offset[16] = {0, 1, 6, 6, 1, 6, 6, 21, 6, 6, 21, 21, 6, 21, 21, 21};
-                ctx = pos == 0 ? 0 : ctx + offset[pos];
-                lv = sym(cdf.base[0][ptype][ctx], 4);
+            const int offset_bits = av1tab::eob_offset_bits[eob_pt];
+            int eob_extra = 0;
+            if (offset_bits > 0) {
+                if (sym(cdf.eob_extra[txs_ctx][ptype][eob_pt - 3], 2)) eob_extra += 1 << (offset_bits - 1);
+                for (int i = 1; i < offset_bits; i++)
+                    if (lit(1)) eob_extra += 1 << (offset_bits - 1 - i);
             }
-            if (lv > 2) {
-                int mag = level[rr][cc + 1] + level[rr + 1][cc] + level[rr + 1][cc + 1];
-                mag = std::min((mag + 1) >> 1, 6);
-                int ctx = pos == 0 ? mag : (rr < 2 && cc < 2) ? mag + 7 : mag + 14;
-                for (int idx = 0; idx < 4; idx++) {
-                    int k = sym(cdf.br[0][ptype][ctx], 4);
-                    lv += k;
-                    if (k < 3) break;
+            eob = av1tab::eob_group_start[eob_pt];
+            if (eob > 2) eob += eob_extra;
+            // the levels, in reverse scan order, on a padded column-major grid
+            const int stride_l = ch + 4;
+            memset(levels, 0, sizeof(uint8_t) * (size_t)stride_l * (cw + 4));
+            auto lv_at = [&](int pos) -> uint8_t& { return levels[(pos >> bhl) * stride_l + (pos & (ch - 1))]; };
+            const int br_txs = std::min(txs_ctx, 3);
+            for (int c = eob - 1; c >= 0; c--) {
+                const int pos = scan[c];
+                const int col = pos >> bhl, row = pos & (ch - 1);
+                const uint8_t* lv = &levels[col * stride_l + row];
+                int level;
+                if (c == eob - 1) {
+                    const int area = cw * ch;
+                    const int ctx = c == 0 ? 0 : c <= area / 8 ? 1 : c <= area / 4 ? 2 : 3;
+                    level = sym(cdf.base_eob[txs_ctx][ptype][ctx], 3) + 1;
+                } else {
+                    int ctx;
+                    if (cls == TX_CLASS_2D && pos == 0) {
+                        ctx = 0;
+                    } else {
+                        int mag = std::min<int>(lv[stride_l], 3) + std::min<int>(lv[1], 3);
+                        if (cls == TX_CLASS_2D)
+                            mag += std::min<int>(lv[stride_l + 1], 3) + std::min<int>(lv[2 * stride_l], 3) +
+                                   std::min<int>(lv[2], 3);
+                        else if (cls == TX_CLASS_VERT)
+                            mag += std::min<int>(lv[2], 3) + std::min<int>(lv[3], 3) + std::min<int>(lv[4], 3);
+                        else
+                            mag += std::min<int>(lv[2 * stride_l], 3) + std::min<int>(lv[3 * stride_l], 3) +
+                                   std::min<int>(lv[4 * stride_l], 3);
+                        ctx = std::min((mag + 1) >> 1, 4);
+                        if (cls == TX_CLASS_2D)
+                            ctx += nz_offset[pos];
+                        else
+                            ctx += av1tab::nz_map_ctx_offset_1d[cls == TX_CLASS_HORIZ ? col : row];
+                    }
+                    level = sym(cdf.base[txs_ctx][ptype][ctx], 4);
                 }
-            }
-            level[rr][cc] = lv;
-        }
-        int dc_ctx;
-        {
-            int sign_a = a >> 3, sign_l = l >> 3;
-            int dc_sign = (sign_a == 1 ? -1 : sign_a == 2 ? 1 : 0) + (sign_l == 1 ? -1 : sign_l == 2 ? 1 : 0);
-            dc_ctx = dc_sign < 0 ? 1 : dc_sign > 0 ? 2 : 0;
-        }
-        int cul = 0, dc_val = 0;
-        for (int c = 0; c < eob; c++) {
-            int pos = scan[c];
-            int lv = level[pos >> 2][pos & 3];
-            if (!lv) continue;
-            int sign = c == 0 ? sym(cdf.dc_sign[ptype][dc_ctx], 2) : lit(1);
-            if (lv >= 15) {  // read_golomb
-                stats[ST_GOLOMB]++;
-                int length = 0, i = 0;
-                while (!i) {
-                    i = lit(1);
-                    if (++length > 20) fail(DECODE_ERROR, "Invalid length in read_golomb");
+                if (level > 2) {
+                    int br_ctx;
+                    if (c == eob - 1) {  // get_br_ctx_eob
+                        br_ctx = pos == 0 ? 0
+                                 : ((cls == TX_CLASS_2D && row < 2 && col < 2) || (cls == TX_CLASS_HORIZ && col == 0) ||
+                                    (cls == TX_CLASS_VERT && row == 0))
+                                     ? 7
+                                     : 14;
+                    } else {  // get_br_ctx
+                        int mag = lv[1] + lv[stride_l];
+                        bool near;
+                        if (cls == TX_CLASS_2D) {
+                            mag += lv[stride_l + 1];
+                            near = row < 2 && col < 2;
+                        } else if (cls == TX_CLASS_HORIZ) {
+                            mag += lv[2 * stride_l];
+                            near = col == 0;
+                        } else {
+                            mag += lv[2];
+                            near = row == 0;
+                        }
+                        mag = std::min((mag + 1) >> 1, 6);
+                        br_ctx = pos == 0 ? mag : near ? mag + 7 : mag + 14;
+                    }
+                    for (int idx = 0; idx < 4; idx++) {
+                        const int k = sym(cdf.br[br_txs][ptype][br_ctx], 4);
+                        level += k;
+                        if (k < 3) break;
+                    }
                 }
-                int xg = 1;
-                for (int k = 0; k < length - 1; k++) xg = (xg << 1) + lit(1);
-                lv += xg - 1;
+                lv_at(pos) = (uint8_t)level;
             }
-            if (c == 0) dc_val = sign ? -lv : lv;
-            lv &= 0xFFFFF;
-            cul += lv;
-            // dequantised by 4 (qindex 0), masked to 24 bits, clamped to 8 + 7 bits
-            int dq = (int)(((int64_t)lv * 4) & 0xFFFFFF);
-            if (sign) dq = -dq;
-            coef[pos] = clip3(-(1 << 15), (1 << 15) - 1, dq);
+            // signs, Golomb remainders and dequantisation, in scan order
+            const int tx_area = kTxW[t] * kTxH[t];
+            const int scale = (tx_area > 256) + (tx_area > 1024);
+            const uint8_t* qm = nullptr;
+            if (qm_level[p] < 15 && cur_tx_type < IDTX) {
+                qm = &av1tab::iwt_matrix[qm_level[p]][p > 0][av1tab::qm_start[t]];
+                stats[ST_QM]++;
+            }
+            std::fill(coef, coef + cw * ch, 0);
+            for (int c = 0; c < eob; c++) {
+                const int pos = scan[c];
+                int level = lv_at(pos);
+                if (!level) continue;
+                const int sign = c == 0 ? sym(cdf.dc_sign[ptype][dc_ctx], 2) : lit(1);
+                if (level >= 15) {  // read_golomb
+                    stats[ST_GOLOMB]++;
+                    int length = 0, i = 0;
+                    while (!i) {
+                        i = lit(1);
+                        if (++length > 20) fail(DECODE_ERROR, "Invalid length in read_golomb");
+                    }
+                    int xg = 1;
+                    for (int k = 0; k < length - 1; k++) xg = (xg << 1) + lit(1);
+                    level += xg - 1;
+                }
+                if (c == 0) dc_val = sign ? -level : level;
+                level &= 0xFFFFF;
+                cul += level;
+                int dqv = dequant[p][pos != 0];
+                if (qm) dqv = (qm[pos] * dqv + 16) >> 5;
+                int dq = (int)(((int64_t)level * dqv) & 0xFFFFFF);
+                dq >>= scale;
+                if (sign) dq = -dq;
+                coef[pos] = clip3(-(1 << 15), (1 << 15) - 1, dq);
+            }
         }
         int ctx_byte = std::min(cul, 7);
         if (dc_val < 0)
             ctx_byte |= 1 << 3;
         else if (dc_val > 0)
             ctx_byte += 2 << 3;
-        above_ctx[p][x4] = (uint8_t)ctx_byte;
-        left_ctx[p][y4] = (uint8_t)ctx_byte;
+        // av1_set_entropy_contexts: past the frame's last 4x4 column or row, 0
+        const int blocks_w = std::min(bw4, mi_cols - mi_col), blocks_h = std::min(bh4, mi_rows - mi_row);
+        for (int k = 0; k < w4; k++) above_ctx[p][ax + k] = (uint8_t)(x4 + k < blocks_w ? ctx_byte : 0);
+        for (int k = 0; k < h4; k++) left_ctx[p][ly + k] = (uint8_t)(y4 + k < blocks_h ? ctx_byte : 0);
         return eob;
     }
 
-    // -- the inverse Walsh-Hadamard transform (aom_iwht4x4_16_add / _1_add) -------------------
-    void reconstruct(int p, int x, int y, const int32_t* coef, int eob) {
+    // -- the inverse Walsh-Hadamard transform of a lossless block (aom_iwht4x4_16_add / _1_add) --
+    void reconstruct_wht(int p, int x, int y, int eob) {
         int32_t in[16];
         for (int i = 0; i < 16; i++) in[i] = coef[(i & 3) * 4 + (i >> 2)];
         int64_t out[16];
@@ -2283,7 +2909,13 @@ struct Decoder {
         if (seq.bit_depth != 8) fail(UNPORTED, "10/12-bit samples");
         if (!seq.mono && (seq.ss_x || seq.ss_y)) fail(UNPORTED, "4:2:0 and 4:2:2 chroma");
         if (fh.width != fh.upscaled_width || fh.apply_grain) fail(UNPORTED, "superres and film grain");
-        if (!fh.coded_lossless) fail(UNPORTED, "lossy frames (qindex > 0)");
+        // the in-loop filters libaom runs (decodeframe.c): deblocking where a
+        // luma level is set, CDEF unless its bits and first strengths are all
+        // 0, loop restoration where a plane's type is not NONE
+        bool deblock = fh.loop_filter_level[0] || fh.loop_filter_level[1];
+        bool cdef = fh.cdef_bits || fh.cdef_y_strength0 || fh.cdef_uv_strength0;  // not read when coded lossless
+        bool restoration = fh.restoration_type[0] || fh.restoration_type[1] || fh.restoration_type[2];
+        if (deblock || cdef || restoration) fail(UNPORTED, "in-loop filters (deblocking, CDEF, loop restoration)");
     }
 
     size_t read_metadata(const uint8_t* d, size_t sz) {
@@ -2448,10 +3080,8 @@ struct Decoder {
                 case OBU_REDUNDANT_FRAME_HEADER:
                 case OBU_FRAME:
                     if (h.type == OBU_REDUNDANT_FRAME_HEADER) {
-                        if (!seen_frame_header) {
-                            data += payload;
-                            continue;
-                        }
+                        // libaom 3.14 fails the frame on one before any frame header
+                        if (!seen_frame_header) fail(HEADER_ERROR, "a redundant frame header before the frame header");
                     } else if (seen_frame_header) {
                         fail(HEADER_ERROR, "a second frame header inside a frame");
                     }
@@ -2566,6 +3196,16 @@ int av1_info(const uint8_t* data, int64_t n, int32_t* info, char* msg, int msg_l
                      s.color_range, s.profile, s.still_picture, s.reduced, f.base_q_idx, f.tile_cols * f.tile_rows,
                      f.allow_intrabc, f.allow_screen_content_tools, s.use_128};
     memcpy(info, v, sizeof v);
+    return OK;
+}
+
+// One inverse transform, for the tests: ``coef`` in libaom's layout (column
+// by column, a 64-sample side holding 32), added to the 8-bit block at
+// ``dst`` with the decoder's arithmetic. Returns BAD_CALL for a size or a
+// type out of range.
+int av1_inverse_transform(const int32_t* coef, int tx_size, int tx_type, uint8_t* dst, int stride) {
+    if (tx_size < 0 || tx_size >= TX_SIZES_ALL || tx_type < 0 || tx_type >= TX_TYPES) return BAD_CALL;
+    inverse_transform_add(coef, tx_size, tx_type, dst, stride);
     return OK;
 }
 

@@ -602,7 +602,12 @@ AV1_INFO = ("width", "height", "bit_depth", "mono", "ss_x", "ss_y", "color_prima
 # the tool counters of ``av1_decode(..., stats=...)`` (``csrc/av1.cpp``'s ST_*)
 AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "angle_delta": 37, "palette_y": 38,
              "palette_uv": 39, "filter_intra": 40, "intrabc": 41, "tiles": 42, "blocks": 43, "palette_cache": 44,
-             "segment_id": 45, "edge_upsample": 46, "edge_filter": 47, "golomb": 48}
+             "segment_id": 45, "edge_upsample": 46, "edge_filter": 47, "golomb": 48,
+             "tx_size": (49, 68), "tx_type": (68, 84), "qm": 84, "delta_q": 85, "vartx_split": 86, "residual": 87}
+AV1_STATS_SIZE = 128  # ST_COUNT
+# libaom's TX_SIZE order, the order of the "tx_size" counters
+AV1_TX_SIZES = ("4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32", "32x16", "32x64",
+                "64x32", "4x16", "16x4", "8x32", "32x8", "16x64", "64x16")
 
 
 def load_av1_library() -> ctypes.CDLL:
@@ -617,6 +622,9 @@ def load_av1_library() -> ctypes.CDLL:
             lib.av1_decode.restype = ctypes.c_int
             lib.av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
                                        i32p, ctypes.c_char_p, ctypes.c_int]
+            lib.av1_inverse_transform.restype = ctypes.c_int
+            lib.av1_inverse_transform.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
+                                                  ctypes.c_int]
             _av1_lib = lib
     return _av1_lib
 
@@ -638,13 +646,15 @@ def av1_info(stream: bytes):
 def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = None):
     """Decode a stream whose headers ``av1_info`` read → (status, [1 or 3,
     height, width] uint8 planes (Y, U, V) or None, libaom's reason).
-    ``stats``: an int32 array of 64 that gets the tool counters
-    (``AV1_STATS``)."""
+    ``stats``: an int32 array of ``AV1_STATS_SIZE`` that gets the tool
+    counters (``AV1_STATS``)."""
     lib = load_av1_library()
     planes = 1 if info[3] else 3
     out = np.empty((planes, int(info[1]), int(info[0])), np.uint8)
     if stats is None:
-        stats = np.zeros(64, np.int32)
+        stats = np.zeros(AV1_STATS_SIZE, np.int32)
+    if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
+        raise ValueError(f"av1_decode: stats must be a contiguous int32 array of {AV1_STATS_SIZE}")
     msg = ctypes.create_string_buffer(256)
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
                             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
@@ -653,3 +663,20 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
     if status:
         return status, None, msg.value.decode(errors="replace")
     return 0, out, ""
+
+
+def av1_inverse_transform(coef: np.ndarray, tx_size: int, tx_type: int, dst: np.ndarray):
+    """Add one inverse transform of ``csrc/av1.cpp`` to the uint8 block
+    ``dst`` (its rows and columns the size's; changed in place): ``coef``
+    int32 in libaom's layout (column by column; a side of 64 holds 32),
+    ``tx_size`` / ``tx_type`` by libaom's TX_SIZE / TX_TYPE order, with the
+    decoder's arithmetic (that of libaom's x86 path)."""
+    lib = load_av1_library()
+    w, h = (int(v) for v in AV1_TX_SIZES[tx_size].split("x"))
+    coef = np.ascontiguousarray(coef, np.int32)
+    if dst.shape != (h, w) or dst.dtype != np.uint8 or not dst.flags.c_contiguous or coef.size != min(w, 32) * min(h, 32):
+        raise ValueError(f"av1_inverse_transform: a {h}x{w} uint8 block and {min(w, 32) * min(h, 32)} coefficients")
+    status = lib.av1_inverse_transform(coef.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), tx_size, tx_type,
+                                       dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w)
+    if status:
+        raise ValueError(f"av1_inverse_transform: no transform of size {tx_size} and type {tx_type}")

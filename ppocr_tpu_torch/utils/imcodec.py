@@ -132,7 +132,8 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   unknown colour space) from three or four components, grey from the
   first, sYCC through its integer YUV conversion, each sample shifted
   right by the largest precision less 8.
-* **AVIF**, lossless 8-bit stills (the ISOBMFF boxes and cv2's hand-over
+* **AVIF**, 8-bit 4:4:4 and monochrome stills, lossless or lossy with
+  the in-loop filters off (the ISOBMFF boxes and cv2's hand-over
   in Python, the AV1 stream in ``csrc/av1.cpp``, host C++ built at first
   use), as OpenCV 5.0's ``grfmt_avif.cpp`` reads them through libavif
   1.4.2 over libaom 3.14.1: the boxes by libavif's rules with its strict
@@ -140,8 +141,9 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   from the file or ``idat``, ``ipma`` essential flags, every image
   item's ``ispe``), cv2's signature check over the first 500 bytes, the
   primary item and its alpha item (decoded, a bad one refusing the file,
-  then dropped); the AV1 intra syntax of a coded-lossless key frame as
-  libaom decodes it; then one channel (the Y plane as it is) where the
+  then dropped); the AV1 intra syntax of a key frame (transform sizes and
+  types, coefficients, quantisers, inverse transforms) as libaom decodes
+  it; then one channel (the Y plane as it is) where the
   ``av1C`` says monochrome, else libavif's identity-matrix, full-range
   YUV to BGR.
 
@@ -151,8 +153,8 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
 ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
-the AVIF kinds of ``AVIF_UNPORTED`` (lossy, subsampled, 10/12-bit, grid
-and sequence files among them); no sniffed format is without a decoder
+the AVIF kinds of ``AVIF_UNPORTED`` (frames whose in-loop filters run,
+subsampled, 10/12-bit, grid and sequence files among them); no sniffed format is without a decoder
 (``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
 response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
 JPEG 2000 or AVIF decode raises when its host C++ cannot be built: a
@@ -2636,7 +2638,7 @@ def _j2k_reason(status: int, reason: str) -> str:
 # what cv2 5.0 decodes in an AVIF file and this module does not, by the
 # reason logged, with its ROADMAP item
 AVIF_UNPORTED = {
-    "lossy frames (qindex > 0)": "A14.7b",
+    "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b",
     "4:2:0 and 4:2:2 chroma": "A14.7b",
     "a matrix other than identity": "A14.7b",
     "limited range": "A14.7b",

@@ -24,10 +24,28 @@ How each table is found:
   or the bytes of its symbol) occurs exactly once.
 * The intra edge filter's kernels are folded into code: the script calls
   ``av1_filter_intra_edge_c`` on an impulse for each strength.
+* The transform syntax's CDFs (``tx_size_cdf``, ``txfm_partition_cdf``,
+  ``intra_ext_tx_cdf``, ``inter_ext_tx_cdf``) come from the frame context
+  like the mode CDFs (by their anchors; a set of one type has zero rows).
+  The transform sets (``av1_ext_tx_*``, ``ext_tx_set_index``), the size
+  maps (``sub_tx_size_map``, ``max_txsize_rect_lookup``,
+  ``txsize_sqr_*``), the 8-bit ``dc_qlookup_QTX`` / ``ac_qlookup_QTX``,
+  the quantiser matrices (``iwt_matrix_ref``, levels 0-14, luma and
+  chroma, each size at its offset in ``av1_qm_init``'s order), the
+  cos/sin rows of cos_bit 12 (``INV_COS_BIT``: libaom 3.14 has no inverse
+  cos_bit table, every size uses 12) and the EOB tables are objects. The
+  scans, ``nz_map_ctx_offset`` and the inverse shifts are reached through
+  libaom's own pointer tables (``av1_scan_orders``, ``av1_nz_map_ctx_offset``,
+  ``av1_inv_txfm_shift_ls``), read from the loaded library: the file holds
+  them unrelocated. Each is checked (permutations, rising lookups, shapes,
+  the mapping of types to scans).
+
+The transform tables grew the header from 112,348 to 620,891 bytes
+(+508,543), 420 kB of it the quantiser matrices.
 
 Every CDF row is checked: its values strictly decrease and stay above 0,
 then come the 0 of the last symbol, the 0 of the adaptation counter and
-the row's padding zeros. The script fails and writes nothing otherwise.
+the row's padding zeros (a row of a one-type transform set is all zero). The script fails and writes nothing otherwise.
 ``--check`` compares the header it would write with the committed one
 byte for byte instead of writing.
 """
@@ -95,6 +113,14 @@ class Library:
             raise SystemExit(f"{name}: {len(contents)} different objects")
         return np.frombuffer(contents.pop(), dtype).copy()
 
+    def pointers(self, name: str, count: int) -> list:
+        """The names of the objects a table of ``count`` pointers points to,
+        read from the loaded library (the file holds them unrelocated)."""
+        value, size = self.sym(name)
+        raw = np.frombuffer(ctypes.string_at(self.base + value, size), "<u8")[:count]
+        at = {v: n for n, found in self.syms.items() for v, _ in found}
+        return [at[int(p) - self.base] for p in raw]
+
     def function(self, name: str, restype, *argtypes):
         return ctypes.CFUNCTYPE(restype, *argtypes)(self.base + self.sym(name)[0])
 
@@ -130,6 +156,16 @@ MODE_CDFS = [
     # delta_q_cdf, delta_lf_multi_cdf[4] and delta_lf_cdf lie one after
     # another in the frame context and hold the same row: anchored together
     ("delta_q_lf_cdfs", (6, 5), 4, icdf(28160, 32120, 32677) * 6),
+    # the transform syntax: tx_size_cdf[category][context] (2 symbols in the
+    # first category, 3 in the others; rows padded to 4), the var-tx split
+    # flags, and the transform types by set (set 0 has one type: zero rows)
+    ("tx_size_cdf", (4, 3, 4), lambda i: 2 if i < 3 else 3,
+     (icdf(19968) + [0]) * 2 + icdf(24320) + [0] + icdf(12272, 30172) * 2 + icdf(18677, 30848)
+     + icdf(12986, 15180) * 2 + icdf(24302, 25602) + icdf(5782, 11475) * 2 + icdf(16803, 22759)),
+    ("txfm_partition_cdf", (21, 3), 2, icdf(28581) + icdf(23846) + icdf(20847) + icdf(24315) + icdf(18196)
+     + icdf(12133)),
+    ("intra_ext_tx_cdf", (3, 4, 13, 17), lambda i: (0, 7, 5)[i // 52], "default_intra_ext_tx_cdf"),
+    ("inter_ext_tx_cdf", (4, 4, 17), lambda i: (0, 16, 12, 2)[i // 4], "default_inter_ext_tx_cdf"),
 ]
 
 # the coefficient CDFs: library object, shape, symbols of each row
@@ -159,6 +195,10 @@ def check_rows(name: str, table: np.ndarray, symbols):
     rows = table.reshape(-1, table.shape[-1]) if table.ndim > 1 else table[None]
     for i, row in enumerate(rows):
         n = symbols(i) if callable(symbols) else symbols
+        if n == 0:  # a set of one symbol, never read
+            if row.any():
+                raise SystemExit(f"{name} row {i}: not zero: {row.tolist()}")
+            continue
         vals, rest = row[: n - 1].astype(np.int64), row[n - 1:]
         if not ((vals > 0).all() and (vals < 32768).all() and (np.diff(vals) < 0).all() and not rest.any()):
             raise SystemExit(f"{name} row {i}: not an inverted CDF of {n} symbols: {row.tolist()}")
@@ -246,12 +286,118 @@ def tables(lib: Library) -> list:
         if sorted(s.tolist()) != list(range(16)):
             raise SystemExit(f"{scan}: not a permutation of 16")
         out.append(("int16_t", scan, s))
+    out += transform_tables(lib)
+    return out
+
+
+# libaom's TX_SIZE order and each size's width and height
+TX_NAMES = ("4x4 8x8 16x16 32x32 64x64 4x8 8x4 8x16 16x8 16x32 32x16 32x64 64x32 4x16 16x4 8x32 32x8 16x64 "
+            "64x16").split()
+TX_WH = [tuple(int(v) for v in n.split("x")) for n in TX_NAMES]
+
+
+def adjusted(t: int) -> int:
+    """``av1_get_adjusted_tx_size``: a side of 64 codes as 32."""
+    w, h = TX_WH[t]
+    return TX_NAMES.index(f"{min(w, 32)}x{min(h, 32)}")
+
+
+def transform_tables(lib: Library) -> list:
+    """The tables of the transform syntax, the dequantisation and the
+    inverse transforms."""
+    out = []
+    small = [("sub_tx_size_map", "u1", "uint8_t"), ("max_txsize_rect_lookup", "u1", "uint8_t"),
+             ("txsize_sqr_map", "u1", "uint8_t"), ("txsize_sqr_up_map", "u1", "uint8_t"),
+             ("av1_ext_tx_set_lookup", "u1", "uint8_t"), ("ext_tx_set_index", "<i4", "int8_t"),
+             ("av1_num_ext_tx_set", "<i4", "uint8_t"), ("av1_ext_tx_inv", "<i4", "uint8_t"),
+             ("av1_ext_tx_used", "<i4", "uint8_t"), ("vtx_tab", "u1", "uint8_t"), ("htx_tab", "u1", "uint8_t"),
+             ("fimode_to_intradir", "u1", "uint8_t"), ("nz_map_ctx_offset_1d", "<i4", "int8_t"),
+             ("av1_eob_group_start", "<i2", "int16_t"), ("av1_eob_offset_bits", "<i2", "int8_t")]
+    shapes = {"av1_ext_tx_set_lookup": (2, 2), "ext_tx_set_index": (2, 6), "av1_ext_tx_inv": (6, 16),
+              "av1_ext_tx_used": (6, 16)}
+    for name, dtype, ctype in small:
+        a = lib.object(name, dtype)
+        out.append((ctype, name.removeprefix("av1_"), a.reshape(shapes.get(name, a.shape))))
+    wide, high = lib.object("tx_size_wide", "<i4"), lib.object("tx_size_high", "<i4")
+    if list(zip(wide, high)) != TX_WH:
+        raise SystemExit("tx_size_wide / tx_size_high: not libaom's TX_SIZE order")
+    mode_types = lib.object("_intra_mode_to_tx_type.1", "u1")
+    for copy in ("_intra_mode_to_tx_type.9", "_intra_mode_to_tx_type.16"):
+        if (lib.object(copy, "u1") != mode_types).any():
+            raise SystemExit(f"{copy}: another intra mode to transform type table")
+    out.append(("uint8_t", "intra_mode_to_tx_type", mode_types))
+    if (lib.object("av1_num_ext_tx_set", "<i4") != (1, 2, 5, 7, 12, 16)).any():
+        raise SystemExit("av1_num_ext_tx_set: not the six sets")
+    # the scans of each size (a 64-sample side codes as 32: no scan of its
+    # own), default / mrow / mcol, one after another
+    data, start = [], np.zeros((19, 3), np.int32)
+    for t, name in enumerate(TX_NAMES):
+        if adjusted(t) != t:
+            start[t] = start[adjusted(t)]
+            continue
+        for k, kind in enumerate(("default", "mrow", "mcol")):
+            s = lib.object(f"{kind}_scan_{name}", "<i2")
+            if sorted(s.tolist()) != list(range(TX_WH[t][0] * TX_WH[t][1])):
+                raise SystemExit(f"{kind}_scan_{name}: not a permutation")
+            start[t, k] = sum(len(d) for d in data)
+            data.append(s)
+    orders = lib.pointers("av1_scan_orders", 19 * 16 * 2)[::2]  # {scan, iscan} per size and type
+    for t, name in enumerate(TX_NAMES):
+        a = TX_NAMES[adjusted(t)]
+        want = ["default"] * 10 + ["mrow", "mcol"] * 3
+        if orders[t * 16:(t + 1) * 16] != [f"{k}_scan_{a}" for k in want]:
+            raise SystemExit(f"av1_scan_orders[{name}]: not default for the 2-D types, mrow / mcol for the 1-D ones")
+    out.append(("int16_t", "scan_data", np.concatenate(data)))
+    out.append(("int32_t", "scan_start", start))
+    # nz_map_ctx_offset by size, read through libaom's own pointer table
+    # (several sizes share an object: 8x4 reads the first half of 16x4's)
+    data, start, seen = [], np.zeros(19, np.int32), {}
+    for t, name in enumerate(lib.pointers("av1_nz_map_ctx_offset", 19)):
+        w, h = TX_WH[adjusted(t)]
+        if name not in seen:
+            seen[name] = sum(len(d) for d in data)
+            data.append(lib.object(name, "i1"))
+        if w * h > len(data[list(seen).index(name)]):
+            raise SystemExit(f"{name}: shorter than {TX_NAMES[t]}'s {w * h} contexts")
+        start[t] = seen[name]
+    out.append(("int8_t", "nz_map_ctx_offset_data", np.concatenate(data)))
+    out.append(("int32_t", "nz_map_ctx_offset_start", start))
+    shifts = np.array([lib.object(n, "i1") for n in lib.pointers("av1_inv_txfm_shift_ls", 19)])
+    if shifts.shape != (19, 2) or (shifts > 0).any():
+        raise SystemExit("av1_inv_txfm_shift_ls: not two right shifts per size")
+    out.append(("int8_t", "inv_txfm_shift", shifts))
+    # cos_bit 12 (INV_COS_BIT) is the third row (cos_bit_min is 10)
+    cospi = lib.object("av1_cospi_arr_data", "<i4").reshape(-1, 64)[2]
+    sinpi = lib.object("av1_sinpi_arr_data", "<i4").reshape(-1, 5)[2]
+    if cospi[0] != 4096 or cospi[32] != 2896 or sinpi.tolist() != [0, 1321, 2482, 3344, 3803]:
+        raise SystemExit("av1_cospi_arr_data / av1_sinpi_arr_data: not the 12-bit rows")
+    out.append(("int16_t", "cospi", cospi))
+    out.append(("int16_t", "sinpi", sinpi))
+    for name in ("dc_qlookup_QTX", "ac_qlookup_QTX"):
+        q = lib.object(name, "<i2")
+        if q.size != 256 or (np.diff(q) < 0).any() or q[0] != 4:
+            raise SystemExit(f"{name}: not 256 rising 8-bit steps")
+        out.append(("int16_t", name.removesuffix("_QTX"), q))
+    # the inverse quantiser matrices of levels 0-14 (15 is flat), luma and
+    # chroma, each size's in av1_qm_init's order (a side of 64 reuses 32)
+    iwt = lib.object("iwt_matrix_ref", "u1").reshape(15, 2, -1)
+    qm_start, at = np.zeros(19, np.int32), 0
+    for t in range(19):
+        if adjusted(t) == t:
+            qm_start[t] = at
+            at += TX_WH[t][0] * TX_WH[t][1]
+        else:
+            qm_start[t] = qm_start[adjusted(t)]
+    if iwt.shape[2] != at or not (iwt > 0).all():
+        raise SystemExit(f"iwt_matrix_ref: {iwt.shape[2]} weights per level and plane, not {at}")
+    out.append(("uint8_t", "iwt_matrix", iwt))
+    out.append(("int32_t", "qm_start", qm_start))
     return out
 
 
 def c_array(ctype: str, name: str, a: np.ndarray) -> str:
     dims = "".join(f"[{d}]" for d in a.shape)
-    width = a.shape[-1]
+    width = a.shape[-1] if a.shape[-1] <= 64 else 32
     flat = [str(int(v)) for v in a.reshape(-1)]
     lines = [", ".join(flat[i: i + width]) for i in range(0, len(flat), width)]
     body = ",\n    ".join(lines)

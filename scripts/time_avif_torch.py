@@ -4,8 +4,10 @@ cv2 is installed.
 
     python3 scripts/time_avif_torch.py [--repeats 25]
 
-The payload is the committed one of ``assets/image_cases.npz``: the scene
-as cv2's lossless AVIF at its default speed (``scene0_avif``). Times, in
+The payloads are the committed ones of ``assets/image_cases.npz``: the
+scene as cv2's lossless AVIF at its default speed (``scene0_avif``) and as
+a lossy 4:4:4 AVIF with the in-loop filters off (libavif 1.4.2's writer,
+q90, speed 6, identity matrix: ``scene0_avif_lossy``). For each, times, in
 turns, with the median of ``--repeats`` runs each after one untimed (which
 builds ``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
 Python, the AV1 decode on one host thread), the AV1 stream's decode alone
@@ -13,7 +15,7 @@ Python, the AV1 decode on one host thread), the AV1 stream's decode alone
 and, where cv2 5.0.0 (the version the port replays) imports,
 ``cv2.imdecode`` at cv2's own thread count and at
 ``cv2.setNumThreads(1)``; another cv2 (or none) is named in the output and
-not timed. Prints one JSON line.
+not timed. Prints one JSON line, the payloads by name.
 """
 
 from __future__ import annotations
@@ -32,34 +34,31 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
-PAYLOAD = "scene0_avif"
+PAYLOADS = ("scene0_avif", "scene0_avif_lossy")
 
 
 def av1_stream(data: bytes) -> bytes:
-    """The primary item's bytes of a file as cv2 writes it (iloc version 0,
-    4-byte offsets and lengths, item 1 first)."""
+    """The primary item's bytes of a file as libavif writes it (iloc
+    version 0, 4-byte offsets and lengths, item 1 first)."""
     at = data.index(b"iloc") + 4
     off, length = struct.unpack(">II", data[at + 14:at + 22])
     return data[off:off + length]
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--repeats", type=int, default=25)
-    args = p.parse_args(argv)
+def time_payload(name: str, repeats: int) -> dict:
     from ppocr_tpu_torch import assets
     from ppocr_tpu_torch.ops import native
     from ppocr_tpu_torch.utils import imcodec
 
-    data, want = assets.load_image_cases()[PAYLOAD]
+    data, want = assets.load_image_cases()[name]
     stream = av1_stream(data)
     status, info, reason = native.av1_info(stream)
     if status:
-        raise SystemExit(f"{PAYLOAD}: {reason}")
+        raise SystemExit(f"{name}: {reason}")
     planes = native.av1_decode(stream, info)[1]
     if not (imcodec.decode_image(data) == want).all() or not (np.stack([planes[1], planes[0], planes[2]], -1)
                                                                == want).all():
-        raise SystemExit(f"{PAYLOAD}: the port's decode differs from the committed cv2 answer")
+        raise SystemExit(f"{name}: the port's decode differs from the committed cv2 answer")
     runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": lambda: native.av1_decode(stream, info)}
     try:
         import cv2
@@ -73,7 +72,7 @@ def main(argv=None) -> int:
         threads = cv2.getNumThreads()
         buf = np.frombuffer(data, np.uint8)
         if not (cv2.imdecode(buf, cv2.IMREAD_COLOR) == want).all():
-            raise SystemExit(f"{PAYLOAD}: this cv2's decode differs from the committed one")
+            raise SystemExit(f"{name}: this cv2's decode differs from the committed one")
         runs["cv2"] = lambda: cv2.imdecode(buf, cv2.IMREAD_COLOR)
 
         def single():
@@ -86,19 +85,27 @@ def main(argv=None) -> int:
     out = {k: [] for k in runs}
     for fn in runs.values():
         fn()  # one untimed each
-    for _ in range(args.repeats):
+    for _ in range(repeats):
         for k, fn in runs.items():  # in turns
             t = time.perf_counter()
             fn()
             out[k].append((time.perf_counter() - t) * 1e3)
     ms = {k: statistics.median(v) for k, v in out.items()}
-    result = {"ms": ms, "bytes": len(data), "size": list(want.shape), "cv2_version": version,
-              "cv2_timed": cv2 is not None, "cv2_threads": threads,
-              "host": {"machine": platform.machine(), "processor": platform.processor(), "cpus": os.cpu_count(),
-                       "python": platform.python_version()}}
+    result = {"ms": ms, "bytes": len(data), "size": list(want.shape), "base_q_idx": int(info[13]),
+              "cv2_version": version, "cv2_timed": cv2 is not None, "cv2_threads": threads}
     if cv2 is not None:
         result["port_over_cv2"] = ms["port"] / ms["cv2"]
         result["port_over_cv2_1thread"] = ms["port"] / ms["cv2_1thread"]
+    return result
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--repeats", type=int, default=25)
+    args = p.parse_args(argv)
+    result = {name: time_payload(name, args.repeats) for name in PAYLOADS}
+    result["host"] = {"machine": platform.machine(), "processor": platform.processor(), "cpus": os.cpu_count(),
+                      "python": platform.python_version()}
     print(json.dumps({"avif_host_ms": result}))
     return 0
 

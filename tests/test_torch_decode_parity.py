@@ -390,9 +390,11 @@ def _refused():
         "12-bit": (base[:sof + 3] + bytes([12]) + base[sof + 4:], "precision", False),
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
-    # AVIF is decoded since, lossless 8-bit stills (tests/test_torch_avif.py),
-    # but not lossy frames, ``imcodec.AVIF_UNPORTED``: cv2's default
-    # (quality 95) file is refused with a line naming them and A14.7b
+    # AVIF is decoded since, 8-bit 4:4:4 stills, lossless and lossy with the
+    # in-loop filters off (tests/test_torch_avif.py, test_torch_avif_lossy.py),
+    # but not subsampled chroma, ``imcodec.AVIF_UNPORTED``: cv2's default
+    # (quality 95) file, 4:2:0 with matrix 6, is refused with a line naming
+    # A14.7b
     cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(), "(ROADMAP A14.7b)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
