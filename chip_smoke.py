@@ -180,12 +180,15 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     bare JPEG, and the scene as an irreversible JP2 (as data) against the
     PNG of the same pixels with one ``ctc_topk`` launch ("jpeg2000
     service"), and the AVIF cases (8-bit stills decoded by
-    ``csrc/av1.cpp``, lossless and lossy 4:4:4 or monochrome with the
-    in-loop filters off: the ``avif_vs_cv2`` and ``avif_lossy_vs_cv2``
-    counts), the host ms of the scene as cv2's lossless AVIF and as a lossy
-    4:4:4 one (q90, filters off), and each file (as data) against the PNG
-    of cv2's pixels: the same words exactly, with one ``ctc_topk`` launch
-    each ("avif service", "lossy avif service"); a
+    ``csrc/av1.cpp``, lossless and lossy with the in-loop filters off,
+    4:4:4, 4:2:2, 4:2:0 or monochrome, converted by ``csrc/avif_yuv.cpp``
+    as libavif converts them: the ``avif_vs_cv2``, ``avif_lossy_vs_cv2``
+    and ``avif_chroma_vs_cv2`` counts), the host ms of the scene as cv2's
+    lossless AVIF, as a lossy 4:4:4 one (q90, filters off) and as cv2's
+    quality-95 file (4:2:0, BT.601), and each file (as data) against the
+    PNG of cv2's pixels: the same words exactly, with one ``ctc_topk``
+    launch each ("avif service", "lossy avif service", "subsampled avif
+    service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1507,7 +1510,7 @@ class Smoke:
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
-            + j2k_timed + ("scene0_avif", "scene0_avif_lossy")
+            + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1517,6 +1520,7 @@ class Smoke:
         j2k = [0, 0]  # JPEG 2000 cases (JP2 and raw codestreams), of them None
         avif = [0, 0]  # AVIF cases, of them None
         avif_lossy = [0, 0]  # of them lossy (4:4:4 or monochrome, the in-loop filters off), of them None
+        avif_chroma = [0, 0]  # of them 4:2:0 or 4:2:2 (Pillow's and cv2's), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1531,9 +1535,11 @@ class Smoke:
                 is_j2k = sniff_format(data) == "jpeg2000"
                 is_avif = sniff_format(data) == "avif"
                 is_avif_lossy = name.startswith("avif_lossy_") or name == "scene0_avif_lossy"
+                is_avif_chroma = name.startswith("avif_chroma") or name == "scene0_avif_q95"
                 j2k[0] += is_j2k
                 avif[0] += is_avif
                 avif_lossy[0] += is_avif_lossy
+                avif_chroma[0] += is_avif_chroma
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1549,6 +1555,7 @@ class Smoke:
                     j2k[1] += is_j2k
                     avif[1] += is_avif
                     avif_lossy[1] += is_avif_lossy
+                    avif_chroma[1] += is_avif_chroma
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1600,6 +1607,13 @@ class Smoke:
                                                           == cases["scene0_avif_lossy"][1]).all():
             raise AssertionError("scene0_avif_lossy is not an AVIF that decodes to cv2's pixels")
         avif_lossy_png = encode_png(cases["scene0_avif_lossy"][1])
+        # the scene as cv2's quality-95 AVIF (4:2:0, BT.601, the in-loop
+        # filters off), beside the PNG of cv2's pixels of that file
+        avif_q95_data = cases["scene0_avif_q95"][0]
+        if sniff_format(avif_q95_data) != "avif" or not (decode_image(avif_q95_data)
+                                                        == cases["scene0_avif_q95"][1]).all():
+            raise AssertionError("scene0_avif_q95 is not an AVIF that decodes to cv2's pixels")
+        avif_q95_png = encode_png(cases["scene0_avif_q95"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1722,6 +1736,21 @@ class Smoke:
                     raise AssertionError("the lossy AVIF's words are not the PNG's: the texts and boxes must be equal")
                 words["scene0_avif_lossy"] = len(got_avif_lossy["words"])
                 before = service_launches(c)
+                got_avif_q95 = c.send_request(req(avif_q95_data))
+                self.launches["subsampled avif service"] = launched_avif_q95 = launches_since(
+                    c, before, "subsampled AVIF")
+                if launched_avif_q95["ctc_topk"] != 1:
+                    raise AssertionError(f"the subsampled AVIF request: {launched_avif_q95}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_q95_png))
+                if not got_avif_q95.get("success") or not want.get("words"):
+                    raise AssertionError(f"subsampled AVIF: {str(got_avif_q95)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_q95["words"], want["words"], "cv2's q95 AVIF vs the PNG of cv2's pixels")
+                if ([(w["text"], w["box"]) for w in got_avif_q95["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the subsampled AVIF's words are not the PNG's: the texts and boxes must be "
+                                         "equal")
+                words["scene0_avif_q95"] = len(got_avif_q95["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1765,6 +1794,9 @@ class Smoke:
             "avif_lossy_vs_cv2": f"{avif_lossy[0]} of them lossy (Pillow's 4:4:4 streams at speeds 0-9, q30-95, "
             f"with quantiser matrices, delta q, IntraBC, tiles; cv2's monochrome; alpha; damaged), "
             f"{avif_lossy[1]} of them None",
+            "avif_chroma_vs_cv2": f"{avif_chroma[0]} of them 4:2:0 or 4:2:2 (Pillow's streams lossless and lossy, "
+            f"odd sizes, screen content with IntraBC, encoder options; cv2's q95 scene; damaged), "
+            f"{avif_chroma[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1777,8 +1809,9 @@ class Smoke:
             "launches_of_the_lossy_webp_request": launched_lossy,
             "launches_of_the_jpeg2000_request": launched_j2k, "launches_of_the_avif_request": launched_avif,
             "launches_of_the_lossy_avif_request": launched_avif_lossy,
+            "launches_of_the_subsampled_avif_request": launched_avif_q95,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the thirty payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty-one payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

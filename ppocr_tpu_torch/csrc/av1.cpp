@@ -1,6 +1,6 @@
-// AV1 still-picture decoder for 8-bit 4:4:4 and monochrome key frames,
-// lossless or lossy with the in-loop filters off, as libaom 3.14.1 decodes
-// them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
+// AV1 still-picture decoder for 8-bit key frames (4:4:4, 4:2:2, 4:2:0 and
+// monochrome), lossless or lossy with the in-loop filters off, as libaom
+// 3.14.1 decodes them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
 //
 // The layers follow libaom's files, and so do the names in the comments:
 //   * obu.c / obu_util.c: OBU headers and sizes, the sequence header, the
@@ -16,7 +16,10 @@
 //     (decode_reconstruct_tx);
 //   * entdec.c / daala reader: the symbol decoder, its tell() and overflow,
 //     and the CDF adaptation (entropy.h update_cdf);
-//   * decodemv.c / mvref_common.c: key-frame mode info, palette (with the
+//   * decodemv.c / mvref_common.c: key-frame mode info (chroma only in a
+//     block that carries it, is_chroma_reference: the last of a 2x2, 2x1 or
+//     1x2 group of luma blocks under 8 samples in a subsampled plane, whose
+//     chroma block covers the group), palette (with the
 //     colour cache of the above and left blocks), filter intra, CFL alphas,
 //     IntraBC with its reference-DV stack and its validity rules, the
 //     transform size (read_selected_tx_size, read_tx_size_vartx) and type
@@ -25,8 +28,14 @@
 //     contexts in the three classes, Golomb, and the dequantisation with
 //     quantiser matrices;
 //   * reconintra.c / cfl.c: DC, the directional modes with the edge filter
-//     and upsampling, smooth, Paeth, CFL, palette and filter intra at the
-//     transform size;
+//     and upsampling, smooth, Paeth, CFL (the luma subsampled 4:2:0 or 4:2:2
+//     as cfl_luma_subsampling_*_lbd, sub-8x8 luma stored for the group's
+//     chroma block), palette and filter intra at the transform size, with the
+//     neighbours' availability in the plane's own units;
+//   * reconinter.c: IntraBC, whose integer luma displacement is a half-sample
+//     one in a subsampled plane, predicted by the 2-tap bilinear filter
+//     (av1_convolve_2d_sr_intrabc), the chroma block of a group from the
+//     displacement of the block that carries it;
 //   * av1_inv_txfm1d.c / av1_inv_txfm2d.c and the lowbd x86 transforms
 //     libaom dispatches (av1_inv_txfm_avx2.c / _ssse3.c): every inverse
 //     transform; idct (iwht4x4) for lossless blocks. The result is added
@@ -36,9 +45,9 @@
 // libaom 3.14.1's library by scripts/make_av1_tables_torch.py.
 //
 // What this decoder does not decode (a frame whose deblocking, CDEF or loop
-// restoration would run, subsampled chroma, more than 8 bits, superres,
-// film grain, a frame other than one shown key frame) gives status
-// UNPORTED before any pixel is decoded.
+// restoration would run, more than 8 bits, superres, film grain, a frame
+// other than one shown key frame) gives status UNPORTED before any pixel is
+// decoded.
 
 #include <algorithm>
 #include <cstdint>
@@ -1148,6 +1157,10 @@ enum {
     ST_DELTA_Q = 85,         // non-zero delta q read
     ST_VARTX_SPLIT = 86,     // var-tx split flags set
     ST_RESIDUAL = 87,        // transform blocks with coefficients
+    ST_SUB8X8_CHROMA = 88,   // chroma blocks that cover a group of luma blocks under 8 samples
+    ST_CHROMA_SUBPEL_DV = 89,  // IntraBC chroma blocks predicted at a half-sample displacement
+    ST_CFL_SUBSAMPLED = 90,  // CFL predictions from subsampled luma
+    ST_UV_TX_SIZE = 91,      // 19 transform sizes of the chroma planes
     ST_COUNT = 128
 };
 
@@ -1177,6 +1190,7 @@ struct Frame {
     // the block
     int mi_row = 0, mi_col = 0, bsize = 0, bw4 = 1, bh4 = 1;
     bool avail_u = false, avail_l = false;
+    bool has_chroma = false, avail_u_c = false, avail_l_c = false;  // is_chroma_reference, chroma_up/left_available
     BlockInfo* b = nullptr;
     int angle_y = 0, angle_uv = 0, use_filter_intra = 0, filter_mode = 0, cfl_u = 0, cfl_v = 0;
     uint8_t map_y[64][64], map_uv[64][64];
@@ -1208,6 +1222,10 @@ struct Frame {
     }
 
     uint8_t* px(int p, int y, int x) { return &plane[p][(size_t)y * stride + x]; }
+    int sub_x(int p) const { return p ? s.ss_x : 0; }
+    int sub_y(int p) const { return p ? s.ss_y : 0; }
+    // get_plane_block_size: the block's size in plane p (BLOCK_INVALID, 255, where it has none)
+    int plane_bsize(int p) const { return av1tab::ss_size_lookup[bsize][sub_x(p)][sub_y(p)]; }
     bool inside(int r, int c) const { return c >= col_start && c < col_end && r >= row_start && r < row_end; }
     const BlockInfo& at(int r, int c) const {
         int32_t idx = grid[(size_t)r * mi_cols + c];
@@ -1237,14 +1255,16 @@ struct Frame {
         sd.init(data, size, !fh.disable_cdf_update);
         current_q = fh.base_q_idx;
         for (int p = 0; p < num_planes; p++)
-            std::fill(above_ctx[p].begin() + col_start, above_ctx[p].begin() + std::min<size_t>(col_end + 32, above_ctx[p].size()), 0);
+            std::fill(above_ctx[p].begin() + (col_start >> sub_x(p)),
+                      above_ctx[p].begin() + std::min<size_t>(col_end + 32, above_ctx[p].size()), 0);
         std::fill(above_txfm.begin() + col_start, above_txfm.begin() + std::min<size_t>(col_end + 32, above_txfm.size()), 64);
         std::fill(delta_lf, delta_lf + 4, 0);
         int sb4 = s.use_128 ? 32 : 16;
         int sb_size = s.use_128 ? BLOCK_128X128 : BLOCK_64X64;
         for (int r = row_start; r < row_end; r += sb4) {
             for (int p = 0; p < num_planes; p++)
-                std::fill(left_ctx[p].begin() + r, left_ctx[p].begin() + std::min<size_t>(r + sb4 + 32, left_ctx[p].size()), 0);
+                std::fill(left_ctx[p].begin() + (r >> sub_y(p)),
+                          left_ctx[p].begin() + std::min<size_t>(r + sb4 + 32, left_ctx[p].size()), 0);
             std::fill(left_txfm, left_txfm + 32, 64);
             for (int c = col_start; c < col_end; c += sb4) {
                 read_deltas = fh.delta_q_present;
@@ -1311,6 +1331,15 @@ struct Frame {
         stats[ST_PARTITION + partition]++;
         int sub_h = block_size(n4, half ? half : 1), sub_v = block_size(half ? half : 1, n4);
         int split = block_size(std::max(half, 1), std::max(half, 1));
+        // the partition's subsize must have a size in the subsampled planes (4:2:2 has no tall ones)
+        int subsize = partition == PARTITION_NONE ? bs
+                      : partition == PARTITION_SPLIT ? split
+                      : partition == PARTITION_HORZ_4 ? block_size(n4, quarter)
+                      : partition == PARTITION_VERT_4 ? block_size(quarter, n4)
+                      : (partition == PARTITION_HORZ || partition == PARTITION_HORZ_A || partition == PARTITION_HORZ_B) ? sub_h
+                                                                                                                      : sub_v;
+        if (av1tab::ss_size_lookup[subsize][s.ss_x][s.ss_y] == 255)
+            fail(DECODE_ERROR, "Block size invalid with this subsampling mode");
         switch (partition) {
             case PARTITION_NONE: decode_block(r, c, bs, partition); break;
             case PARTITION_HORZ:
@@ -1372,6 +1401,12 @@ struct Frame {
         bh4 = kBh4[bs];
         avail_u = inside(r - 1, c);
         avail_l = inside(r, c - 1);
+        // is_chroma_reference: a block under 8 samples on a subsampled side
+        // carries the chroma of its group only as the group's last
+        has_chroma = num_planes > 1 && !(s.ss_y && bh4 == 1 && !(r & 1)) && !(s.ss_x && bw4 == 1 && !(c & 1));
+        avail_u_c = has_chroma && (s.ss_y && bh4 == 1 ? inside(r - 2, c) : avail_u);
+        avail_l_c = has_chroma && (s.ss_x && bw4 == 1 ? inside(r, c - 2) : avail_l);
+        if (has_chroma && ((s.ss_y && bh4 == 1) || (s.ss_x && bw4 == 1))) stats[ST_SUB8X8_CHROMA]++;
         blocks.emplace_back();
         int idx = (int)blocks.size() - 1;
         b = &blocks[idx];
@@ -1390,13 +1425,16 @@ struct Frame {
         if (b->skip) reset_block_context();
         if (b->intrabc) predict_intrabc();
         residual();
+        // cfl_store_inter_block_visit: an IntraBC block without chroma keeps
+        // its luma for the CFL of its group's chroma block
+        if (b->intrabc && num_planes > 1 && !has_chroma)
+            cfl_store(mi_col * 4, mi_row * 4, 0, 0, std::min(bw4, mi_cols - mi_col) * 4, std::min(bh4, mi_rows - mi_row) * 4);
     }
 
     void reset_block_context() {
-        for (int p = 0; p < num_planes; p++) {
-            int sub_x = p ? s.ss_x : 0, sub_y = p ? s.ss_y : 0;
-            for (int i = mi_col >> sub_x; i < ((mi_col + bw4) >> sub_x); i++) above_ctx[p][i] = 0;
-            for (int i = mi_row >> sub_y; i < ((mi_row + bh4) >> sub_y); i++) left_ctx[p][i] = 0;
+        for (int p = 0; p < (has_chroma ? num_planes : 1); p++) {
+            for (int i = mi_col >> sub_x(p); i < ((mi_col + bw4) >> sub_x(p)); i++) above_ctx[p][i] = 0;
+            for (int i = mi_row >> sub_y(p); i < ((mi_row + bh4) >> sub_y(p)); i++) left_ctx[p][i] = 0;
         }
     }
 
@@ -1432,9 +1470,9 @@ struct Frame {
             angle_y = sym(cdf.angle_delta[b->ymode - V_PRED], 7) - 3;
             if (angle_y) stats[ST_ANGLE_DELTA]++;
         }
-        if (num_planes > 1) {
-            // is_cfl_allowed: a block of at most 32x32, or a lossless one of 4x4
-            int cfl_allowed = fh.lossless[b->seg_id] ? bsize == BLOCK_4X4 : (bw4 <= 8 && bh4 <= 8);
+        if (has_chroma) {
+            // is_cfl_allowed: a block of at most 32x32, or a lossless one whose chroma block is 4x4
+            int cfl_allowed = fh.lossless[b->seg_id] ? plane_bsize(1) == BLOCK_4X4 : (bw4 <= 8 && bh4 <= 8);
             b->uvmode = (int8_t)sym(cdf.uv_mode[cfl_allowed][b->ymode], cfl_allowed ? 14 : 13);
             stats[ST_UVMODE + b->uvmode]++;
             if (b->uvmode == UV_CFL_PRED) read_cfl_alphas();
@@ -1628,7 +1666,7 @@ struct Frame {
                 stats[ST_PALETTE_Y]++;
             }
         }
-        if (num_planes > 1 && b->uvmode == DC_PRED) {
+        if (has_chroma && b->uvmode == DC_PRED) {
             if (sym(cdf.pal_uv_mode[b->pal_size[0] > 0], 2)) {
                 int n = sym(cdf.pal_uv_size[bsize_ctx], 7) + 2;
                 b->pal_size[1] = (int8_t)n;
@@ -1881,7 +1919,11 @@ struct Frame {
         if (src_bottom > tile_bottom) return false;
         int src_right = (mi_col * 4 + bw) * 8 + dv_col, tile_right = col_end * 4 * 8;
         if (src_right > tile_right) return false;
-        // sub-8x8 chroma: only with subsampled chroma, not decoded here
+        // a sub-8x8 block's chroma reaches 4 luma samples left or up of it
+        if (has_chroma) {
+            if (bw < 8 && s.ss_x && src_left < tile_left + 4 * 8) return false;
+            if (bh < 8 && s.ss_y && src_top < tile_top + 4 * 8) return false;
+        }
         int mib_log2 = s.use_128 ? 5 : 4;
         int sb_size = (1 << mib_log2) * 4;
         int active_sb_row = mi_row >> mib_log2;
@@ -1937,11 +1979,31 @@ struct Frame {
         if (!(valid && mv_ok && dv_valid(mv_row, mv_col))) fail(DECODE_ERROR, "Failed to decode tile data (an invalid intrabc dv)");
     }
 
+    // the prediction of each plane's block from the current frame: the
+    // luma displacement halved in a subsampled plane, whose half samples
+    // av1_convolve_2d_sr_intrabc averages ((a + b + 1) >> 1 across or
+    // down, (a + b + c + d + 2) >> 2 both ways)
     void predict_intrabc() {
-        int dy = b->mv_row >> 3, dx = b->mv_col >> 3;
-        for (int p = 0; p < num_planes; p++) {
-            int x0 = mi_col * 4, y0 = mi_row * 4, w = bw4 * 4, h = bh4 * 4;
-            for (int i = 0; i < h; i++) memmove(px(p, y0 + i, x0), px(p, y0 + i + dy, x0 + dx), (size_t)w);
+        for (int p = 0; p < (has_chroma ? num_planes : 1); p++) {
+            const int pbs = plane_bsize(p);
+            const int x0 = (mi_col >> sub_x(p)) * 4, y0 = (mi_row >> sub_y(p)) * 4, w = kBw4[pbs] * 4, h = kBh4[pbs] * 4;
+            const int dx16 = (2 * b->mv_col) >> sub_x(p), dy16 = (2 * b->mv_row) >> sub_y(p);  // 1/16 samples
+            const int dx = dx16 >> 4, dy = dy16 >> 4, fx = dx16 & 15, fy = dy16 & 15;
+            if (fx || fy) stats[ST_CHROMA_SUBPEL_DV]++;
+            for (int i = 0; i < h; i++) {
+                uint8_t* d = px(p, y0 + i, x0);
+                const uint8_t* a = px(p, y0 + i + dy, x0 + dx);
+                const uint8_t* c = px(p, y0 + i + dy + 1, x0 + dx);
+                if (!fx && !fy) {
+                    memmove(d, a, (size_t)w);
+                } else if (!fy) {
+                    for (int j = 0; j < w; j++) d[j] = (uint8_t)((a[j] + a[j + 1] + 1) >> 1);
+                } else if (!fx) {
+                    for (int j = 0; j < w; j++) d[j] = (uint8_t)((a[j] + c[j] + 1) >> 1);
+                } else {
+                    for (int j = 0; j < w; j++) d[j] = (uint8_t)((a[j] + a[j + 1] + c[j] + c[j + 1] + 2) >> 2);
+                }
+            }
         }
     }
 
@@ -2056,19 +2118,20 @@ struct Frame {
     }
 
     // -- residual: transform blocks by 64x64 chunk and plane (decode_token_recon_block) ---------
-    int plane_tx_size(int p) const {  // av1_get_tx_size
+    int plane_tx_size(int p) const {  // av1_get_tx_size: chroma takes the largest size of its block, capped at 32
         if (fh.lossless[b->seg_id]) return TX_4X4;
         if (p == 0) return tx_size;
-        return adjusted_tx_size(max_rect_tx());
+        return adjusted_tx_size(av1tab::max_txsize_rect_lookup[plane_bsize(p)]);
     }
 
+    // by 64x64 luma chunk, each plane's transform blocks in the chunk's part
+    // of the plane's block (x, y in the plane's 4-sample units)
     void residual() {
         const int width_chunks = std::max(1, bw4 >> 4), height_chunks = std::max(1, bh4 >> 4);
         const bool lossless = fh.lossless[b->seg_id];
-        cfl_w = cfl_h = 0;
         for (int cy = 0; cy < height_chunks; cy++)
             for (int cx = 0; cx < width_chunks; cx++)
-                for (int p = 0; p < num_planes; p++) {
+                for (int p = 0; p < (has_chroma ? num_planes : 1); p++) {
                     if (b->intrabc && !lossless && !b->skip && p == 0) {
                         const int t = max_rect_tx();
                         const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
@@ -2076,10 +2139,12 @@ struct Frame {
                             for (int x = cx * 16; x < std::min(bw4, cx * 16 + 16); x += w4) transform_tree(t, x, y);
                         continue;
                     }
-                    const int t = plane_tx_size(p);
+                    const int t = plane_tx_size(p), pbs = plane_bsize(p);
                     const int step_x = kTxW[t] >> 2, step_y = kTxH[t] >> 2;
-                    for (int y = cy * 16; y < std::min(bh4, cy * 16 + 16); y += step_y)
-                        for (int x = cx * 16; x < std::min(bw4, cx * 16 + 16); x += step_x) transform_block(p, t, x, y);
+                    const int ox = (cx * 16) >> sub_x(p), oy = (cy * 16) >> sub_y(p);
+                    const int nw = std::min<int>(kBw4[pbs], 16 >> sub_x(p)), nh = std::min<int>(kBh4[pbs], 16 >> sub_y(p));
+                    for (int y = 0; y < nh; y += step_y)
+                        for (int x = 0; x < nw; x += step_x) transform_block(p, t, x + ox, y + oy);
                 }
     }
 
@@ -2097,12 +2162,17 @@ struct Frame {
             for (int c = 0; c < col_end; c += sw4) transform_tree(sub, x + c, y + r);
     }
 
+    // one transform block of plane p at (x4, y4), in the plane's 4-sample
+    // units from the block's origin in the plane (a group's origin for the
+    // chroma of a sub-8x8 block)
     void transform_block(int p, int t, int x4, int y4) {
-        const int start_x = (mi_col + x4) * 4, start_y = (mi_row + y4) * 4;
-        if (start_x >= mi_cols * 4 || start_y >= mi_rows * 4) return;
+        const int sx = sub_x(p), sy = sub_y(p);
+        const int start_x = (mi_col >> sx) * 4 + x4 * 4, start_y = (mi_row >> sy) * 4 + y4 * 4;
+        if (start_x >= ((mi_cols * 4) >> sx) || start_y >= ((mi_rows * 4) >> sy)) return;
         const int w = kTxW[t], h = kTxH[t], step_x = w >> 2, step_y = h >> 2;
-        const int sbr = (mi_row + y4) & sb_mask, sbc = (mi_col + x4) & sb_mask;
+        const int sbr = (((start_y << sy) >> 2) & sb_mask) >> sy, sbc = (((start_x << sx) >> 2) & sb_mask) >> sx;
         stats[ST_TX_SIZE + t]++;
+        if (p) stats[ST_UV_TX_SIZE + t]++;
         if (!b->intrabc) {
             if (b->pal_size[p != 0]) {
                 uint8_t (*map)[64] = p ? map_uv : map_y;
@@ -2111,7 +2181,7 @@ struct Frame {
             } else {
                 const bool is_cfl = p > 0 && b->uvmode == UV_CFL_PRED;
                 const int mode = p == 0 ? (int)b->ymode : (is_cfl ? (int)DC_PRED : (int)b->uvmode);
-                const bool have_left = avail_l || x4 > 0, have_above = avail_u || y4 > 0;
+                const bool have_left = (p ? avail_l_c : avail_l) || x4 > 0, have_above = (p ? avail_u_c : avail_u) || y4 > 0;
                 const bool have_ar = decoded[p][sbr - 1 + 1][sbc + step_x + 1];
                 const bool have_bl = decoded[p][sbr + step_y + 1][sbc - 1 + 1];
                 predict_intra(p, start_x, start_y, t, have_left, have_above, have_ar, have_bl, mode);
@@ -2128,7 +2198,9 @@ struct Frame {
                     inverse_transform_add(coef, t, cur_tx_type, px(p, start_y, start_x), stride);
             }
         }
-        if (p == 0 && num_planes > 1 && !b->intrabc && b->uvmode == UV_CFL_PRED) cfl_store(start_x, start_y, x4, y4, w, h);
+        // store_cfl_required: a block without chroma always keeps its luma, one with it where it predicts by CFL
+        if (p == 0 && num_planes > 1 && !b->intrabc && (!has_chroma || b->uvmode == UV_CFL_PRED))
+            cfl_store(start_x, start_y, x4, y4, w, h);
         for (int i = 0; i < step_y; i++)
             for (int j = 0; j < step_x; j++) decoded[p][sbr + i + 1][sbc + j + 1] = 1;
     }
@@ -2265,10 +2337,23 @@ struct Frame {
             for (int c = 0; c < w; c++) pred[r][c] = buf[r + 1][c + 1];
     }
 
+    // get_intra_edge_filter_type: the above and left blocks, for chroma the
+    // ones that carry the chroma above and left of the block's chroma
+    // (xd->chroma_above_mbmi / chroma_left_mbmi)
     int filter_type(int p) const {
         bool above_smooth = false, left_smooth = false;
-        if (avail_u) above_smooth = is_smooth(mi_row - 1, mi_col, p);
-        if (avail_l) left_smooth = is_smooth(mi_row, mi_col - 1, p);
+        if (p ? avail_u_c : avail_u) {
+            int r = mi_row - 1, c = mi_col;
+            if (p && s.ss_x && !(mi_col & 1)) c++;
+            if (p && s.ss_y && (mi_row & 1)) r--;
+            above_smooth = is_smooth(r, c, p);
+        }
+        if (p ? avail_l_c : avail_l) {
+            int r = mi_row, c = mi_col - 1;
+            if (p && s.ss_x && (mi_col & 1)) c--;
+            if (p && s.ss_y && !(mi_row & 1)) r++;
+            left_smooth = is_smooth(r, c, p);
+        }
         return above_smooth || left_smooth;
     }
 
@@ -2439,18 +2524,37 @@ struct Frame {
         }
     }
 
-    // -- chroma from luma (cfl.c), 4:4:4: the block's reconstructed luma -----------------------
-    void cfl_store(int x, int y, int x4, int y4, int w, int h) {  // cfl_store_tx
-        const int col = x4 * 4, row = y4 * 4;
-        if (col == 0 && row == 0) {
-            cfl_w = w;
-            cfl_h = h;
-        } else {
-            cfl_w = std::max(col + w, cfl_w);
-            cfl_h = std::max(row + h, cfl_h);
+    // -- chroma from luma (cfl.c): the reconstructed luma, subsampled ----------------------------
+    // cfl_store_tx / cfl_store_block: the w x h luma at (x, y), the
+    // transform's (col4, row4) in the block moved one unit right / down for
+    // the second block of a sub-8x8 group (sub8x8_adjust_offset), averaged
+    // over 2x2 (4:2:0) or 2x1 (4:2:2) samples, in 1/8 units
+    void cfl_store(int x, int y, int col4, int row4, int w, int h) {
+        const int sx = s.ss_x, sy = s.ss_y;
+        if (bw4 == 1 || bh4 == 1) {
+            if ((mi_row & 1) && sy) row4++;
+            if ((mi_col & 1) && sx) col4++;
         }
-        for (int i = 0; i < h; i++)
-            for (int j = 0; j < w; j++) cfl_q3[row + i][col + j] = (uint16_t)(*px(0, y + i, x + j) << 3);
+        const int row = row4 << (2 - sy), col = col4 << (2 - sx), sh = h >> sy, sw = w >> sx;
+        if (col4 == 0 && row4 == 0) {
+            cfl_w = sw;
+            cfl_h = sh;
+        } else {
+            cfl_w = std::max(col + sw, cfl_w);
+            cfl_h = std::max(row + sh, cfl_h);
+        }
+        for (int i = 0; i < sh; i++)
+            for (int j = 0; j < sw; j++) {
+                const uint8_t* l = px(0, y + (i << sy), x + (j << sx));
+                int v;
+                if (sx && sy)
+                    v = (l[0] + l[1] + l[stride] + l[stride + 1]) << 1;
+                else if (sx)
+                    v = (l[0] + l[1]) << 2;
+                else
+                    v = l[0] << 3;
+                cfl_q3[row + i][col + j] = (uint16_t)v;
+            }
     }
 
     void predict_cfl(int p, int x, int y, int w, int h) {
@@ -2466,6 +2570,7 @@ struct Frame {
             cfl_h = h;
         }
         const int alpha = p == 1 ? cfl_u : cfl_v;
+        if (s.ss_x || s.ss_y) stats[ST_CFL_SUBSAMPLED]++;
         const int num_pel_log2 = log2i(w) + log2i(h);
         int sum = 1 << (num_pel_log2 - 1);
         for (int i = 0; i < h; i++)
@@ -2510,9 +2615,12 @@ struct Frame {
         return av1tab::ext_tx_set_lookup[inter][av1tab::txsize_sqr_map[t] == TX_16X16];
     }
 
+    // x4, y4: the transform's position in the plane's 4-sample units from
+    // the block's origin in the plane; an IntraBC block's chroma takes the
+    // luma type at the luma position they scale to
     int get_tx_type(int p, int t, int x4, int y4) {
         if (fh.lossless[b->seg_id] || av1tab::txsize_sqr_up_map[t] > TX_32X32) return DCT_DCT;
-        const int luma = tx_type_map[(size_t)(mi_row + y4) * mi_cols + (mi_col + x4)];
+        const int luma = tx_type_map[(size_t)(mi_row + (y4 << sub_y(p))) * mi_cols + (mi_col + (x4 << sub_x(p)))];
         if (p == 0) return luma;
         int type = b->intrabc ? luma : av1tab::intra_mode_to_tx_type[b->uvmode == UV_CFL_PRED ? (int)DC_PRED : (int)b->uvmode];
         if (!av1tab::ext_tx_used[ext_tx_set_type(t, b->intrabc)][type]) type = DCT_DCT;
@@ -2523,7 +2631,8 @@ struct Frame {
     // fills ``coef`` (dequantised, libaom's layout) and ``cur_tx_type``;
     // returns the eob
     int coeffs(int p, int t, int x4, int y4) {
-        const int ax = mi_col + x4, ly = mi_row + y4;  // 4:4:4 / 4:0:0: the plane's 4-sample units
+        const int ax = (mi_col >> sub_x(p)) + x4, ly = (mi_row >> sub_y(p)) + y4;  // the plane's 4-sample units
+        const int pbs = plane_bsize(p);
         const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
         const int ptype = p > 0;
         const uint8_t* a = &above_ctx[p][ax];
@@ -2549,7 +2658,7 @@ struct Frame {
             int above_ec = 0, left_ec = 0;
             for (int k = 0; k < w4; k++) above_ec |= a[k] != 0;
             for (int k = 0; k < h4; k++) left_ec |= l[k] != 0;
-            skip_ctx = above_ec + left_ec + (bw4 * bh4 > w4 * h4 ? 10 : 7);
+            skip_ctx = above_ec + left_ec + (kBw4[pbs] * kBh4[pbs] > w4 * h4 ? 10 : 7);
         }
         const int txs_ctx = (av1tab::txsize_sqr_map[t] + av1tab::txsize_sqr_up_map[t] + 1) >> 1;
         const int adj = adjusted_tx_size(t);
@@ -2697,8 +2806,12 @@ struct Frame {
             ctx_byte |= 1 << 3;
         else if (dc_val > 0)
             ctx_byte += 2 << 3;
-        // av1_set_entropy_contexts: past the frame's last 4x4 column or row, 0
-        const int blocks_w = std::min(bw4, mi_cols - mi_col), blocks_h = std::min(bh4, mi_rows - mi_row);
+        // av1_set_entropy_contexts: past the frame's last 4x4 column or row
+        // (max_block_wide / max_block_high of the plane's block), 0
+        int pw = kBw4[pbs] * 4, ph = kBh4[pbs] * 4;
+        if (mi_col + bw4 > mi_cols) pw += ((mi_cols - bw4 - mi_col) * 32) >> (3 + sub_x(p));
+        if (mi_row + bh4 > mi_rows) ph += ((mi_rows - bh4 - mi_row) * 32) >> (3 + sub_y(p));
+        const int blocks_w = pw >> 2, blocks_h = ph >> 2;
         for (int k = 0; k < w4; k++) above_ctx[p][ax + k] = (uint8_t)(x4 + k < blocks_w ? ctx_byte : 0);
         for (int k = 0; k < h4; k++) left_ctx[p][ly + k] = (uint8_t)(y4 + k < blocks_h ? ctx_byte : 0);
         return eob;
@@ -2907,7 +3020,6 @@ struct Decoder {
 
     void check_frame_supported() {
         if (seq.bit_depth != 8) fail(UNPORTED, "10/12-bit samples");
-        if (!seq.mono && (seq.ss_x || seq.ss_y)) fail(UNPORTED, "4:2:0 and 4:2:2 chroma");
         if (fh.width != fh.upscaled_width || fh.apply_grain) fail(UNPORTED, "superres and film grain");
         // the in-loop filters libaom runs (decodeframe.c): deblocking where a
         // luma level is set, CDEF unless its bits and first strengths are all
@@ -3209,8 +3321,9 @@ int av1_inverse_transform(const int32_t* coef, int tx_size, int tx_type, uint8_t
     return OK;
 }
 
-// Decode the stream into ``out``: the planes (1 or 3) of width x height 8-bit
-// samples, Y then U then V. ``stats``: ST_COUNT tool counters. Returns a Status.
+// Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples, Y of
+// width x height, then U and V of ((width + ss_x) >> ss_x) x ((height + ss_y)
+// >> ss_y). ``stats``: ST_COUNT tool counters. Returns a Status.
 int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, char* msg,
                int msg_len) {
     Decoder d;
@@ -3219,10 +3332,14 @@ int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, i
     try {
         d.run(data, (size_t)n);
         const Frame& fr = *d.frame;
-        int w = d.fh.upscaled_width, h = d.fh.height;
-        if ((int64_t)fr.num_planes * w * h != out_size) fail(BAD_CALL, "an output of another size");
-        for (int p = 0; p < fr.num_planes; p++)
-            for (int y = 0; y < h; y++) memcpy(out + ((size_t)p * h + y) * w, &fr.plane[p][(size_t)y * fr.stride], (size_t)w);
+        const int w = d.fh.upscaled_width, h = d.fh.height;
+        const int cw = (w + d.seq.ss_x) >> d.seq.ss_x, ch = (h + d.seq.ss_y) >> d.seq.ss_y;
+        if ((int64_t)w * h + (int64_t)(fr.num_planes - 1) * cw * ch != out_size) fail(BAD_CALL, "an output of another size");
+        for (int p = 0; p < fr.num_planes; p++) {
+            const int pw = p ? cw : w, ph = p ? ch : h;
+            uint8_t* o = out + (p ? (size_t)w * h + (size_t)(p - 1) * cw * ch : 0);
+            for (int y = 0; y < ph; y++) memcpy(o + (size_t)y * pw, &fr.plane[p][(size_t)y * fr.stride], (size_t)pw);
+        }
     } catch (const Error& e) {
         set_msg(msg, msg_len, e.msg);
         return e.status;

@@ -12,8 +12,9 @@ built together (the lossy one's lossless alpha plane through
 the text drawing of ``train/cv2_text.py``, ``csrc/cv2_text.cpp`` (cv2
 5.0's ``putText`` with its upright Rubik face), and the JPEG 2000
 codestream decoder, ``csrc/jpeg2000.cpp`` (OpenJPEG 2.5.3's), and the
-AV1 decoder of lossless still pictures, ``csrc/av1.cpp`` (libaom 3.14.1's,
-with the default tables of ``csrc/av1_tables.h``).
+AV1 decoder of still pictures, ``csrc/av1.cpp`` (libaom 3.14.1's, with the
+default tables of ``csrc/av1_tables.h``), built together with libavif
+1.4.2's YUV to BGR, ``csrc/avif_yuv.cpp``.
 
 Counterpart of ``ppocr_tpu/ops/native.py``. The JAX package runs the
 contour half of the DB postprocess on cv2 and keeps the C++ core as an
@@ -61,10 +62,11 @@ JPEG2000_SOURCE = CSRC / "jpeg2000.cpp"
 AV1_SOURCE = CSRC / "av1.cpp"
 # the files a library is built with besides its source (a header counts in
 # the hash only): the TIFF decoder hands its JPEG blocks to jpeg.cpp, the
-# lossy WebP decoder its lossless alpha planes to webp.cpp
+# lossy WebP decoder its lossless alpha planes to webp.cpp, the AV1 decoder
+# sits beside the AVIF colour conversion
 BUILT_WITH = {TIFF_SOURCE: (JPEG_SOURCE, CSRC / "jpeg_tiff.h"),
               WEBP_SOURCE: (VP8_SOURCE, CSRC / "webp_alpha.h"),
-              AV1_SOURCE: (CSRC / "av1_tables.h",)}
+              AV1_SOURCE: (CSRC / "av1_tables.h", CSRC / "avif_yuv.cpp")}
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
@@ -603,7 +605,8 @@ AV1_INFO = ("width", "height", "bit_depth", "mono", "ss_x", "ss_y", "color_prima
 AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "angle_delta": 37, "palette_y": 38,
              "palette_uv": 39, "filter_intra": 40, "intrabc": 41, "tiles": 42, "blocks": 43, "palette_cache": 44,
              "segment_id": 45, "edge_upsample": 46, "edge_filter": 47, "golomb": 48,
-             "tx_size": (49, 68), "tx_type": (68, 84), "qm": 84, "delta_q": 85, "vartx_split": 86, "residual": 87}
+             "tx_size": (49, 68), "tx_type": (68, 84), "qm": 84, "delta_q": 85, "vartx_split": 86, "residual": 87,
+             "sub8x8_chroma": 88, "chroma_subpel_dv": 89, "cfl_subsampled": 90, "uv_tx_size": (91, 110)}
 AV1_STATS_SIZE = 128  # ST_COUNT
 # libaom's TX_SIZE order, the order of the "tx_size" counters
 AV1_TX_SIZES = ("4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32", "32x16", "32x64",
@@ -625,6 +628,9 @@ def load_av1_library() -> ctypes.CDLL:
             lib.av1_inverse_transform.restype = ctypes.c_int
             lib.av1_inverse_transform.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                                                   ctypes.c_int]
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.avif_yuv_to_bgr.restype = ctypes.c_int
+            lib.avif_yuv_to_bgr.argtypes = [u8p] * 3 + [ctypes.c_int] * 8 + [u8p]
             _av1_lib = lib
     return _av1_lib
 
@@ -644,13 +650,15 @@ def av1_info(stream: bytes):
 
 
 def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = None):
-    """Decode a stream whose headers ``av1_info`` read → (status, [1 or 3,
-    height, width] uint8 planes (Y, U, V) or None, libaom's reason).
-    ``stats``: an int32 array of ``AV1_STATS_SIZE`` that gets the tool
-    counters (``AV1_STATS``)."""
+    """Decode a stream whose headers ``av1_info`` read → (status, the uint8
+    planes [Y] or [Y, U, V] (U and V of ((height + ss_y) >> ss_y, (width +
+    ss_x) >> ss_x)) or None, libaom's reason). ``stats``: an int32 array of
+    ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``)."""
     lib = load_av1_library()
     planes = 1 if info[3] else 3
-    out = np.empty((planes, int(info[1]), int(info[0])), np.uint8)
+    w, h, ss_x, ss_y = (int(info[k]) for k in (0, 1, 4, 5))
+    cw, ch = (w + ss_x) >> ss_x, (h + ss_y) >> ss_y
+    out = np.empty(w * h + (planes - 1) * cw * ch, np.uint8)
     if stats is None:
         stats = np.zeros(AV1_STATS_SIZE, np.int32)
     if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
@@ -659,10 +667,32 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
                             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
     if status == 4:
-        raise ValueError(f"av1_decode: a {planes}x{info[1]}x{info[0]} output the stream does not describe")
+        raise ValueError(f"av1_decode: a {planes}-plane {w}x{h} output the stream does not describe")
     if status:
         return status, None, msg.value.decode(errors="replace")
-    return 0, out, ""
+    chroma = out[w * h:].reshape(planes - 1, ch, cw)
+    return 0, [out[:w * h].reshape(h, w), *chroma], ""
+
+
+def avif_yuv_to_bgr(planes: list, ss_x: int, ss_y: int, matrix: int, primaries: int,
+                    full_range: int) -> Optional[np.ndarray]:
+    """libavif 1.4.2's ``avifImageYUVToRGB`` into 8-bit BGR, as cv2 5.0
+    asks for it, of the decoded planes ([Y] monochrome, or [Y, U, V] with U
+    and V subsampled by ``ss_x``, ``ss_y``: 4:2:0 is (1, 1), 4:2:2 (1, 0)):
+    [H, W, 3] uint8, or None where libavif refuses the matrix
+    (``csrc/avif_yuv.cpp``)."""
+    lib = load_av1_library()
+    y = np.ascontiguousarray(planes[0], np.uint8)
+    h, w = y.shape
+    mono = len(planes) == 1
+    u, v = (y, y) if mono else (np.ascontiguousarray(p, np.uint8) for p in planes[1:])
+    if not mono and (u.shape != ((h + ss_y) >> ss_y, (w + ss_x) >> ss_x) or v.shape != u.shape):
+        raise ValueError(f"avif_yuv_to_bgr: chroma planes {u.shape} / {v.shape} of no subsampling of {h}x{w}")
+    out = np.empty((h, w, 3), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    status = lib.avif_yuv_to_bgr(y.ctypes.data_as(u8p), u.ctypes.data_as(u8p), v.ctypes.data_as(u8p), w, h, ss_x,
+                                 ss_y, int(mono), int(matrix), int(primaries), int(full_range), out.ctypes.data_as(u8p))
+    return None if status else out
 
 
 def av1_inverse_transform(coef: np.ndarray, tx_size: int, tx_type: int, dst: np.ndarray):

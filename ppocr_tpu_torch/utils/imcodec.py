@@ -132,8 +132,8 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   unknown colour space) from three or four components, grey from the
   first, sYCC through its integer YUV conversion, each sample shifted
   right by the largest precision less 8.
-* **AVIF**, 8-bit 4:4:4 and monochrome stills, lossless or lossy with
-  the in-loop filters off (the ISOBMFF boxes and cv2's hand-over
+* **AVIF**, 8-bit stills (4:4:4, 4:2:2, 4:2:0 and monochrome), lossless
+  or lossy with the in-loop filters off (the ISOBMFF boxes and cv2's hand-over
   in Python, the AV1 stream in ``csrc/av1.cpp``, host C++ built at first
   use), as OpenCV 5.0's ``grfmt_avif.cpp`` reads them through libavif
   1.4.2 over libaom 3.14.1: the boxes by libavif's rules with its strict
@@ -143,9 +143,12 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   primary item and its alpha item (decoded, a bad one refusing the file,
   then dropped); the AV1 intra syntax of a key frame (transform sizes and
   types, coefficients, quantisers, inverse transforms) as libaom decodes
-  it; then one channel (the Y plane as it is) where the
-  ``av1C`` says monochrome, else libavif's identity-matrix, full-range
-  YUV to BGR.
+  it, subsampled chroma included; then one channel (the Y plane as it
+  is) where the ``av1C`` says monochrome, else libavif's YUV to BGR for
+  the CICP of the ``colr`` box or the sequence header (``csrc/avif_yuv.cpp``:
+  libyuv's fixed point with its bilinear chroma upsampling for BT.709,
+  BT.601 and BT.2020, libavif's float path for the other matrices, in
+  either range; the matrices libavif refuses give ``None``).
 
 Cut and corrupt data get cv2's answer in every format. Every ``None``
 logs one warning that names the format and the reason: cv2's own
@@ -154,7 +157,7 @@ over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
 ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
 the AVIF kinds of ``AVIF_UNPORTED`` (frames whose in-loop filters run,
-subsampled, 10/12-bit, grid and sequence files among them); no sniffed format is without a decoder
+10/12-bit, grid and sequence files among them); no sniffed format is without a decoder
 (``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
 response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
 JPEG 2000 or AVIF decode raises when its host C++ cannot be built: a
@@ -2639,9 +2642,6 @@ def _j2k_reason(status: int, reason: str) -> str:
 # reason logged, with its ROADMAP item
 AVIF_UNPORTED = {
     "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b",
-    "4:2:0 and 4:2:2 chroma": "A14.7b",
-    "a matrix other than identity": "A14.7b",
-    "limited range": "A14.7b",
     "superres and film grain": "A14.7b",
     "10/12-bit samples": "A14.7c",
     "grids": "A14.7c",
@@ -3172,9 +3172,9 @@ def _decode_avif(data: bytes) -> np.ndarray:
     """OpenCV 5.0's grfmt_avif.cpp over libavif 1.4.2 and libaom 3.14.1:
     the boxes by libavif's rules (strict checks off), the primary item and
     its alpha item, cv2's channel count from the av1C (one for a
-    monochrome one, whose Y plane is taken as it is), then libavif's
-    identity-matrix, full-range YUV to BGR; the alpha item is decoded, and
-    a bad one refuses the file, but dropped."""
+    monochrome one, whose Y plane is taken as it is), then libavif's YUV
+    to BGR (``native.avif_yuv_to_bgr``); the alpha item is decoded, and a
+    bad one refuses the file, but dropped."""
     meta, major, moov = _avif_parse(data)
     if major == b"avis" or (major != b"avif" and moov):
         raise _avif_unported("image sequences' first frame")
@@ -3221,15 +3221,19 @@ def _decode_avif(data: bytes) -> np.ndarray:
             raise _avif_unported("premultiplied alpha (prem)")
     if av1c["mono"]:  # cv2 reads one channel: the Y plane as it is
         return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, -1))
+    # libavif's CICP: the colr nclx box where there is one, else the sequence header's
     nclx = next((v for k, v, _ in color.props if k == b"colr" and v[0] == "nclx"), None)
-    matrix, full_range = (nclx[3], nclx[4]) if nclx is not None else (int(info[8]), int(info[9]))
-    if not full_range:
-        raise _avif_unported("limited range")
-    if len(planes) == 1:  # a monochrome frame: libavif's grey
-        return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, -1))
-    if matrix != 0:
-        raise _avif_unported("a matrix other than identity")
-    return np.ascontiguousarray(np.stack([planes[1], planes[0], planes[2]], -1))  # identity: G = Y, B = U, R = V
+    primaries, matrix, full_range = ((nclx[1], nclx[3], nclx[4]) if nclx is not None
+                                     else (int(info[6]), int(info[8]), int(info[9])))
+    from ..ops import native  # built with csrc/av1.cpp, loaded by the decode above
+
+    ss_x, ss_y = int(info[4]), int(info[5])
+    bgr = native.avif_yuv_to_bgr(planes, ss_x, ss_y, matrix, primaries, full_range)
+    if bgr is None:
+        layout = "4:0:0" if len(planes) == 1 else {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[ss_x, ss_y]
+        raise _Refused(f"libavif refuses to convert it: matrix coefficients {matrix} in "
+                       f"{'full' if full_range else 'limited'} range, {layout}")
+    return bgr
 
 
 # -- entry points -------------------------------------------------------------

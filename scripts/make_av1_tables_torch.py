@@ -29,7 +29,8 @@ How each table is found:
   like the mode CDFs (by their anchors; a set of one type has zero rows).
   The transform sets (``av1_ext_tx_*``, ``ext_tx_set_index``), the size
   maps (``sub_tx_size_map``, ``max_txsize_rect_lookup``,
-  ``txsize_sqr_*``), the 8-bit ``dc_qlookup_QTX`` / ``ac_qlookup_QTX``,
+  ``txsize_sqr_*``, and ``av1_ss_size_lookup``, a block's size in a
+  subsampled plane, 255 where it has none), the 8-bit ``dc_qlookup_QTX`` / ``ac_qlookup_QTX``,
   the quantiser matrices (``iwt_matrix_ref``, levels 0-14, luma and
   chroma, each size at its offset in ``av1_qm_init``'s order), the
   cos/sin rows of cos_bit 12 (``INV_COS_BIT``: libaom 3.14 has no inverse
@@ -312,9 +313,10 @@ def transform_tables(lib: Library) -> list:
              ("av1_num_ext_tx_set", "<i4", "uint8_t"), ("av1_ext_tx_inv", "<i4", "uint8_t"),
              ("av1_ext_tx_used", "<i4", "uint8_t"), ("vtx_tab", "u1", "uint8_t"), ("htx_tab", "u1", "uint8_t"),
              ("fimode_to_intradir", "u1", "uint8_t"), ("nz_map_ctx_offset_1d", "<i4", "int8_t"),
-             ("av1_eob_group_start", "<i2", "int16_t"), ("av1_eob_offset_bits", "<i2", "int8_t")]
+             ("av1_eob_group_start", "<i2", "int16_t"), ("av1_eob_offset_bits", "<i2", "int8_t"),
+             ("av1_ss_size_lookup", "u1", "uint8_t")]
     shapes = {"av1_ext_tx_set_lookup": (2, 2), "ext_tx_set_index": (2, 6), "av1_ext_tx_inv": (6, 16),
-              "av1_ext_tx_used": (6, 16)}
+              "av1_ext_tx_used": (6, 16), "av1_ss_size_lookup": (22, 2, 2)}
     for name, dtype, ctype in small:
         a = lib.object(name, dtype)
         out.append((ctype, name.removeprefix("av1_"), a.reshape(shapes.get(name, a.shape))))

@@ -1,17 +1,21 @@
 """Host time of the port's AVIF decoder (``utils/imcodec.py`` with
-``csrc/av1.cpp``) on the first 768×1024 serving scene, beside cv2's where
-cv2 is installed.
+``csrc/av1.cpp`` and ``csrc/avif_yuv.cpp``) on the first 768×1024 serving
+scene, beside cv2's where cv2 is installed.
 
     python3 scripts/time_avif_torch.py [--repeats 25]
 
 The payloads are the committed ones of ``assets/image_cases.npz``: the
 scene as cv2's lossless AVIF at its default speed (``scene0_avif``) and as
 a lossy 4:4:4 AVIF with the in-loop filters off (libavif 1.4.2's writer,
-q90, speed 6, identity matrix: ``scene0_avif_lossy``). For each, times, in
-turns, with the median of ``--repeats`` runs each after one untimed (which
-builds ``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
-Python, the AV1 decode on one host thread), the AV1 stream's decode alone
-(``native.av1_decode``), both checked equal to the committed cv2 answer,
+q90, speed 6, identity matrix: ``scene0_avif_lossy``) and as cv2's
+quality-95 AVIF (4:2:0, BT.601 in full range, the in-loop filters off:
+``scene0_avif_q95``). For each, times, in turns, with the median of
+``--repeats`` runs each after one untimed (which builds ``csrc/av1.cpp``):
+``decode_image`` (the boxes and the hand-over in Python, the AV1 decode on
+one host thread), the AV1 stream's decode alone (``native.av1_decode``)
+and libavif's YUV to BGR alone (``native.avif_yuv_to_bgr`` of the decoded
+planes, with the sequence header's colour description), all checked equal
+to the committed cv2 answer,
 and, where cv2 5.0.0 (the version the port replays) imports,
 ``cv2.imdecode`` at cv2's own thread count and at
 ``cv2.setNumThreads(1)``; another cv2 (or none) is named in the output and
@@ -34,7 +38,7 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
-PAYLOADS = ("scene0_avif", "scene0_avif_lossy")
+PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95")
 
 
 def av1_stream(data: bytes) -> bytes:
@@ -56,10 +60,11 @@ def time_payload(name: str, repeats: int) -> dict:
     if status:
         raise SystemExit(f"{name}: {reason}")
     planes = native.av1_decode(stream, info)[1]
-    if not (imcodec.decode_image(data) == want).all() or not (np.stack([planes[1], planes[0], planes[2]], -1)
-                                                               == want).all():
+    colour = (int(info[4]), int(info[5]), int(info[8]), int(info[6]), int(info[9]))  # ss_x, ss_y, matrix, cp, range
+    if not (imcodec.decode_image(data) == want).all() or not (native.avif_yuv_to_bgr(planes, *colour) == want).all():
         raise SystemExit(f"{name}: the port's decode differs from the committed cv2 answer")
-    runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": lambda: native.av1_decode(stream, info)}
+    runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": lambda: native.av1_decode(stream, info),
+            "port_yuv_to_bgr_only": lambda: native.avif_yuv_to_bgr(planes, *colour)}
     try:
         import cv2
     except ImportError:
@@ -92,6 +97,7 @@ def time_payload(name: str, repeats: int) -> dict:
             out[k].append((time.perf_counter() - t) * 1e3)
     ms = {k: statistics.median(v) for k, v in out.items()}
     result = {"ms": ms, "bytes": len(data), "size": list(want.shape), "base_q_idx": int(info[13]),
+              "subsampling": [int(info[4]), int(info[5])], "matrix": int(info[8]), "full_range": int(info[9]),
               "cv2_version": version, "cv2_timed": cv2 is not None, "cv2_threads": threads}
     if cv2 is not None:
         result["port_over_cv2"] = ms["port"] / ms["cv2"]

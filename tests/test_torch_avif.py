@@ -607,14 +607,25 @@ def _refusals() -> dict:
     buf = io.BytesIO()
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], quality=100, subsampling="4:4:4")
     prem = full_box(b"iref", 0, 0, box(b"auxl", struct.pack(">HHH", 2, 1, 1)) + box(b"prem", struct.pack(">HHH", 1, 1, 2)))
+    # subsampled chroma, every matrix and both ranges are decoded since
+    # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py): files of
+    # those kinds are refused now only for the filters their frames run, or
+    # for film grain
+    grain = pil_avif(img, quality=60, subsampling="4:2:0", speed=6,
+                     advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
+                               ("film-grain-test", "1")])
     return {
         # Pillow's speed-6 q80 4:4:4 stream turns deblocking on (levels 2/2)
         "lossy": (avif_file(item_data(pil_avif(img, quality=80, subsampling="4:4:4", speed=6)), w=48, h=32),
                   "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
-        "420": (cv2_avif(img, quality=90), "4:2:0 and 4:2:2 chroma (ROADMAP A14.7b)"),
-        "matrix": (pil_avif(img, quality=100, subsampling="4:4:4"), "a matrix other than identity (ROADMAP A14.7b)"),
-        "limited": (avif_file(color, w=12, h=8, color_props=COLOR_PROPS(12, 8)[:3] + [(colr(2, 2, 0, 0), 0)]),
-                    "limited range (ROADMAP A14.7b)"),
+        # cv2's q90 4:2:0 file runs deblocking (level 1)
+        "420": (cv2_avif(img, quality=90), "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
+        # Pillow's default file (4:2:0, matrix 2) runs deblocking
+        "matrix": (pil_avif(img), "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
+        # a 4:2:0 frame with film grain, in a limited-range container
+        "limited": (avif_file(item_data(grain), w=48, h=32, color_props=[(ispe(48, 32), 0), (pixi(8, 8, 8), 0),
+                                                                          (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 0), 0)]),
+                    "superres and film grain (ROADMAP A14.7b)"),
         "10-bit": (cv2_avif(img.astype(np.uint16) * 4, depth=10), "10/12-bit samples (ROADMAP A14.7c)"),
         "grid": (_grid(), "grids (ROADMAP A14.7c)"),
         "sequence": (buf.getvalue(), "image sequences' first frame (ROADMAP A14.7c)"),
@@ -641,12 +652,11 @@ def test_what_cv2_decodes_and_the_port_does_not_gives_none_and_one_log_line_nami
 
 def test_what_the_port_does_not_decode_is_pinned():
     assert imcodec.AVIF_UNPORTED == {
-        "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b", "4:2:0 and 4:2:2 chroma": "A14.7b",
-        "a matrix other than identity": "A14.7b", "limited range": "A14.7b", "superres and film grain": "A14.7b",
+        "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b", "superres and film grain": "A14.7b",
         "10/12-bit samples": "A14.7c", "grids": "A14.7c", "image sequences' first frame": "A14.7c",
         "layered images (a1op, lsel)": "A14.7c", "a frame scaled to its ispe size": "A14.7c",
         "premultiplied alpha (prem)": "A14.7c"}
-    assert {reason.split(" (ROADMAP")[0] for _, reason in REFUSALS.values()} <= set(imcodec.AVIF_UNPORTED)
+    assert {reason.split(" (ROADMAP")[0] for _, reason in REFUSALS.values()} == set(imcodec.AVIF_UNPORTED)
     assert imcodec.sniff_format(BASES["noise"]) == imcodec.sniff_format(CONTAINERS["major_mif1"][0]) == "avif"
     assert not imcodec.FORMAT_NAMES
 

@@ -38,8 +38,8 @@ import pytest
 
 from ppocr_tpu_torch.ops import native
 from ppocr_tpu_torch.utils import imcodec
-from test_torch_avif import (Bits, avif_file, cv2_avif, decode_stats, gradient, item_data, mutations, noise, obu,
-                             pil_avif, read_answers, smooth, text)
+from test_torch_avif import (Bits, av1c, avif_file, colr, cv2_avif, decode_stats, gradient, ispe, item_data,
+                             mutations, noise, obu, pil_avif, pixi, read_answers, smooth, text)
 from test_torch_tiff import answers, cv2_decode, port_decode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,18 +100,22 @@ class _RWData(ctypes.Structure):
     _fields_ = [("data", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t)]
 
 
-def libavif_avif(bgr: np.ndarray, quality: int, speed: int, options=FILTERS_OFF) -> bytes:
+def libavif_avif(bgr: np.ndarray, quality: int, speed: int, options=FILTERS_OFF, matrix: int = 0,
+                 full_range: int = 1) -> bytes:
     """A lossy 4:4:4 AVIF of ``bgr`` from libavif's ``avifEncoderWrite``:
-    identity matrix, BT.709 primaries, sRGB transfer, full range, the Y, U
-    and V planes set to G, B and R. avif.h's layouts, checked on the
-    objects' defaults: avifImage's planes at 24 and their row bytes at 48,
-    its CICP at 104; avifEncoder's speed at 8 and quality at 32."""
+    identity matrix (or ``matrix``), BT.709 primaries, sRGB transfer, full
+    range (or limited), the Y, U and V planes set to G, B and R. avif.h's
+    layouts, checked on the objects' defaults: avifImage's range at 16,
+    planes at 24 and their row bytes at 48, its CICP at 104; avifEncoder's
+    speed at 8 and quality at 32."""
     lib = _libavif()
     h, w = bgr.shape[:2]
     img = lib.avifImageCreate(w, h, 8, 1)  # AVIF_PIXEL_FORMAT_YUV444
     assert np.frombuffer(ctypes.string_at(img, 16), "<u4").tolist() == [w, h, 8, 1]
     assert np.frombuffer(ctypes.string_at(img + 104, 6), "<u2").tolist() == [2, 2, 2]  # unspecified
-    ctypes.memmove(img + 104, np.array([1, 13, 0], "<u2").tobytes(), 6)
+    assert np.frombuffer(ctypes.string_at(img + 16, 4), "<u4")[0] == 1  # AVIF_RANGE_FULL
+    ctypes.memmove(img + 104, np.array([1, 13, matrix], "<u2").tobytes(), 6)
+    ctypes.memmove(img + 16, np.array([full_range], "<u4").tobytes(), 4)
     enc = lib.avifEncoderCreate()
     try:
         assert lib.avifImageAllocatePlanes(img, 1) == 0  # AVIF_PLANES_YUV
@@ -380,17 +384,22 @@ def write_coefficients(w: SymbolWriter, qc: int, t: int, coefs: dict, dc_ctx: in
     return sum(level for level, _ in coefs.values())
 
 
-def written_frame(coefs: list, q: int) -> bytes:
+def written_frame(coefs: list, q: int, subsampled: bool = False) -> bytes:
     """A 128x64 4:4:4 key frame (reduced still-picture header, sRGB
-    identity colours) of two superblocks: VERT_4 into 16x64 blocks, HORZ_4
-    into 64x16 ones, each DC_PRED with luma coefficients ``coefs[k]`` and
-    all-zero chroma, TX_MODE_LARGEST, base_q_idx ``q``."""
+    identity colours; ``subsampled``: 4:2:0, BT.601 in full range) of two
+    superblocks: VERT_4 into 16x64 blocks, HORZ_4 into 64x16 ones, each
+    DC_PRED with luma coefficients ``coefs[k]`` and all-zero chroma
+    (16x32 and 32x16 transforms, 8x32 and 32x8 in 4:2:0),
+    TX_MODE_LARGEST, base_q_idx ``q``."""
     T = c_tables()
     qc = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
-    seq = Bits().f(1, 3).f(1, 1).f(1, 1).f(8, 5)  # profile 1, still, reduced header, level 4.0
+    seq = Bits().f(0 if subsampled else 1, 3).f(1, 1).f(1, 1).f(8, 5)  # profile, still, reduced header, level 4.0
     seq.f(6, 4).f(5, 4).f(127, 7).f(63, 6)  # 128 x 64 in 7 and 6 bits
     seq.f(0, 3).f(0, 3)  # 64x64 superblocks, no filter intra or edge filter; no superres, CDEF, restoration
-    seq.f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(0, 8).f(0, 1).f(0, 1)  # 8 bits, sRGB identity, one uv delta, no grain
+    if subsampled:  # 8 bits, colour, BT.709 / sRGB / BT.601, full range, sample position 0, one uv delta, no grain
+        seq.f(0, 1).f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(6, 8).f(1, 1).f(0, 2).f(0, 1).f(0, 1)
+    else:
+        seq.f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(0, 8).f(0, 1).f(0, 1)  # 8 bits, sRGB identity, one uv delta, no grain
     head = Bits().f(1, 1).f(0, 1).f(0, 1)  # CDF updates off, no screen content tools, render size
     head.f(1, 1).f(0, 1)  # uniform tiles, one tile column
     head.f(q, 8).f(0, 4).f(0, 2)  # base_q_idx, no dc / ac deltas, no qmatrix; no segmentation, no delta q
@@ -399,6 +408,9 @@ def written_frame(coefs: list, q: int) -> bytes:
     head.bits += [0] * (-len(head.bits) % 8)
     w = SymbolWriter()
     ctx = {p: np.zeros((2, 32), int) for p in range(3)}  # above / left entropy contexts in 4-sample units
+    # the chroma transforms: TX_16X32 / TX_32X16 (txs_ctx 3, the plane's
+    # block larger: 10), or in 4:2:0 TX_8X32 / TX_32X8 (txs_ctx 2, as large: 7)
+    chroma_ctx, chroma_base = (2, 7) if subsampled else (3, 10)
     sign_of = lambda v: (0, -1, 1)[v >> 3]
     k = 0
     for sb, partition in ((0, 9), (1, 8)):
@@ -409,10 +421,12 @@ def written_frame(coefs: list, q: int) -> bytes:
             w.symbol(0, T["uv_mode_cdf"][0][0], 13)  # no CFL above 32x32
             if sb == 0:
                 cols, rows = range(4 * i, 4 * i + 4), range(16)
-                chroma = [(cols, range(0, 8)), (cols, range(8, 16))]
+                chroma = ([(range(2 * i, 2 * i + 2), range(8))] if subsampled
+                          else [(cols, range(0, 8)), (cols, range(8, 16))])
             else:
                 cols, rows = range(16, 32), range(4 * i, 4 * i + 4)
-                chroma = [(range(16, 24), rows), (range(24, 32), rows)]
+                chroma = ([(range(8, 16), range(2 * i, 2 * i + 2))] if subsampled
+                          else [(range(16, 24), rows), (range(24, 32), rows)])
             dc = sum(sign_of(ctx[0][0][c]) for c in cols) + sum(sign_of(ctx[0][1][r]) for r in rows)
             w.symbol(0, T["txb_skip_cdfs"][qc][3][0], 2)
             cul = write_coefficients(w, qc, TX_16X64 if sb == 0 else TX_64X16, coefs[k], 1 if dc < 0 else 2 if dc else 0)
@@ -420,20 +434,24 @@ def written_frame(coefs: list, q: int) -> bytes:
             ctx[0][0][list(cols)], ctx[0][1][list(rows)] = byte, byte
             k += 1
             for p in (1, 2):
-                for ccols, crows in chroma:  # TX_16X32 / TX_32X16, all zero
+                for ccols, crows in chroma:  # all zero
                     base = ctx[p][0][list(ccols)].any() + ctx[p][1][list(crows)].any()
-                    w.symbol(1, T["txb_skip_cdfs"][qc][3][10 + base], 2)
+                    w.symbol(1, T["txb_skip_cdfs"][qc][chroma_ctx][chroma_base + base], 2)
     frame = bytes(int("".join(map(str, head.bits[i:i + 8])), 2) for i in range(0, len(head.bits), 8)) + w.done()
     return obu(1, seq.trailing()) + obu(6, frame)
 
 
-def written_file(seed: int) -> bytes:
+def written_file(seed: int, subsampled: bool = False) -> bytes:
     rs = np.random.RandomState(seed)
     coefs = []
     for _ in range(8):
         at = sorted(set(rs.randint(0, 40, rs.randint(1, 30)).tolist()) | {0})
         coefs.append({c: (int(rs.randint(1, 3)), int(rs.randint(0, 2))) for c in at})
-    return avif_file(written_frame(coefs, int(rs.randint(1, 256))), w=128, h=64)
+    frame = written_frame(coefs, int(rs.randint(1, 256)), subsampled)
+    if not subsampled:
+        return avif_file(frame, w=128, h=64)
+    props = [(ispe(128, 64), 0), (pixi(8, 8, 8), 0), (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 1), 0)]
+    return avif_file(frame, w=128, h=64, color_props=props)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -390,12 +390,15 @@ def _refused():
         "12-bit": (base[:sof + 3] + bytes([12]) + base[sof + 4:], "precision", False),
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
-    # AVIF is decoded since, 8-bit 4:4:4 stills, lossless and lossy with the
-    # in-loop filters off (tests/test_torch_avif.py, test_torch_avif_lossy.py),
-    # but not subsampled chroma, ``imcodec.AVIF_UNPORTED``: cv2's default
-    # (quality 95) file, 4:2:0 with matrix 6, is refused with a line naming
-    # A14.7b
-    cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(), "(ROADMAP A14.7b)", True)
+    # AVIF is decoded since, 8-bit stills of any subsampling, matrix and
+    # range, lossless and lossy with the in-loop filters off
+    # (tests/test_torch_avif.py, test_torch_avif_lossy.py,
+    # test_torch_avif_chroma.py, test_torch_avif_colour.py), but not a frame
+    # whose filters run, ``imcodec.AVIF_UNPORTED``: cv2's default (quality
+    # 50) file, 4:2:0 with matrix 6, runs deblocking and CDEF and is refused
+    # with a line naming A14.7b (its quality-95 file decodes: below)
+    cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(),
+                     "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
@@ -433,7 +436,8 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     by the port: the known difference, held here so that it cannot grow
     unnoticed. A JPEG 2000 file is refused only for what
     ``imcodec.J2K_UNPORTED`` names (HT code-blocks here), an AVIF file only
-    for what ``imcodec.AVIF_UNPORTED`` names (a lossy, 4:2:0 frame here).
+    for what ``imcodec.AVIF_UNPORTED`` names (cv2's default, quality 50,
+    whose frame runs deblocking and CDEF).
     No WebP is refused for its kind any more, and no format is left
     undecoded (``imcodec.FORMAT_NAMES`` is empty)."""
     data, reason, cv2_decodes = _refused()[name]
@@ -444,6 +448,16 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     assert not imcodec.FORMAT_NAMES
     assert set(imcodec.TIFF_UNPORTED) == {32766, 32809, 34676, 34677}
     assert not hasattr(imcodec, "WEBP_UNPORTED")
+
+
+def test_cv2s_quality_95_avif_of_the_refused_image_decodes_as_cv2():
+    """The image of the refused AVIF case above as cv2 writes it at quality
+    95: 4:2:0, BT.601 in full range, every in-loop filter off; the port
+    gives cv2's pixels."""
+    img = image(16, 24, seed=3)
+    data = cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_QUALITY, 95])[1].tobytes()
+    got = port_decode(data)
+    assert got is not None and got.shape == img.shape and answers(data) == "equal"
 
 
 def test_a_damaged_zlib_stream_under_a_valid_crc_is_the_known_png_difference():
