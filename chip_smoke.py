@@ -180,15 +180,16 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     bare JPEG, and the scene as an irreversible JP2 (as data) against the
     PNG of the same pixels with one ``ctc_topk`` launch ("jpeg2000
     service"), and the AVIF cases (8-bit stills decoded by
-    ``csrc/av1.cpp``, lossless and lossy with the in-loop filters off,
+    ``csrc/av1.cpp``, lossless and lossy, deblocked and CDEF-filtered,
     4:4:4, 4:2:2, 4:2:0 or monochrome, converted by ``csrc/avif_yuv.cpp``
-    as libavif converts them: the ``avif_vs_cv2``, ``avif_lossy_vs_cv2``
-    and ``avif_chroma_vs_cv2`` counts), the host ms of the scene as cv2's
-    lossless AVIF, as a lossy 4:4:4 one (q90, filters off) and as cv2's
-    quality-95 file (4:2:0, BT.601), and each file (as data) against the
-    PNG of cv2's pixels: the same words exactly, with one ``ctc_topk``
-    launch each ("avif service", "lossy avif service", "subsampled avif
-    service"); a
+    as libavif converts them: the ``avif_vs_cv2``, ``avif_lossy_vs_cv2``,
+    ``avif_chroma_vs_cv2`` and ``avif_filtered_vs_cv2`` counts), the host
+    ms of the scene as cv2's lossless AVIF, as a lossy 4:4:4 one (q90,
+    filters off), as cv2's quality-95 file (4:2:0, BT.601) and as cv2's
+    default (quality 50, deblocked and CDEF-filtered), and each file (as
+    data) against the PNG of cv2's pixels: the same words exactly, with
+    one ``ctc_topk`` launch each ("avif service", "lossy avif service",
+    "subsampled avif service", "default avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1510,7 +1511,7 @@ class Smoke:
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
-            + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95")
+            + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1521,6 +1522,7 @@ class Smoke:
         avif = [0, 0]  # AVIF cases, of them None
         avif_lossy = [0, 0]  # of them lossy (4:4:4 or monochrome, the in-loop filters off), of them None
         avif_chroma = [0, 0]  # of them 4:2:0 or 4:2:2 (Pillow's and cv2's), of them None
+        avif_filtered = [0, 0]  # of them deblocked and CDEF-filtered (cv2's, Pillow's, written), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1536,10 +1538,13 @@ class Smoke:
                 is_avif = sniff_format(data) == "avif"
                 is_avif_lossy = name.startswith("avif_lossy_") or name == "scene0_avif_lossy"
                 is_avif_chroma = name.startswith("avif_chroma") or name == "scene0_avif_q95"
+                is_avif_filtered = name.startswith("avif_filtered_") or name in ("scene0_avif_default",
+                                                                                "scene0_avif_pillow")
                 j2k[0] += is_j2k
                 avif[0] += is_avif
                 avif_lossy[0] += is_avif_lossy
                 avif_chroma[0] += is_avif_chroma
+                avif_filtered[0] += is_avif_filtered
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1556,6 +1561,7 @@ class Smoke:
                     avif[1] += is_avif
                     avif_lossy[1] += is_avif_lossy
                     avif_chroma[1] += is_avif_chroma
+                    avif_filtered[1] += is_avif_filtered
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1614,6 +1620,13 @@ class Smoke:
                                                         == cases["scene0_avif_q95"][1]).all():
             raise AssertionError("scene0_avif_q95 is not an AVIF that decodes to cv2's pixels")
         avif_q95_png = encode_png(cases["scene0_avif_q95"][1])
+        # the scene as cv2's default AVIF (quality 50: 4:2:0, BT.601, the
+        # frame deblocked and CDEF-filtered), beside the PNG of cv2's pixels
+        avif_default_data = cases["scene0_avif_default"][0]
+        if sniff_format(avif_default_data) != "avif" or not (decode_image(avif_default_data)
+                                                            == cases["scene0_avif_default"][1]).all():
+            raise AssertionError("scene0_avif_default is not an AVIF that decodes to cv2's pixels")
+        avif_default_png = encode_png(cases["scene0_avif_default"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1751,6 +1764,21 @@ class Smoke:
                                          "equal")
                 words["scene0_avif_q95"] = len(got_avif_q95["words"])
                 before = service_launches(c)
+                got_avif_default = c.send_request(req(avif_default_data))
+                self.launches["default avif service"] = launched_avif_default = launches_since(
+                    c, before, "default AVIF")
+                if launched_avif_default["ctc_topk"] != 1:
+                    raise AssertionError(f"the default AVIF request: {launched_avif_default}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_default_png))
+                if not got_avif_default.get("success") or not want.get("words"):
+                    raise AssertionError(f"default AVIF: {str(got_avif_default)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_default["words"], want["words"], "cv2's default AVIF vs the PNG of cv2's pixels")
+                if ([(w["text"], w["box"]) for w in got_avif_default["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the default AVIF's words are not the PNG's: the texts and boxes must be "
+                                         "equal")
+                words["scene0_avif_default"] = len(got_avif_default["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1789,7 +1817,7 @@ class Smoke:
             "jpeg2000_vs_cv2": f"{j2k[0]} JPEG 2000 cases (JP2 and raw codestreams, cv2's, Pillow's and "
             f"libopenjp2's files, written boxes and markers, damaged files) equal cv2's answer, {j2k[1]} of them None",
             "avif_vs_cv2": f"{avif[0]} AVIF cases (cv2's lossless files, the intra tool corpus, written boxes and "
-            f"items, lossy 4:4:4 and monochrome streams with the in-loop filters off, damaged files) equal cv2's "
+            f"items, lossy streams of every subsampling, deblocked and CDEF-filtered ones, damaged files) equal cv2's "
             f"answer, {avif[1]} of them None",
             "avif_lossy_vs_cv2": f"{avif_lossy[0]} of them lossy (Pillow's 4:4:4 streams at speeds 0-9, q30-95, "
             f"with quantiser matrices, delta q, IntraBC, tiles; cv2's monochrome; alpha; damaged), "
@@ -1797,6 +1825,10 @@ class Smoke:
             "avif_chroma_vs_cv2": f"{avif_chroma[0]} of them 4:2:0 or 4:2:2 (Pillow's streams lossless and lossy, "
             f"odd sizes, screen content with IntraBC, encoder options; cv2's q95 scene; damaged), "
             f"{avif_chroma[1]} of them None",
+            "avif_filtered_vs_cv2": f"{avif_filtered[0]} of them deblocked and CDEF-filtered (cv2's files of "
+            f"q20-90, Pillow's defaults and CDEF files, sharpness, monochrome, odd sizes, written frames with "
+            f"delta lf, segment features and CDEF indices; the scene as cv2's and Pillow's defaults; damaged), "
+            f"{avif_filtered[1]} of them None",
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1810,8 +1842,9 @@ class Smoke:
             "launches_of_the_jpeg2000_request": launched_j2k, "launches_of_the_avif_request": launched_avif,
             "launches_of_the_lossy_avif_request": launched_avif_lossy,
             "launches_of_the_subsampled_avif_request": launched_avif_q95,
+            "launches_of_the_default_avif_request": launched_avif_default,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the thirty-one payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty-two payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

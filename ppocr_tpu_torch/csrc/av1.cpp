@@ -1,5 +1,5 @@
 // AV1 still-picture decoder for 8-bit key frames (4:4:4, 4:2:2, 4:2:0 and
-// monochrome), lossless or lossy with the in-loop filters off, as libaom
+// monochrome), lossless or lossy, deblocked and CDEF-filtered, as libaom
 // 3.14.1 decodes them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
 //
 // The layers follow libaom's files, and so do the names in the comments:
@@ -39,22 +39,38 @@
 //   * av1_inv_txfm1d.c / av1_inv_txfm2d.c and the lowbd x86 transforms
 //     libaom dispatches (av1_inv_txfm_avx2.c / _ssse3.c): every inverse
 //     transform; idct (iwht4x4) for lossless blocks. The result is added
-//     with a clamp to 8 bits.
+//     with a clamp to 8 bits;
+//   * av1_loopfilter.c / aom_dsp/loopfilter.c: the deblocking filter once
+//     the frame's tiles are decoded (av1_loop_filter_frame_init's levels
+//     with delta lf, the segment's ALT_LF features and the intra reference
+//     delta, update_sharpness's limits; set_lpf_parameters' edges and
+//     lengths; the 4, 6, 8 and 14-tap filters), every vertical edge of a
+//     plane before its horizontal ones;
+//   * cdef.c / cdef_block.c: CDEF on the deblocked frame (read_cdef's index
+//     per 64x64 unit, cdef_find_dir, adjust_strength, the primary and
+//     secondary taps of cdef_filter_8_*, CDEF_VERY_LARGE past the 8-sample
+//     grid of the frame).
 //
 // The default CDFs and constant tables come from av1_tables.h, written from
 // libaom 3.14.1's library by scripts/make_av1_tables_torch.py.
 //
-// What this decoder does not decode (a frame whose deblocking, CDEF or loop
-// restoration would run, more than 8 bits, superres, film grain, a frame
-// other than one shown key frame) gives status UNPORTED before any pixel is
-// decoded.
+// What this decoder does not decode (a frame whose loop restoration would
+// run, more than 8 bits, superres, film grain, a frame other than one shown
+// key frame) gives status UNPORTED before any pixel is decoded.
 
 #include <algorithm>
+#include <chrono>
+#include <cstddef>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 #include "av1_tables.h"
 
@@ -349,9 +365,13 @@ struct FrameHeader {
     int coded_lossless = 0, all_lossless = 0;
     int reduced_tx_set = 0, tx_mode_select = 0;
     int apply_grain = 0;
-    // the in-loop filters' parameters, read to decide whether a filter runs
+    // the in-loop filters: deblocking (levels y vertical, y horizontal, u,
+    // v; the deltas of av1_set_default_ref_deltas unless updated), CDEF
+    // (strengths as coded: primary * 4 + secondary) and restoration
     int loop_filter_level[4] = {0, 0, 0, 0};
-    int cdef_bits = 0, cdef_y_strength0 = 0, cdef_uv_strength0 = 0;
+    int lf_sharpness = 0, lf_delta_enabled = 0;
+    int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
+    int cdef_damping = 3, cdef_bits = 0, cdef_y_strengths[8] = {0}, cdef_uv_strengths[8] = {0};
     int restoration_type[3] = {0, 0, 0};  // lr_type as coded: 0 is RESTORE_NONE
 };
 
@@ -629,21 +649,22 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
             fh.loop_filter_level[2] = rb.f(6);
             fh.loop_filter_level[3] = rb.f(6);
         }
-        rb.f(3);
-        if (rb.bit1() && rb.bit1()) {
+        fh.lf_sharpness = rb.f(3);
+        fh.lf_delta_enabled = rb.bit1();
+        if (fh.lf_delta_enabled && rb.bit1()) {  // loop_filter_delta_update
             for (int i = 0; i < 8; i++)
-                if (rb.bit1()) rb.f(7);
+                if (rb.bit1()) fh.lf_ref_deltas[i] = rb.su(7);
             for (int i = 0; i < 2; i++)
-                if (rb.bit1()) rb.f(7);
+                if (rb.bit1()) fh.lf_mode_deltas[i] = rb.su(7);
         }
     }
     // cdef_params()
     if (!fh.coded_lossless && !fh.allow_intrabc && s.enable_cdef) {
-        rb.f(2);
+        fh.cdef_damping = rb.f(2) + 3;
         fh.cdef_bits = rb.f(2);
         for (int i = 0; i < (1 << fh.cdef_bits); i++) {
-            int y = rb.f(6), uv = num_planes > 1 ? (int)rb.f(6) : 0;
-            if (i == 0) fh.cdef_y_strength0 = y, fh.cdef_uv_strength0 = uv;
+            fh.cdef_y_strengths[i] = rb.f(6);
+            if (num_planes > 1) fh.cdef_uv_strengths[i] = rb.f(6);
         }
     }
     // lr_params()
@@ -1125,10 +1146,261 @@ const int kMvClasses = 0, kMvClass0Fp = 12, kMvFp = 22, kMvSign = 27, kMvClass0H
 
 namespace {
 
+// -- the in-loop filters: deblocking (aom_dsp/loopfilter.c) and CDEF (cdef_block.c) -------------
+
+int8_t signed_char_clamp(int t) { return (int8_t)clip3(-128, 127, t); }
+
+// filter4: the 4-tap filter of the two samples each side
+void lpf_filter4(int8_t mask, uint8_t thresh, uint8_t* op1, uint8_t* op0, uint8_t* oq0, uint8_t* oq1) {
+    const int8_t ps1 = (int8_t)(*op1 ^ 0x80), ps0 = (int8_t)(*op0 ^ 0x80);
+    const int8_t qs0 = (int8_t)(*oq0 ^ 0x80), qs1 = (int8_t)(*oq1 ^ 0x80);
+    const int8_t hev = (int8_t)(-((std::abs(*op1 - *op0) > thresh) | (std::abs(*oq1 - *oq0) > thresh)));
+    int8_t filter = (int8_t)(signed_char_clamp(ps1 - qs1) & hev);
+    filter = (int8_t)(signed_char_clamp(filter + 3 * (qs0 - ps0)) & mask);
+    const int8_t filter1 = (int8_t)(signed_char_clamp(filter + 4) >> 3);
+    const int8_t filter2 = (int8_t)(signed_char_clamp(filter + 3) >> 3);
+    *oq0 = (uint8_t)(signed_char_clamp(qs0 - filter1) ^ 0x80);
+    *op0 = (uint8_t)(signed_char_clamp(ps0 + filter2) ^ 0x80);
+    filter = (int8_t)(((filter1 + 1) >> 1) & ~hev);
+    *oq1 = (uint8_t)(signed_char_clamp(qs1 - filter) ^ 0x80);
+    *op1 = (uint8_t)(signed_char_clamp(ps1 + filter) ^ 0x80);
+}
+
+// aom_lpf_{vertical,horizontal}_{4,6,8,14}_c: ``length`` taps on a 4-sample
+// segment, ``s`` at the first sample past the edge, ``step`` across it (1
+// for a vertical edge, the stride for a horizontal one), ``along`` from one
+// line to the next; blimit, limit and thresh are a level's loop_filter_thresh
+void lpf_segment(uint8_t* s, ptrdiff_t step, ptrdiff_t along, int length, int blimit, int limit, int thresh) {
+    for (int i = 0; i < 4; i++, s += along) {
+        uint8_t* q[7];
+        uint8_t* p[7];
+        const int n = length == 14 ? 7 : length == 8 ? 4 : length == 6 ? 3 : 2;
+        for (int k = 0; k < n; k++) q[k] = s + k * step, p[k] = s - (k + 1) * step;
+        auto d = [](const uint8_t* a, const uint8_t* b) { return std::abs((int)*a - (int)*b); };
+        // filter_mask2 / filter_mask3_chroma / filter_mask: every neighbour
+        // step within limit, the edge within blimit
+        bool over = d(p[1], p[0]) > limit || d(q[1], q[0]) > limit || d(p[0], q[0]) * 2 + d(p[1], q[1]) / 2 > blimit;
+        for (int k = 2; k < std::min(n, 4); k++) over = over || d(p[k], p[k - 1]) > limit || d(q[k], q[k - 1]) > limit;
+        const int8_t mask = over ? 0 : -1;
+        if (length == 4) {
+            lpf_filter4(mask, (uint8_t)thresh, p[1], p[0], q[0], q[1]);
+            continue;
+        }
+        // flat_mask3_chroma / flat_mask4 at 1, and flat2 over p4..p6, q4..q6
+        bool flat = true;
+        for (int k = 1; k < std::min(n, 4); k++) flat = flat && d(p[k], p[0]) <= 1 && d(q[k], q[0]) <= 1;
+        bool flat2 = length == 14;
+        for (int k = 4; k < n; k++) flat2 = flat2 && d(p[k], p[0]) <= 1 && d(q[k], q[0]) <= 1;
+        if (!mask || !flat) {
+            lpf_filter4(mask, (uint8_t)thresh, p[1], p[0], q[0], q[1]);
+            continue;
+        }
+        if (length == 6) {  // filter6: [1, 2, 2, 2, 1]
+            const int p2 = *p[2], p1 = *p[1], p0 = *p[0], q0 = *q[0], q1 = *q[1], q2 = *q[2];
+            *p[1] = (uint8_t)round2(p2 * 3 + p1 * 2 + p0 * 2 + q0, 3);
+            *p[0] = (uint8_t)round2(p2 + p1 * 2 + p0 * 2 + q0 * 2 + q1, 3);
+            *q[0] = (uint8_t)round2(p1 + p0 * 2 + q0 * 2 + q1 * 2 + q2, 3);
+            *q[1] = (uint8_t)round2(p0 + q0 * 2 + q1 * 2 + q2 * 3, 3);
+        } else if (length == 8 || !flat2) {  // filter8: [1, 1, 1, 2, 1, 1, 1]
+            const int p3 = *p[3], p2 = *p[2], p1 = *p[1], p0 = *p[0], q0 = *q[0], q1 = *q[1], q2 = *q[2], q3 = *q[3];
+            *p[2] = (uint8_t)round2(p3 + p3 + p3 + 2 * p2 + p1 + p0 + q0, 3);
+            *p[1] = (uint8_t)round2(p3 + p3 + p2 + 2 * p1 + p0 + q0 + q1, 3);
+            *p[0] = (uint8_t)round2(p3 + p2 + p1 + 2 * p0 + q0 + q1 + q2, 3);
+            *q[0] = (uint8_t)round2(p2 + p1 + p0 + 2 * q0 + q1 + q2 + q3, 3);
+            *q[1] = (uint8_t)round2(p1 + p0 + q0 + 2 * q1 + q2 + q3 + q3, 3);
+            *q[2] = (uint8_t)round2(p0 + q0 + q1 + 2 * q2 + q3 + q3 + q3, 3);
+        } else {  // filter14: [1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1] over a window sliding from p6 to q6
+            int v[14];
+            for (int k = 0; k < 7; k++) v[6 - k] = *p[k], v[7 + k] = *q[k];
+            for (int k = 1; k <= 12; k++) {  // the outputs p5 .. q5 at v[k]
+                int sum = 0;
+                for (int t = k - 6; t <= k + 6; t++) sum += v[clip3(0, 13, t)] * ((t >= k - 1 && t <= k + 1) ? 2 : 1);
+                uint8_t* at = k < 7 ? p[6 - k] : q[k - 7];
+                *at = (uint8_t)round2(sum, 4);
+            }
+        }
+    }
+}
+
+// CDEF on 16-bit samples (cdef_block.c): a sample outside the frame is
+// CDEF_VERY_LARGE, which no constraint takes and no maximum counts
+const int kCdefVeryLarge = 30000;
+const int kCdefPriTaps[2][2] = {{4, 2}, {3, 3}}, kCdefSecTaps[2] = {2, 1};
+// cdef_directions_padded: direction d at [d + 2], the taps at 1 and 2 samples
+const int kCdefDirections[12][2][2] = {  // {row, col} of each tap
+    {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}},  {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}},
+    {{0, 1}, {0, 2}},   {{0, 1}, {1, 2}},   {{1, 1}, {2, 2}},   {{1, 0}, {2, 1}},
+    {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}},  {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}};
+
+// cdef_find_dir_c: the direction of an 8x8 block and its directional
+// contrast (the variance luma's primary strength is adjusted by)
+int cdef_find_dir(const uint16_t* img, int stride, int32_t* var) {
+    int32_t cost[8] = {0};
+    int partial[8][15] = {{0}};
+    static const int div_table[] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+            const int x = img[i * stride + j] - 128;
+            partial[0][i + j] += x;
+            partial[1][i + j / 2] += x;
+            partial[2][i] += x;
+            partial[3][3 + i - j / 2] += x;
+            partial[4][7 + i - j] += x;
+            partial[5][3 - i / 2 + j] += x;
+            partial[6][j] += x;
+            partial[7][i / 2 + j] += x;
+        }
+    for (int i = 0; i < 8; i++) {
+        cost[2] += partial[2][i] * partial[2][i];
+        cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= div_table[8];
+    cost[6] *= div_table[8];
+    for (int i = 0; i < 7; i++) {
+        cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * div_table[i + 1];
+        cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * div_table[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * div_table[8];
+    cost[4] += partial[4][7] * partial[4][7] * div_table[8];
+    for (int i = 1; i < 8; i += 2) {
+        for (int j = 0; j < 5; j++) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+        cost[i] *= div_table[8];
+        for (int j = 0; j < 3; j++)
+            cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * div_table[2 * j + 2];
+    }
+    int32_t best_cost = 0;
+    int best_dir = 0;
+    for (int i = 0; i < 8; i++)
+        if (cost[i] > best_cost) {
+            best_cost = cost[i];
+            best_dir = i;
+        }
+    *var = (best_cost - cost[(best_dir + 4) & 7]) >> 10;
+    return best_dir;
+}
+
+// constrain: the difference, shrunk as it grows past the strength (shift:
+// the damping less the strength's log2, at least 0)
+inline int cdef_constrain(int diff, int threshold, int shift) {
+    const int mag = std::min(std::abs(diff), std::max(0, threshold - (std::abs(diff) >> shift)));
+    return diff < 0 ? -mag : mag;
+}
+
+// cdef_filter_8_{0,1,2,3}: one block of bw x bh from ``in`` (16-bit, the
+// block's first sample; neighbours two samples away) into ``dst``; the
+// primary taps along ``dir``, the secondary ones 45 degrees off, the result
+// clipped to the taps' range where both run
+void cdef_filter_scalar(uint8_t* dst, int dstride, const uint16_t* in, int istride, int pri, int sec, int dir,
+                        int pri_damping, int sec_damping, int bw, int bh) {
+    const bool primary = pri != 0, secondary = sec != 0, clip = primary && secondary;
+    const int pri_shift = primary ? std::max(0, pri_damping - log2i(pri)) : 0;
+    const int sec_shift = secondary ? std::max(0, sec_damping - log2i(sec)) : 0;
+    const int* pri_taps = kCdefPriTaps[pri & 1];
+    auto offset = [&](int d, int k) { return kCdefDirections[d][k][0] * istride + kCdefDirections[d][k][1]; };
+    const int po[2] = {offset(dir + 2, 0), offset(dir + 2, 1)};
+    const int so[2][2] = {{offset(dir + 4, 0), offset(dir, 0)}, {offset(dir + 4, 1), offset(dir, 1)}};
+    for (int i = 0; i < bh; i++)
+        for (int j = 0; j < bw; j++) {
+            const uint16_t* at = in + i * istride + j;
+            const int x = at[0];
+            int sum = 0, mx = x, mn = x;
+            auto tap = [&](int v, int taps, int strength, int shift) {
+                sum += taps * cdef_constrain(v - x, strength, shift);
+                if (clip) {
+                    if (v != kCdefVeryLarge) mx = std::max(v, mx);
+                    mn = std::min(v, mn);
+                }
+            };
+            for (int k = 0; k < 2; k++) {
+                if (primary) {
+                    tap(at[po[k]], pri_taps[k], pri, pri_shift);
+                    tap(at[-po[k]], pri_taps[k], pri, pri_shift);
+                }
+                if (secondary)
+                    for (int o : so[k]) {
+                        tap(at[o], kCdefSecTaps[k], sec, sec_shift);
+                        tap(at[-o], kCdefSecTaps[k], sec, sec_shift);
+                    }
+            }
+            int y = x + ((8 + sum - (sum < 0)) >> 4);
+            if (clip) y = clip3(mn, mx, y);
+            dst[i * dstride + j] = (uint8_t)y;
+        }
+}
+
+#if defined(__SSE2__)
+// the same arithmetic on a row of 8 samples in 16-bit lanes (every value and
+// difference, CDEF_VERY_LARGE's included, fits them): every luma block, the
+// bulk of CDEF's work
+void cdef_filter_rows8(uint8_t* dst, int dstride, const uint16_t* in, int istride, int pri, int sec, int dir,
+                       int pri_damping, int sec_damping, int bh) {
+    const bool primary = pri != 0, secondary = sec != 0, clip = primary && secondary;
+    const __m128i zero = _mm_setzero_si128(), very_large = _mm_set1_epi16(kCdefVeryLarge);
+    const __m128i pri_v = _mm_set1_epi16((int16_t)pri), sec_v = _mm_set1_epi16((int16_t)sec);
+    const __m128i pri_shift = _mm_cvtsi32_si128(primary ? std::max(0, pri_damping - log2i(pri)) : 0);
+    const __m128i sec_shift = _mm_cvtsi32_si128(secondary ? std::max(0, sec_damping - log2i(sec)) : 0);
+    const __m128i pt[2] = {_mm_set1_epi16((int16_t)kCdefPriTaps[pri & 1][0]), _mm_set1_epi16((int16_t)kCdefPriTaps[pri & 1][1])};
+    const __m128i st[2] = {_mm_set1_epi16((int16_t)kCdefSecTaps[0]), _mm_set1_epi16((int16_t)kCdefSecTaps[1])};
+    auto offset = [&](int d, int k) { return kCdefDirections[d][k][0] * istride + kCdefDirections[d][k][1]; };
+    const int po[2] = {offset(dir + 2, 0), offset(dir + 2, 1)};
+    const int so[2][2] = {{offset(dir + 4, 0), offset(dir, 0)}, {offset(dir + 4, 1), offset(dir, 1)}};
+    for (int i = 0; i < bh; i++) {
+        const uint16_t* row = in + i * istride;
+        const __m128i x = _mm_loadu_si128((const __m128i*)row);
+        __m128i sum = zero, mx = x, mn = x;
+        auto tap = [&](int o, __m128i taps, __m128i strength, __m128i shift) {
+            const __m128i v = _mm_loadu_si128((const __m128i*)(row + o));
+            const __m128i diff = _mm_sub_epi16(v, x);
+            const __m128i ad = _mm_max_epi16(diff, _mm_sub_epi16(zero, diff));
+            const __m128i room = _mm_max_epi16(zero, _mm_sub_epi16(strength, _mm_sra_epi16(ad, shift)));
+            const __m128i neg = _mm_cmplt_epi16(diff, zero);
+            const __m128i c = _mm_sub_epi16(_mm_xor_si128(_mm_min_epi16(ad, room), neg), neg);
+            sum = _mm_add_epi16(sum, _mm_mullo_epi16(c, taps));
+            if (clip) {
+                const __m128i large = _mm_cmpeq_epi16(v, very_large);
+                mx = _mm_max_epi16(mx, _mm_or_si128(_mm_and_si128(large, x), _mm_andnot_si128(large, v)));
+                mn = _mm_min_epi16(mn, v);
+            }
+        };
+        for (int k = 0; k < 2; k++) {
+            if (primary) {
+                tap(po[k], pt[k], pri_v, pri_shift);
+                tap(-po[k], pt[k], pri_v, pri_shift);
+            }
+            if (secondary)
+                for (int o : so[k]) {
+                    tap(o, st[k], sec_v, sec_shift);
+                    tap(-o, st[k], sec_v, sec_shift);
+                }
+        }
+        const __m128i rounded = _mm_add_epi16(_mm_add_epi16(sum, _mm_set1_epi16(8)), _mm_cmplt_epi16(sum, zero));
+        __m128i y = _mm_add_epi16(x, _mm_srai_epi16(rounded, 4));
+        if (clip) y = _mm_min_epi16(_mm_max_epi16(y, mn), mx);
+        _mm_storel_epi64((__m128i*)(dst + i * dstride), _mm_packus_epi16(y, y));
+    }
+}
+#endif
+
+void cdef_filter_block(uint8_t* dst, int dstride, const uint16_t* in, int istride, int pri, int sec, int dir,
+                       int pri_damping, int sec_damping, int bw, int bh) {
+#if defined(__SSE2__)
+    if (bw == 8) return cdef_filter_rows8(dst, dstride, in, istride, pri, sec, dir, pri_damping, sec_damping, bh);
+#endif
+    cdef_filter_scalar(dst, dstride, in, istride, pri, sec, dir, pri_damping, sec_damping, bw, bh);
+}
+
+// adjust_strength: luma's primary strength scaled by the block's variance
+int cdef_adjust_strength(int strength, int32_t var) {
+    const int i = (var >> 6) ? std::min(log2i(var >> 6), 12) : 0;
+    return var ? (strength * (4 + i) + 8) >> 4 : 0;
+}
+
 // -- the frame: blocks, contexts, prediction and reconstruction -----------------------
 
 struct BlockInfo {
     int8_t bsize = 0, ymode = DC_PRED, uvmode = DC_PRED, skip = 0, seg_id = 0, intrabc = 0, partition = 0;
+    int8_t tx_size = 0;                 // mbmi->tx_size: the luma transform the deblocking filter reads
+    int8_t delta_lf[4] = {0, 0, 0, 0};  // the tile's running delta_lf[] after the block's mode info
     int8_t pal_size[2] = {0, 0};
     uint8_t pal[3][8] = {{0}};
     int mv_row = 0, mv_col = 0;  // IntraBC's displacement in 1/8 samples
@@ -1161,6 +1433,12 @@ enum {
     ST_CHROMA_SUBPEL_DV = 89,  // IntraBC chroma blocks predicted at a half-sample displacement
     ST_CFL_SUBSAMPLED = 90,  // CFL predictions from subsampled luma
     ST_UV_TX_SIZE = 91,      // 19 transform sizes of the chroma planes
+    ST_LF_EDGES = 110,       // deblocked 4-sample edge segments by plane and filter length (4, 6, 8, 14)
+    ST_CDEF_Y = 122,         // luma 8x8 blocks CDEF filters
+    ST_CDEF_UV = 123,        // chroma blocks CDEF filters
+    ST_CDEF_SKIP = 124,      // 8x8 blocks of a filtered 64x64 unit whose 4x4 units all skip
+    ST_CDEF_UNSET = 125,     // 64x64 units without a cdef_idx (every block skips)
+    ST_CDEF_BITS = 126,      // frames with cdef_bits > 0
     ST_COUNT = 128
 };
 
@@ -1175,6 +1453,8 @@ struct Frame {
     std::vector<uint8_t> above_txfm;                 // the txfm contexts: transform widths above
     uint8_t left_txfm[32];                           // and heights to the left, in the superblock
     std::vector<uint8_t> tx_type_map;                // the luma transform type at each 4x4 unit
+    std::vector<int8_t> cdef_idx;                    // each 64x64 unit's CDEF strength index, -1 unread
+    int cdef_cols = 0;
     int32_t* stats;
     int sb_mask;
 
@@ -1217,6 +1497,8 @@ struct Frame {
         grid.assign((size_t)mi_rows * mi_cols, -1);
         tx_type_map.assign((size_t)mi_rows * mi_cols, DCT_DCT);
         above_txfm.assign(mi_cols + 64, 64);
+        cdef_cols = (mi_cols + 15) >> 4;
+        cdef_idx.assign((size_t)cdef_cols * ((mi_rows + 15) >> 4), -1);
         sb_mask = s.use_128 ? 31 : 15;
         blocks.reserve(1024);
     }
@@ -1449,8 +1731,10 @@ struct Frame {
             b->skip = (int8_t)sym(cdf.skip[ctx], 2);
         }
         if (!fh.seg_id_pre_skip) intra_segment_id();
+        read_cdef();
         read_delta_qindex();
         read_delta_lf();
+        for (int i = 0; i < 4; i++) b->delta_lf[i] = (int8_t)delta_lf[i];
         read_deltas = false;
         b->intrabc = fh.allow_intrabc ? (int8_t)sym(cdf.intrabc, 2) : 0;
         use_filter_intra = 0;
@@ -1533,6 +1817,18 @@ struct Frame {
             id = v <= 2 * (max - pred - 1) ? ((v & 1) ? pred + ((v + 1) >> 1) : pred - (v >> 1)) : max - (v + 1);
         b->seg_id = (int8_t)clip3(0, fh.last_active_seg_id, id);
         stats[ST_SEGMENTS]++;
+    }
+
+    // read_cdef: the 64x64 unit's strength index, a cdef_bits literal at its
+    // first block that does not skip (every unit a block of 128 covers)
+    void read_cdef() {
+        if (b->skip || fh.coded_lossless || !s.enable_cdef || fh.allow_intrabc) return;
+        const int r = mi_row & ~15, c = mi_col & ~15;
+        int8_t& idx = cdef_idx[(size_t)(r >> 4) * cdef_cols + (c >> 4)];
+        if (idx != -1) return;
+        const int v = lit(fh.cdef_bits);
+        for (int y = r; y < std::min(r + bh4, mi_rows); y += 16)
+            for (int x = c; x < std::min(c + bw4, mi_cols); x += 16) cdef_idx[(size_t)(y >> 4) * cdef_cols + (x >> 4)] = (int8_t)v;
     }
 
     void read_delta_qindex() {
@@ -2096,6 +2392,7 @@ struct Frame {
         }
         for (int y = 0; y < bh4; y++)
             for (int x = 0; x < bw4; x++) vartx[y][x] = (uint8_t)tx_size;
+        b->tx_size = (int8_t)tx_size;
         if (b->skip && b->intrabc)
             set_txfm_ctx(bw4 * 4, bh4 * 4);
         else
@@ -2872,6 +3169,148 @@ struct Frame {
             }
         }
     }
+    // -- the in-loop filters, on the whole frame once its tiles are decoded ---------------------
+
+    // av1_get_filter_level: the block's level for plane p and an edge
+    // direction (0 vertical, 1 horizontal): the frame's, with the block's
+    // delta_lf, the segment's ALT_LF feature and the intra reference delta
+    int filter_level(const BlockInfo& bi, int p, int dir) const {
+        int lvl = p == 0 ? fh.loop_filter_level[dir] : fh.loop_filter_level[p + 1];
+        if (fh.delta_lf_present) lvl = clip3(0, 63, lvl + bi.delta_lf[fh.delta_lf_multi ? (p == 0 ? dir : p + 1) : 0]);
+        const int feature = p == 0 ? 1 + dir : p + 2;  // SEG_LVL_ALT_LF_Y_V, _Y_H, _U, _V
+        if (fh.seg_enabled && fh.feature_enabled[bi.seg_id][feature])
+            lvl = clip3(0, 63, lvl + fh.feature_data[bi.seg_id][feature]);
+        if (fh.lf_delta_enabled) lvl = clip3(0, 63, lvl + fh.lf_ref_deltas[0] * (1 << (lvl >> 5)));  // INTRA_FRAME
+        return lvl;
+    }
+
+    // get_transform_size: the luma transform, the largest of the chroma
+    // block (capped at 32), 4x4 in a lossless segment
+    int lf_tx_size(const BlockInfo& bi, int p) const {
+        if (fh.lossless[bi.seg_id]) return TX_4X4;
+        if (p == 0) return bi.tx_size;
+        return adjusted_tx_size(av1tab::max_txsize_rect_lookup[av1tab::ss_size_lookup[bi.bsize][s.ss_x][s.ss_y]]);
+    }
+
+    // av1_filter_block_plane_vert / _horz with set_lpf_parameters: walk
+    // each 4-sample row (column) of the plane from transform edge to
+    // transform edge; an edge inside the plane's visible samples but not on
+    // its first column (row) is filtered at the length both sides' transforms
+    // allow (4 / 8 / 14 in luma, 4 / 6 in chroma) and the current block's
+    // level, or the previous one's where the current is 0. A chroma position
+    // reads the block of the odd 4x4 unit, the one that carries the chroma of
+    // a group under 8 samples. Intra blocks never spare an edge for skip (an
+    // IntraBC frame runs no filter). The filters read and write the decoded
+    // samples past the visible ones up to the 8-sample grid.
+    void deblock_plane(int p, int dir) {
+        const int ssx = sub_x(p), ssy = sub_y(p);
+        const int pw = (fh.width + ssx) >> ssx, ph = (fh.height + ssy) >> ssy;
+        const int units_x = (mi_cols + ssx) >> ssx, units_y = (mi_rows + ssy) >> ssy;
+        const int lines = dir == 0 ? units_y : units_x, span = dir == 0 ? units_x : units_y;
+        for (int line = 0; line < lines; line++)
+            for (int u = 0; u < span;) {
+                const int x = (dir == 0 ? u : line) * 4, y = (dir == 0 ? line : u) * 4;
+                int ts = TX_4X4, length = 0, level = 0;
+                if (x < pw && y < ph) {
+                    const int mr = ssy | ((y << ssy) >> 2), mc = ssx | ((x << ssx) >> 2);
+                    const BlockInfo& cur = at(mr, mc);
+                    ts = lf_tx_size(cur, p);
+                    const int coord = dir == 0 ? x : y, size = dir == 0 ? kTxW[ts] : kTxH[ts];
+                    if (!(coord & (size - 1)) && coord) {
+                        const BlockInfo& prev = dir == 0 ? at(mr, mc - (1 << ssx)) : at(mr - (1 << ssy), mc);
+                        const int pv_ts = lf_tx_size(prev, p);
+                        const int cur_level = filter_level(cur, p, dir), pv_level = filter_level(prev, p, dir);
+                        if (cur_level || pv_level) {
+                            const int dim = std::min(log2i(dir == 0 ? kTxW[ts] : kTxH[ts]), log2i(dir == 0 ? kTxW[pv_ts] : kTxH[pv_ts])) - 2;
+                            static const int kLumaLength[5] = {4, 8, 14, 14, 14};
+                            length = p ? (dim == 0 ? 4 : 6) : kLumaLength[dim];
+                            level = cur_level ? cur_level : pv_level;
+                        }
+                    }
+                }
+                if (length) {
+                    // update_sharpness and av1_loop_filter_init: the level's limits
+                    int limit = level >> ((fh.lf_sharpness > 0) + (fh.lf_sharpness > 4));
+                    if (fh.lf_sharpness > 0) limit = std::min(limit, 9 - fh.lf_sharpness);
+                    limit = std::max(limit, 1);
+                    const ptrdiff_t step = dir == 0 ? 1 : stride, along = dir == 0 ? stride : 1;
+                    lpf_segment(px(p, y, x), step, along, length, 2 * (level + 2) + limit, limit, level >> 4);
+                    stats[ST_LF_EDGES + p * 4 + (length == 4 ? 0 : length == 6 ? 1 : length == 8 ? 2 : 3)]++;
+                }
+                u += (dir == 0 ? kTxW[ts] : kTxH[ts]) >> 2;
+            }
+    }
+
+    // av1_loop_filter_frame: no plane unless a luma level is set; each plane
+    // whose level is set, every vertical edge before any horizontal one
+    void deblock() {
+        if (!fh.loop_filter_level[0] && !fh.loop_filter_level[1]) return;
+        for (int p = 0; p < num_planes; p++) {
+            if (p && !fh.loop_filter_level[p + 1]) continue;
+            deblock_plane(p, 0);
+            deblock_plane(p, 1);
+        }
+    }
+
+    // av1_cdef_frame: by 64x64 unit of its cdef_idx (none where it is
+    // unset), the unit's 8x8 blocks with a 4x4 unit that does not skip;
+    // luma's direction and variance from the deblocked samples, chroma taking
+    // luma's direction (remapped in 4:2:2); every tap reads the deblocked
+    // frame, CDEF_VERY_LARGE outside the 8-sample grid of the frame
+    void cdef() {
+        if (!fh.cdef_bits && !fh.cdef_y_strengths[0] && !fh.cdef_uv_strengths[0]) return;
+        if (fh.cdef_bits) stats[ST_CDEF_BITS]++;
+        const int B = 2;  // the taps' reach
+        std::vector<uint16_t> src[3];
+        int sw[3] = {0, 0, 0};
+        for (int p = 0; p < num_planes; p++) {
+            const int w = (mi_cols * 4) >> sub_x(p), h = (mi_rows * 4) >> sub_y(p);
+            sw[p] = w + 2 * B;
+            src[p].assign((size_t)sw[p] * (h + 2 * B), kCdefVeryLarge);
+            for (int y = 0; y < h; y++) {
+                const uint8_t* row = px(p, y, 0);
+                std::copy(row, row + w, &src[p][(size_t)(y + B) * sw[p] + B]);
+            }
+        }
+        static const int kConv422[8] = {7, 0, 2, 4, 5, 6, 6, 6}, kConv440[8] = {1, 2, 2, 2, 3, 4, 6, 0};
+        for (int fr = 0; fr < (mi_rows + 15) >> 4; fr++)
+            for (int fc = 0; fc < cdef_cols; fc++) {
+                const int idx = cdef_idx[(size_t)fr * cdef_cols + fc];
+                if (idx < 0) {
+                    stats[ST_CDEF_UNSET]++;
+                    continue;
+                }
+                int level[2], sec[2];
+                for (int t = 0; t < 2; t++) {
+                    const int strength = t ? fh.cdef_uv_strengths[idx] : fh.cdef_y_strengths[idx];
+                    level[t] = strength >> 2;
+                    sec[t] = (strength & 3) + ((strength & 3) == 3);
+                }
+                if (!level[0] && !sec[0] && !level[1] && !sec[1]) continue;
+                for (int r = fr * 16; r < std::min(fr * 16 + 16, mi_rows); r += 2)
+                    for (int c = fc * 16; c < std::min(fc * 16 + 16, mi_cols); c += 2) {
+                        if (at(r, c).skip && at(r, c + 1).skip && at(r + 1, c).skip && at(r + 1, c + 1).skip) {
+                            stats[ST_CDEF_SKIP]++;
+                            continue;
+                        }
+                        int32_t var = 0;
+                        const int dir = cdef_find_dir(&src[0][(size_t)(r * 4 + B) * sw[0] + c * 4 + B], sw[0], &var);
+                        for (int p = 0; p < num_planes; p++) {
+                            const int t = p ? 1 : 0;
+                            if (p && !level[t] && !sec[t]) continue;
+                            const int ssx = sub_x(p), ssy = sub_y(p);
+                            const int pri = p ? level[t] : cdef_adjust_strength(level[t], var);
+                            int d = dir;
+                            if (p && ssx != ssy) d = (ssx ? kConv422 : kConv440)[dir];
+                            const int x0 = (c * 4) >> ssx, y0 = (r * 4) >> ssy;
+                            cdef_filter_block(px(p, y0, x0), stride, &src[p][(size_t)(y0 + B) * sw[p] + x0 + B], sw[p], pri,
+                                              sec[t], level[t] ? d : 0, fh.cdef_damping - (p > 0), fh.cdef_damping - (p > 0),
+                                              8 >> ssx, 8 >> ssy);
+                            stats[p ? ST_CDEF_UV : ST_CDEF_Y]++;
+                        }
+                    }
+            }
+    }
 };
 
 }  // namespace
@@ -2923,8 +3362,13 @@ int last_nonzero_byte(const uint8_t* d, size_t n) {
     return 0;
 }
 
+double now_ms() {
+    return std::chrono::duration<double, std::milli>(std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+
 struct Decoder {
     int32_t* stats;
+    double stage_ms[3] = {0, 0, 0};  // wall ms of the tiles (syntax and reconstruction), deblocking, CDEF
     bool decode_tiles;  // false: stop after the first frame header (av1_info)
     bool seq_ready = false, seq_changed = false;
     SeqHeader seq;
@@ -3021,13 +3465,8 @@ struct Decoder {
     void check_frame_supported() {
         if (seq.bit_depth != 8) fail(UNPORTED, "10/12-bit samples");
         if (fh.width != fh.upscaled_width || fh.apply_grain) fail(UNPORTED, "superres and film grain");
-        // the in-loop filters libaom runs (decodeframe.c): deblocking where a
-        // luma level is set, CDEF unless its bits and first strengths are all
-        // 0, loop restoration where a plane's type is not NONE
-        bool deblock = fh.loop_filter_level[0] || fh.loop_filter_level[1];
-        bool cdef = fh.cdef_bits || fh.cdef_y_strength0 || fh.cdef_uv_strength0;  // not read when coded lossless
-        bool restoration = fh.restoration_type[0] || fh.restoration_type[1] || fh.restoration_type[2];
-        if (deblock || cdef || restoration) fail(UNPORTED, "in-loop filters (deblocking, CDEF, loop restoration)");
+        // loop restoration runs (decodeframe.c) where a plane's type is not NONE
+        if (fh.restoration_type[0] || fh.restoration_type[1] || fh.restoration_type[2]) fail(UNPORTED, "loop restoration");
     }
 
     size_t read_metadata(const uint8_t* d, size_t sz) {
@@ -3143,7 +3582,11 @@ struct Decoder {
                 size = end - p;
             }
             if (size == 0) fail(DECODE_ERROR, "Truncated packet or corrupt tile length");
-            if (decode_tiles) frame->decode_tile(t / fh.tile_cols, t % fh.tile_cols, p, size);
+            if (decode_tiles) {
+                const double t0 = now_ms();
+                frame->decode_tile(t / fh.tile_cols, t % fh.tile_cols, p, size);
+                stage_ms[0] += now_ms() - t0;
+            }
             p += size;
         }
         finished = tg_end == num_tiles - 1;
@@ -3245,7 +3688,16 @@ struct Decoder {
                 BitReader trb{data + payload_offset, payload - payload_offset};
                 read_tile_group(trb, data + payload_offset, data + payload, h.type == OBU_FRAME, finished);
                 decoded = payload;
-                if (finished) frames_done++;
+                if (finished) {
+                    // av1_decode_tg_tiles_and_wrapup: the in-loop filters once the last tile is decoded
+                    const double t0 = now_ms();
+                    frame->deblock();
+                    const double t1 = now_ms();
+                    frame->cdef();
+                    stage_ms[1] += t1 - t0;
+                    stage_ms[2] += now_ms() - t1;
+                    frames_done++;
+                }
             }
             if (decoded > payload) fail(HEADER_ERROR, "an OBU read past its size");
             for (size_t i = decoded; i < payload; i++)
@@ -3321,11 +3773,36 @@ int av1_inverse_transform(const int32_t* coef, int tx_size, int tx_type, uint8_t
     return OK;
 }
 
+// One deblocking filter, for the tests: aom_lpf_{vertical,horizontal}_
+// {4,6,8,14} on the 4-sample segment whose first sample past the edge is at
+// ``s`` (rows ``pitch`` apart), with a level's blimit, limit and thresh.
+int av1_loop_filter(uint8_t* s, int pitch, int vertical, int length, int blimit, int limit, int thresh) {
+    if (length != 4 && length != 6 && length != 8 && length != 14) return BAD_CALL;
+    lpf_segment(s, vertical ? 1 : pitch, vertical ? pitch : 1, length, blimit, limit, thresh);
+    return OK;
+}
+
+// CDEF's direction search of the 8x8 block at ``img``, for the tests
+// (cdef_find_dir): the direction, and its variance in ``var``.
+int av1_cdef_find_dir(const uint16_t* img, int stride, int32_t* var) { return cdef_find_dir(img, stride, var); }
+
+// CDEF's filter of one block, for the tests (cdef_filter_8_{0,1,2,3} by
+// which strengths are 0): ``in`` 16-bit at the block's first sample, rows
+// ``in_stride`` apart, two samples around it readable.
+int av1_cdef_filter(uint8_t* dst, int dstride, const uint16_t* in, int in_stride, int pri, int sec, int dir,
+                    int pri_damping, int sec_damping, int bw, int bh) {
+    if (dir < 0 || dir > 7 || bw < 1 || bw > 8 || bh < 1 || bh > 8) return BAD_CALL;
+    cdef_filter_block(dst, dstride, in, in_stride, pri, sec, dir, pri_damping, sec_damping, bw, bh);
+    return OK;
+}
+
 // Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples, Y of
 // width x height, then U and V of ((width + ss_x) >> ss_x) x ((height + ss_y)
-// >> ss_y). ``stats``: ST_COUNT tool counters. Returns a Status.
-int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, char* msg,
-               int msg_len) {
+// >> ss_y). ``stats``: ST_COUNT tool counters; ``stage_ms`` (or null): the
+// wall ms of the tiles' syntax and reconstruction, of deblocking and of
+// CDEF. Returns a Status.
+int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, double* stage_ms,
+               char* msg, int msg_len) {
     Decoder d;
     d.stats = stats;
     d.decode_tiles = true;
@@ -3340,6 +3817,7 @@ int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, i
             uint8_t* o = out + (p ? (size_t)w * h + (size_t)(p - 1) * cw * ch : 0);
             for (int y = 0; y < ph; y++) memcpy(o + (size_t)y * pw, &fr.plane[p][(size_t)y * fr.stride], (size_t)pw);
         }
+        if (stage_ms) memcpy(stage_ms, d.stage_ms, sizeof d.stage_ms);
     } catch (const Error& e) {
         set_msg(msg, msg_len, e.msg);
         return e.status;

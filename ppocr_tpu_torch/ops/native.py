@@ -606,7 +606,11 @@ AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "ang
              "palette_uv": 39, "filter_intra": 40, "intrabc": 41, "tiles": 42, "blocks": 43, "palette_cache": 44,
              "segment_id": 45, "edge_upsample": 46, "edge_filter": 47, "golomb": 48,
              "tx_size": (49, 68), "tx_type": (68, 84), "qm": 84, "delta_q": 85, "vartx_split": 86, "residual": 87,
-             "sub8x8_chroma": 88, "chroma_subpel_dv": 89, "cfl_subsampled": 90, "uv_tx_size": (91, 110)}
+             "sub8x8_chroma": 88, "chroma_subpel_dv": 89, "cfl_subsampled": 90, "uv_tx_size": (91, 110),
+             "lf_edges": (110, 122), "cdef_y": 122, "cdef_uv": 123, "cdef_skip": 124, "cdef_unset": 125,
+             "cdef_bits": 126}
+# the deblocking filter's lengths, the order of the "lf_edges" counters within each plane's four
+AV1_LF_LENGTHS = (4, 6, 8, 14)
 AV1_STATS_SIZE = 128  # ST_COUNT
 # libaom's TX_SIZE order, the order of the "tx_size" counters
 AV1_TX_SIZES = ("4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32", "32x16", "32x64",
@@ -624,11 +628,18 @@ def load_av1_library() -> ctypes.CDLL:
             lib.av1_info.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32p, ctypes.c_char_p, ctypes.c_int]
             lib.av1_decode.restype = ctypes.c_int
             lib.av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                                       i32p, ctypes.c_char_p, ctypes.c_int]
+                                       i32p, ctypes.POINTER(ctypes.c_double), ctypes.c_char_p, ctypes.c_int]
             lib.av1_inverse_transform.restype = ctypes.c_int
             lib.av1_inverse_transform.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                                                   ctypes.c_int]
             u8p = ctypes.POINTER(ctypes.c_uint8)
+            u16p = ctypes.POINTER(ctypes.c_uint16)
+            lib.av1_loop_filter.restype = ctypes.c_int
+            lib.av1_loop_filter.argtypes = [u8p] + [ctypes.c_int] * 6
+            lib.av1_cdef_find_dir.restype = ctypes.c_int
+            lib.av1_cdef_find_dir.argtypes = [u16p, ctypes.c_int, i32p]
+            lib.av1_cdef_filter.restype = ctypes.c_int
+            lib.av1_cdef_filter.argtypes = [u8p, ctypes.c_int, u16p] + [ctypes.c_int] * 8
             lib.avif_yuv_to_bgr.restype = ctypes.c_int
             lib.avif_yuv_to_bgr.argtypes = [u8p] * 3 + [ctypes.c_int] * 8 + [u8p]
             _av1_lib = lib
@@ -649,11 +660,14 @@ def av1_info(stream: bytes):
     return 0, info, ""
 
 
-def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = None):
+def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = None,
+               stage_ms: Optional[np.ndarray] = None):
     """Decode a stream whose headers ``av1_info`` read → (status, the uint8
     planes [Y] or [Y, U, V] (U and V of ((height + ss_y) >> ss_y, (width +
     ss_x) >> ss_x)) or None, libaom's reason). ``stats``: an int32 array of
-    ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``)."""
+    ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``);
+    ``stage_ms``: a float64 array of 3 that gets the wall ms of the tiles'
+    syntax and reconstruction, of deblocking and of CDEF."""
     lib = load_av1_library()
     planes = 1 if info[3] else 3
     w, h, ss_x, ss_y = (int(info[k]) for k in (0, 1, 4, 5))
@@ -663,9 +677,13 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
         stats = np.zeros(AV1_STATS_SIZE, np.int32)
     if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
         raise ValueError(f"av1_decode: stats must be a contiguous int32 array of {AV1_STATS_SIZE}")
+    if stage_ms is not None and (stage_ms.dtype != np.float64 or stage_ms.size < 3 or not stage_ms.flags.c_contiguous):
+        raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 3")
     msg = ctypes.create_string_buffer(256)
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
-                            stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), msg, len(msg))
+                            stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                            None if stage_ms is None else stage_ms.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                            msg, len(msg))
     if status == 4:
         raise ValueError(f"av1_decode: a {planes}-plane {w}x{h} output the stream does not describe")
     if status:
@@ -710,3 +728,52 @@ def av1_inverse_transform(coef: np.ndarray, tx_size: int, tx_type: int, dst: np.
                                        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w)
     if status:
         raise ValueError(f"av1_inverse_transform: no transform of size {tx_size} and type {tx_type}")
+
+
+def av1_loop_filter(block: np.ndarray, row: int, col: int, vertical: bool, length: int, blimit: int, limit: int,
+                    thresh: int):
+    """One deblocking edge filter of ``csrc/av1.cpp`` (libaom's
+    ``aom_lpf_{vertical,horizontal}_{length}``) on the uint8 array
+    ``block`` (changed in place): the 4-sample segment whose first sample
+    past the edge is at (``row``, ``col``), across a vertical or a
+    horizontal edge, with a level's ``blimit``, ``limit`` and ``thresh``."""
+    lib = load_av1_library()
+    reach = {4: 2, 6: 3, 8: 4, 14: 7}.get(length)
+    h, w = block.shape
+    across, along = (col, row) if vertical else (row, col)
+    if (reach is None or block.dtype != np.uint8 or not block.flags.c_contiguous or across < reach
+            or across + reach > (w if vertical else h) or along < 0 or along + 4 > (h if vertical else w)):
+        raise ValueError(f"av1_loop_filter: no {length}-tap segment at ({row}, {col}) of a {h}x{w} uint8 block")
+    at = block.ctypes.data + row * w + col
+    lib.av1_loop_filter(ctypes.cast(at, ctypes.POINTER(ctypes.c_uint8)), w, int(vertical), length, blimit, limit, thresh)
+
+
+def av1_cdef_find_dir(block: np.ndarray):
+    """CDEF's direction search (``cdef_find_dir``) of an 8x8 uint16 block →
+    (direction 0-7, variance)."""
+    lib = load_av1_library()
+    block = np.ascontiguousarray(block, np.uint16)
+    if block.shape != (8, 8):
+        raise ValueError("av1_cdef_find_dir: an 8x8 block")
+    var = ctypes.c_int32()
+    d = lib.av1_cdef_find_dir(block.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), 8, ctypes.byref(var))
+    return d, var.value
+
+
+def av1_cdef_filter(src: np.ndarray, pri: int, sec: int, direction: int, pri_damping: int, sec_damping: int,
+                    bw: int, bh: int) -> np.ndarray:
+    """CDEF's filter of one block (``cdef_filter_8_*``): ``src`` uint16 of
+    (bh + 4) x (bw + 4), the block two samples in from each side (30000 is a
+    sample outside the frame) → the filtered bh x bw uint8 block."""
+    lib = load_av1_library()
+    src = np.ascontiguousarray(src, np.uint16)
+    if src.shape != (bh + 4, bw + 4):
+        raise ValueError(f"av1_cdef_filter: a {bh + 4}x{bw + 4} source for a {bh}x{bw} block")
+    out = np.zeros((bh, bw), np.uint8)
+    at = src.ctypes.data + 2 * (2 * (bw + 4) + 2)
+    status = lib.av1_cdef_filter(out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), bw,
+                                 ctypes.cast(at, ctypes.POINTER(ctypes.c_uint16)), bw + 4, pri, sec, direction,
+                                 pri_damping, sec_damping, bw, bh)
+    if status:
+        raise ValueError(f"av1_cdef_filter: no {bh}x{bw} block in direction {direction}")
+    return out

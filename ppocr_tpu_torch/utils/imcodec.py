@@ -133,7 +133,7 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   first, sYCC through its integer YUV conversion, each sample shifted
   right by the largest precision less 8.
 * **AVIF**, 8-bit stills (4:4:4, 4:2:2, 4:2:0 and monochrome), lossless
-  or lossy with the in-loop filters off (the ISOBMFF boxes and cv2's hand-over
+  or lossy, deblocked and CDEF-filtered, loop restoration off (the ISOBMFF boxes and cv2's hand-over
   in Python, the AV1 stream in ``csrc/av1.cpp``, host C++ built at first
   use), as OpenCV 5.0's ``grfmt_avif.cpp`` reads them through libavif
   1.4.2 over libaom 3.14.1: the boxes by libavif's rules with its strict
@@ -143,7 +143,8 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   primary item and its alpha item (decoded, a bad one refusing the file,
   then dropped); the AV1 intra syntax of a key frame (transform sizes and
   types, coefficients, quantisers, inverse transforms) as libaom decodes
-  it, subsampled chroma included; then one channel (the Y plane as it
+  it, subsampled chroma included, then libaom's deblocking filter and
+  CDEF; then one channel (the Y plane as it
   is) where the ``av1C`` says monochrome, else libavif's YUV to BGR for
   the CICP of the ``colr`` box or the sequence header (``csrc/avif_yuv.cpp``:
   libyuv's fixed point with its bilinear chroma upsampling for BT.709,
@@ -156,7 +157,7 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
 ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
-the AVIF kinds of ``AVIF_UNPORTED`` (frames whose in-loop filters run,
+the AVIF kinds of ``AVIF_UNPORTED`` (frames whose loop restoration runs,
 10/12-bit, grid and sequence files among them); no sniffed format is without a decoder
 (``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
 response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
@@ -2641,7 +2642,7 @@ def _j2k_reason(status: int, reason: str) -> str:
 # what cv2 5.0 decodes in an AVIF file and this module does not, by the
 # reason logged, with its ROADMAP item
 AVIF_UNPORTED = {
-    "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b",
+    "loop restoration": "A14.7b",
     "superres and film grain": "A14.7b",
     "10/12-bit samples": "A14.7c",
     "grids": "A14.7c",

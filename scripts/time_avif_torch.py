@@ -9,13 +9,17 @@ scene as cv2's lossless AVIF at its default speed (``scene0_avif``) and as
 a lossy 4:4:4 AVIF with the in-loop filters off (libavif 1.4.2's writer,
 q90, speed 6, identity matrix: ``scene0_avif_lossy``) and as cv2's
 quality-95 AVIF (4:2:0, BT.601 in full range, the in-loop filters off:
-``scene0_avif_q95``). For each, times, in turns, with the median of
-``--repeats`` runs each after one untimed (which builds ``csrc/av1.cpp``):
-``decode_image`` (the boxes and the hand-over in Python, the AV1 decode on
-one host thread), the AV1 stream's decode alone (``native.av1_decode``)
-and libavif's YUV to BGR alone (``native.avif_yuv_to_bgr`` of the decoded
-planes, with the sequence header's colour description), all checked equal
-to the committed cv2 answer,
+``scene0_avif_q95``) and as cv2's default AVIF (quality 50: 4:2:0, BT.601,
+deblocking and CDEF: ``scene0_avif_default``). For each, times, in turns,
+with the median of ``--repeats`` runs each after one untimed (which builds
+``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
+Python, the AV1 decode on one host thread), the AV1 stream's decode alone
+(``native.av1_decode``), split into its stages as the decoder clocks them
+(the tiles' syntax and reconstruction, deblocking, CDEF: the medians of
+each over the same runs), and libavif's YUV to BGR alone
+(``native.avif_yuv_to_bgr`` of the decoded planes, with the sequence
+header's colour description), all checked equal to the committed cv2
+answer,
 and, where cv2 5.0.0 (the version the port replays) imports,
 ``cv2.imdecode`` at cv2's own thread count and at
 ``cv2.setNumThreads(1)``; another cv2 (or none) is named in the output and
@@ -38,7 +42,8 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
-PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95")
+PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default")
+STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef")
 
 
 def av1_stream(data: bytes) -> bytes:
@@ -63,7 +68,15 @@ def time_payload(name: str, repeats: int) -> dict:
     colour = (int(info[4]), int(info[5]), int(info[8]), int(info[6]), int(info[9]))  # ss_x, ss_y, matrix, cp, range
     if not (imcodec.decode_image(data) == want).all() or not (native.avif_yuv_to_bgr(planes, *colour) == want).all():
         raise SystemExit(f"{name}: the port's decode differs from the committed cv2 answer")
-    runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": lambda: native.av1_decode(stream, info),
+    stage_ms = np.zeros(3)
+    stages = {k: [] for k in STAGES}
+
+    def av1_only():
+        native.av1_decode(stream, info, stage_ms=stage_ms)
+        for k, v in zip(STAGES, stage_ms.tolist()):
+            stages[k].append(v)
+
+    runs = {"port": lambda: imcodec.decode_image(data), "port_av1_only": av1_only,
             "port_yuv_to_bgr_only": lambda: native.avif_yuv_to_bgr(planes, *colour)}
     try:
         import cv2
@@ -90,12 +103,14 @@ def time_payload(name: str, repeats: int) -> dict:
     out = {k: [] for k in runs}
     for fn in runs.values():
         fn()  # one untimed each
+    for v in stages.values():
+        v.clear()
     for _ in range(repeats):
         for k, fn in runs.items():  # in turns
             t = time.perf_counter()
             fn()
             out[k].append((time.perf_counter() - t) * 1e3)
-    ms = {k: statistics.median(v) for k, v in out.items()}
+    ms = {k: statistics.median(v) for k, v in {**out, **stages}.items()}
     result = {"ms": ms, "bytes": len(data), "size": list(want.shape), "base_q_idx": int(info[13]),
               "subsampling": [int(info[4]), int(info[5])], "matrix": int(info[8]), "full_range": int(info[9]),
               "cv2_version": version, "cv2_timed": cv2 is not None, "cv2_threads": threads}

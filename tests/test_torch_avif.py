@@ -608,20 +608,18 @@ def _refusals() -> dict:
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], quality=100, subsampling="4:4:4")
     prem = full_box(b"iref", 0, 0, box(b"auxl", struct.pack(">HHH", 2, 1, 1)) + box(b"prem", struct.pack(">HHH", 1, 1, 2)))
     # subsampled chroma, every matrix and both ranges are decoded since
-    # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py): files of
-    # those kinds are refused now only for the filters their frames run, or
-    # for film grain
+    # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py), and so
+    # are the deblocking filter and CDEF (test_torch_avif_deblock.py,
+    # test_torch_avif_cdef.py; the files once refused for them:
+    # FILTERED below): a frame is refused now only for its loop
+    # restoration, or for film grain
     grain = pil_avif(img, quality=60, subsampling="4:2:0", speed=6,
                      advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
                                ("film-grain-test", "1")])
     return {
-        # Pillow's speed-6 q80 4:4:4 stream turns deblocking on (levels 2/2)
-        "lossy": (avif_file(item_data(pil_avif(img, quality=80, subsampling="4:4:4", speed=6)), w=48, h=32),
-                  "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
-        # cv2's q90 4:2:0 file runs deblocking (level 1)
-        "420": (cv2_avif(img, quality=90), "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
-        # Pillow's default file (4:2:0, matrix 2) runs deblocking
-        "matrix": (pil_avif(img), "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)"),
+        # Pillow's 4:4:4 q40 file at speed 4 restores luma and chroma
+        "restoration": (pil_avif(smooth(64, 96, 3, 30), quality=40, subsampling="4:4:4", speed=4),
+                        "loop restoration (ROADMAP A14.7b)"),
         # a 4:2:0 frame with film grain, in a limited-range container
         "limited": (avif_file(item_data(grain), w=48, h=32, color_props=[(ispe(48, 32), 0), (pixi(8, 8, 8), 0),
                                                                           (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 0), 0)]),
@@ -650,9 +648,33 @@ def test_what_cv2_decodes_and_the_port_does_not_gives_none_and_one_log_line_nami
     assert answers(data) == "known"
 
 
+def _filtered() -> dict:
+    """Files refused until their deblocking filter and CDEF were decoded."""
+    img = smooth(32, 48, 3, 30)
+    return {
+        # Pillow's speed-6 q80 4:4:4 stream turns deblocking on (levels 2/2)
+        "lossy": avif_file(item_data(pil_avif(img, quality=80, subsampling="4:4:4", speed=6)), w=48, h=32),
+        # cv2's q90 4:2:0 file runs deblocking (level 1)
+        "420": cv2_avif(img, quality=90),
+        # Pillow's default file (4:2:0, matrix 2) runs deblocking
+        "matrix": pil_avif(img),
+    }
+
+
+FILTERED = _filtered()
+
+
+@pytest.mark.parametrize("name", list(FILTERED))
+def test_what_was_refused_for_its_in_loop_filters_decodes_as_cv2(name, tmp_path):
+    data = FILTERED[name]
+    assert answers(data) == "equal"
+    assert read_answers(data, tmp_path) == "equal"
+    assert decode_stats(item_data(data))[native.AV1_STATS["lf_edges"][0]:native.AV1_STATS["lf_edges"][1]].sum() > 0
+
+
 def test_what_the_port_does_not_decode_is_pinned():
     assert imcodec.AVIF_UNPORTED == {
-        "in-loop filters (deblocking, CDEF, loop restoration)": "A14.7b", "superres and film grain": "A14.7b",
+        "loop restoration": "A14.7b", "superres and film grain": "A14.7b",
         "10/12-bit samples": "A14.7c", "grids": "A14.7c", "image sequences' first frame": "A14.7c",
         "layered images (a1op, lsel)": "A14.7c", "a frame scaled to its ispe size": "A14.7c",
         "premultiplied alpha (prem)": "A14.7c"}

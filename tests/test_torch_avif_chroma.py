@@ -17,7 +17,8 @@ frames of 16x64 and 64x16 blocks written by the lossy suite's own entropy
 coder (8x32 and 32x8 chroma transforms, which libaom's all-intra encoder
 never reaches). cv2's own files of the serving scenes at quality 95 (4:2:0, BT.601, every
 in-loop filter off) decode too; its default file (quality 50) runs
-deblocking and CDEF and is refused (``imcodec.AVIF_UNPORTED``, A14.7b).
+deblocking and CDEF, which decode since (``tests/test_torch_avif_deblock.py``),
+and at speed 4 loop restoration, which is refused (``imcodec.AVIF_UNPORTED``, A14.7b).
 
     python -m pytest tests/test_torch_avif_chroma.py -q
 """
@@ -197,15 +198,19 @@ def test_cv2s_quality_95_files_of_the_serving_scenes_decode_as_cv2(index, tmp_pa
 
 
 def test_cv2s_default_file_is_refused_for_its_in_loop_filters(caplog):
-    """Quality 50, cv2's default: deblocking and CDEF run (A14.7b)."""
+    """Quality 50, cv2's default, decodes since its deblocking and CDEF
+    are (tests/test_torch_avif_deblock.py); at speed 4 the frame of this
+    image also runs loop restoration, and that is refused (A14.7b)."""
     img = smooth(64, 96, 3, 9)
     data = cv2.imencode(".avif", img)[1].tobytes()
     assert data == cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_QUALITY, 50])[1].tobytes()
+    assert answers(data) == "equal"
+    data = cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_SPEED, 4])[1].tobytes()
     assert cv2_decode(data) is not None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     lines = [r.getMessage() for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
-    assert len(lines) == 1 and "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)" in lines[0]
+    assert len(lines) == 1 and "loop restoration (ROADMAP A14.7b)" in lines[0]
     assert answers(data) == "known"
 
 

@@ -15,8 +15,9 @@ and text content, and the encoder options that change the stream
 (quantiser matrices, delta q, screen content with IntraBC and its var-tx
 trees, the reduced and DCT-only type sets, square-only transforms, no
 64-sample transforms, 128x128 superblocks, tiles). cv2's own monochrome files at q95 and up
-leave the filters off too. A frame whose filters would change a pixel
-is refused before any pixel (``imcodec.AVIF_UNPORTED``). Each inverse
+leave the filters off too (deblocking and CDEF: ``tests/test_torch_avif_deblock.py``,
+``test_torch_avif_cdef.py``). A frame whose loop restoration runs is
+refused before any pixel (``imcodec.AVIF_UNPORTED``). Each inverse
 transform is held through ``ctypes`` against libaom's x86 functions,
 which the decoder replays: ``av1_lowbd_inv_txfm2d_add_ssse3`` and, where
 libaom dispatches it on this CPU, ``_avx2``. libaom's C one
@@ -584,30 +585,34 @@ def test_a_transform_out_of_range_is_refused():
         native.av1_inverse_transform(np.zeros(16, np.int32), 0, 16, np.zeros((4, 4), np.uint8))
 
 
-# -- the in-loop filters: refused before any pixel --------------------------------------------
+# -- loop restoration: refused before any pixel ------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def filter_files() -> dict:
+    """Speed-0 frames that run loop restoration (U and V), beside
+    deblocking, beside CDEF, or alone (deblocking and CDEF alone decode:
+    ``tests/test_torch_avif_deblock.py``, ``test_torch_avif_cdef.py``)."""
     img = smooth(64, 96, 3, 90)
-    on = {"deblocking": [("enable-cdef", "0"), ("enable-restoration", "0")],  # levels 16/16
-          "cdef": [("enable-cdef", "1"), ("loopfilter-control", "0"), ("enable-restoration", "0")],  # strengths 2, 2
-          "restoration": [("enable-cdef", "0"), ("loopfilter-control", "0"), ("enable-restoration", "1")]}  # U, V
+    on = {"deblocking": [("enable-cdef", "0"), ("enable-restoration", "1")],
+          "cdef": [("enable-cdef", "1"), ("loopfilter-control", "0"), ("enable-restoration", "1")],
+          "restoration": [("enable-cdef", "0"), ("loopfilter-control", "0"), ("enable-restoration", "1")]}
     out = {}
     for name, options in on.items():
-        speed = 0 if name == "restoration" else 6
-        stream = item_data(pil_avif(img, quality=40, subsampling="4:4:4", speed=speed, advanced=options))
+        stream = item_data(pil_avif(img, quality=40, subsampling="4:4:4", speed=0, advanced=options))
         out[name] = avif_file(stream, w=96, h=64)
     return out
 
 
 @pytest.mark.parametrize("name", ["deblocking", "cdef", "restoration"])
 def test_a_frame_that_runs_an_in_loop_filter_gives_none_and_one_log_line(name, caplog):
+    """The in-loop filter refused is loop restoration, with the others or
+    alone."""
     data = filter_files()[name]
     assert cv2_decode(data) is not None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
         assert imcodec.decode_image(data) is None
     lines = [r.getMessage() for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
-    assert len(lines) == 1 and "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)" in lines[0]
+    assert len(lines) == 1 and "loop restoration (ROADMAP A14.7b)" in lines[0]
     assert answers(data) == "known"
 
 

@@ -391,14 +391,18 @@ def _refused():
         "hierarchical": (patch_sof(base, 0xC5), "hierarchical", False),
     }
     # AVIF is decoded since, 8-bit stills of any subsampling, matrix and
-    # range, lossless and lossy with the in-loop filters off
+    # range, lossless and lossy, deblocked and CDEF-filtered
     # (tests/test_torch_avif.py, test_torch_avif_lossy.py,
-    # test_torch_avif_chroma.py, test_torch_avif_colour.py), but not a frame
-    # whose filters run, ``imcodec.AVIF_UNPORTED``: cv2's default (quality
-    # 50) file, 4:2:0 with matrix 6, runs deblocking and CDEF and is refused
-    # with a line naming A14.7b (its quality-95 file decodes: below)
-    cases["avif"] = (cv2.imencode(".avif", img)[1].tobytes(),
-                     "in-loop filters (deblocking, CDEF, loop restoration) (ROADMAP A14.7b)", True)
+    # test_torch_avif_chroma.py, test_torch_avif_colour.py,
+    # test_torch_avif_deblock.py, test_torch_avif_cdef.py), but not a frame
+    # whose loop restoration runs, ``imcodec.AVIF_UNPORTED``: cv2's default
+    # quality (50) at speed 4 restores the chroma of this photo-like image
+    # and is refused with a line naming A14.7b (its default speed, and its
+    # quality-95 file of the image here, decode: below)
+    from test_torch_avif import smooth
+
+    cases["avif"] = (cv2.imencode(".avif", smooth(64, 96, 3, 9), [cv2.IMWRITE_AVIF_SPEED, 4])[1].tobytes(),
+                     "loop restoration (ROADMAP A14.7b)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
@@ -436,8 +440,8 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     by the port: the known difference, held here so that it cannot grow
     unnoticed. A JPEG 2000 file is refused only for what
     ``imcodec.J2K_UNPORTED`` names (HT code-blocks here), an AVIF file only
-    for what ``imcodec.AVIF_UNPORTED`` names (cv2's default, quality 50,
-    whose frame runs deblocking and CDEF).
+    for what ``imcodec.AVIF_UNPORTED`` names (cv2's default quality at
+    speed 4, whose frame runs loop restoration).
     No WebP is refused for its kind any more, and no format is left
     undecoded (``imcodec.FORMAT_NAMES`` is empty)."""
     data, reason, cv2_decodes = _refused()[name]
@@ -451,7 +455,7 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
 
 
 def test_cv2s_quality_95_avif_of_the_refused_image_decodes_as_cv2():
-    """The image of the refused AVIF case above as cv2 writes it at quality
+    """The image of the refused cases above as cv2 writes it at quality
     95: 4:2:0, BT.601 in full range, every in-loop filter off; the port
     gives cv2's pixels."""
     img = image(16, 24, seed=3)
