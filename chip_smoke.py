@@ -186,10 +186,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     ``avif_chroma_vs_cv2`` and ``avif_filtered_vs_cv2`` counts), the host
     ms of the scene as cv2's lossless AVIF, as a lossy 4:4:4 one (q90,
     filters off), as cv2's quality-95 file (4:2:0, BT.601) and as cv2's
-    default (quality 50, deblocked and CDEF-filtered), and each file (as
-    data) against the PNG of cv2's pixels: the same words exactly, with
-    one ``ctc_topk`` launch each ("avif service", "lossy avif service",
-    "subsampled avif service", "default avif service"); a
+    default (quality 50, deblocked and CDEF-filtered) and at speed 4 (the
+    same with Wiener loop restoration on luma, the ``avif_restored_vs_cv2``
+    count), and each file (as data) against the PNG of cv2's pixels: the
+    same words exactly, with one ``ctc_topk`` launch each ("avif service",
+    "lossy avif service", "subsampled avif service", "default avif
+    service", "restored avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1490,6 +1492,7 @@ class Smoke:
 
         from ppocr_tpu_torch.ops import native
         from ppocr_tpu_torch.serve import OCRIPCClient
+        from ppocr_tpu_torch.utils import imcodec
         from ppocr_tpu_torch.utils.imcodec import decode_image, encode_png, read_image, sniff_format
 
         if self.serving_worker is None:
@@ -1511,7 +1514,8 @@ class Smoke:
         timed = ("scene0_bmp24", "scene0_grey_rle8", "scene0_ppm", "scene0_ras", "scene0_ras_rle", "scene0_pfm",
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
-            + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default")
+            + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default",
+                           "scene0_avif_restored")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1523,6 +1527,7 @@ class Smoke:
         avif_lossy = [0, 0]  # of them lossy (4:4:4 or monochrome, the in-loop filters off), of them None
         avif_chroma = [0, 0]  # of them 4:2:0 or 4:2:2 (Pillow's and cv2's), of them None
         avif_filtered = [0, 0]  # of them deblocked and CDEF-filtered (cv2's, Pillow's, written), of them None
+        avif_restored = [0, 0]  # of them loop-restored (cv2's, Pillow's, written), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1540,11 +1545,13 @@ class Smoke:
                 is_avif_chroma = name.startswith("avif_chroma") or name == "scene0_avif_q95"
                 is_avif_filtered = name.startswith("avif_filtered_") or name in ("scene0_avif_default",
                                                                                 "scene0_avif_pillow")
+                is_avif_restored = name.startswith("avif_restored_") or name == "scene0_avif_restored"
                 j2k[0] += is_j2k
                 avif[0] += is_avif
                 avif_lossy[0] += is_avif_lossy
                 avif_chroma[0] += is_avif_chroma
                 avif_filtered[0] += is_avif_filtered
+                avif_restored[0] += is_avif_restored
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1562,6 +1569,7 @@ class Smoke:
                     avif_lossy[1] += is_avif_lossy
                     avif_chroma[1] += is_avif_chroma
                     avif_filtered[1] += is_avif_filtered
+                    avif_restored[1] += is_avif_restored
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1627,6 +1635,21 @@ class Smoke:
                                                             == cases["scene0_avif_default"][1]).all():
             raise AssertionError("scene0_avif_default is not an AVIF that decodes to cv2's pixels")
         avif_default_png = encode_png(cases["scene0_avif_default"][1])
+        # the scene as cv2's speed-4 AVIF at its default quality 50 (Wiener
+        # loop restoration on luma beside deblocking and CDEF)
+        avif_restored_data = cases["scene0_avif_restored"][0]
+        if sniff_format(avif_restored_data) != "avif" or not (decode_image(avif_restored_data)
+                                                             == cases["scene0_avif_restored"][1]).all():
+            raise AssertionError("scene0_avif_restored is not an AVIF that decodes to cv2's pixels")
+        restored_stats = np.zeros(native.AV1_STATS_SIZE, np.int32)
+        restored_meta = imcodec._avif_parse(avif_restored_data)[0]
+        restored_stream = imcodec._avif_item_data(restored_meta, restored_meta.items[restored_meta.primary],
+                                                  avif_restored_data)
+        status, _, why = native.av1_decode(restored_stream, native.av1_info(restored_stream)[1], restored_stats)
+        lr_units = restored_stats[native.AV1_STATS["lr_units"][0]:native.AV1_STATS["lr_units"][1]].reshape(3, 3)
+        if status or lr_units[:, 1:].sum() == 0:
+            raise AssertionError(f"scene0_avif_restored restores no unit: {status} {why} {lr_units.tolist()}")
+        avif_restored_png = encode_png(cases["scene0_avif_restored"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1779,6 +1802,21 @@ class Smoke:
                                          "equal")
                 words["scene0_avif_default"] = len(got_avif_default["words"])
                 before = service_launches(c)
+                got_avif_restored = c.send_request(req(avif_restored_data))
+                self.launches["restored avif service"] = launched_avif_restored = launches_since(
+                    c, before, "restored AVIF")
+                if launched_avif_restored["ctc_topk"] != 1:
+                    raise AssertionError(f"the restored AVIF request: {launched_avif_restored}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_restored_png))
+                if not got_avif_restored.get("success") or not want.get("words"):
+                    raise AssertionError(f"restored AVIF: {str(got_avif_restored)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_restored["words"], want["words"], "cv2's speed-4 AVIF vs the PNG of cv2's pixels")
+                if ([(w["text"], w["box"]) for w in got_avif_restored["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the restored AVIF's words are not the PNG's: the texts and boxes must be "
+                                         "equal")
+                words["scene0_avif_restored"] = len(got_avif_restored["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1829,6 +1867,11 @@ class Smoke:
             f"q20-90, Pillow's defaults and CDEF files, sharpness, monochrome, odd sizes, written frames with "
             f"delta lf, segment features and CDEF indices; the scene as cv2's and Pillow's defaults; damaged), "
             f"{avif_filtered[1]} of them None",
+            "avif_restored_vs_cv2": f"{avif_restored[0]} of them loop-restored (Wiener, self-guided and switchable "
+            f"units: cv2's files at speeds 0-4, Pillow's with restoration on in 4:4:4, 4:2:2 and 4:2:0, written "
+            f"frames of every parameter set, unit size and lr_uv_shift; the scene as cv2's speed-4 file; damaged), "
+            f"{avif_restored[1]} of them None",
+            "scene0_avif_restored_lr_units [plane][none, wiener, sgrproj]": lr_units.tolist(),
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1843,8 +1886,9 @@ class Smoke:
             "launches_of_the_lossy_avif_request": launched_avif_lossy,
             "launches_of_the_subsampled_avif_request": launched_avif_q95,
             "launches_of_the_default_avif_request": launched_avif_default,
+            "launches_of_the_restored_avif_request": launched_avif_restored,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the thirty-two payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty-three payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

@@ -1,5 +1,5 @@
 // AV1 still-picture decoder for 8-bit key frames (4:4:4, 4:2:2, 4:2:0 and
-// monochrome), lossless or lossy, deblocked and CDEF-filtered, as libaom
+// monochrome), lossless or lossy, deblocked, CDEF-filtered and restored, as libaom
 // 3.14.1 decodes them (the copy in OpenCV 5.0, driven by libavif 1.4.2).
 //
 // The layers follow libaom's files, and so do the names in the comments:
@@ -49,14 +49,20 @@
 //   * cdef.c / cdef_block.c: CDEF on the deblocked frame (read_cdef's index
 //     per 64x64 unit, cdef_find_dir, adjust_strength, the primary and
 //     secondary taps of cdef_filter_8_*, CDEF_VERY_LARGE past the 8-sample
-//     grid of the frame).
+//     grid of the frame);
+//   * restoration.c / decodeframe.c: loop restoration (the unit coefficients
+//     read at each superblock, loop_restoration_read_sb_coeffs; the stripe
+//     boundaries saved before CDEF; av1_loop_restoration_filter_frame's
+//     units and 64-row stripes; the Wiener filter of
+//     av1_wiener_convolve_add_src and the self-guided filter of
+//     av1_apply_selfguided_restoration).
 //
 // The default CDFs and constant tables come from av1_tables.h, written from
 // libaom 3.14.1's library by scripts/make_av1_tables_torch.py.
 //
-// What this decoder does not decode (a frame whose loop restoration would
-// run, more than 8 bits, superres, film grain, a frame other than one shown
-// key frame) gives status UNPORTED before any pixel is decoded.
+// What this decoder does not decode (more than 8 bits, superres, film grain,
+// a frame other than one shown key frame) gives status UNPORTED before any
+// pixel is decoded.
 
 #include <algorithm>
 #include <chrono>
@@ -372,8 +378,15 @@ struct FrameHeader {
     int lf_sharpness = 0, lf_delta_enabled = 0;
     int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
     int cdef_damping = 3, cdef_bits = 0, cdef_y_strengths[8] = {0}, cdef_uv_strengths[8] = {0};
-    int restoration_type[3] = {0, 0, 0};  // lr_type as coded: 0 is RESTORE_NONE
+    // loop restoration by plane: libaom's RestorationType (decode_restoration_mode
+    // remaps lr_type as coded) and the unit's side in samples of the plane
+    int lr_type[3] = {0, 0, 0};
+    int lr_unit_size[3] = {256, 256, 256};
+    int lr_unit_shift = 0, lr_uv_shift = 0;  // as coded
 };
+
+// libaom's RestorationType
+enum { RESTORE_NONE = 0, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 int qindex_of(const FrameHeader& fh, int seg) {
     if (fh.seg_enabled && fh.feature_enabled[seg][0]) return clip3(0, 255, fh.base_q_idx + fh.feature_data[seg][0]);
@@ -668,22 +681,33 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
         }
     }
     // lr_params()
+    // lr_params() (decode_restoration_mode): lr_type 0-3 is NONE, SWITCHABLE,
+    // WIENER, SGRPROJ; the luma unit is the superblock's side, doubled by
+    // lr_unit_shift (a 64x64 superblock reads a second bit past a first 1);
+    // the chroma unit is luma's >> lr_uv_shift, read in 4:2:0 only
     if (!fh.all_lossless && !fh.allow_intrabc && s.enable_restoration) {
+        static const int kRemap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ};
         int uses_lr = 0, uses_chroma_lr = 0;
         for (int i = 0; i < num_planes; i++) {
-            fh.restoration_type[i] = rb.f(2);
-            if (fh.restoration_type[i]) {
+            fh.lr_type[i] = kRemap[rb.f(2)];
+            if (fh.lr_type[i]) {
                 uses_lr = 1;
                 if (i > 0) uses_chroma_lr = 1;
             }
         }
         if (uses_lr) {
+            int size = s.use_128 ? 128 : 64;
             if (s.use_128) {
-                rb.bit1();
-            } else if (rb.bit1()) {
-                rb.bit1();
+                fh.lr_unit_shift = rb.bit1();
+                size <<= fh.lr_unit_shift;
+            } else {
+                fh.lr_unit_shift = rb.bit1();
+                if (fh.lr_unit_shift) fh.lr_unit_shift += rb.bit1();
+                size <<= fh.lr_unit_shift;
             }
-            if (s.ss_x && s.ss_y && uses_chroma_lr) rb.bit1();
+            if (s.ss_x && s.ss_y && uses_chroma_lr) fh.lr_uv_shift = rb.bit1();
+            fh.lr_unit_size[0] = size;
+            fh.lr_unit_size[1] = fh.lr_unit_size[2] = size >> fh.lr_uv_shift;
         }
     }
     // read_tx_mode()
@@ -814,6 +838,7 @@ struct Cdfs {
     uint16_t base_eob[5][2][4][4], base[5][2][42][5], br[5][2][21][5];
     uint16_t eob32[2][2][7], eob64[2][2][8], eob128[2][2][9], eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
     uint16_t tx_size[4][3][4], txfm_partition[21][3], intra_ext_tx[3][4][13][17], inter_ext_tx[4][4][17];
+    uint16_t switchable_restore[4], wiener_restore[3], sgrproj_restore[3];
 
     void init(int q_ctx) {
         using namespace av1tab;
@@ -855,6 +880,9 @@ struct Cdfs {
         memcpy(txfm_partition, txfm_partition_cdf, sizeof txfm_partition);
         memcpy(intra_ext_tx, intra_ext_tx_cdf, sizeof intra_ext_tx);
         memcpy(inter_ext_tx, inter_ext_tx_cdf, sizeof inter_ext_tx);
+        memcpy(switchable_restore, switchable_restore_cdf, sizeof switchable_restore);
+        memcpy(wiener_restore, wiener_restore_cdf, sizeof wiener_restore);
+        memcpy(sgrproj_restore, sgrproj_restore_cdf, sizeof sgrproj_restore);
     }
 };
 
@@ -1395,6 +1423,137 @@ int cdef_adjust_strength(int strength, int32_t var) {
     return var ? (strength * (4 + i) + 8) >> 4 : 0;
 }
 
+// -- loop restoration's filters (restoration.c), on one processing unit ------------------
+// ``src`` is the unit's first sample; the three rows above and below it and
+// the three columns left and right of it are readable.
+
+// av1_wiener_convolve_add_src_c at WIENER_ROUND0_BITS 3 (8 bits): the
+// horizontal pass over the unit's rows and three more on each side adds the
+// centre sample << 7 (the centre tap's implicit 128) and 1 << 14, rounds by 3
+// bits and clamps to [0, 8191]; the vertical pass adds the centre << 7 less
+// 1 << 18 and rounds by 11 bits to 8 bits. ``hf`` / ``vf``: the 7 taps as
+// libaom's WienerInfo holds them (the centre without its 128).
+void wiener_filter(const uint8_t* src, ptrdiff_t sstride, uint8_t* dst, ptrdiff_t dstride, int w, int h,
+                   const int16_t* hf, const int16_t* vf) {
+    std::vector<uint16_t> tmp((size_t)(h + 6) * w);
+    for (int y = -3; y < h + 3; y++) {
+        const uint8_t* s = src + y * sstride;
+        uint16_t* t = &tmp[(size_t)(y + 3) * w];
+        for (int x = 0; x < w; x++) {
+            int sum = (s[x] << 7) + (1 << 14);
+            for (int k = 0; k < 7; k++) sum += hf[k] * s[x + k - 3];
+            t[x] = (uint16_t)clip3(0, 8191, round2(sum, 3));
+        }
+    }
+    for (int y = 0; y < h; y++) {
+        const uint16_t* t = &tmp[(size_t)(y + 3) * w];
+        for (int x = 0; x < w; x++) {
+            int sum = (t[x] << 7) - (1 << 18);
+            for (int k = 0; k < 7; k++) sum += vf[k] * t[x + (k - 3) * w];
+            dst[y * dstride + x] = clip_pixel(round2(sum, 11));
+        }
+    }
+}
+
+// calculate_intermediate_result of av1_selfguided_restoration_c: the box
+// sums of radius r (B) and of the squares (A) at rows -1..h (every row, or
+// every other one from -1 in the fast pass) and columns -1..w, turned into
+// the blend factor A = av1_x_by_xplus1[z] and the scaled mean B, in uint32
+// arithmetic as libaom's. ``a`` / ``b``: (h + 2) rows of w + 2.
+void sgr_intermediate(const uint8_t* src, ptrdiff_t stride, int w, int h, int r, uint32_t s, bool fast,
+                      int32_t* a, int32_t* b) {
+    const int n = (2 * r + 1) * (2 * r + 1), bw = w + 2;
+    std::vector<int32_t> col_sum(w + 2 + 2 * r), col_sq(w + 2 + 2 * r);
+    for (int i = -1; i < h + 1; i += fast ? 2 : 1) {
+        for (int j = -1 - r; j < w + 1 + r; j++) {
+            int32_t sum = 0, sq = 0;
+            for (int d = -r; d <= r; d++) {
+                const int v = src[(i + d) * stride + j];
+                sum += v;
+                sq += v * v;
+            }
+            col_sum[j + 1 + r] = sum;
+            col_sq[j + 1 + r] = sq;
+        }
+        for (int j = -1; j < w + 1; j++) {
+            uint32_t bs = 0, as = 0;
+            for (int d = -r; d <= r; d++) {
+                bs += (uint32_t)col_sum[j + d + 1 + r];
+                as += (uint32_t)col_sq[j + d + 1 + r];
+            }
+            const uint32_t p = (as * n < bs * bs) ? 0 : as * n - bs * bs;
+            const uint32_t z = (p * s + (1u << 19)) >> 20;  // SGRPROJ_MTABLE_BITS
+            const int32_t A = av1tab::x_by_xplus1[std::min<uint32_t>(z, 255)];
+            const size_t k = (size_t)(i + 1) * bw + (j + 1);
+            a[k] = A;
+            b[k] = (int32_t)(((uint32_t)(256 - A) * bs * (uint32_t)av1tab::one_by_x[n - 1] + (1u << 11)) >> 12);
+        }
+    }
+}
+
+// selfguided_restoration_fast_internal (r = 2, A and B on alternate rows
+// from the unit's row -1: an even row weighs the rows above and below it 6
+// and 5, an odd one its own row) and selfguided_restoration_internal (r = 1,
+// 4 on the cross and 3 on the diagonals): the filtered samples << 4
+void sgr_filter(const uint8_t* src, ptrdiff_t stride, int w, int h, int r, uint32_t s, bool fast, int32_t* flt) {
+    const int bw = w + 2;
+    std::vector<int32_t> A((size_t)(h + 2) * bw), B((size_t)(h + 2) * bw);
+    sgr_intermediate(src, stride, w, h, r, s, fast, A.data(), B.data());
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            const size_t k = (size_t)(i + 1) * bw + (j + 1);
+            const int32_t* a = &A[k];
+            const int32_t* b = &B[k];
+            int32_t av, bv, shift;
+            if (fast && !(i & 1)) {
+                av = (a[-bw] + a[bw]) * 6 + (a[-1 - bw] + a[-1 + bw] + a[1 - bw] + a[1 + bw]) * 5;
+                bv = (b[-bw] + b[bw]) * 6 + (b[-1 - bw] + b[-1 + bw] + b[1 - bw] + b[1 + bw]) * 5;
+                shift = 9;
+            } else if (fast) {
+                av = a[0] * 6 + (a[-1] + a[1]) * 5;
+                bv = b[0] * 6 + (b[-1] + b[1]) * 5;
+                shift = 8;
+            } else {
+                av = (a[0] + a[-1] + a[1] + a[-bw] + a[bw]) * 4 + (a[-1 - bw] + a[-1 + bw] + a[1 - bw] + a[1 + bw]) * 3;
+                bv = (b[0] + b[-1] + b[1] + b[-bw] + b[bw]) * 4 + (b[-1 - bw] + b[-1 + bw] + b[1 - bw] + b[1 + bw]) * 3;
+                shift = 9;
+            }
+            flt[(size_t)i * w + j] = round2(av * src[i * stride + j] + bv, shift);
+        }
+}
+
+// av1_apply_selfguided_restoration_c: the two passes of the set ``ep`` (a
+// radius of 0 skips its pass), blended with the source by av1_decode_xq's
+// weights, rounded by 11 bits, cut to 16 bits and clamped to 8
+void selfguided_filter(const uint8_t* src, ptrdiff_t stride, int w, int h, int ep, const int* xqd, uint8_t* dst,
+                       ptrdiff_t dstride) {
+    const int32_t* params = av1tab::sgr_params[ep];
+    const int r0 = params[0], r1 = params[1];
+    std::vector<int32_t> flt0((size_t)w * h), flt1((size_t)w * h);
+    if (r0) sgr_filter(src, stride, w, h, r0, (uint32_t)params[2], true, flt0.data());
+    if (r1) sgr_filter(src, stride, w, h, r1, (uint32_t)params[3], false, flt1.data());
+    int xq0, xq1;
+    if (!r0) {
+        xq0 = 0;
+        xq1 = 128 - xqd[1];
+    } else if (!r1) {
+        xq0 = xqd[0];
+        xq1 = 0;
+    } else {
+        xq0 = xqd[0];
+        xq1 = 128 - xqd[0] - xqd[1];
+    }
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            const size_t k = (size_t)i * w + j;
+            const int32_t u = src[i * stride + j] << 4;
+            int32_t v = u << 7;
+            if (r0) v += xq0 * (flt0[k] - u);
+            if (r1) v += xq1 * (flt1[k] - u);
+            dst[i * dstride + j] = clip_pixel((int16_t)round2(v, 11));
+        }
+}
+
 // -- the frame: blocks, contexts, prediction and reconstruction -----------------------
 
 struct BlockInfo {
@@ -1439,7 +1598,13 @@ enum {
     ST_CDEF_SKIP = 124,      // 8x8 blocks of a filtered 64x64 unit whose 4x4 units all skip
     ST_CDEF_UNSET = 125,     // 64x64 units without a cdef_idx (every block skips)
     ST_CDEF_BITS = 126,      // frames with cdef_bits > 0
-    ST_COUNT = 128
+    ST_LR_UNITS = 127,       // restoration units by plane and type (NONE, WIENER, SGRPROJ)
+    ST_LR_STRIPES = 136,     // processing stripes filtered
+    ST_LR_SGR_SETS = 137,    // self-guided units by parameter set (16)
+    ST_LR_UNIT_SIZES = 153,  // planes restored by unit size (32, 64, 128, 256)
+    ST_LR_UV_SHIFT = 157,    // frames with lr_uv_shift 1
+    ST_LR_BOUNDARY = 158,    // stripe edges (top, bottom) that read the deblocked rows saved before CDEF
+    ST_COUNT = 160
 };
 
 struct Frame {
@@ -1455,6 +1620,18 @@ struct Frame {
     std::vector<uint8_t> tx_type_map;                // the luma transform type at each 4x4 unit
     std::vector<int8_t> cdef_idx;                    // each 64x64 unit's CDEF strength index, -1 unread
     int cdef_cols = 0;
+    // loop restoration: each plane's units (av1_alloc_restoration_struct) and
+    // the coefficients the tile read last in each plane, the next unit's
+    // reference (xd->wiener_info, xd->sgrproj_info)
+    struct LrUnit {
+        int type = RESTORE_NONE;
+        int16_t vfilter[7] = {0}, hfilter[7] = {0};
+        int ep = 0, xqd[2] = {0, 0};
+    };
+    std::vector<LrUnit> lr_units[3];
+    int lr_hunits[3] = {0, 0, 0}, lr_vunits[3] = {0, 0, 0};
+    LrUnit lr_ref[3];
+    std::vector<uint8_t> lr_above[3], lr_below[3];  // each stripe's two rows of context above and below
     int32_t* stats;
     int sb_mask;
 
@@ -1501,7 +1678,19 @@ struct Frame {
         cdef_idx.assign((size_t)cdef_cols * ((mi_rows + 15) >> 4), -1);
         sb_mask = s.use_128 ? 31 : 15;
         blocks.reserve(1024);
+        for (int p = 0; p < num_planes; p++) {
+            if (!fh.lr_type[p]) continue;
+            lr_hunits[p] = lr_count_units(fh.lr_unit_size[p], plane_w(p));
+            lr_vunits[p] = lr_count_units(fh.lr_unit_size[p], plane_h(p));
+            lr_units[p].assign((size_t)lr_hunits[p] * lr_vunits[p], LrUnit());
+        }
     }
+
+    // the plane's visible samples (av1_whole_frame_rect)
+    int plane_w(int p) const { return (fh.width + sub_x(p)) >> sub_x(p); }
+    int plane_h(int p) const { return (fh.height + sub_y(p)) >> sub_y(p); }
+    // av1_lr_count_units: the last unit is up to 1.5 units long
+    static int lr_count_units(int unit, int size) { return std::max((size + (unit >> 1)) / unit, 1); }
 
     uint8_t* px(int p, int y, int x) { return &plane[p][(size_t)y * stride + x]; }
     int sub_x(int p) const { return p ? s.ss_x : 0; }
@@ -1541,6 +1730,7 @@ struct Frame {
                       above_ctx[p].begin() + std::min<size_t>(col_end + 32, above_ctx[p].size()), 0);
         std::fill(above_txfm.begin() + col_start, above_txfm.begin() + std::min<size_t>(col_end + 32, above_txfm.size()), 64);
         std::fill(delta_lf, delta_lf + 4, 0);
+        lr_reset();
         int sb4 = s.use_128 ? 32 : 16;
         int sb_size = s.use_128 ? BLOCK_128X128 : BLOCK_64X64;
         for (int r = row_start; r < row_end; r += sb4) {
@@ -1551,6 +1741,7 @@ struct Frame {
             for (int c = col_start; c < col_end; c += sb4) {
                 read_deltas = fh.delta_q_present;
                 clear_block_decoded(r, c, sb4);
+                read_lr(r, c, sb4);
                 decode_partition(r, c, sb_size);
                 if (sd.overflowed()) fail(DECODE_ERROR, "Failed to decode tile data");
             }
@@ -1821,6 +2012,107 @@ struct Frame {
 
     // read_cdef: the 64x64 unit's strength index, a cdef_bits literal at its
     // first block that does not skip (every unit a block of 128 covers)
+    // -- loop restoration's coefficients (decodeframe.c) ----------------------------------
+
+    // av1_reset_loop_restoration: each tile's references start from the
+    // middle of each tap's and weight's range
+    void lr_reset() {
+        static const int16_t kWiener[7] = {3, -7, 15, -22, 15, -7, 3};
+        for (int p = 0; p < 3; p++) {
+            memcpy(lr_ref[p].vfilter, kWiener, sizeof kWiener);
+            memcpy(lr_ref[p].hfilter, kWiener, sizeof kWiener);
+            lr_ref[p].xqd[0] = -32;
+            lr_ref[p].xqd[1] = 31;
+        }
+    }
+
+    // aom_read_primitive_subexpfin / refsubexpfin (binary_codes_reader.c):
+    // a value of [0, n) coded beside ``ref``
+    int subexpfin(int n, int k) {
+        for (int i = 0, mk = 0;; i++) {
+            const int b = i ? k + i - 1 : k, a = 1 << b;
+            if (n <= mk + 3 * a) return (n - mk <= 1 ? 0 : ns(n - mk)) + mk;
+            if (!lit(1)) return lit(b) + mk;
+            mk += a;
+        }
+    }
+    static int inv_recenter_nonneg(int r, int v) {
+        if (v > (r << 1)) return v;
+        return (v & 1) ? r - ((v + 1) >> 1) : (v >> 1) + r;
+    }
+    int refsubexpfin(int lo, int hi, int k, int ref) {  // a value of [lo, hi]
+        const int n = hi - lo + 1, r = ref - lo, v = subexpfin(n, k);
+        return lo + ((r << 1) <= n ? inv_recenter_nonneg(r, v) : n - 1 - inv_recenter_nonneg(n - 1 - r, v));
+    }
+
+    // read_wiener_filter: taps 0-2 of each direction (chroma's 5-tap filter
+    // has no tap 0), mirrored, the centre making the sum 0
+    void read_wiener(int p, LrUnit& u) {
+        LrUnit& ref = lr_ref[p];
+        for (int dir = 0; dir < 2; dir++) {
+            int16_t* f = dir ? u.hfilter : u.vfilter;
+            const int16_t* rf = dir ? ref.hfilter : ref.vfilter;
+            f[0] = (int16_t)(p ? 0 : refsubexpfin(-5, 10, 1, rf[0]));
+            f[1] = (int16_t)refsubexpfin(-23, 8, 2, rf[1]);
+            f[2] = (int16_t)refsubexpfin(-17, 46, 3, rf[2]);
+            f[6] = f[0];
+            f[5] = f[1];
+            f[4] = f[2];
+            f[3] = (int16_t)(-2 * (f[0] + f[1] + f[2]));
+        }
+        memcpy(ref.vfilter, u.vfilter, sizeof u.vfilter);
+        memcpy(ref.hfilter, u.hfilter, sizeof u.hfilter);
+    }
+
+    // read_sgrproj_filter: the set, then the weights its radii use (a set
+    // without its first pass codes the second weight; one without its second
+    // derives that weight from the first)
+    void read_sgrproj(int p, LrUnit& u) {
+        LrUnit& ref = lr_ref[p];
+        u.ep = lit(4);
+        const int32_t* params = av1tab::sgr_params[u.ep];
+        if (!params[0]) {
+            u.xqd[0] = 0;
+            u.xqd[1] = refsubexpfin(-32, 95, 4, ref.xqd[1]);
+        } else if (!params[1]) {
+            u.xqd[0] = refsubexpfin(-96, 31, 4, ref.xqd[0]);
+            u.xqd[1] = clip3(-32, 95, 128 - u.xqd[0]);
+        } else {
+            u.xqd[0] = refsubexpfin(-96, 31, 4, ref.xqd[0]);
+            u.xqd[1] = refsubexpfin(-32, 95, 4, ref.xqd[1]);
+        }
+        ref.ep = u.ep;
+        memcpy(ref.xqd, u.xqd, sizeof u.xqd);
+        stats[ST_LR_SGR_SETS + u.ep]++;
+    }
+
+    // decode_partition's first step at a superblock: the coefficients of each
+    // unit whose top-left corner lies in it (av1_loop_restoration_corners_in_sb),
+    // plane by plane, row by row
+    void read_lr(int r, int c, int sb4) {
+        for (int p = 0; p < num_planes; p++) {
+            const int type = fh.lr_type[p];
+            if (!type) continue;
+            const int size = fh.lr_unit_size[p], mx = 4 >> sub_x(p), my = 4 >> sub_y(p);
+            const int rcol0 = (c * mx + size - 1) / size, rrow0 = (r * my + size - 1) / size;
+            const int rcol1 = std::min(((c + sb4) * mx + size - 1) / size, lr_hunits[p]);
+            const int rrow1 = std::min(((r + sb4) * my + size - 1) / size, lr_vunits[p]);
+            for (int rr = rrow0; rr < rrow1; rr++)
+                for (int rc = rcol0; rc < rcol1; rc++) {
+                    LrUnit& u = lr_units[p][(size_t)rr * lr_hunits[p] + rc];
+                    if (type == RESTORE_SWITCHABLE)
+                        u.type = sym(cdf.switchable_restore, 3);
+                    else if (type == RESTORE_WIENER)
+                        u.type = sym(cdf.wiener_restore, 2) ? RESTORE_WIENER : RESTORE_NONE;
+                    else
+                        u.type = sym(cdf.sgrproj_restore, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+                    if (u.type == RESTORE_WIENER) read_wiener(p, u);
+                    if (u.type == RESTORE_SGRPROJ) read_sgrproj(p, u);
+                    stats[ST_LR_UNITS + p * 3 + u.type]++;
+                }
+        }
+    }
+
     void read_cdef() {
         if (b->skip || fh.coded_lossless || !s.enable_cdef || fh.allow_intrabc) return;
         const int r = mi_row & ~15, c = mi_col & ~15;
@@ -3311,6 +3603,128 @@ struct Frame {
                     }
             }
     }
+
+    // -- loop restoration (restoration.c), on the frame after CDEF ------------------------------
+    // Its frame is each plane's visible samples, 3 of them replicated past
+    // every edge (av1_extend_frame, RESTORATION_BORDER), not the 8-sample grid.
+    // A unit is filtered in processing stripes of 64 rows (>> ss_y), the first
+    // of the plane 8 (>> ss_y) rows shorter; a stripe reads, in place of the
+    // rows past its top and bottom, two rows of the deblocked frame saved
+    // before CDEF (the nearer one twice), except at the top of the plane and
+    // the bottom, where it reads the extended frame.
+
+    static constexpr int kLrBorder = 3;  // RESTORATION_BORDER: the samples a filter reads past a unit
+
+    bool lr_on() const { return fh.lr_type[0] || fh.lr_type[1] || fh.lr_type[2]; }
+
+    // save_tile_row_boundary_lines with save_deblock_boundary_lines: for each
+    // stripe but the first the two rows above it, and for each but the last
+    // the two rows below it (the first twice where it is the plane's last
+    // row), each extended past its ends. libaom saves the frame's first and
+    // last rows again after CDEF (save_cdef_boundary_lines) for stripes that
+    // never read them: a stripe at the plane's top or bottom reads the
+    // extended frame instead.
+    void lr_save_boundaries() {
+        for (int p = 0; p < num_planes; p++) {
+            if (!fh.lr_type[p]) continue;
+            const int pw = plane_w(p), ph = plane_h(p), lw = pw + 2 * kLrBorder;
+            const int sh = 64 >> sub_y(p), off = 8 >> sub_y(p);
+            int stripes = 0;
+            while (std::max(0, stripes * sh - off) < ph) stripes++;
+            lr_above[p].assign((size_t)stripes * 2 * lw, 0);
+            lr_below[p].assign((size_t)stripes * 2 * lw, 0);
+            auto save = [&](int y, uint8_t* line) {
+                memcpy(line + kLrBorder, px(p, y, 0), (size_t)pw);
+                memset(line, line[kLrBorder], kLrBorder);
+                memset(line + kLrBorder + pw, line[kLrBorder + pw - 1], kLrBorder);
+            };
+            for (int st = 0; st < stripes; st++) {
+                const int y0 = std::max(0, st * sh - off), y1 = std::min((st + 1) * sh - off, ph);
+                uint8_t* above = &lr_above[p][(size_t)st * 2 * lw];
+                uint8_t* below = &lr_below[p][(size_t)st * 2 * lw];
+                if (st > 0) {
+                    save(y0 - 2, above);
+                    save(y0 - 1, above + lw);
+                }
+                if (y1 < ph) {
+                    save(y1, below);
+                    save(ph - y1 >= 2 ? y1 + 1 : y1, below + lw);
+                }
+            }
+        }
+    }
+
+    // av1_loop_restoration_filter_frame: each plane whose type is not NONE,
+    // unit by unit (av1_foreach_rest_unit_in_plane: units of the unit size,
+    // the last of a row or column up to 1.5 units long, each unit's rows
+    // moved up by the stripe offset but the plane's first and last), each
+    // unit stripe by stripe (av1_loop_restoration_filter_unit), into a copy
+    // of the plane that then replaces it
+    void restore() {
+        for (int p = 0; p < num_planes; p++) {
+            if (!fh.lr_type[p]) continue;
+            const int ssx = sub_x(p), ssy = sub_y(p), pw = plane_w(p), ph = plane_h(p);
+            const int size = fh.lr_unit_size[p], ext = size * 3 / 2, off = 8 >> ssy, sh = 64 >> ssy;
+            stats[ST_LR_UNIT_SIZES + (size == 32 ? 0 : size == 64 ? 1 : size == 128 ? 2 : 3)]++;
+            // av1_extend_frame
+            const int B = kLrBorder, es = pw + 2 * B;
+            std::vector<uint8_t> src((size_t)es * (ph + 2 * B));
+            for (int y = -B; y < ph + B; y++) {
+                uint8_t* row = &src[(size_t)(y + B) * es];
+                memcpy(row + B, px(p, clip3(0, ph - 1, y), 0), (size_t)pw);
+                memset(row, row[B], B);
+                memset(row + B + pw, row[B + pw - 1], B);
+            }
+            std::vector<uint8_t> dst((size_t)pw * ph);
+            for (int y = 0; y < ph; y++) memcpy(&dst[(size_t)y * pw], px(p, y, 0), (size_t)pw);
+            const int lw = pw + 2 * kLrBorder;
+            std::vector<uint8_t> win;
+            for (int y0 = 0, row = 0; y0 < ph; row++) {
+                const int uh = ph - y0 < ext ? ph - y0 : size;
+                const int vs = std::max(0, y0 - off), ve = y0 + uh < ph ? y0 + uh - off : ph;
+                for (int x0 = 0, col = 0; x0 < pw; col++) {
+                    const int uw = pw - x0 < ext ? pw - x0 : size;
+                    const LrUnit& u = lr_units[p][(size_t)row * lr_hunits[p] + col];
+                    for (int ys = vs; u.type && ys < ve;) {
+                        const int fs = (ys + off) / sh;
+                        const int nominal = sh - (ys == 0 ? off : 0), h = std::min(nominal, ve - ys);
+                        const bool copy_above = ys != 0, copy_below = ys + nominal < ph;
+                        // the stripe with B rows and columns around it
+                        const int ww = uw + 2 * B;
+                        win.resize((size_t)ww * (h + 2 * B));
+                        for (int r = -B; r < h + B; r++) {
+                            const uint8_t* from;
+                            if (r < 0 && copy_above)
+                                from = &lr_above[p][((size_t)fs * 2 + std::max(r + 2, 0)) * lw + x0];
+                            else if (r >= h && copy_below)
+                                from = &lr_below[p][((size_t)fs * 2 + std::min(r - h, 1)) * lw + x0];
+                            else
+                                from = &src[(size_t)(ys + r + B) * es + x0];
+                            memcpy(&win[(size_t)(r + B) * ww], from, (size_t)ww);
+                        }
+                        stats[ST_LR_STRIPES]++;
+                        stats[ST_LR_BOUNDARY] += copy_above + copy_below;
+                        const uint8_t* w0 = &win[(size_t)B * ww + B];
+                        uint8_t* d0 = &dst[(size_t)ys * pw + x0];
+                        // wiener_filter_stripe / sgrproj_filter_stripe: by
+                        // processing unit of 64 columns (>> ss_x)
+                        for (int j = 0; j < uw; j += 64 >> ssx) {
+                            const int w = std::min(64 >> ssx, uw - j);
+                            if (u.type == RESTORE_WIENER)
+                                wiener_filter(w0 + j, ww, d0 + j, pw, w, h, u.hfilter, u.vfilter);
+                            else
+                                selfguided_filter(w0 + j, ww, w, h, u.ep, u.xqd, d0 + j, pw);
+                        }
+                        ys += h;
+                    }
+                    x0 += uw;
+                }
+                y0 += uh;
+            }
+            for (int y = 0; y < ph; y++) memcpy(px(p, y, 0), &dst[(size_t)y * pw], (size_t)pw);
+        }
+        if (fh.lr_uv_shift) stats[ST_LR_UV_SHIFT]++;
+    }
 };
 
 }  // namespace
@@ -3368,7 +3782,7 @@ double now_ms() {
 
 struct Decoder {
     int32_t* stats;
-    double stage_ms[3] = {0, 0, 0};  // wall ms of the tiles (syntax and reconstruction), deblocking, CDEF
+    double stage_ms[4] = {0, 0, 0, 0};  // wall ms of the tiles (syntax and reconstruction), deblocking, CDEF, LR
     bool decode_tiles;  // false: stop after the first frame header (av1_info)
     bool seq_ready = false, seq_changed = false;
     SeqHeader seq;
@@ -3465,8 +3879,6 @@ struct Decoder {
     void check_frame_supported() {
         if (seq.bit_depth != 8) fail(UNPORTED, "10/12-bit samples");
         if (fh.width != fh.upscaled_width || fh.apply_grain) fail(UNPORTED, "superres and film grain");
-        // loop restoration runs (decodeframe.c) where a plane's type is not NONE
-        if (fh.restoration_type[0] || fh.restoration_type[1] || fh.restoration_type[2]) fail(UNPORTED, "loop restoration");
     }
 
     size_t read_metadata(const uint8_t* d, size_t sz) {
@@ -3689,13 +4101,22 @@ struct Decoder {
                 read_tile_group(trb, data + payload_offset, data + payload, h.type == OBU_FRAME, finished);
                 decoded = payload;
                 if (finished) {
-                    // av1_decode_tg_tiles_and_wrapup: the in-loop filters once the last tile is decoded
+                    // av1_decode_tg_tiles_and_wrapup: the in-loop filters once the
+                    // last tile is decoded; loop restoration's stripe boundaries are
+                    // saved from the deblocked frame before CDEF (without CDEF libaom
+                    // takes its "optimized" path, which reads the same rows)
                     const double t0 = now_ms();
                     frame->deblock();
                     const double t1 = now_ms();
+                    if (frame->lr_on()) frame->lr_save_boundaries();
+                    const double t2 = now_ms();
                     frame->cdef();
+                    const double t3 = now_ms();
+                    if (frame->lr_on()) frame->restore();
+                    const double t4 = now_ms();
                     stage_ms[1] += t1 - t0;
-                    stage_ms[2] += now_ms() - t1;
+                    stage_ms[2] += t3 - t2;
+                    stage_ms[3] += (t2 - t1) + (t4 - t3);
                     frames_done++;
                 }
             }
@@ -3796,11 +4217,33 @@ int av1_cdef_filter(uint8_t* dst, int dstride, const uint16_t* in, int in_stride
     return OK;
 }
 
+// One Wiener filter of loop restoration, for the tests (av1_wiener_convolve_add_src
+// on a processing unit): ``hf`` / ``vf`` the 7 taps as libaom holds them
+// (their sum 0), ``src`` readable 3 samples past each side.
+int av1_wiener_filter(const uint8_t* src, int src_stride, uint8_t* dst, int dst_stride, int w, int h,
+                      const int16_t* hf, const int16_t* vf) {
+    if (w < 1 || h < 1) return BAD_CALL;
+    wiener_filter(src, src_stride, dst, dst_stride, w, h, hf, vf);
+    return OK;
+}
+
+// One self-guided filter of loop restoration, for the tests
+// (av1_apply_selfguided_restoration on a processing unit): parameter set
+// ``ep`` (0-15), the weights ``xqd`` as coded, ``src`` readable 3 samples
+// past each side.
+int av1_selfguided_filter(const uint8_t* src, int w, int h, int stride, int ep, const int32_t* xqd, uint8_t* dst,
+                          int dst_stride) {
+    if (w < 1 || h < 1 || ep < 0 || ep > 15) return BAD_CALL;
+    const int x[2] = {xqd[0], xqd[1]};
+    selfguided_filter(src, stride, w, h, ep, x, dst, dst_stride);
+    return OK;
+}
+
 // Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples, Y of
 // width x height, then U and V of ((width + ss_x) >> ss_x) x ((height + ss_y)
 // >> ss_y). ``stats``: ST_COUNT tool counters; ``stage_ms`` (or null): the
-// wall ms of the tiles' syntax and reconstruction, of deblocking and of
-// CDEF. Returns a Status.
+// wall ms of the tiles' syntax and reconstruction, of deblocking, of CDEF
+// and of loop restoration. Returns a Status.
 int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, double* stage_ms,
                char* msg, int msg_len) {
     Decoder d;

@@ -608,10 +608,15 @@ AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "ang
              "tx_size": (49, 68), "tx_type": (68, 84), "qm": 84, "delta_q": 85, "vartx_split": 86, "residual": 87,
              "sub8x8_chroma": 88, "chroma_subpel_dv": 89, "cfl_subsampled": 90, "uv_tx_size": (91, 110),
              "lf_edges": (110, 122), "cdef_y": 122, "cdef_uv": 123, "cdef_skip": 124, "cdef_unset": 125,
-             "cdef_bits": 126}
+             "cdef_bits": 126, "lr_units": (127, 136), "lr_stripes": 136, "lr_sgr_sets": (137, 153),
+             "lr_unit_sizes": (153, 157), "lr_uv_shift": 157, "lr_boundary": 158}
 # the deblocking filter's lengths, the order of the "lf_edges" counters within each plane's four
 AV1_LF_LENGTHS = (4, 6, 8, 14)
-AV1_STATS_SIZE = 128  # ST_COUNT
+# loop restoration's unit types, the order of the "lr_units" counters within each plane's three,
+# and its unit sizes, the order of the "lr_unit_sizes" counters
+AV1_LR_TYPES = ("none", "wiener", "sgrproj")
+AV1_LR_UNIT_SIZES = (32, 64, 128, 256)
+AV1_STATS_SIZE = 160  # ST_COUNT
 # libaom's TX_SIZE order, the order of the "tx_size" counters
 AV1_TX_SIZES = ("4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32", "32x16", "32x64",
                 "64x32", "4x16", "16x4", "8x32", "32x8", "16x64", "64x16")
@@ -640,6 +645,11 @@ def load_av1_library() -> ctypes.CDLL:
             lib.av1_cdef_find_dir.argtypes = [u16p, ctypes.c_int, i32p]
             lib.av1_cdef_filter.restype = ctypes.c_int
             lib.av1_cdef_filter.argtypes = [u8p, ctypes.c_int, u16p] + [ctypes.c_int] * 8
+            lib.av1_wiener_filter.restype = ctypes.c_int
+            lib.av1_wiener_filter.argtypes = [u8p, ctypes.c_int, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_int16)]
+            lib.av1_selfguided_filter.restype = ctypes.c_int
+            lib.av1_selfguided_filter.argtypes = [u8p] + [ctypes.c_int] * 4 + [i32p, u8p, ctypes.c_int]
             lib.avif_yuv_to_bgr.restype = ctypes.c_int
             lib.avif_yuv_to_bgr.argtypes = [u8p] * 3 + [ctypes.c_int] * 8 + [u8p]
             _av1_lib = lib
@@ -666,8 +676,9 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
     planes [Y] or [Y, U, V] (U and V of ((height + ss_y) >> ss_y, (width +
     ss_x) >> ss_x)) or None, libaom's reason). ``stats``: an int32 array of
     ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``);
-    ``stage_ms``: a float64 array of 3 that gets the wall ms of the tiles'
-    syntax and reconstruction, of deblocking and of CDEF."""
+    ``stage_ms``: a float64 array of 4 that gets the wall ms of the tiles'
+    syntax and reconstruction, of deblocking, of CDEF and of loop
+    restoration."""
     lib = load_av1_library()
     planes = 1 if info[3] else 3
     w, h, ss_x, ss_y = (int(info[k]) for k in (0, 1, 4, 5))
@@ -677,8 +688,8 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
         stats = np.zeros(AV1_STATS_SIZE, np.int32)
     if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
         raise ValueError(f"av1_decode: stats must be a contiguous int32 array of {AV1_STATS_SIZE}")
-    if stage_ms is not None and (stage_ms.dtype != np.float64 or stage_ms.size < 3 or not stage_ms.flags.c_contiguous):
-        raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 3")
+    if stage_ms is not None and (stage_ms.dtype != np.float64 or stage_ms.size < 4 or not stage_ms.flags.c_contiguous):
+        raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 4")
     msg = ctypes.create_string_buffer(256)
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
                             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -776,4 +787,47 @@ def av1_cdef_filter(src: np.ndarray, pri: int, sec: int, direction: int, pri_dam
                                  pri_damping, sec_damping, bw, bh)
     if status:
         raise ValueError(f"av1_cdef_filter: no {bh}x{bw} block in direction {direction}")
+    return out
+
+
+def _restoration_unit(src: np.ndarray, w: int, h: int):
+    """The readable source of a processing unit: uint8, its w x h samples
+    three in from each side."""
+    src = np.ascontiguousarray(src, np.uint8)
+    if src.ndim != 2 or src.shape != (h + 6, w + 6) or w < 1 or h < 1:
+        raise ValueError(f"loop restoration: a {h + 6}x{w + 6} uint8 source for a {h}x{w} unit")
+    return src, ctypes.cast(src.ctypes.data + 3 * (w + 6) + 3, ctypes.POINTER(ctypes.c_uint8))
+
+
+def av1_wiener_filter(src: np.ndarray, hfilter, vfilter) -> np.ndarray:
+    """Loop restoration's Wiener filter of one processing unit
+    (``av1_wiener_convolve_add_src``): ``src`` uint8 of (h + 6) x (w + 6),
+    the unit three samples in from each side; ``hfilter`` / ``vfilter`` the
+    7 taps as libaom's WienerInfo holds them → the h x w uint8 unit."""
+    lib = load_av1_library()
+    h, w = src.shape[0] - 6, src.shape[1] - 6
+    src, at = _restoration_unit(src, w, h)
+    hf, vf = (np.ascontiguousarray(f, np.int16) for f in (hfilter, vfilter))
+    if hf.shape != (7,) or vf.shape != (7,):
+        raise ValueError("av1_wiener_filter: 7 taps in each direction")
+    out = np.zeros((h, w), np.uint8)
+    lib.av1_wiener_filter(at, w + 6, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, w, h,
+                          hf.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                          vf.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+    return out
+
+
+def av1_selfguided_filter(src: np.ndarray, ep: int, xqd) -> np.ndarray:
+    """Loop restoration's self-guided filter of one processing unit
+    (``av1_apply_selfguided_restoration``): ``src`` uint8 of (h + 6) x
+    (w + 6), the unit three samples in from each side; parameter set ``ep``
+    (0-15) and the two weights ``xqd`` as coded → the h x w uint8 unit."""
+    lib = load_av1_library()
+    h, w = src.shape[0] - 6, src.shape[1] - 6
+    src, at = _restoration_unit(src, w, h)
+    x = np.ascontiguousarray(xqd, np.int32)
+    out = np.zeros((h, w), np.uint8)
+    if x.shape != (2,) or lib.av1_selfguided_filter(at, w, h, w + 6, int(ep), x.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                                     out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w):
+        raise ValueError(f"av1_selfguided_filter: no parameter set {ep} or not two weights")
     return out

@@ -133,18 +133,19 @@ nor PIL. It answers as cv2 5.0 does, ``None`` included. Decoded:
   first, sYCC through its integer YUV conversion, each sample shifted
   right by the largest precision less 8.
 * **AVIF**, 8-bit stills (4:4:4, 4:2:2, 4:2:0 and monochrome), lossless
-  or lossy, deblocked and CDEF-filtered, loop restoration off (the ISOBMFF boxes and cv2's hand-over
+  or lossy, deblocked, CDEF-filtered and loop-restored (the ISOBMFF boxes and cv2's hand-over
   in Python, the AV1 stream in ``csrc/av1.cpp``, host C++ built at first
   use), as OpenCV 5.0's ``grfmt_avif.cpp`` reads them through libavif
   1.4.2 over libaom 3.14.1: the boxes by libavif's rules with its strict
   checks off (brands, the meta box's unique boxes, ``iloc`` versions 0–2
   from the file or ``idat``, ``ipma`` essential flags, every image
-  item's ``ispe``), cv2's signature check over the first 500 bytes, the
+  item's ``ispe``), cv2's signature check over the first 500 bytes (a
+  top-level box of size 0 running to their end), the
   primary item and its alpha item (decoded, a bad one refusing the file,
   then dropped); the AV1 intra syntax of a key frame (transform sizes and
   types, coefficients, quantisers, inverse transforms) as libaom decodes
-  it, subsampled chroma included, then libaom's deblocking filter and
-  CDEF; then one channel (the Y plane as it
+  it, subsampled chroma included, then libaom's deblocking filter, CDEF
+  and loop restoration (Wiener, self-guided); then one channel (the Y plane as it
   is) where the ``av1C`` says monochrome, else libavif's YUV to BGR for
   the CICP of the ``colr`` box or the sequence header (``csrc/avif_yuv.cpp``:
   libyuv's fixed point with its bilinear chroma upsampling for BT.709,
@@ -157,8 +158,8 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
 ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
-the AVIF kinds of ``AVIF_UNPORTED`` (frames whose loop restoration runs,
-10/12-bit, grid and sequence files among them); no sniffed format is without a decoder
+the AVIF kinds of ``AVIF_UNPORTED`` (superres, film grain, 10/12-bit,
+grid and sequence files among them); no sniffed format is without a decoder
 (``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
 response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
 JPEG 2000 or AVIF decode raises when its host C++ cannot be built: a
@@ -2642,7 +2643,6 @@ def _j2k_reason(status: int, reason: str) -> str:
 # what cv2 5.0 decodes in an AVIF file and this module does not, by the
 # reason logged, with its ROADMAP item
 AVIF_UNPORTED = {
-    "loop restoration": "A14.7b",
     "superres and film grain": "A14.7b",
     "10/12-bit samples": "A14.7c",
     "grids": "A14.7c",
@@ -2981,6 +2981,13 @@ def _avif_iprp(meta: _AvifMeta, s: _AvifStream):
         s.pos = end
 
 
+def _avif_children(data: bytes, start: int, end: int, what: str):
+    """The child boxes of ``data[start:end]``, each inside it."""
+    s = _AvifStream(data, start, end, what)
+    while s.left() >= 1:
+        s.pos = s.box_header()[2]
+
+
 def _avif_meta(meta: _AvifMeta, data: bytes, start: int, end: int):
     """avifParseMetaBox: hdlr first, each unique box at most once."""
     s = _AvifStream(data, start, end, "meta")
@@ -3074,13 +3081,24 @@ AVIF_SIGNATURE_SIZE = 500  # grfmt_avif.cpp: the bytes cv2's AVIF signature chec
 def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
     """cv2 takes a file for AVIF when avifDecoderParse over its first 500
     bytes (an IO that fails a read past them and gives a short one across
-    them) ends in success or in truncated data. The full parse succeeded,
-    so what is left to fail is a read that starts past the window: a
-    top-level box header before the boxes the brands need are complete,
-    or, when those boxes end inside the window and the primary item has
-    no nclx colour box, the item data libavif reads for the sequence
-    header's colour description."""
-    window = min(AVIF_SIGNATURE_SIZE, len(data))
+    them; a file under 500 bytes padded with spaces, as imdecode's
+    findDecoder pads its signature buffer) ends in success or in truncated
+    data. The full parse succeeded, so what is left to fail is a read that
+    starts past the window: a top-level box header before the boxes the
+    brands need are complete, or, when those boxes end inside the window and
+    the primary item has no nclx colour box, the item data libavif reads for
+    the sequence header's colour description.
+
+    A top-level box of size 0 runs to the end of what the IO holds: for
+    ftyp, meta and moov that is the window's end (cv2 sets the IO's size
+    hint to 1e9, so libavif reads "to the end" and gets the window), and
+    the box is parsed on what the window holds of it. A child box that the
+    window cuts, or the padding read as a box, fails that parse: the mdat
+    after a meta of size 0 does, unless the file is 500 bytes or more and
+    the window ends where a box ends. Any other box of size 0 runs past the
+    window."""
+    window = AVIF_SIGNATURE_SIZE
+    sig = data[:window].ljust(window, b" ")
     pos = 0
     needs_meta = needs_moov = None
     seen = set()
@@ -3089,15 +3107,26 @@ def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
             return False
         if pos == window:
             return True
-        s = _AvifStream(data, pos, min(window, pos + 32), "file")
+        s = _AvifStream(sig, pos, min(window, pos + 32), "file")
         try:
-            kind, start, end = s.box_header(top=True, file_end=len(data))
+            kind, start, end = s.box_header(top=True, file_end=max(len(data), window + 1))
         except _Refused:
             return False
+        if kind in (b"ftyp", b"meta", b"moov") and sig[pos:pos + 4] == b"\0\0\0\0":
+            end = window
+            try:
+                if kind == b"ftyp" and (end - start < 8 or (end - start - 8) % 4):
+                    raise _Refused("libavif refuses it: Box[ftyp] is malformed")
+                if kind == b"meta":
+                    _avif_meta(_AvifMeta(), sig, start, end)
+                if kind == b"moov":
+                    _avif_children(sig, start, end, "moov")
+            except _Refused:
+                return False
         if kind in (b"ftyp", b"meta", b"moov") and end > window:
             return True
         if kind == b"ftyp":
-            brands = [data[start:start + 4]] + [data[k:k + 4] for k in range(start + 8, end, 4)]
+            brands = [sig[start:start + 4]] + [sig[k:k + 4] for k in range(start + 8, end, 4)]
             needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
         seen.add(kind)
         pos = end

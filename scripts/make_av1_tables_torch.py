@@ -41,6 +41,10 @@ How each table is found:
   them unrelocated. Each is checked (permutations, rising lookups, shapes,
   the mapping of types to scans).
 
+* Loop restoration's CDFs come from the frame context like the mode
+  CDFs; its self-guided tables (``av1_sgr_params``, ``av1_x_by_xplus1``,
+  ``av1_one_by_x``) are objects.
+
 The transform tables grew the header from 112,348 to 620,891 bytes
 (+508,543), 420 kB of it the quantiser matrices.
 
@@ -167,6 +171,11 @@ MODE_CDFS = [
      + icdf(12133)),
     ("intra_ext_tx_cdf", (3, 4, 13, 17), lambda i: (0, 7, 5)[i // 52], "default_intra_ext_tx_cdf"),
     ("inter_ext_tx_cdf", (4, 4, 17), lambda i: (0, 16, 12, 2)[i // 4], "default_inter_ext_tx_cdf"),
+    # loop restoration: a unit's type in a SWITCHABLE plane (NONE, WIENER,
+    # SGRPROJ), and whether a unit of a WIENER or an SGRPROJ plane filters
+    ("switchable_restore_cdf", (4,), 3, icdf(9413, 22581)),
+    ("wiener_restore_cdf", (3,), 2, icdf(11570)),
+    ("sgrproj_restore_cdf", (3,), 2, icdf(16855)),
 ]
 
 # the coefficient CDFs: library object, shape, symbols of each row
@@ -288,7 +297,26 @@ def tables(lib: Library) -> list:
             raise SystemExit(f"{scan}: not a permutation of 16")
         out.append(("int16_t", scan, s))
     out += transform_tables(lib)
+    out += restoration_tables(lib)
     return out
+
+
+def restoration_tables(lib: Library) -> list:
+    """Loop restoration's self-guided filter: ``av1_sgr_params`` (per set
+    the radii r0, r1 and the scales s0, s1; a radius of 0 skips its pass),
+    ``av1_x_by_xplus1`` (the blend factor A of z) and ``av1_one_by_x``
+    (round(2^12 / n) for the box of n samples)."""
+    sgr = lib.object("av1_sgr_params", "<i4").reshape(16, 4)
+    if not ((sgr[:, 0] == 0) | (sgr[:, 0] == 2)).all() or not ((sgr[:, 1] == 0) | (sgr[:, 1] == 1)).all() \
+            or ((sgr[:, 0] == 0) & (sgr[:, 1] == 0)).any():
+        raise SystemExit(f"av1_sgr_params: not radii (2 or 0, 1 or 0): {sgr.tolist()}")
+    xbx = lib.object("av1_x_by_xplus1", "<i4")
+    if xbx.size != 256 or xbx[0] != 1 or xbx[-1] != 256 or (np.diff(xbx) < 0).any():
+        raise SystemExit("av1_x_by_xplus1: not 256 rising factors from 1 to 256")
+    obx = lib.object("av1_one_by_x", "<i4")
+    if obx.size != 25 or obx[0] != 4096 or (np.abs(obx - np.round(4096 / np.arange(1, 26))) > 0).any():
+        raise SystemExit("av1_one_by_x: not round(4096 / n) for n of 1 to 25")
+    return [("int32_t", "sgr_params", sgr), ("int32_t", "x_by_xplus1", xbx), ("int32_t", "one_by_x", obx)]
 
 
 # libaom's TX_SIZE order and each size's width and height

@@ -10,13 +10,15 @@ a lossy 4:4:4 AVIF with the in-loop filters off (libavif 1.4.2's writer,
 q90, speed 6, identity matrix: ``scene0_avif_lossy``) and as cv2's
 quality-95 AVIF (4:2:0, BT.601 in full range, the in-loop filters off:
 ``scene0_avif_q95``) and as cv2's default AVIF (quality 50: 4:2:0, BT.601,
-deblocking and CDEF: ``scene0_avif_default``). For each, times, in turns,
+deblocking and CDEF: ``scene0_avif_default``) and as cv2's default
+quality at speed 4 (the same with Wiener loop restoration on luma:
+``scene0_avif_restored``). For each, times, in turns,
 with the median of ``--repeats`` runs each after one untimed (which builds
 ``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
 Python, the AV1 decode on one host thread), the AV1 stream's decode alone
 (``native.av1_decode``), split into its stages as the decoder clocks them
-(the tiles' syntax and reconstruction, deblocking, CDEF: the medians of
-each over the same runs), and libavif's YUV to BGR alone
+(the tiles' syntax and reconstruction, deblocking, CDEF, loop
+restoration: the medians of each over the same runs), and libavif's YUV to BGR alone
 (``native.avif_yuv_to_bgr`` of the decoded planes, with the sequence
 header's colour description), all checked equal to the committed cv2
 answer,
@@ -42,8 +44,8 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
-PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default")
-STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef")
+PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default", "scene0_avif_restored")
+STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef", "port_av1_lr")
 
 
 def av1_stream(data: bytes) -> bytes:
@@ -68,7 +70,7 @@ def time_payload(name: str, repeats: int) -> dict:
     colour = (int(info[4]), int(info[5]), int(info[8]), int(info[6]), int(info[9]))  # ss_x, ss_y, matrix, cp, range
     if not (imcodec.decode_image(data) == want).all() or not (native.avif_yuv_to_bgr(planes, *colour) == want).all():
         raise SystemExit(f"{name}: the port's decode differs from the committed cv2 answer")
-    stage_ms = np.zeros(3)
+    stage_ms = np.zeros(len(STAGES))
     stages = {k: [] for k in STAGES}
 
     def av1_only():

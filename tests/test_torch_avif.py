@@ -526,7 +526,67 @@ def fuzz_bases() -> dict:
     }
 
 
+# -- top-level boxes of size 0 ------------------------------------------------------------------
+# A box of size 0 runs to the end of its file. cv2's signature check parses
+# the first 500 bytes (a file under 500 bytes padded with spaces by
+# imdecode's findDecoder) with libavif's IO size hint at 1e9, so a meta of
+# size 0 runs to the window's end there: its parse fails on the mdat header
+# the window cuts, or on the padding, unless the window ends where a box
+# ends. libavif's own full parse takes all of these (the mdat as a child of
+# the meta).
+
+
+def _zero_size(data: bytes, kind: bytes) -> bytes:
+    """``data`` with the size of its first top-level ``kind`` box set to 0."""
+    pos = 0
+    while data[pos + 4:pos + 8] != kind:
+        pos += struct.unpack(">I", data[pos:pos + 4])[0]
+    return data[:pos] + b"\0\0\0\0" + data[pos + 4:]
+
+
+def size_zero_files() -> dict:
+    """Files with a top-level box of size 0: the meta (cv2's 3.9 kB
+    lossless file, after a free box of each size, ending around the
+    window's end, a file under 500 bytes and one of 500), the mdat, a
+    trailing free box, a free box before the meta, the ftyp."""
+    stream, small = item_data(cv2_avif(smooth(32, 48, 3, 30))), item_data(cv2_avif(smooth(8, 8, 3, 1)))
+    free = lambda n: box(b"free", bytes(n - 8)) if n else b""
+    base = avif_file(stream, w=48, h=32)
+    ftyp_len = struct.unpack(">I", base[:4])[0]
+    meta_len = struct.unpack(">I", base[ftyp_len:ftyp_len + 4])[0]
+    out = {"meta": _zero_size(base, b"meta")}
+    for n in (16, 240, 440, 480, 492, 600):
+        out[f"meta_after_free_{n}"] = _zero_size(avif_file(stream, w=48, h=32, before_meta=free(n)), b"meta")
+    for k in (-8, -1, 0, 1, 8):
+        padded = avif_file(stream, w=48, h=32, iref=free(AVIF_WINDOW - ftyp_len - meta_len + k))
+        out[f"meta_ending_at_{AVIF_WINDOW + k}"] = _zero_size(padded, b"meta")
+    small_file = avif_file(small, w=8, h=8)
+    out["meta_in_a_file_under_500"] = _zero_size(small_file, b"meta")
+    out["meta_in_a_file_of_500"] = _zero_size(avif_file(small, w=8, h=8, iref=free(AVIF_WINDOW - len(small_file))),
+                                              b"meta")
+    out["mdat"] = _zero_size(base, b"mdat")
+    out["free_trailing"] = base + b"\0\0\0\0free" + bytes(20)
+    out["free_before_meta"] = avif_file(stream, w=48, h=32, before_meta=b"\0\0\0\0free")
+    out["ftyp"] = _zero_size(base, b"ftyp")
+    return out
+
+
+AVIF_WINDOW = 500  # cv2's AVIF_SIGNATURE_SIZE
+SIZE_ZERO = size_zero_files()
+# what cv2 5.0 answers (None: its signature check fails, or the file is bad)
+SIZE_ZERO_DECODED = {"meta_ending_at_500", "meta_in_a_file_of_500", "mdat", "free_trailing"}
+
+
+@pytest.mark.parametrize("name", list(SIZE_ZERO))
+def test_a_top_level_box_of_size_0_answers_as_cv2(name):
+    data = SIZE_ZERO[name]
+    assert (cv2_decode(data) is not None) == (name in SIZE_ZERO_DECODED)
+    assert answers(data) == ("equal" if name in SIZE_ZERO_DECODED else "none")
+
+
 BASES = fuzz_bases()
+# a meta box of size 0 that ends where the signature window ends: cv2 takes it
+BASES["meta_size_0"] = SIZE_ZERO["meta_ending_at_500"]
 
 
 def box_offsets(data: bytes) -> list:
@@ -610,16 +670,14 @@ def _refusals() -> dict:
     # subsampled chroma, every matrix and both ranges are decoded since
     # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py), and so
     # are the deblocking filter and CDEF (test_torch_avif_deblock.py,
-    # test_torch_avif_cdef.py; the files once refused for them:
-    # FILTERED below): a frame is refused now only for its loop
-    # restoration, or for film grain
+    # test_torch_avif_cdef.py) and loop restoration
+    # (test_torch_avif_restoration.py; the files once refused for them:
+    # FILTERED below): a frame is refused now only for superres or film
+    # grain
     grain = pil_avif(img, quality=60, subsampling="4:2:0", speed=6,
                      advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
                                ("film-grain-test", "1")])
     return {
-        # Pillow's 4:4:4 q40 file at speed 4 restores luma and chroma
-        "restoration": (pil_avif(smooth(64, 96, 3, 30), quality=40, subsampling="4:4:4", speed=4),
-                        "loop restoration (ROADMAP A14.7b)"),
         # a 4:2:0 frame with film grain, in a limited-range container
         "limited": (avif_file(item_data(grain), w=48, h=32, color_props=[(ispe(48, 32), 0), (pixi(8, 8, 8), 0),
                                                                           (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 0), 0)]),
@@ -649,9 +707,12 @@ def test_what_cv2_decodes_and_the_port_does_not_gives_none_and_one_log_line_nami
 
 
 def _filtered() -> dict:
-    """Files refused until their deblocking filter and CDEF were decoded."""
+    """Files refused until their deblocking filter, CDEF and loop
+    restoration were decoded."""
     img = smooth(32, 48, 3, 30)
     return {
+        # Pillow's 4:4:4 q40 file at speed 4 restores chroma (Wiener)
+        "restoration": pil_avif(smooth(64, 96, 3, 30), quality=40, subsampling="4:4:4", speed=4),
         # Pillow's speed-6 q80 4:4:4 stream turns deblocking on (levels 2/2)
         "lossy": avif_file(item_data(pil_avif(img, quality=80, subsampling="4:4:4", speed=6)), w=48, h=32),
         # cv2's q90 4:2:0 file runs deblocking (level 1)
@@ -669,12 +730,15 @@ def test_what_was_refused_for_its_in_loop_filters_decodes_as_cv2(name, tmp_path)
     data = FILTERED[name]
     assert answers(data) == "equal"
     assert read_answers(data, tmp_path) == "equal"
-    assert decode_stats(item_data(data))[native.AV1_STATS["lf_edges"][0]:native.AV1_STATS["lf_edges"][1]].sum() > 0
+    stats = decode_stats(item_data(data))
+    assert stats[native.AV1_STATS["lf_edges"][0]:native.AV1_STATS["lf_edges"][1]].sum() > 0
+    if name == "restoration":
+        assert stats[native.AV1_STATS["lr_units"][0]:native.AV1_STATS["lr_units"][1]].reshape(3, 3)[1:, 1].all()
 
 
 def test_what_the_port_does_not_decode_is_pinned():
     assert imcodec.AVIF_UNPORTED == {
-        "loop restoration": "A14.7b", "superres and film grain": "A14.7b",
+        "superres and film grain": "A14.7b",
         "10/12-bit samples": "A14.7c", "grids": "A14.7c", "image sequences' first frame": "A14.7c",
         "layered images (a1op, lsel)": "A14.7c", "a frame scaled to its ispe size": "A14.7c",
         "premultiplied alpha (prem)": "A14.7c"}

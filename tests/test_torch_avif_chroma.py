@@ -18,7 +18,7 @@ coder (8x32 and 32x8 chroma transforms, which libaom's all-intra encoder
 never reaches). cv2's own files of the serving scenes at quality 95 (4:2:0, BT.601, every
 in-loop filter off) decode too; its default file (quality 50) runs
 deblocking and CDEF, which decode since (``tests/test_torch_avif_deblock.py``),
-and at speed 4 loop restoration, which is refused (``imcodec.AVIF_UNPORTED``, A14.7b).
+and at speed 4 loop restoration, which decodes since too (``tests/test_torch_avif_restoration.py``).
 
     python -m pytest tests/test_torch_avif_chroma.py -q
 """
@@ -197,21 +197,22 @@ def test_cv2s_quality_95_files_of_the_serving_scenes_decode_as_cv2(index, tmp_pa
     assert read_answers(data, tmp_path) == "equal"
 
 
-def test_cv2s_default_file_is_refused_for_its_in_loop_filters(caplog):
+def test_cv2s_default_file_decodes_with_its_in_loop_filters(caplog):
     """Quality 50, cv2's default, decodes since its deblocking and CDEF
     are (tests/test_torch_avif_deblock.py); at speed 4 the frame of this
-    image also runs loop restoration, and that is refused (A14.7b)."""
+    image also runs loop restoration (Wiener on chroma), which decodes since
+    (tests/test_torch_avif_restoration.py), with no log line."""
     img = smooth(64, 96, 3, 9)
     data = cv2.imencode(".avif", img)[1].tobytes()
     assert data == cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_QUALITY, 50])[1].tobytes()
     assert answers(data) == "equal"
     data = cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_SPEED, 4])[1].tobytes()
-    assert cv2_decode(data) is not None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
-        assert imcodec.decode_image(data) is None
-    lines = [r.getMessage() for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
-    assert len(lines) == 1 and "loop restoration (ROADMAP A14.7b)" in lines[0]
-    assert answers(data) == "known"
+        assert imcodec.decode_image(data) is not None
+    assert not [r for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
+    assert answers(data) == "equal"
+    stats = decode_stats(item_data(data))
+    assert stats[native.AV1_STATS["lr_units"][0]:native.AV1_STATS["lr_units"][1]].reshape(3, 3)[1:, 1].all()
 
 
 # -- the tools reached -----------------------------------------------------------------------------

@@ -14,8 +14,9 @@ delta lf (one value or four), reference deltas updated, a segment's
 ALT_LF features, a luma level of 0 in one direction. Each edge filter
 (``aom_lpf_{vertical,horizontal}_{4,6,8,14}``) equals libaom's C and SSE2
 functions, and its ``_dual`` and ``_quad`` forms, through ``ctypes``.
-A frame whose loop restoration runs is still refused
-(``imcodec.AVIF_UNPORTED``, A14.7b).
+The writer also codes 4:2:0 frames, visible sizes off the 8-sample
+grid, two tile columns and loop restoration's units, for
+``tests/test_torch_avif_restoration.py``.
 
     python -m pytest tests/test_torch_avif_deblock.py -q
 """
@@ -23,6 +24,7 @@ A frame whose loop restoration runs is still refused
 import collections
 import ctypes
 import functools
+import struct
 
 import cv2
 import numpy as np
@@ -171,29 +173,34 @@ def _write_delta(w: SymbolWriter, delta: int, cdf):
         w.bit(int(delta < 0))
 
 
-def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, dc_ctx: int) -> int:
-    """One DCT_DCT transform of TX_32X32 in plane type ``ptype``:
-    ``coefs`` {scan index: (level 1 or 2, sign)}, the last index under 5.
-    Returns the sum of the levels (the block's cul_level before its clip)."""
+def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, dc_ctx: int, txs: int = 3) -> int:
+    """One DCT_DCT transform of TX_32X32 (``txs`` 3; TX_16X16 with ``txs``
+    2) in plane type ``ptype``: ``coefs`` {scan index: (level 1 or 2,
+    sign)}, the last index under 5. Returns the sum of the levels (the
+    block's cul_level before its clip)."""
     T = c_tables()
-    scan = T["scan_data"][T["scan_start"][3][0]:][:1024]
-    nz = T["nz_map_ctx_offset_data"][T["nz_map_ctx_offset_start"][3]:]
+    side = 4 << txs
+    scan = T["scan_data"][T["scan_start"][txs][0]:][:side * side]
+    nz = T["nz_map_ctx_offset_data"][T["nz_map_ctx_offset_start"][txs]:]
     eob = max(coefs) + 1
     eob_pt = {1: 1, 2: 2, 3: 3, 4: 3}[eob]
-    w.symbol(eob_pt - 1, T["eob_multi1024_cdfs"][qc][ptype][0], 11)
+    if txs == 3:
+        w.symbol(eob_pt - 1, T["eob_multi1024_cdfs"][qc][ptype][0], 11)
+    else:
+        w.symbol(eob_pt - 1, T["eob_multi256_cdfs"][qc][ptype][0], 9)
     if eob_pt == 3:
-        w.symbol(eob - 3, T["eob_extra_cdfs"][qc][3][ptype][0], 2)
-    stride = 36
-    levels = np.zeros(36 * 36, int)
-    at = lambda pos: (pos >> 5) * stride + (pos & 31)
+        w.symbol(eob - 3, T["eob_extra_cdfs"][qc][txs][ptype][0], 2)
+    stride = side + 4
+    levels = np.zeros(stride * stride, int)
+    at = lambda pos: (pos // side) * stride + (pos % side)
     for c in range(eob - 1, -1, -1):
         pos, level = int(scan[c]), coefs.get(c, (0, 0))[0]
         if c == eob - 1:
-            w.symbol(level - 1, T["coeff_base_eob_cdfs"][qc][3][ptype][0 if c == 0 else 1], 3)
+            w.symbol(level - 1, T["coeff_base_eob_cdfs"][qc][txs][ptype][0 if c == 0 else 1], 3)
         else:
             mag = sum(min(levels[at(pos) + o], 3) for o in (1, stride, stride + 1, 2 * stride, 2))
             ctx = 0 if pos == 0 else min((mag + 1) >> 1, 4) + int(nz[pos])
-            w.symbol(level, T["coeff_base_cdfs"][qc][3][ptype][ctx], 4)
+            w.symbol(level, T["coeff_base_cdfs"][qc][txs][ptype][ctx], 4)
         levels[at(pos)] = level
     for c in sorted(coefs):
         if c == 0:
@@ -203,10 +210,108 @@ def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, 
     return sum(level for level, _ in coefs.values())
 
 
+def _literal(w: SymbolWriter, value: int, bits: int):
+    for i in range(bits - 1, -1, -1):
+        w.bit((value >> i) & 1)
+
+
+def _write_refsubexpfin(w: SymbolWriter, lo: int, hi: int, k: int, ref: int, value: int):
+    """aom_write_primitive_refsubexpfin: ``value`` of [lo, hi] recentred on
+    ``ref``, then as a subexponential code with finite range."""
+    n, r, v = hi - lo + 1, ref - lo, value - lo
+
+    def recenter(r, v):
+        return v if v > 2 * r else 2 * (v - r) if v >= r else 2 * (r - v) - 1
+
+    v = recenter(r, v) if 2 * r <= n else recenter(n - 1 - r, n - 1 - v)
+    i = mk = 0
+    while True:
+        b = k + i - 1 if i else k
+        a = 1 << b
+        if n <= mk + 3 * a:  # quniform over what is left
+            m, left = (1 << (n - mk).bit_length()) - (n - mk), v - mk
+            bits = (n - mk).bit_length() - 1
+            if n - mk <= 1:
+                return
+            if left < m:
+                _literal(w, left, bits)
+            else:
+                _literal(w, m + ((left - m) >> 1), bits)
+                w.bit((left - m) & 1)
+            return
+        more = v >= mk + a
+        w.bit(int(more))
+        if not more:
+            _literal(w, v - mk, b)
+            return
+        i, mk = i + 1, mk + a
+
+
+class _Restoration:
+    """Loop restoration's unit coefficients as libaom writes them
+    (loop_restoration_write_sb_coeffs): random per unit, the references
+    reset at each tile."""
+
+    def __init__(self, rs, types, unit, sizes, sets):
+        self.rs, self.types, self.unit, self.sets = rs, types, unit, list(sets)
+        self.units = [(max((pw + unit[p] // 2) // unit[p], 1), max((ph + unit[p] // 2) // unit[p], 1))
+                      for p, (pw, ph) in enumerate(sizes)]
+        self.done = 0
+
+    def reset(self):
+        self.ref = [{"w": [[3, -7, 15], [3, -7, 15]], "xqd": [-32, 31]} for _ in range(3)]
+
+    def superblock(self, sw: SymbolWriter, r4: int, c4: int, sb4: int, ss: tuple):
+        """The units whose top-left corner lies in the superblock at 4x4
+        unit (r4, c4), plane by plane (av1_loop_restoration_corners_in_sb)."""
+        T = c_tables()
+        for p, t in enumerate(self.types):
+            if not t:
+                continue
+            size, (hu, vu) = self.unit[p], self.units[p]
+            mx, my = 4 >> (ss[0] if p else 0), 4 >> (ss[1] if p else 0)
+            c0, r0 = (c4 * mx + size - 1) // size, (r4 * my + size - 1) // size
+            c1, r1 = min(((c4 + sb4) * mx + size - 1) // size, hu), min(((r4 + sb4) * my + size - 1) // size, vu)
+            for _ in range(r0, r1):
+                for _ in range(c0, c1):
+                    self.write_unit(sw, p, t, T)
+
+    def write_unit(self, sw, p, t, T):
+        rs, ref = self.rs, self.ref[p]
+        if t == 1:  # SWITCHABLE: NONE, WIENER, SGRPROJ
+            kind = int(rs.randint(0, 3))
+            sw.symbol(kind, T["switchable_restore_cdf"], 3)
+        else:
+            on = int(rs.rand() < 0.8)
+            sw.symbol(on, T["wiener_restore_cdf" if t == 2 else "sgrproj_restore_cdf"], 2)
+            kind = on * (1 if t == 2 else 2)
+        if kind == 1:
+            for d in range(2):  # vertical, then horizontal
+                taps = [0 if p else int(rs.randint(-5, 11)), int(rs.randint(-23, 9)), int(rs.randint(-17, 47))]
+                for i, (lo, hi, k) in enumerate(((-5, 10, 1), (-23, 8, 2), (-17, 46, 3))):
+                    if i or not p:
+                        _write_refsubexpfin(sw, lo, hi, k, ref["w"][d][i], taps[i])
+                ref["w"][d] = taps
+        elif kind == 2:
+            ep = self.sets[self.done % len(self.sets)]
+            self.done += 1
+            _literal(sw, ep, 4)
+            r0, r1 = T["sgr_params"][ep][:2]  # a radius of 0 skips its pass: its weight is not coded
+            xqd = [int(rs.randint(-96, 32)) if r0 else 0, int(rs.randint(-32, 96))]
+            if r0:
+                _write_refsubexpfin(sw, -96, 31, 4, ref["xqd"][0], xqd[0])
+            if not r1:
+                xqd[1] = min(max(128 - xqd[0], -32), 95)
+            if r1:
+                _write_refsubexpfin(sw, -32, 95, 4, ref["xqd"][1], xqd[1])
+            ref["xqd"] = xqd
+
+
 def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5, 4, 3), sharpness: int = 0,
                    deltas_enabled: bool = True, ref_deltas: dict = None, mode_deltas: dict = None,
                    delta_lf: str = None, delta_lf_res: int = 1, segments: dict = None, cdef=None,
-                   skipped_unit=None, w: int = 256, h: int = 128) -> bytes:
+                   skipped_unit=None, w: int = 256, h: int = 128, subsampling: str = "4:4:4", visible=None,
+                   tile_cols_log2: int = 0, lr=None) -> bytes:
     """A 4:4:4 key frame (reduced still-picture header, sRGB identity
     colours) of ``w`` x ``h`` (multiples of the superblock) in 32x32 blocks,
     each DC_PRED with a random DC and up to two of the next three
@@ -219,7 +324,15 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
     {feature: value}} (features 0-4: ALT_Q, ALT_LF_Y_V, _Y_H, _U, _V) with
     random ids; ``cdef`` (damping, bits, [(y, uv) strengths]) with a random
     index per 64x64 unit; ``skipped_unit`` (row, col) of a 64x64 unit whose
-    four blocks all skip."""
+    four blocks all skip. ``subsampling`` "4:2:0" writes profile 0 with
+    BT.709 colours, each block's chroma a 16x16 transform; ``visible``
+    (width, height) a frame up to 7 samples narrower and shorter than
+    ``w`` x ``h`` with the same blocks (the same 8-sample grid);
+    ``tile_cols_log2`` 1 two uniform tile columns (no segments then);
+    ``lr`` loop restoration: (lr_type of each plane as coded: 0 NONE, 1
+    SWITCHABLE, 2 WIENER, 3 SGRPROJ; lr_unit_shift, 0-2 (0-1 with 128x128
+    superblocks); lr_uv_shift; the self-guided sets the units take in
+    turn), random units drawn apart from the blocks."""
     T = c_tables()
     rs = np.random.RandomState(seed)
     qc = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
@@ -240,19 +353,33 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
     delta_q = rs.randint(-12, 13, (h // sb, w // sb))  # all drawn whether or not they are written
     cdef_index = rs.randint(0, 4, (h // 64, w // 64)) % (1 << (cdef[1] if cdef else 0))
     deltas_lf = rs.randint(-4, 5, (h // sb, w // sb, 4))
-    seq = Bits().f(1, 3).f(1, 1).f(1, 1).f(8, 5)  # profile 1, still, reduced header, level 4.0
-    seq.f((w - 1).bit_length() - 1, 4).f((h - 1).bit_length() - 1, 4).f(w - 1, (w - 1).bit_length())
-    seq.f(h - 1, (h - 1).bit_length())
+    vw, vh = visible or (w, h)
+    assert w - 8 < vw <= w and h - 8 < vh <= h and w % 8 == 0 and h % 8 == 0
+    sub = subsampling == "4:2:0"
+    ss = (1, 1) if sub else (0, 0)
+    seq = Bits().f(0 if sub else 1, 3).f(1, 1).f(1, 1).f(8, 5)  # profile 0 or 1, still, reduced header, level 4.0
+    seq.f((vw - 1).bit_length() - 1, 4).f((vh - 1).bit_length() - 1, 4).f(vw - 1, (vw - 1).bit_length())
+    seq.f(vh - 1, (vh - 1).bit_length())
     seq.f(int(sb128), 1).f(0, 2)  # superblock size; no filter intra or intra edge filter
-    seq.f(0, 1).f(int(cdef is not None), 1).f(0, 1)  # no superres, CDEF or not, no restoration
-    seq.f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(0, 8).f(0, 1).f(0, 1)  # 8 bits, sRGB identity, one uv delta, no grain
+    seq.f(0, 1).f(int(cdef is not None), 1).f(int(lr is not None), 1)  # no superres, CDEF or not, LR or not
+    if sub:  # 8 bits, colour, BT.709 / sRGB / BT.709, full range, chroma position 0, one uv delta, no grain
+        seq.f(0, 1).f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(1, 8).f(1, 1).f(0, 2).f(0, 1).f(0, 1)
+    else:
+        seq.f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(0, 8).f(0, 1).f(0, 1)  # 8 bits, sRGB identity, one uv delta, no grain
     head = Bits().f(1, 1).f(0, 1).f(0, 1)  # CDF updates off, no screen content tools, render size
     sb_cols, sb_rows = w // sb, h // sb
-    head.f(1, 1)  # uniform tiles: one tile column and row
-    if sb_cols > 1:
-        head.f(0, 1)
+    assert not (tile_cols_log2 and segments) and tile_cols_log2 <= (sb_cols - 1).bit_length()
+    head.f(1, 1)  # uniform tiles: 1 << tile_cols_log2 tile columns, one tile row
+    for i in range((sb_cols - 1).bit_length()):  # increment_tile_cols_log2 up to its maximum
+        head.f(int(i < tile_cols_log2), 1)
+        if i >= tile_cols_log2:
+            break
     if sb_rows > 1:
         head.f(0, 1)
+    if tile_cols_log2:
+        head.f(0, tile_cols_log2).f(3, 2)  # context_update_tile_id 0, 4-byte tile sizes
+    tile_w = -(-sb_cols // (1 << tile_cols_log2))
+    tile_starts = list(range(0, sb_cols, tile_w))
     head.f(q, 8).f(0, 4)  # base_q_idx, no dc / ac deltas, no qmatrix
     head.f(int(bool(segments)), 1)
     if segments:
@@ -286,16 +413,37 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
         head.f(damping - 3, 2).f(cdef_bits, 2)
         for y, uv in strengths:
             head.f(y, 6).f(uv, 6)
+    restoration = None
+    if lr is not None:
+        types, unit_shift, uv_shift, sets = lr
+        for t in types:
+            head.f(t, 2)
+        if any(types):
+            if sb128:
+                head.f(unit_shift, 1)
+            else:
+                head.f(int(unit_shift > 0), 1)
+                if unit_shift:
+                    head.f(unit_shift - 1, 1)
+            if sub and any(types[1:]):
+                head.f(uv_shift, 1)
+        luma_unit = (128 if sb128 else 64) << unit_shift
+        chroma_unit = luma_unit >> (uv_shift if sub and any(types[1:]) else 0)
+        sizes = [(vw, vh)] + [((vw + ss[0]) >> ss[0], (vh + ss[1]) >> ss[1])] * 2
+        restoration = _Restoration(np.random.RandomState(seed + 7919), types, (luma_unit, chroma_unit, chroma_unit),
+                                   sizes, sets)
     head.f(0, 2)  # TX_MODE_LARGEST, the full transform sets
     head.bits += [0] * (-len(head.bits) % 8)
     sw = SymbolWriter()
-    ctx = {p: (np.zeros(w // 4, int), np.zeros(h // 4, int)) for p in range(3)}
+    ctx = {p: (np.zeros(w // (8 if p and sub else 4), int), np.zeros(h // (8 if p and sub else 4), int))
+           for p in range(3)}
+    first_col = {32 * 0}  # the 32-sample columns that start a tile (no left neighbour)
     cdef_done = set()
     last_seg = max(segments) if segments else 0
     sign_of = lambda v: (0, -1, 1)[v >> 3]
 
     def block(r, c):  # one 32x32 block at (r, c) of the 32-sample grid
-        up, left = r > 0, c > 0
+        up, left = r > 0, c not in first_col
         sw.symbol(int(skip[r, c]), T["skip_cdf"][int(up and skip[r - 1, c]) + int(left and skip[r, c - 1])], 2)
         if segments:
             pu = seg_ids[r - 1, c] if up else -1
@@ -323,33 +471,51 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
                     _write_delta(sw, int(deltas_lf[sbr, sbc, i]), T["delta_q_lf_cdfs"][1 + i])
         sw.symbol(0, T["kf_y_mode_cdf"][0][0], 13)  # DC_PRED
         sw.symbol(0, T["uv_mode_cdf"][1][0], 14)  # DC_PRED, CFL allowed
-        cols, rows = slice(8 * c, 8 * c + 8), slice(8 * r, 8 * r + 8)
         for p in range(3):
+            k = 4 if p and sub else 8
+            cols, rows = slice(k * c, k * c + k), slice(k * r, k * r + k)
             above, lft = ctx[p]
             if skip[r, c]:
                 above[cols], lft[rows] = 0, 0
                 continue
             coef = dc[p][r][c]
             skip_ctx = 0 if p == 0 else 7 + int(above[cols].any()) + int(lft[rows].any())
-            sw.symbol(int(coef is None), T["txb_skip_cdfs"][qc][3][skip_ctx], 2)
+            sw.symbol(int(coef is None), T["txb_skip_cdfs"][qc][2 if p and sub else 3][skip_ctx], 2)
             if coef is None:
                 above[cols], lft[rows] = 0, 0
                 continue
             s = sum(sign_of(v) for v in above[cols]) + sum(sign_of(v) for v in lft[rows])
-            cul = write_coefficients_32x32(sw, qc, int(p > 0), coef, 1 if s < 0 else 2 if s else 0)
+            cul = write_coefficients_32x32(sw, qc, int(p > 0), coef, 1 if s < 0 else 2 if s else 0,
+                                           2 if p and sub else 3)
             above[cols] = lft[rows] = min(cul, 7) | (8 if coef[0][1] else 16)
 
-    for sr in range(sb_rows):
-        for sc in range(sb_cols):
-            if sb128:
-                sw.symbol(3, T["partition_cdf"][16 + 2 * (sc > 0) + (sr > 0)], 8)
-            for qr, qc_ in (((0, 0), (0, 1), (1, 0), (1, 1)) if sb128 else ((0, 0),)):
-                ur, uc = sr * (sb // 64) + qr, sc * (sb // 64) + qc_
-                sw.symbol(3, T["partition_cdf"][12 + 2 * (uc > 0) + (ur > 0)], 10)
-                for br, bc in ((0, 0), (0, 1), (1, 0), (1, 1)):
-                    sw.symbol(0, T["partition_cdf"][8], 10)
-                    block(2 * ur + br, 2 * uc + bc)
-    frame = bytes(int("".join(map(str, head.bits[i:i + 8])), 2) for i in range(0, len(head.bits), 8)) + sw.done()
+    tiles = []
+    for t, start in enumerate(tile_starts):
+        if t:
+            sw = SymbolWriter()
+        first_col.add(start * sb // 32)
+        if restoration is not None:
+            restoration.reset()
+        for sr in range(sb_rows):
+            for p in range(3):  # av1_zero_left_context at each superblock row of a tile
+                ctx[p][1][:] = 0
+            for sc in range(start, min(start + tile_w, sb_cols)):
+                if restoration is not None:
+                    restoration.superblock(sw, sr * sb // 4, sc * sb // 4, sb // 4, ss)
+                left = sc > start
+                if sb128:
+                    sw.symbol(3, T["partition_cdf"][16 + 2 * left + (sr > 0)], 8)
+                for qr, qc_ in (((0, 0), (0, 1), (1, 0), (1, 1)) if sb128 else ((0, 0),)):
+                    ur, uc = sr * (sb // 64) + qr, sc * (sb // 64) + qc_
+                    sw.symbol(3, T["partition_cdf"][12 + 2 * (left or qc_ > 0) + (ur > 0)], 10)
+                    for br, bc in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                        sw.symbol(0, T["partition_cdf"][8], 10)
+                        block(2 * ur + br, 2 * uc + bc)
+        tiles.append(sw.done())
+    data = b"".join(struct.pack("<I", len(t) - 1) + t for t in tiles[:-1]) + tiles[-1]
+    if len(tiles) > 1:
+        data = b"\0" + data  # tile_start_and_end_present_flag 0, byte-aligned
+    frame = bytes(int("".join(map(str, head.bits[i:i + 8])), 2) for i in range(0, len(head.bits), 8)) + data
     return obu(1, seq.trailing()) + obu(6, frame)
 
 

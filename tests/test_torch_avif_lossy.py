@@ -16,8 +16,8 @@ and text content, and the encoder options that change the stream
 trees, the reduced and DCT-only type sets, square-only transforms, no
 64-sample transforms, 128x128 superblocks, tiles). cv2's own monochrome files at q95 and up
 leave the filters off too (deblocking and CDEF: ``tests/test_torch_avif_deblock.py``,
-``test_torch_avif_cdef.py``). A frame whose loop restoration runs is
-refused before any pixel (``imcodec.AVIF_UNPORTED``). Each inverse
+``test_torch_avif_cdef.py``); loop restoration in
+``tests/test_torch_avif_restoration.py``, beside the others here. Each inverse
 transform is held through ``ctypes`` against libaom's x86 functions,
 which the decoder replays: ``av1_lowbd_inv_txfm2d_add_ssse3`` and, where
 libaom dispatches it on this CPU, ``_avx2``. libaom's C one
@@ -585,13 +585,16 @@ def test_a_transform_out_of_range_is_refused():
         native.av1_inverse_transform(np.zeros(16, np.int32), 0, 16, np.zeros((4, 4), np.uint8))
 
 
-# -- loop restoration: refused before any pixel ------------------------------------------------
+# -- loop restoration beside the other in-loop filters ------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def filter_files() -> dict:
     """Speed-0 frames that run loop restoration (U and V), beside
-    deblocking, beside CDEF, or alone (deblocking and CDEF alone decode:
-    ``tests/test_torch_avif_deblock.py``, ``test_torch_avif_cdef.py``)."""
+    deblocking, beside CDEF, or alone (deblocking and CDEF alone:
+    ``tests/test_torch_avif_deblock.py``, ``test_torch_avif_cdef.py``;
+    restoration: ``tests/test_torch_avif_restoration.py``). Without CDEF
+    libaom restores by its "optimized" path, which reads the frame's rows
+    where the other saves them before CDEF: the same rows."""
     img = smooth(64, 96, 3, 90)
     on = {"deblocking": [("enable-cdef", "0"), ("enable-restoration", "1")],
           "cdef": [("enable-cdef", "1"), ("loopfilter-control", "0"), ("enable-restoration", "1")],
@@ -604,16 +607,19 @@ def filter_files() -> dict:
 
 
 @pytest.mark.parametrize("name", ["deblocking", "cdef", "restoration"])
-def test_a_frame_that_runs_an_in_loop_filter_gives_none_and_one_log_line(name, caplog):
-    """The in-loop filter refused is loop restoration, with the others or
-    alone."""
+def test_a_frame_that_runs_loop_restoration_with_or_without_the_other_filters_decodes_as_cv2(name, caplog):
+    """Loop restoration with the other filters or alone: cv2's pixels, no
+    log line, and each filter asked for runs."""
     data = filter_files()[name]
-    assert cv2_decode(data) is not None
     with caplog.at_level("WARNING", logger="ppocr_tpu_torch.utils.imcodec"):
-        assert imcodec.decode_image(data) is None
-    lines = [r.getMessage() for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
-    assert len(lines) == 1 and "loop restoration (ROADMAP A14.7b)" in lines[0]
-    assert answers(data) == "known"
+        assert imcodec.decode_image(data) is not None
+    assert not [r for r in caplog.records if r.name == "ppocr_tpu_torch.utils.imcodec"]
+    assert answers(data) == "equal"
+    stats = decode_stats(item_data(data))
+    s = native.AV1_STATS
+    assert stats[s["lr_units"][0]:s["lr_units"][1]].reshape(3, 3)[:, 1:].sum() > 0
+    assert (stats[s["lf_edges"][0]:s["lf_edges"][1]].sum() > 0) == (name == "deblocking")
+    assert (stats[s["cdef_y"]] + stats[s["cdef_uv"]] > 0) == (name == "cdef")
 
 
 # -- damage ----------------------------------------------------------------------------------------

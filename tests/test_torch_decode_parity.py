@@ -394,15 +394,18 @@ def _refused():
     # range, lossless and lossy, deblocked and CDEF-filtered
     # (tests/test_torch_avif.py, test_torch_avif_lossy.py,
     # test_torch_avif_chroma.py, test_torch_avif_colour.py,
-    # test_torch_avif_deblock.py, test_torch_avif_cdef.py), but not a frame
-    # whose loop restoration runs, ``imcodec.AVIF_UNPORTED``: cv2's default
-    # quality (50) at speed 4 restores the chroma of this photo-like image
-    # and is refused with a line naming A14.7b (its default speed, and its
-    # quality-95 file of the image here, decode: below)
-    from test_torch_avif import smooth
+    # test_torch_avif_deblock.py, test_torch_avif_cdef.py), and so are
+    # frames whose loop restoration runs (test_torch_avif_restoration.py:
+    # cv2's default quality at speed 4 of this photo-like image, once the
+    # case here), but not a frame with film grain, ``imcodec.AVIF_UNPORTED``:
+    # Pillow's 4:2:0 file with libaom's film grain test vector 1 is refused
+    # with a line naming A14.7b
+    from test_torch_avif import pil_avif, smooth
 
-    cases["avif"] = (cv2.imencode(".avif", smooth(64, 96, 3, 9), [cv2.IMWRITE_AVIF_SPEED, 4])[1].tobytes(),
-                     "loop restoration (ROADMAP A14.7b)", True)
+    grain = pil_avif(smooth(64, 96, 3, 9), quality=60, subsampling="4:2:0", speed=6,
+                     advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
+                               ("film-grain-test", "1")])
+    cases["avif"] = (grain, "superres and film grain (ROADMAP A14.7b)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
@@ -440,8 +443,7 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     by the port: the known difference, held here so that it cannot grow
     unnoticed. A JPEG 2000 file is refused only for what
     ``imcodec.J2K_UNPORTED`` names (HT code-blocks here), an AVIF file only
-    for what ``imcodec.AVIF_UNPORTED`` names (cv2's default quality at
-    speed 4, whose frame runs loop restoration).
+    for what ``imcodec.AVIF_UNPORTED`` names (film grain here).
     No WebP is refused for its kind any more, and no format is left
     undecoded (``imcodec.FORMAT_NAMES`` is empty)."""
     data, reason, cv2_decodes = _refused()[name]

@@ -1374,15 +1374,18 @@ def write():
     with the filters off, their encoder options, monochrome and alpha,
     mutated and cut files), of ``tests/test_torch_avif_chroma.py`` (4:2:0
     and 4:2:2 streams, lossless and lossy, screen content, options, mutated
-    and cut files) and of ``tests/test_torch_avif_deblock.py`` (deblocked
+    and cut files), of ``tests/test_torch_avif_deblock.py`` (deblocked
     and CDEF-filtered files of cv2 and Pillow, the written frames, mutated
-    and cut files), damaged PNGs (decoded and refused) and the first
+    and cut files) and of ``tests/test_torch_avif_restoration.py``
+    (loop-restored files of cv2 and Pillow, the written frames, edge
+    sizes, mutated and cut files), damaged PNGs (decoded and refused) and the first
     serving scene as each timing payload (the JPEG 2000 ones from
     ``tests/test_torch_jpeg2000.py``'s ``scene_payloads``, the lossless AVIF
     from ``tests/test_torch_avif.py``'s ``scene_payload``, the lossy one
     from ``tests/test_torch_avif_lossy.py``'s, cv2's quality-95 4:2:0 one
     from ``tests/test_torch_avif_chroma.py``'s, cv2's and Pillow's default
-    ones from ``tests/test_torch_avif_deblock.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
+    ones from ``tests/test_torch_avif_deblock.py``'s, cv2's speed-4 one
+    from ``tests/test_torch_avif_restoration.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
     2 or 4 the columns cv2 does not write are stored as 0, as the port
     gives them."""
@@ -1485,17 +1488,20 @@ def write():
     import test_torch_avif_chroma as avif_chroma
     import test_torch_avif_deblock as avif_filtered
     import test_torch_avif_lossy as avif_lossy
+    import test_torch_avif_restoration as avif_restored
 
     cases.update({f"avif_{k}": v for k, v in avif.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_lossy.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_chroma.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_filtered.written_cases().items()})
+    cases.update({f"avif_{k}": v for k, v in avif_restored.written_cases().items()})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(j2k.scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(avif.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_lossy.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_chroma.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_filtered.scene_payload(assets.load_scenes()["serving"][0]))
+    cases.update(avif_restored.scene_payload(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
         out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
@@ -1561,6 +1567,9 @@ def fuzz(rounds: int) -> int:
     12,000 files a round) and the deblocked and CDEF-filtered bases of
     ``tests/test_torch_avif_deblock.py`` (cv2's and Pillow's defaults,
     CDEF in 4:4:4, 4:2:2 and 4:2:0, cdef_bits > 0, a written frame: 2,000
+    mutations of each of its 7, 14,000 files a round) and the loop-restored
+    bases of ``tests/test_torch_avif_restoration.py`` (Wiener, self-guided
+    and switchable units in 4:4:4 and 4:2:0, both superblock sizes: 2,000
     mutations of each of its 7, 14,000 files a round). Prints the counts;
     returns the number of files that differ (a TIFF, WebP, JPEG 2000 or
     AVIF file of a kind the port names as not decoded, which garbling can
@@ -1583,10 +1592,11 @@ def fuzz(rounds: int) -> int:
     import test_torch_avif_chroma as avif_chroma
     import test_torch_avif_deblock as avif_filtered
     import test_torch_avif_lossy as avif_lossy
+    import test_torch_avif_restoration as avif_restored
 
     files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = j2k_files = j2k_bad = 0
     avif_files = avif_bad = avif_lossy_files = avif_lossy_bad = avif_chroma_files = avif_chroma_bad = 0
-    avif_filtered_files = avif_filtered_bad = 0
+    avif_filtered_files = avif_filtered_bad = avif_restored_files = avif_restored_bad = 0
     webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
@@ -1649,11 +1659,13 @@ def fuzz(rounds: int) -> int:
         lossy_datas = avif_lossy.fuzz_files(r)
         chroma_datas = avif_chroma.fuzz_files(r)
         filtered_datas = avif_filtered.fuzz_files(r)
-        datas = avif.fuzz_files(r) + lossy_datas + chroma_datas + filtered_datas
+        restored_datas = avif_restored.fuzz_files(r)
+        datas = avif.fuzz_files(r) + lossy_datas + chroma_datas + filtered_datas + restored_datas
         avif_files += len(datas)
         avif_lossy_files += len(lossy_datas)
         avif_chroma_files += len(chroma_datas)
         avif_filtered_files += len(filtered_datas)
+        avif_restored_files += len(restored_datas)
         files += len(datas)
         logging.disable(logging.NOTSET)  # "known" is told by the refusal's log line
         try:
@@ -1662,11 +1674,13 @@ def fuzz(rounds: int) -> int:
             logging.disable(logging.WARNING)
         avif_bad += sum(a not in ("none", "equal", "known") for a in got)
         n_lossy, n_chroma, n_filtered = len(lossy_datas), len(chroma_datas), len(filtered_datas)
-        end_chroma = len(got) - n_filtered
+        n_restored = len(restored_datas)
+        end_chroma = len(got) - n_filtered - n_restored
         avif_lossy_bad += sum(a not in ("none", "equal", "known")
                               for a in got[end_chroma - n_chroma - n_lossy:end_chroma - n_chroma])
         avif_chroma_bad += sum(a not in ("none", "equal", "known") for a in got[end_chroma - n_chroma:end_chroma])
-        avif_filtered_bad += sum(a not in ("none", "equal", "known") for a in got[end_chroma:])
+        avif_filtered_bad += sum(a not in ("none", "equal", "known") for a in got[end_chroma:len(got) - n_restored])
+        avif_restored_bad += sum(a not in ("none", "equal", "known") for a in got[len(got) - n_restored:])
         bad += sum(a not in ("none", "equal", "known") for a in got)
         known += got.count("known")
         print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs, "
@@ -1674,7 +1688,8 @@ def fuzz(rounds: int) -> int:
               f"{avif_files} AVIF files, {avif_bad} of them differing, {avif_lossy_files} of them of the lossy bases, "
               f"{avif_lossy_bad} of those differing, {avif_chroma_files} of the 4:2:0 and 4:2:2 bases, "
               f"{avif_chroma_bad} of those differing, {avif_filtered_files} of the deblocked and CDEF bases, "
-              f"{avif_filtered_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
+              f"{avif_filtered_bad} of those differing, {avif_restored_files} of the loop-restored bases, "
+              f"{avif_restored_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
               f"({known} TIFFs, WebPs, JPEG 2000 or AVIF files of a kind named as not decoded)", flush=True)
     return bad
 
