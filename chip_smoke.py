@@ -188,10 +188,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     filters off), as cv2's quality-95 file (4:2:0, BT.601) and as cv2's
     default (quality 50, deblocked and CDEF-filtered) and at speed 4 (the
     same with Wiener loop restoration on luma, the ``avif_restored_vs_cv2``
-    count), and each file (as data) against the PNG of cv2's pixels: the
+    count) and as Pillow's 4:2:0 q60 file with libaom's film-grain test
+    vector 4 (the ``avif_grain_vs_cv2`` and ``avif_superres_vs_cv2``
+    counts), and each file (as data) against the PNG of cv2's pixels: the
     same words exactly, with one ``ctc_topk`` launch each ("avif service",
     "lossy avif service", "subsampled avif service", "default avif
-    service", "restored avif service"); a
+    service", "restored avif service", "grain avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1515,7 +1517,7 @@ class Smoke:
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
             + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default",
-                           "scene0_avif_restored")
+                           "scene0_avif_restored", "scene0_avif_grain")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1528,6 +1530,8 @@ class Smoke:
         avif_chroma = [0, 0]  # of them 4:2:0 or 4:2:2 (Pillow's and cv2's), of them None
         avif_filtered = [0, 0]  # of them deblocked and CDEF-filtered (cv2's, Pillow's, written), of them None
         avif_restored = [0, 0]  # of them loop-restored (cv2's, Pillow's, written), of them None
+        avif_grain = [0, 0]  # of them with film grain (Pillow's test vectors, regrained streams), of them None
+        avif_superres = [0, 0]  # of them upscaled by superres (written frames), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1546,12 +1550,16 @@ class Smoke:
                 is_avif_filtered = name.startswith("avif_filtered_") or name in ("scene0_avif_default",
                                                                                 "scene0_avif_pillow")
                 is_avif_restored = name.startswith("avif_restored_") or name == "scene0_avif_restored"
+                is_avif_grain = name.startswith("avif_grain_") or name == "scene0_avif_grain"
+                is_avif_superres = name.startswith("avif_superres_")
                 j2k[0] += is_j2k
                 avif[0] += is_avif
                 avif_lossy[0] += is_avif_lossy
                 avif_chroma[0] += is_avif_chroma
                 avif_filtered[0] += is_avif_filtered
                 avif_restored[0] += is_avif_restored
+                avif_grain[0] += is_avif_grain
+                avif_superres[0] += is_avif_superres
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1570,6 +1578,8 @@ class Smoke:
                     avif_chroma[1] += is_avif_chroma
                     avif_filtered[1] += is_avif_filtered
                     avif_restored[1] += is_avif_restored
+                    avif_grain[1] += is_avif_grain
+                    avif_superres[1] += is_avif_superres
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1650,6 +1660,21 @@ class Smoke:
         if status or lr_units[:, 1:].sum() == 0:
             raise AssertionError(f"scene0_avif_restored restores no unit: {status} {why} {lr_units.tolist()}")
         avif_restored_png = encode_png(cases["scene0_avif_restored"][1])
+        # the scene as Pillow's 4:2:0 q60 AVIF with film grain (libaom's test
+        # vector 4: luma and chroma points, overlap), beside the PNG of cv2's pixels
+        avif_grain_data = cases["scene0_avif_grain"][0]
+        if sniff_format(avif_grain_data) != "avif" or not (decode_image(avif_grain_data)
+                                                          == cases["scene0_avif_grain"][1]).all():
+            raise AssertionError("scene0_avif_grain is not an AVIF that decodes to cv2's pixels")
+        grain_stats = np.zeros(native.AV1_STATS_SIZE, np.int32)
+        grain_meta = imcodec._avif_parse(avif_grain_data)[0]
+        grain_stream = imcodec._avif_item_data(grain_meta, grain_meta.items[grain_meta.primary], avif_grain_data)
+        status, _, why = native.av1_decode(grain_stream, native.av1_info(grain_stream)[1], grain_stats)
+        grain_planes = grain_stats[native.AV1_STATS["grain"][0]:native.AV1_STATS["grain"][1]]
+        if status or not grain_planes.all() or not grain_stats[native.AV1_STATS["grain_overlap"]]:
+            raise AssertionError(f"scene0_avif_grain adds no grain to some plane or without overlap: {status} {why} "
+                                 f"{grain_planes.tolist()}")
+        avif_grain_png = encode_png(cases["scene0_avif_grain"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1817,6 +1842,21 @@ class Smoke:
                                          "equal")
                 words["scene0_avif_restored"] = len(got_avif_restored["words"])
                 before = service_launches(c)
+                got_avif_grain = c.send_request(req(avif_grain_data))
+                self.launches["grain avif service"] = launched_avif_grain = launches_since(c, before, "grain AVIF")
+                if launched_avif_grain["ctc_topk"] != 1:
+                    raise AssertionError(f"the grain AVIF request: {launched_avif_grain}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_grain_png))
+                if not got_avif_grain.get("success") or not want.get("words"):
+                    raise AssertionError(f"grain AVIF: {str(got_avif_grain)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_grain["words"], want["words"], "Pillow's film-grain AVIF vs the PNG of cv2's "
+                            "pixels")
+                if ([(w["text"], w["box"]) for w in got_avif_grain["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the grain AVIF's words are not the PNG's: the texts and boxes must be "
+                                         "equal")
+                words["scene0_avif_grain"] = len(got_avif_grain["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1871,7 +1911,14 @@ class Smoke:
             f"units: cv2's files at speeds 0-4, Pillow's with restoration on in 4:4:4, 4:2:2 and 4:2:0, written "
             f"frames of every parameter set, unit size and lr_uv_shift; the scene as cv2's speed-4 file; damaged), "
             f"{avif_restored[1]} of them None",
+            "avif_grain_vs_cv2": f"{avif_grain[0]} of them with film grain (Pillow's files of libaom's 16 test "
+            f"vectors, streams regrained in 4:2:0, 4:2:2, 4:4:4 and monochrome with chroma from luma, every AR lag "
+            f"and the clip; the scene as Pillow's vector-4 file; damaged), {avif_grain[1]} of them None",
+            "avif_superres_vs_cv2": f"{avif_superres[0]} of them upscaled by superres (written frames of each "
+            f"denominator 9-16 in 4:4:4 and 4:2:0, two tile columns, CDEF, loop restoration, coded lossless; "
+            f"damaged), {avif_superres[1]} of them None",
             "scene0_avif_restored_lr_units [plane][none, wiener, sgrproj]": lr_units.tolist(),
+            "scene0_avif_grain_planes [y, cb, cr]": grain_planes.tolist(),
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
             **{f"decode_ms_768x1024_{n[len('scene0_'):]}": statistics.median(ms[n][1:]) for n in payloads
                if n.startswith("scene0_")},
@@ -1887,8 +1934,9 @@ class Smoke:
             "launches_of_the_subsampled_avif_request": launched_avif_q95,
             "launches_of_the_default_avif_request": launched_avif_default,
             "launches_of_the_restored_avif_request": launched_avif_restored,
+            "launches_of_the_grain_avif_request": launched_avif_grain,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the thirty-three payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty-four payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

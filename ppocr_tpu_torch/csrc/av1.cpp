@@ -55,16 +55,26 @@
 //     boundaries saved before CDEF; av1_loop_restoration_filter_frame's
 //     units and 64-row stripes; the Wiener filter of
 //     av1_wiener_convolve_add_src and the self-guided filter of
-//     av1_apply_selfguided_restoration).
+//     av1_apply_selfguided_restoration);
+//   * resize.c / superres_scale.c / restoration.c: superres
+//     (av1_calculate_scaled_superres_size; av1_superres_upscale after CDEF,
+//     av1_upscale_normative_rows by tile column with the 8-tap filter of
+//     av1_convolve_horiz_rs; the stripe boundaries upscaled in
+//     save_deblock_boundary_lines; the units of the upscaled frame and
+//     av1_loop_restoration_corners_in_sb's scaled columns);
+//   * grain_synthesis.c / av1_dx_iface.c: film grain on the frame as it is
+//     output (av1_add_film_grain: the luma extended to even sizes;
+//     add_film_grain_run's templates, AR filter, scaling functions, random
+//     offsets per 32-row stripe and overlap).
 //
 // The default CDFs and constant tables come from av1_tables.h, written from
 // libaom 3.14.1's library by scripts/make_av1_tables_torch.py.
 //
-// What this decoder does not decode (more than 8 bits, superres, film grain,
-// a frame other than one shown key frame) gives status UNPORTED before any
-// pixel is decoded.
+// What this decoder does not decode (more than 8 bits, a frame other than one
+// shown key frame) gives status UNPORTED before any pixel is decoded.
 
 #include <algorithm>
+#include <array>
 #include <chrono>
 #include <cstddef>
 #include <cstdint>
@@ -351,6 +361,27 @@ bool same_sequence(const SeqHeader& a, const SeqHeader& b) {
 
 // -- the frame header ----------------------------------------------------------------
 
+// film grain's parameters in the layout of libaom's aom_film_grain_t
+// (grain_params.h), which av1_film_grain takes as it is
+struct FilmGrain {
+    int apply_grain = 0, update_parameters = 0;
+    int scaling_points_y[14][2] = {{0}};
+    int num_y_points = 0;
+    int scaling_points_cb[10][2] = {{0}};
+    int num_cb_points = 0;
+    int scaling_points_cr[10][2] = {{0}};
+    int num_cr_points = 0;
+    int scaling_shift = 0, ar_coeff_lag = 0;
+    int ar_coeffs_y[24] = {0}, ar_coeffs_cb[25] = {0}, ar_coeffs_cr[25] = {0};
+    int ar_coeff_shift = 0;
+    int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0, cr_mult = 0, cr_luma_mult = 0, cr_offset = 0;
+    int overlap_flag = 0, clip_to_restricted_range = 0;
+    unsigned bit_depth = 0;
+    int chroma_scaling_from_luma = 0, grain_scale_shift = 0;
+    uint16_t random_seed = 0;
+};
+static_assert(sizeof(FilmGrain) == 648, "aom_film_grain_t's layout");
+
 struct FrameHeader {
     int show_existing = 0, frame_type = KEY_FRAME, show_frame = 1, showable = 0, error_resilient = 1;
     int disable_cdf_update = 0, allow_screen_content_tools = 0, force_integer_mv = 0;
@@ -370,7 +401,8 @@ struct FrameHeader {
     int lossless[8] = {0};
     int coded_lossless = 0, all_lossless = 0;
     int reduced_tx_set = 0, tx_mode_select = 0;
-    int apply_grain = 0;
+    FilmGrain grain;
+    int grain_bit = 0, header_bits = 0;  // where film_grain_params starts and the header ends, in bits
     // the in-loop filters: deblocking (levels y vertical, y horizontal, u,
     // v; the deltas of av1_set_default_ref_deltas unless updated), CDEF
     // (strengths as coded: primary * 4 + secondary) and restoration
@@ -401,67 +433,66 @@ int tile_log2(int blk, int target) {
 
 void read_delta_q(BitReader& rb, int& v) { v = rb.bit1() ? rb.su(7) : 0; }
 
+// av1_read_film_grain_params: the parameters into libaom's aom_film_grain_t
+// (a frame without them holds zeros)
 void read_film_grain(BitReader& rb, const SeqHeader& s, FrameHeader& fh) {
+    FilmGrain& g = fh.grain;
     if (!s.film_grain_present || (!fh.show_frame && !fh.showable)) return;
-    fh.apply_grain = rb.bit1();
-    if (!fh.apply_grain) return;
-    rb.f(16);  // grain_seed
-    int update = fh.frame_type == INTER_FRAME ? rb.bit1() : 1;
-    if (!update) {
+    g.apply_grain = rb.bit1();
+    if (!g.apply_grain) return;
+    g.random_seed = (uint16_t)rb.f(16);
+    g.update_parameters = fh.frame_type == INTER_FRAME ? rb.bit1() : 1;
+    g.bit_depth = (unsigned)s.bit_depth;
+    if (!g.update_parameters) {
         rb.f(3);  // film_grain_params_ref_idx: a key frame has no reference
         fail(HEADER_ERROR, "film grain parameters from a reference frame");
     }
-    int num_y = rb.f(4);
-    if (num_y > 14) fail(HEADER_ERROR, "Number of points for film grain luma scaling function exceeds the maximum value.");
-    int prev = -1;
-    for (int i = 0; i < num_y; i++) {
-        int v = rb.f(8);
-        rb.f(8);
-        if (i && v <= prev) fail(HEADER_ERROR, "First coordinate of the scaling function points shall be increasing.");
-        prev = v;
-    }
-    int from_luma = s.mono ? 0 : rb.bit1();
-    int num_cb = 0, num_cr = 0;
-    if (!(s.mono || from_luma || (s.ss_x == 1 && s.ss_y == 1 && num_y == 0))) {
-        num_cb = rb.f(4);
-        if (num_cb > 10) fail(HEADER_ERROR, "Number of points for film grain cb scaling function exceeds the maximum value.");
-        prev = -1;
-        for (int i = 0; i < num_cb; i++) {
-            int v = rb.f(8);
-            rb.f(8);
-            if (i && v <= prev) fail(HEADER_ERROR, "First coordinate of the scaling function points shall be increasing.");
-            prev = v;
+    auto points = [&](int (*pts)[2], int n) {
+        for (int i = 0; i < n; i++) {
+            pts[i][0] = rb.f(8);
+            if (i && pts[i - 1][0] >= pts[i][0])
+                fail(HEADER_ERROR, "First coordinate of the scaling function points shall be increasing.");
+            pts[i][1] = rb.f(8);
         }
-        num_cr = rb.f(4);
-        if (num_cr > 10) fail(HEADER_ERROR, "Number of points for film grain cr scaling function exceeds the maximum value.");
-        prev = -1;
-        for (int i = 0; i < num_cr; i++) {
-            int v = rb.f(8);
-            rb.f(8);
-            if (i && v <= prev) fail(HEADER_ERROR, "First coordinate of the scaling function points shall be increasing.");
-            prev = v;
-        }
-        if (s.ss_x == 1 && s.ss_y == 1 && ((num_cb == 0 && num_cr != 0) || (num_cb != 0 && num_cr == 0)))
+    };
+    g.num_y_points = rb.f(4);
+    if (g.num_y_points > 14) fail(HEADER_ERROR, "Number of points for film grain luma scaling function exceeds the maximum value.");
+    points(g.scaling_points_y, g.num_y_points);
+    g.chroma_scaling_from_luma = s.mono ? 0 : rb.bit1();
+    if (!(s.mono || g.chroma_scaling_from_luma || (s.ss_x == 1 && s.ss_y == 1 && g.num_y_points == 0))) {
+        g.num_cb_points = rb.f(4);
+        if (g.num_cb_points > 10) fail(HEADER_ERROR, "Number of points for film grain cb scaling function exceeds the maximum value.");
+        points(g.scaling_points_cb, g.num_cb_points);
+        g.num_cr_points = rb.f(4);
+        if (g.num_cr_points > 10) fail(HEADER_ERROR, "Number of points for film grain cr scaling function exceeds the maximum value.");
+        points(g.scaling_points_cr, g.num_cr_points);
+        if (s.ss_x == 1 && s.ss_y == 1 && ((g.num_cb_points == 0) != (g.num_cr_points == 0)))
             fail(HEADER_ERROR, "In YCbCr 4:2:0, film grain shall be applied to both chroma components or neither.");
     }
-    rb.f(2);  // grain_scaling_minus_8
-    int lag = rb.f(2);
-    int num_pos_luma = 2 * lag * (lag + 1);
-    int num_pos_chroma = num_pos_luma;
-    if (num_y) {
-        num_pos_chroma = num_pos_luma + 1;
-        for (int i = 0; i < num_pos_luma; i++) rb.f(8);
+    g.scaling_shift = rb.f(2) + 8;
+    g.ar_coeff_lag = rb.f(2);
+    const int num_pos_luma = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1);
+    const int num_pos_chroma = num_pos_luma + (g.num_y_points > 0);
+    if (g.num_y_points)
+        for (int i = 0; i < num_pos_luma; i++) g.ar_coeffs_y[i] = (int)rb.f(8) - 128;
+    if (g.num_cb_points || g.chroma_scaling_from_luma)
+        for (int i = 0; i < num_pos_chroma; i++) g.ar_coeffs_cb[i] = (int)rb.f(8) - 128;
+    if (g.num_cr_points || g.chroma_scaling_from_luma)
+        for (int i = 0; i < num_pos_chroma; i++) g.ar_coeffs_cr[i] = (int)rb.f(8) - 128;
+    g.ar_coeff_shift = rb.f(2) + 6;
+    g.grain_scale_shift = rb.f(2);
+    if (g.num_cb_points) {
+        g.cb_mult = rb.f(8);
+        g.cb_luma_mult = rb.f(8);
+        g.cb_offset = rb.f(9);
     }
-    if (from_luma || num_cb)
-        for (int i = 0; i < num_pos_chroma; i++) rb.f(8);
-    if (from_luma || num_cr)
-        for (int i = 0; i < num_pos_chroma; i++) rb.f(8);
-    rb.f(2);  // ar_coeff_shift_minus_6
-    rb.f(2);  // grain_scale_shift
-    if (num_cb) rb.f(8 + 8 + 9);
-    if (num_cr) rb.f(8 + 8 + 9);
-    rb.bit1();  // overlap_flag
-    rb.bit1();  // clip_to_restricted_range
+    if (g.num_cr_points) {
+        g.cr_mult = rb.f(8);
+        g.cr_luma_mult = rb.f(8);
+        g.cr_offset = rb.f(9);
+    }
+    g.overlap_flag = rb.bit1();
+    g.clip_to_restricted_range = rb.bit1();
 }
 
 // the uncompressed header of the first frame of a still picture (read_uncompressed_header)
@@ -541,12 +572,14 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     int max_log2_tile_rows = tile_log2(1, std::min(sb_rows, 64));
     int min_log2_tiles = std::max(min_log2_tile_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
     std::vector<int> col_sb, row_sb;
+    int min_inner_width = 0;  // av1_calculate_tile_cols: the narrowest tile column but the last, in 4x4 units
     if (rb.bit1()) {  // uniform_tile_spacing_flag
         fh.tile_cols_log2 = min_log2_tile_cols;
         while (fh.tile_cols_log2 < max_log2_tile_cols && rb.bit1()) fh.tile_cols_log2++;
         int w = (sb_cols + (1 << fh.tile_cols_log2) - 1) >> fh.tile_cols_log2;
         for (int start = 0; start < sb_cols; start += w) col_sb.push_back(start);
         col_sb.push_back(sb_cols);
+        min_inner_width = std::min(w << sb_shift, fh.mi_cols);
         int min_log2_tile_rows = std::max(min_log2_tiles - fh.tile_cols_log2, 0);
         fh.tile_rows_log2 = min_log2_tile_rows;
         while (fh.tile_rows_log2 < max_log2_tile_rows && rb.bit1()) fh.tile_rows_log2++;
@@ -563,6 +596,9 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
             widest = std::max(widest, size);
         }
         col_sb.push_back(start + left);
+        int narrowest = 65536;
+        for (size_t i = 0; i + 2 < col_sb.size(); i++) narrowest = std::min(narrowest, col_sb[i + 1] - col_sb[i]);
+        min_inner_width = narrowest << sb_shift;
         int area = sb_rows * sb_cols;
         if (min_log2_tiles) area >>= (min_log2_tiles + 1);
         int max_tile_height_sb = std::max(area / widest, 1);
@@ -580,6 +616,10 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     }
     fh.tile_cols = (int)col_sb.size() - 1;
     fh.tile_rows = (int)row_sb.size() - 1;
+    // av1_is_min_tile_width_satisfied: an inner tile column of 64 samples,
+    // 128 before an upscale
+    if (fh.tile_cols > 1 && min_inner_width * 4 < (64 << (fh.width != fh.upscaled_width)))
+        fail(HEADER_ERROR, "Minimum tile width requirement not satisfied");
     for (int v : col_sb) fh.mi_col_starts.push_back(std::min(v << sb_shift, fh.mi_cols));
     for (int v : row_sb) fh.mi_row_starts.push_back(std::min(v << sb_shift, fh.mi_rows));
     if (fh.tile_cols_log2 > 0 || fh.tile_rows_log2 > 0) {
@@ -714,7 +754,9 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
     if (!fh.coded_lossless) fh.tx_mode_select = rb.bit1();
     // frame_reference_mode(), skip_mode_params(), allow_warped_motion: none in an intra frame
     fh.reduced_tx_set = rb.bit1();
+    fh.grain_bit = (int)rb.bit;
     read_film_grain(rb, s, fh);
+    fh.header_bits = (int)rb.bit;
     return fh;
 }
 
@@ -1565,6 +1607,393 @@ struct BlockInfo {
     int mv_row = 0, mv_col = 0;  // IntraBC's displacement in 1/8 samples
 };
 
+// -- film grain (grain_synthesis.c), on the output frame -------------------------------------------
+// libaom's add_film_grain_run with its static state in one object: the
+// grain templates (a 73x82 luma block and chroma blocks by subsampling,
+// generated from gaussian_sequence and the AR filter from the seed),
+// then the frame in 32x32 luma blocks (16 rows of 2-sample pairs), each
+// taking its template at a random offset drawn per 32-row stripe; with
+// overlap the two grain columns and rows at a block's left and top edges
+// are blended with the neighbour's. Chroma is noised before luma, from
+// the luma samples without grain.
+
+struct GrainSynthesis {
+    const FilmGrain& p;
+    uint16_t random_register = 0;
+    int grain_min = -128, grain_max = 127;
+    int scaling_lut_y[256] = {0}, scaling_lut_cb[256] = {0}, scaling_lut_cr[256] = {0};
+
+    explicit GrainSynthesis(const FilmGrain& params) : p(params) {}
+
+    int get_random_number(int bits) {
+        const uint16_t bit =
+            ((random_register >> 0) ^ (random_register >> 1) ^ (random_register >> 3) ^ (random_register >> 12)) & 1;
+        random_register = (uint16_t)((random_register >> 1) | (bit << 15));
+        return (random_register >> (16 - bits)) & ((1 << bits) - 1);
+    }
+
+    // the seed of the stripe of 32 luma rows at luma_line; 7 << 5 and 11 << 5
+    // give the Cb and Cr templates' seeds (the seed ^ 0xb524, ^ 0x49d8)
+    void init_random_generator(int luma_line, uint16_t seed) {
+        random_register = seed;
+        const int luma_num = luma_line >> 5;
+        random_register ^= (uint16_t)(((luma_num * 37 + 178) & 255) << 8);
+        random_register ^= (uint16_t)((luma_num * 173 + 105) & 255);
+    }
+
+    int clamp(int v, int lo, int hi) const { return v < lo ? lo : (v > hi ? hi : v); }
+
+    int gauss(int shift) {
+        return (av1tab::gaussian_sequence[get_random_number(11)] + ((1 << shift) >> 1)) >> shift;
+    }
+
+    static void init_scaling_function(const int (*points)[2], int num, int* lut) {
+        if (num == 0) return;
+        for (int i = 0; i < points[0][0]; i++) lut[i] = points[0][1];
+        for (int point = 0; point < num - 1; point++) {
+            const int delta_y = points[point + 1][1] - points[point][1];
+            const int delta_x = points[point + 1][0] - points[point][0];
+            const int64_t delta = (int64_t)delta_y * ((65536 + (delta_x >> 1)) / delta_x);
+            for (int x = 0; x < delta_x; x++) lut[points[point][0] + x] = points[point][1] + (int)((x * delta + 32768) >> 16);
+        }
+        for (int i = points[num - 1][0]; i < 256; i++) lut[i] = points[num - 1][1];
+    }
+
+    // the AR filter's neighbours of a sample: (row, col, from luma)
+    void pred_positions(std::vector<std::array<int, 3>>& luma, std::vector<std::array<int, 3>>& chroma) const {
+        const int lag = p.ar_coeff_lag;
+        for (int row = -lag; row < 0; row++)
+            for (int col = -lag; col < lag + 1; col++) {
+                luma.push_back({row, col, 0});
+                chroma.push_back({row, col, 0});
+            }
+        for (int col = -lag; col < 0; col++) {
+            luma.push_back({0, col, 0});
+            chroma.push_back({0, col, 0});
+        }
+        if (p.num_y_points > 0) chroma.push_back({0, 0, 1});
+    }
+
+    void generate_luma_grain_block(const std::vector<std::array<int, 3>>& pos, int* block, int size_y, int size_x,
+                                   int stride, int left_pad, int top_pad, int right_pad, int bottom_pad) {
+        if (p.num_y_points == 0) {
+            std::fill(block, block + (size_t)size_y * stride, 0);
+            return;
+        }
+        const int shift = 12 - (int)p.bit_depth + p.grain_scale_shift;
+        const int rounding = 1 << (p.ar_coeff_shift - 1);
+        for (int i = 0; i < size_y; i++)
+            for (int j = 0; j < size_x; j++) block[i * stride + j] = gauss(shift);
+        for (int i = top_pad; i < size_y - bottom_pad; i++)
+            for (int j = left_pad; j < size_x - right_pad; j++) {
+                int wsum = 0;
+                for (size_t k = 0; k < pos.size(); k++)
+                    wsum += p.ar_coeffs_y[k] * block[(i + pos[k][0]) * stride + j + pos[k][1]];
+                block[i * stride + j] = clamp(block[i * stride + j] + ((wsum + rounding) >> p.ar_coeff_shift), grain_min,
+                                              grain_max);
+            }
+    }
+
+    void generate_chroma_grain_blocks(const std::vector<std::array<int, 3>>& pos, const int* luma_block, int* cb,
+                                      int* cr, int luma_stride, int size_y, int size_x, int stride, int left_pad,
+                                      int top_pad, int right_pad, int bottom_pad, int ss_y, int ss_x) {
+        const int shift = 12 - (int)p.bit_depth + p.grain_scale_shift;
+        const int rounding = 1 << (p.ar_coeff_shift - 1);
+        const bool do_cb = p.num_cb_points || p.chroma_scaling_from_luma;
+        const bool do_cr = p.num_cr_points || p.chroma_scaling_from_luma;
+        const size_t n = (size_t)size_y * stride;
+        if (do_cb) {
+            init_random_generator(7 << 5, p.random_seed);
+            for (int i = 0; i < size_y; i++)
+                for (int j = 0; j < size_x; j++) cb[i * stride + j] = gauss(shift);
+        } else {
+            std::fill(cb, cb + n, 0);
+        }
+        if (do_cr) {
+            init_random_generator(11 << 5, p.random_seed);
+            for (int i = 0; i < size_y; i++)
+                for (int j = 0; j < size_x; j++) cr[i * stride + j] = gauss(shift);
+        } else {
+            std::fill(cr, cr + n, 0);
+        }
+        for (int i = top_pad; i < size_y - bottom_pad; i++)
+            for (int j = left_pad; j < size_x - right_pad; j++) {
+                int wsum_cb = 0, wsum_cr = 0;
+                for (size_t k = 0; k < pos.size(); k++) {
+                    if (pos[k][2] == 0) {
+                        wsum_cb += p.ar_coeffs_cb[k] * cb[(i + pos[k][0]) * stride + j + pos[k][1]];
+                        wsum_cr += p.ar_coeffs_cr[k] * cr[(i + pos[k][0]) * stride + j + pos[k][1]];
+                    } else {
+                        int av_luma = 0;
+                        const int ly = ((i - top_pad) << ss_y) + top_pad, lx = ((j - left_pad) << ss_x) + left_pad;
+                        for (int k2 = ly; k2 < ly + ss_y + 1; k2++)
+                            for (int l = lx; l < lx + ss_x + 1; l++) av_luma += luma_block[k2 * luma_stride + l];
+                        av_luma = (av_luma + ((1 << (ss_y + ss_x)) >> 1)) >> (ss_y + ss_x);
+                        wsum_cb += p.ar_coeffs_cb[k] * av_luma;
+                        wsum_cr += p.ar_coeffs_cr[k] * av_luma;
+                    }
+                }
+                if (do_cb)
+                    cb[i * stride + j] = clamp(cb[i * stride + j] + ((wsum_cb + rounding) >> p.ar_coeff_shift), grain_min,
+                                               grain_max);
+                if (do_cr)
+                    cr[i * stride + j] = clamp(cr[i * stride + j] + ((wsum_cr + rounding) >> p.ar_coeff_shift), grain_min,
+                                               grain_max);
+            }
+    }
+
+    // add_noise_to_block: chroma first (from the luma without grain), then luma
+    void add_noise_to_block(uint8_t* luma, uint8_t* cb, uint8_t* cr, int luma_stride, int chroma_stride,
+                            const int* luma_grain, const int* cb_grain, const int* cr_grain, int luma_grain_stride,
+                            int chroma_grain_stride, int half_luma_height, int half_luma_width, int ss_y, int ss_x,
+                            int mc_identity) {
+        int cb_mult = p.cb_mult - 128, cb_luma_mult = p.cb_luma_mult - 128, cb_offset = p.cb_offset - 256;
+        int cr_mult = p.cr_mult - 128, cr_luma_mult = p.cr_luma_mult - 128, cr_offset = p.cr_offset - 256;
+        const int rounding = 1 << (p.scaling_shift - 1);
+        const bool apply_y = p.num_y_points > 0;
+        const bool apply_cb = p.num_cb_points > 0 || p.chroma_scaling_from_luma;
+        const bool apply_cr = p.num_cr_points > 0 || p.chroma_scaling_from_luma;
+        if (p.chroma_scaling_from_luma) {
+            cb_mult = cr_mult = 0;
+            cb_luma_mult = cr_luma_mult = 64;
+            cb_offset = cr_offset = 0;
+        }
+        int min_luma = 0, max_luma = 255, min_chroma = 0, max_chroma = 255;
+        if (p.clip_to_restricted_range) {
+            min_luma = min_chroma = 16;
+            max_luma = 235;
+            max_chroma = mc_identity ? 235 : 240;  // chroma keeps luma's range under the identity matrix
+        }
+        for (int i = 0; i < (half_luma_height << (1 - ss_y)); i++)
+            for (int j = 0; j < (half_luma_width << (1 - ss_x)); j++) {
+                const uint8_t* l = &luma[(i << ss_y) * luma_stride + (j << ss_x)];
+                const int average_luma = ss_x ? (l[0] + l[1] + 1) >> 1 : l[0];
+                if (apply_cb) {
+                    uint8_t& c = cb[i * chroma_stride + j];
+                    const int idx = clamp(((average_luma * cb_luma_mult + cb_mult * c) >> 6) + cb_offset, 0, 255);
+                    c = (uint8_t)clamp(c + ((scaling_lut_cb[idx] * cb_grain[i * chroma_grain_stride + j] + rounding) >>
+                                            p.scaling_shift),
+                                       min_chroma, max_chroma);
+                }
+                if (apply_cr) {
+                    uint8_t& c = cr[i * chroma_stride + j];
+                    const int idx = clamp(((average_luma * cr_luma_mult + cr_mult * c) >> 6) + cr_offset, 0, 255);
+                    c = (uint8_t)clamp(c + ((scaling_lut_cr[idx] * cr_grain[i * chroma_grain_stride + j] + rounding) >>
+                                            p.scaling_shift),
+                                       min_chroma, max_chroma);
+                }
+            }
+        if (apply_y)
+            for (int i = 0; i < (half_luma_height << 1); i++)
+                for (int j = 0; j < (half_luma_width << 1); j++) {
+                    uint8_t& v = luma[i * luma_stride + j];
+                    v = (uint8_t)clamp(
+                        v + ((scaling_lut_y[v] * luma_grain[i * luma_grain_stride + j] + rounding) >> p.scaling_shift),
+                        min_luma, max_luma);
+                }
+    }
+
+    // ver_boundary_overlap / hor_boundary_overlap: 1 or 2 columns (rows) blended
+    void ver_overlap(const int* left, int left_stride, const int* right, int right_stride, int* dst, int dst_stride,
+                     int width, int height) {
+        for (; height > 0; height--) {
+            if (width == 1) {
+                *dst = clamp((*left * 23 + *right * 22 + 16) >> 5, grain_min, grain_max);
+            } else if (width == 2) {
+                const int a = clamp((27 * left[0] + 17 * right[0] + 16) >> 5, grain_min, grain_max);
+                const int b = clamp((17 * left[1] + 27 * right[1] + 16) >> 5, grain_min, grain_max);
+                dst[0] = a;
+                dst[1] = b;
+            }
+            left += left_stride;
+            right += right_stride;
+            dst += dst_stride;
+        }
+    }
+
+    void hor_overlap(const int* top, int top_stride, const int* bottom, int bottom_stride, int* dst, int dst_stride,
+                     int width, int height) {
+        for (; width > 0; width--) {
+            if (height == 1) {
+                *dst = clamp((*top * 23 + *bottom * 22 + 16) >> 5, grain_min, grain_max);
+            } else if (height == 2) {
+                const int a = clamp((27 * top[0] + 17 * bottom[0] + 16) >> 5, grain_min, grain_max);
+                const int b = clamp((17 * top[top_stride] + 27 * bottom[bottom_stride] + 16) >> 5, grain_min, grain_max);
+                dst[0] = a;
+                dst[dst_stride] = b;
+            }
+            top++;
+            bottom++;
+            dst++;
+        }
+    }
+
+    static void copy_area(const int* src, int src_stride, int* dst, int dst_stride, int width, int height) {
+        for (; height > 0; height--) {
+            if (width > 0) memcpy(dst, src, sizeof(int) * (size_t)width);
+            src += src_stride;
+            dst += dst_stride;
+        }
+    }
+
+    // add_film_grain_run on even ``width`` x ``height`` luma and the chroma
+    // planes of its subsampling
+    void run(uint8_t* luma, uint8_t* cb, uint8_t* cr, int height, int width, int luma_stride, int chroma_stride,
+             int ss_y, int ss_x, int mc_identity) {
+        random_register = p.random_seed;
+        const int left_pad = 3, right_pad = 3, top_pad = 3, bottom_pad = 0, ar_padding = 3;
+        const int luma_sub_y = 32, luma_sub_x = 32;
+        const int chroma_sub_y = luma_sub_y >> ss_y, chroma_sub_x = luma_sub_x >> ss_x;
+        const int luma_block_size_y = top_pad + 2 * ar_padding + luma_sub_y * 2 + bottom_pad;
+        const int luma_block_size_x = left_pad + 2 * ar_padding + luma_sub_x * 2 + 2 * ar_padding + right_pad;
+        const int chroma_block_size_y = top_pad + (2 >> ss_y) * ar_padding + chroma_sub_y * 2 + bottom_pad;
+        const int chroma_block_size_x =
+            left_pad + (2 >> ss_x) * ar_padding + chroma_sub_x * 2 + (2 >> ss_x) * ar_padding + right_pad;
+        const int luma_grain_stride = luma_block_size_x, chroma_grain_stride = chroma_block_size_x;
+        const int overlap = p.overlap_flag;
+        const int grain_center = 128 << (p.bit_depth - 8);
+        grain_min = -grain_center;
+        grain_max = grain_center - 1;
+
+        std::vector<std::array<int, 3>> pos_luma, pos_chroma;
+        pred_positions(pos_luma, pos_chroma);
+        std::vector<int> y_line((size_t)luma_stride * 2), cb_line((size_t)chroma_stride * (2 >> ss_y)),
+            cr_line((size_t)chroma_stride * (2 >> ss_y));
+        std::vector<int> y_col((size_t)(luma_sub_y + 2) * 2),
+            cb_col((size_t)((luma_sub_y + 2) >> ss_y) * (2 - ss_x)), cr_col(cb_col.size());
+        std::vector<int> luma_grain((size_t)luma_block_size_y * luma_block_size_x),
+            cb_grain((size_t)chroma_block_size_y * chroma_block_size_x), cr_grain(cb_grain.size());
+        generate_luma_grain_block(pos_luma, luma_grain.data(), luma_block_size_y, luma_block_size_x, luma_grain_stride,
+                                  left_pad, top_pad, right_pad, bottom_pad);
+        generate_chroma_grain_blocks(pos_chroma, luma_grain.data(), cb_grain.data(), cr_grain.data(), luma_grain_stride,
+                                     chroma_block_size_y, chroma_block_size_x, chroma_grain_stride, left_pad, top_pad,
+                                     right_pad, bottom_pad, ss_y, ss_x);
+        init_scaling_function(p.scaling_points_y, p.num_y_points, scaling_lut_y);
+        if (p.chroma_scaling_from_luma) {
+            memcpy(scaling_lut_cb, scaling_lut_y, sizeof scaling_lut_y);
+            memcpy(scaling_lut_cr, scaling_lut_y, sizeof scaling_lut_y);
+        } else {
+            init_scaling_function(p.scaling_points_cb, p.num_cb_points, scaling_lut_cb);
+            init_scaling_function(p.scaling_points_cr, p.num_cr_points, scaling_lut_cr);
+        }
+        int* const yl = y_line.data();
+        int* const cbl = cb_line.data();
+        int* const crl = cr_line.data();
+        int* const yc = y_col.data();
+        int* const cbc = cb_col.data();
+        int* const crc = cr_col.data();
+        const int cw = 2 >> ss_x, ch = 2 >> ss_y;  // the overlap's width and height in a chroma plane
+        for (int y = 0; y < height / 2; y += luma_sub_y >> 1) {
+            init_random_generator(y * 2, p.random_seed);
+            for (int x = 0; x < width / 2; x += luma_sub_x >> 1) {
+                int offset_y = get_random_number(8);
+                const int offset_x = (offset_y >> 4) & 15;
+                offset_y &= 15;
+                const int luma_offset_y = top_pad + 2 * ar_padding + (offset_y << 1);
+                const int luma_offset_x = left_pad + 2 * ar_padding + (offset_x << 1);
+                const int chroma_offset_y = top_pad + (2 >> ss_y) * ar_padding + offset_y * (2 >> ss_y);
+                const int chroma_offset_x = left_pad + (2 >> ss_x) * ar_padding + offset_x * (2 >> ss_x);
+                const int* lg = &luma_grain[(size_t)luma_offset_y * luma_grain_stride + luma_offset_x];
+                const int* cbg = &cb_grain[(size_t)chroma_offset_y * chroma_grain_stride + chroma_offset_x];
+                const int* crg = &cr_grain[(size_t)chroma_offset_y * chroma_grain_stride + chroma_offset_x];
+                if (overlap && x) {
+                    ver_overlap(yc, 2, lg, luma_grain_stride, yc, 2, 2, std::min(luma_sub_y + 2, height - (y << 1)));
+                    const int rows = std::min(chroma_sub_y + ch, (height - (y << 1)) >> ss_y);
+                    ver_overlap(cbc, cw, cbg, chroma_grain_stride, cbc, cw, cw, rows);
+                    ver_overlap(crc, cw, crg, chroma_grain_stride, crc, cw, cw, rows);
+                    const int i = y ? 1 : 0;
+                    add_noise_to_block(luma + ((y + i) << 1) * luma_stride + (x << 1),
+                                       cb + ((y + i) << (1 - ss_y)) * chroma_stride + (x << (1 - ss_x)),
+                                       cr + ((y + i) << (1 - ss_y)) * chroma_stride + (x << (1 - ss_x)), luma_stride,
+                                       chroma_stride, yc + i * 4, cbc + i * (2 - ss_y) * (2 - ss_x),
+                                       crc + i * (2 - ss_y) * (2 - ss_x), 2, 2 - ss_x,
+                                       std::min(luma_sub_y >> 1, height / 2 - y) - i, 1, ss_y, ss_x, mc_identity);
+                }
+                if (overlap && y) {
+                    if (x) {
+                        hor_overlap(yl + (x << 1), luma_stride, yc, 2, yl + (x << 1), luma_stride, 2, 2);
+                        hor_overlap(cbl + x * cw, chroma_stride, cbc, cw, cbl + x * cw, chroma_stride, cw, ch);
+                        hor_overlap(crl + x * cw, chroma_stride, crc, cw, crl + x * cw, chroma_stride, cw, ch);
+                    }
+                    const int lx = (x ? x + 1 : 0) << 1, cx = (x ? x + 1 : 0) << (1 - ss_x);
+                    hor_overlap(yl + lx, luma_stride, lg + (x ? 2 : 0), luma_grain_stride, yl + lx, luma_stride,
+                                std::min(luma_sub_x - ((x ? 1 : 0) << 1), width - lx), 2);
+                    const int cols = std::min(chroma_sub_x - ((x ? 1 : 0) << (1 - ss_x)), (width - lx) >> ss_x);
+                    const int skip = (x ? 1 : 0) << (1 - ss_x);
+                    hor_overlap(cbl + cx, chroma_stride, cbg + skip, chroma_grain_stride, cbl + cx, chroma_stride, cols, ch);
+                    hor_overlap(crl + cx, chroma_stride, crg + skip, chroma_grain_stride, crl + cx, chroma_stride, cols, ch);
+                    add_noise_to_block(luma + (y << 1) * luma_stride + (x << 1),
+                                       cb + (y << (1 - ss_y)) * chroma_stride + (x << (1 - ss_x)),
+                                       cr + (y << (1 - ss_y)) * chroma_stride + (x << (1 - ss_x)), luma_stride,
+                                       chroma_stride, yl + (x << 1), cbl + (x << (1 - ss_x)), crl + (x << (1 - ss_x)),
+                                       luma_stride, chroma_stride, 1, std::min(luma_sub_x >> 1, width / 2 - x), ss_y,
+                                       ss_x, mc_identity);
+                }
+                const int i = overlap && y ? 1 : 0, j = overlap && x ? 1 : 0;
+                add_noise_to_block(luma + ((y + i) << 1) * luma_stride + ((x + j) << 1),
+                                   cb + ((y + i) << (1 - ss_y)) * chroma_stride + ((x + j) << (1 - ss_x)),
+                                   cr + ((y + i) << (1 - ss_y)) * chroma_stride + ((x + j) << (1 - ss_x)), luma_stride,
+                                   chroma_stride, lg + (i << 1) * luma_grain_stride + (j << 1),
+                                   cbg + (i << (1 - ss_y)) * chroma_grain_stride + (j << (1 - ss_x)),
+                                   crg + (i << (1 - ss_y)) * chroma_grain_stride + (j << (1 - ss_x)), luma_grain_stride,
+                                   chroma_grain_stride, std::min(luma_sub_y >> 1, height / 2 - y) - i,
+                                   std::min(luma_sub_x >> 1, width / 2 - x) - j, ss_y, ss_x, mc_identity);
+                if (overlap) {
+                    if (x) {
+                        copy_area(yc + (luma_sub_y << 1), 2, yl + (x << 1), luma_stride, 2, 2);
+                        copy_area(cbc + (chroma_sub_y << (1 - ss_x)), cw, cbl + (x << (1 - ss_x)), chroma_stride, cw, ch);
+                        copy_area(crc + (chroma_sub_y << (1 - ss_x)), cw, crl + (x << (1 - ss_x)), chroma_stride, cw, ch);
+                    }
+                    const int lx = (x ? x + 1 : 0) << 1, cx = (x ? x + 1 : 0) << (1 - ss_x);
+                    copy_area(lg + luma_sub_y * luma_grain_stride + (x ? 2 : 0), luma_grain_stride, yl + lx, luma_stride,
+                              std::min(luma_sub_x, width - (x << 1)) - (x ? 2 : 0), 2);
+                    const int cols = std::min(chroma_sub_x, (width - (x << 1)) >> ss_x) - (x ? cw : 0);
+                    copy_area(cbg + chroma_sub_y * chroma_grain_stride + (x ? cw : 0), chroma_grain_stride, cbl + cx,
+                              chroma_stride, cols, ch);
+                    copy_area(crg + chroma_sub_y * chroma_grain_stride + (x ? cw : 0), chroma_grain_stride, crl + cx,
+                              chroma_stride, cols, ch);
+                    copy_area(lg + luma_sub_x, luma_grain_stride, yc, 2, 2, std::min(luma_sub_y + 2, height - (y << 1)));
+                    const int rows = std::min(chroma_sub_y + ch, (height - (y << 1)) >> ss_y);
+                    copy_area(cbg + chroma_sub_x, chroma_grain_stride, cbc, cw, cw, rows);
+                    copy_area(crg + chroma_sub_x, chroma_grain_stride, crc, cw, cw, rows);
+                }
+            }
+        }
+    }
+};
+
+// -- superres's upscaling filter (resize.c) ---------------------------------------------------------
+
+const int kRsBits = 14;  // RS_SCALE_SUBPEL_BITS: positions in 1/16384 sample
+
+// av1_get_upscale_convolve_step
+int32_t superres_step(int in_length, int out_length) {
+    return ((in_length << kRsBits) + out_length / 2) / out_length;
+}
+
+// get_upscale_convolve_x0: the first output sample's position, centred
+int32_t superres_x0(int in_length, int out_length, int32_t step) {
+    const int err = out_length * step - (in_length << kRsBits);
+    const int32_t x0 = (-((out_length - in_length) << (kRsBits - 1)) + out_length / 2) / out_length + 128 - err / 2;
+    return (int32_t)((uint32_t)x0 & ((1u << kRsBits) - 1));
+}
+
+// av1_convolve_horiz_rs_c on one row: ``w`` samples from ``src`` (the
+// sample before the first the filter centres on), the 8 taps of one of 64
+// phases at each position
+void convolve_horiz_rs(const uint8_t* src, uint8_t* dst, int w, int32_t x0_qn, int32_t x_step_qn) {
+    src -= 3;
+    int32_t x_qn = x0_qn;
+    for (int x = 0; x < w; x++) {
+        const uint8_t* sx = &src[x_qn >> kRsBits];
+        const int16_t* f = av1tab::resize_filter_normative[(x_qn & ((1 << kRsBits) - 1)) >> 8];
+        int sum = 0;
+        for (int k = 0; k < 8; k++) sum += sx[k] * f[k];
+        dst[x] = clip_pixel(round2(sum, 7));
+        x_qn += x_step_qn;
+    }
+}
+
 // tool counters of a decode (the coverage test reads them)
 enum {
     ST_PARTITION = 0,        // 10 partition types
@@ -1604,7 +2033,15 @@ enum {
     ST_LR_UNIT_SIZES = 153,  // planes restored by unit size (32, 64, 128, 256)
     ST_LR_UV_SHIFT = 157,    // frames with lr_uv_shift 1
     ST_LR_BOUNDARY = 158,    // stripe edges (top, bottom) that read the deblocked rows saved before CDEF
-    ST_COUNT = 160
+    ST_SUPERRES = 160,       // frames upscaled, by denominator (9-16)
+    ST_SUPERRES_LR_ROWS = 168,  // loop restoration's saved rows upscaled from the deblocked frame
+    ST_GRAIN = 169,          // frames with film grain, by the planes it noises (Y, Cb, Cr)
+    ST_GRAIN_AR_LAG = 172,   // frames with film grain by AR lag (0-3)
+    ST_GRAIN_OVERLAP = 176,  // frames with film grain blended across block edges
+    ST_GRAIN_FROM_LUMA = 177,  // frames whose chroma scaling is luma's
+    ST_GRAIN_CLIP = 178,     // frames with film grain clipped to the restricted range
+    ST_GRAIN_ODD = 179,      // frames with film grain of an odd width or height (extended to even)
+    ST_COUNT = 180
 };
 
 struct Frame {
@@ -1686,8 +2123,8 @@ struct Frame {
         }
     }
 
-    // the plane's visible samples (av1_whole_frame_rect)
-    int plane_w(int p) const { return (fh.width + sub_x(p)) >> sub_x(p); }
+    // the plane's visible samples after superres (av1_whole_frame_rect)
+    int plane_w(int p) const { return (fh.upscaled_width + sub_x(p)) >> sub_x(p); }
     int plane_h(int p) const { return (fh.height + sub_y(p)) >> sub_y(p); }
     // av1_lr_count_units: the last unit is up to 1.5 units long
     static int lr_count_units(int unit, int size) { return std::max((size + (unit >> 1)) / unit, 1); }
@@ -2087,15 +2524,18 @@ struct Frame {
     }
 
     // decode_partition's first step at a superblock: the coefficients of each
-    // unit whose top-left corner lies in it (av1_loop_restoration_corners_in_sb),
-    // plane by plane, row by row
+    // unit whose top-left corner lies in it (av1_loop_restoration_corners_in_sb,
+    // which scales a column by the superres denominator over 8), plane by
+    // plane, row by row
     void read_lr(int r, int c, int sb4) {
+        const bool scaled = fh.width != fh.upscaled_width;
         for (int p = 0; p < num_planes; p++) {
             const int type = fh.lr_type[p];
             if (!type) continue;
-            const int size = fh.lr_unit_size[p], mx = 4 >> sub_x(p), my = 4 >> sub_y(p);
-            const int rcol0 = (c * mx + size - 1) / size, rrow0 = (r * my + size - 1) / size;
-            const int rcol1 = std::min(((c + sb4) * mx + size - 1) / size, lr_hunits[p]);
+            const int size = fh.lr_unit_size[p], my = 4 >> sub_y(p);
+            const int mx = scaled ? (4 >> sub_x(p)) * fh.superres_denom : 4 >> sub_x(p), dx = scaled ? size * 8 : size;
+            const int rcol0 = (c * mx + dx - 1) / dx, rrow0 = (r * my + size - 1) / size;
+            const int rcol1 = std::min(((c + sb4) * mx + dx - 1) / dx, lr_hunits[p]);
             const int rrow1 = std::min(((r + sb4) * my + size - 1) / size, lr_vunits[p]);
             for (int rr = rrow0; rr < rrow1; rr++)
                 for (int rc = rcol0; rc < rcol1; rc++) {
@@ -3620,7 +4060,7 @@ struct Frame {
     // save_tile_row_boundary_lines with save_deblock_boundary_lines: for each
     // stripe but the first the two rows above it, and for each but the last
     // the two rows below it (the first twice where it is the plane's last
-    // row), each extended past its ends. libaom saves the frame's first and
+    // row), each upscaled where superres is on and extended past its ends. libaom saves the frame's first and
     // last rows again after CDEF (save_cdef_boundary_lines) for stripes that
     // never read them: a stripe at the plane's top or bottom reads the
     // extended frame instead.
@@ -3634,7 +4074,12 @@ struct Frame {
             lr_above[p].assign((size_t)stripes * 2 * lw, 0);
             lr_below[p].assign((size_t)stripes * 2 * lw, 0);
             auto save = [&](int y, uint8_t* line) {
-                memcpy(line + kLrBorder, px(p, y, 0), (size_t)pw);
+                if (fh.width != fh.upscaled_width) {
+                    upscale_row(p, px(p, y, 0), line + kLrBorder);
+                    stats[ST_SUPERRES_LR_ROWS]++;
+                } else {
+                    memcpy(line + kLrBorder, px(p, y, 0), (size_t)pw);
+                }
                 memset(line, line[kLrBorder], kLrBorder);
                 memset(line + kLrBorder + pw, line[kLrBorder + pw - 1], kLrBorder);
             };
@@ -3725,6 +4170,77 @@ struct Frame {
         }
         if (fh.lr_uv_shift) stats[ST_LR_UV_SHIFT]++;
     }
+
+    // -- superres (resize.c): after CDEF, before loop restoration -------------------------------------
+    // av1_upscale_normative_rows of one row of plane p: the row as decoded up
+    // to the 8-sample grid (av1_superres_upscale's copy keeps the samples
+    // past the visible ones), its first and last samples replicated past
+    // the frame's edges (upscale_normative_rect pads only there: a tile
+    // column reads its neighbours' samples), each tile column upscaled on
+    // its own with the phase carried from the one before
+    void upscale_row(int p, const uint8_t* in, uint8_t* out) const {
+        const int ssx = sub_x(p), down_w = (fh.width + ssx) >> ssx, up_w = (fh.upscaled_width + ssx) >> ssx;
+        const int in_w = (mi_cols * 4) >> ssx, pad = 8;
+        const int32_t step = superres_step(down_w, up_w);
+        int32_t x0 = superres_x0(down_w, up_w, step);
+        std::vector<uint8_t> row((size_t)in_w + 2 * pad);
+        uint8_t* e = row.data();
+        memcpy(e + pad, in, (size_t)in_w);
+        memset(e, in[0], pad);
+        memset(e + pad + in_w, in[in_w - 1], pad);
+        for (int j = 0; j < fh.tile_cols; j++) {
+            const int dx0 = fh.mi_col_starts[j] << (2 - ssx), dx1 = fh.mi_col_starts[j + 1] << (2 - ssx);
+            const int ux0 = dx0 * fh.superres_denom / 8;
+            const int ux1 = j == fh.tile_cols - 1 ? up_w : dx1 * fh.superres_denom / 8;
+            convolve_horiz_rs(e + pad + dx0 - 1, out + ux0, ux1 - ux0, x0, step);
+            x0 += (ux1 - ux0) * step - ((dx1 - dx0) << kRsBits);
+        }
+    }
+
+    // av1_superres_upscale: each plane's visible rows into a frame of the
+    // upscaled width
+    void superres() {
+        const int up_stride = ((fh.upscaled_width + 7) & ~7) + 160;
+        for (int p = 0; p < num_planes; p++) {
+            std::vector<uint8_t> up((size_t)up_stride * rows, 0);
+            for (int y = 0; y < plane_h(p); y++) upscale_row(p, px(p, y, 0), &up[(size_t)y * up_stride]);
+            plane[p].swap(up);
+        }
+        stride = up_stride;
+        stats[ST_SUPERRES + fh.superres_denom - 9]++;
+    }
+
+    // -- film grain (av1_add_film_grain), on the frame as it is output ---------------------------------
+    // the luma of an odd width or height extended to even (extend_even), the
+    // chroma of the even size, the noise of add_film_grain_run; a
+    // monochrome frame is libaom's 4:2:0 image without chroma
+    void film_grain() {
+        const FilmGrain& g = fh.grain;
+        if (!g.apply_grain) return;
+        const int w = fh.upscaled_width, h = fh.height, we = w + (w & 1), he = h + (h & 1);
+        if (w & 1)
+            for (int y = 0; y < h; y++) *px(0, y, w) = *px(0, y, w - 1);
+        if (h & 1) memcpy(px(0, h, 0), px(0, h - 1, 0), (size_t)we);
+        const int ssx = s.mono ? 1 : s.ss_x, ssy = s.mono ? 1 : s.ss_y;
+        std::vector<uint8_t> grey;
+        uint8_t *cb, *cr;
+        if (s.mono) {
+            grey.assign((size_t)stride * rows, 128);
+            cb = cr = grey.data();
+        } else {
+            cb = px(1, 0, 0);
+            cr = px(2, 0, 0);
+        }
+        GrainSynthesis(g).run(px(0, 0, 0), cb, cr, he, we, stride, stride, ssy, ssx, s.mc == 0);
+        stats[ST_GRAIN] += g.num_y_points > 0;
+        stats[ST_GRAIN + 1] += g.num_cb_points > 0 || g.chroma_scaling_from_luma;
+        stats[ST_GRAIN + 2] += g.num_cr_points > 0 || g.chroma_scaling_from_luma;
+        stats[ST_GRAIN_AR_LAG + g.ar_coeff_lag]++;
+        stats[ST_GRAIN_OVERLAP] += g.overlap_flag;
+        stats[ST_GRAIN_FROM_LUMA] += g.chroma_scaling_from_luma;
+        stats[ST_GRAIN_CLIP] += g.clip_to_restricted_range;
+        stats[ST_GRAIN_ODD] += (w | h) & 1;
+    }
 };
 
 }  // namespace
@@ -3782,7 +4298,7 @@ double now_ms() {
 
 struct Decoder {
     int32_t* stats;
-    double stage_ms[4] = {0, 0, 0, 0};  // wall ms of the tiles (syntax and reconstruction), deblocking, CDEF, LR
+    double stage_ms[6] = {0, 0, 0, 0, 0, 0};  // wall ms of the tiles, deblocking, CDEF, LR, superres, film grain
     bool decode_tiles;  // false: stop after the first frame header (av1_info)
     bool seq_ready = false, seq_changed = false;
     SeqHeader seq;
@@ -3878,7 +4394,6 @@ struct Decoder {
 
     void check_frame_supported() {
         if (seq.bit_depth != 8) fail(UNPORTED, "10/12-bit samples");
-        if (fh.width != fh.upscaled_width || fh.apply_grain) fail(UNPORTED, "superres and film grain");
     }
 
     size_t read_metadata(const uint8_t* d, size_t sz) {
@@ -4104,7 +4619,10 @@ struct Decoder {
                     // av1_decode_tg_tiles_and_wrapup: the in-loop filters once the
                     // last tile is decoded; loop restoration's stripe boundaries are
                     // saved from the deblocked frame before CDEF (without CDEF libaom
-                    // takes its "optimized" path, which reads the same rows)
+                    // takes its "optimized" path, which reads the same rows); superres
+                    // upscales the frame CDEF leaves, loop restoration filters the
+                    // upscaled one; film grain is added to the frame as
+                    // decoder_get_frame outputs it
                     const double t0 = now_ms();
                     frame->deblock();
                     const double t1 = now_ms();
@@ -4112,11 +4630,17 @@ struct Decoder {
                     const double t2 = now_ms();
                     frame->cdef();
                     const double t3 = now_ms();
-                    if (frame->lr_on()) frame->restore();
+                    if (fh.width != fh.upscaled_width) frame->superres();
                     const double t4 = now_ms();
+                    if (frame->lr_on()) frame->restore();
+                    const double t5 = now_ms();
+                    frame->film_grain();
+                    const double t6 = now_ms();
                     stage_ms[1] += t1 - t0;
                     stage_ms[2] += t3 - t2;
-                    stage_ms[3] += (t2 - t1) + (t4 - t3);
+                    stage_ms[3] += (t2 - t1) + (t5 - t4);
+                    if (fh.width != fh.upscaled_width) stage_ms[4] += t4 - t3;
+                    if (fh.grain.apply_grain) stage_ms[5] += t6 - t5;
                     frames_done++;
                 }
             }
@@ -4155,11 +4679,13 @@ void set_msg(char* msg, int len, const std::string& s) {
 
 extern "C" {
 
-// The stream's sequence and first frame headers: info = [width, height,
-// bit_depth, mono, ss_x, ss_y, color_primaries, transfer, matrix,
-// color_range, profile, still_picture, reduced header, base_q_idx, tiles,
-// allow_intrabc, allow_screen_content_tools, use_128x128]. Returns a Status;
-// UNPORTED names what is not decoded.
+// The stream's sequence and first frame headers: info = [width (after
+// superres), height, bit_depth, mono, ss_x, ss_y, color_primaries,
+// transfer, matrix, color_range, profile, still_picture, reduced header,
+// base_q_idx, tiles, allow_intrabc, allow_screen_content_tools,
+// use_128x128, the bit of the frame header where film_grain_params starts,
+// the frame header's bits]. Returns a Status; UNPORTED names what is not
+// decoded.
 int av1_info(const uint8_t* data, int64_t n, int32_t* info, char* msg, int msg_len) {
     int32_t stats[ST_COUNT] = {0};
     Decoder d;
@@ -4177,9 +4703,9 @@ int av1_info(const uint8_t* data, int64_t n, int32_t* info, char* msg, int msg_l
     }
     const SeqHeader& s = d.seq;
     const FrameHeader& f = d.fh;
-    int32_t v[18] = {f.upscaled_width, f.height, s.bit_depth, s.mono, s.ss_x, s.ss_y, s.cp, s.tc, s.mc,
+    int32_t v[20] = {f.upscaled_width, f.height, s.bit_depth, s.mono, s.ss_x, s.ss_y, s.cp, s.tc, s.mc,
                      s.color_range, s.profile, s.still_picture, s.reduced, f.base_q_idx, f.tile_cols * f.tile_rows,
-                     f.allow_intrabc, f.allow_screen_content_tools, s.use_128};
+                     f.allow_intrabc, f.allow_screen_content_tools, s.use_128, f.grain_bit, f.header_bits};
     memcpy(info, v, sizeof v);
     return OK;
 }
@@ -4239,11 +4765,38 @@ int av1_selfguided_filter(const uint8_t* src, int w, int h, int stride, int ep, 
     return OK;
 }
 
+// Superres's upscaling filter, for the tests (av1_convolve_horiz_rs_c):
+// ``h`` rows of ``w`` samples from ``src`` (the sample before the first
+// the filter centres on), from position ``x0_qn`` in steps of
+// ``x_step_qn`` (1/16384 sample).
+int av1_convolve_horiz_rs(const uint8_t* src, int src_stride, uint8_t* dst, int dst_stride, int w, int h, int x0_qn,
+                          int x_step_qn) {
+    if (w < 1 || h < 1 || x_step_qn < 1) return BAD_CALL;
+    for (int y = 0; y < h; y++) convolve_horiz_rs(src + (ptrdiff_t)y * src_stride, dst + (ptrdiff_t)y * dst_stride, w, x0_qn, x_step_qn);
+    return OK;
+}
+
+// Film grain, for the tests (add_film_grain_run): ``params`` in libaom's
+// aom_film_grain_t layout (8-bit), the even ``width`` x ``height`` luma and
+// the chroma planes of its subsampling noised in place.
+int av1_film_grain(const void* params, uint8_t* luma, uint8_t* cb, uint8_t* cr, int height, int width, int luma_stride,
+                   int chroma_stride, int ss_y, int ss_x, int mc_identity) {
+    FilmGrain g;
+    memcpy(&g, params, sizeof g);
+    if ((width | height) & 1 || width < 2 || height < 2 || g.bit_depth != 8 || g.num_y_points > 14 ||
+        g.num_cb_points > 10 || g.num_cr_points > 10 || g.ar_coeff_lag < 0 || g.ar_coeff_lag > 3 ||
+        g.scaling_shift < 8 || g.scaling_shift > 11 || g.ar_coeff_shift < 6 || g.ar_coeff_shift > 9 ||
+        g.grain_scale_shift < 0 || g.grain_scale_shift > 3 || ss_x < 0 || ss_x > 1 || ss_y < 0 || ss_y > ss_x)
+        return BAD_CALL;
+    GrainSynthesis(g).run(luma, cb, cr, height, width, luma_stride, chroma_stride, ss_y, ss_x, mc_identity);
+    return OK;
+}
+
 // Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples, Y of
 // width x height, then U and V of ((width + ss_x) >> ss_x) x ((height + ss_y)
 // >> ss_y). ``stats``: ST_COUNT tool counters; ``stage_ms`` (or null): the
-// wall ms of the tiles' syntax and reconstruction, of deblocking, of CDEF
-// and of loop restoration. Returns a Status.
+// wall ms of the tiles' syntax and reconstruction, of deblocking, of CDEF,
+// of loop restoration, of superres and of film grain. Returns a Status.
 int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, double* stage_ms,
                char* msg, int msg_len) {
     Decoder d;

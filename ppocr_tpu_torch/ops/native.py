@@ -600,7 +600,7 @@ def j2k_decode(codestream: bytes, ihdr_w: int, ihdr_h: int, numcomps: int, width
 
 AV1_INFO = ("width", "height", "bit_depth", "mono", "ss_x", "ss_y", "color_primaries", "transfer", "matrix",
             "color_range", "profile", "still_picture", "reduced_header", "base_q_idx", "tiles", "allow_intrabc",
-            "allow_screen_content_tools", "use_128x128")
+            "allow_screen_content_tools", "use_128x128", "grain_bit", "header_bits")
 # the tool counters of ``av1_decode(..., stats=...)`` (``csrc/av1.cpp``'s ST_*)
 AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "angle_delta": 37, "palette_y": 38,
              "palette_uv": 39, "filter_intra": 40, "intrabc": 41, "tiles": 42, "blocks": 43, "palette_cache": 44,
@@ -609,14 +609,16 @@ AV1_STATS = {"partition": (0, 10), "y_mode": (10, 23), "uv_mode": (23, 37), "ang
              "sub8x8_chroma": 88, "chroma_subpel_dv": 89, "cfl_subsampled": 90, "uv_tx_size": (91, 110),
              "lf_edges": (110, 122), "cdef_y": 122, "cdef_uv": 123, "cdef_skip": 124, "cdef_unset": 125,
              "cdef_bits": 126, "lr_units": (127, 136), "lr_stripes": 136, "lr_sgr_sets": (137, 153),
-             "lr_unit_sizes": (153, 157), "lr_uv_shift": 157, "lr_boundary": 158}
+             "lr_unit_sizes": (153, 157), "lr_uv_shift": 157, "lr_boundary": 158,
+             "superres": (160, 168), "superres_lr_rows": 168, "grain": (169, 172), "grain_ar_lag": (172, 176),
+             "grain_overlap": 176, "grain_from_luma": 177, "grain_clip": 178, "grain_odd": 179}
 # the deblocking filter's lengths, the order of the "lf_edges" counters within each plane's four
 AV1_LF_LENGTHS = (4, 6, 8, 14)
 # loop restoration's unit types, the order of the "lr_units" counters within each plane's three,
 # and its unit sizes, the order of the "lr_unit_sizes" counters
 AV1_LR_TYPES = ("none", "wiener", "sgrproj")
 AV1_LR_UNIT_SIZES = (32, 64, 128, 256)
-AV1_STATS_SIZE = 160  # ST_COUNT
+AV1_STATS_SIZE = 180  # ST_COUNT
 # libaom's TX_SIZE order, the order of the "tx_size" counters
 AV1_TX_SIZES = ("4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32", "32x16", "32x64",
                 "64x32", "4x16", "16x4", "8x32", "32x8", "16x64", "64x16")
@@ -650,6 +652,10 @@ def load_av1_library() -> ctypes.CDLL:
                                               ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_int16)]
             lib.av1_selfguided_filter.restype = ctypes.c_int
             lib.av1_selfguided_filter.argtypes = [u8p] + [ctypes.c_int] * 4 + [i32p, u8p, ctypes.c_int]
+            lib.av1_convolve_horiz_rs.restype = ctypes.c_int
+            lib.av1_convolve_horiz_rs.argtypes = [u8p, ctypes.c_int, u8p] + [ctypes.c_int] * 5
+            lib.av1_film_grain.restype = ctypes.c_int
+            lib.av1_film_grain.argtypes = [ctypes.c_void_p, u8p, u8p, u8p] + [ctypes.c_int] * 7
             lib.avif_yuv_to_bgr.restype = ctypes.c_int
             lib.avif_yuv_to_bgr.argtypes = [u8p] * 3 + [ctypes.c_int] * 8 + [u8p]
             _av1_lib = lib
@@ -676,9 +682,9 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
     planes [Y] or [Y, U, V] (U and V of ((height + ss_y) >> ss_y, (width +
     ss_x) >> ss_x)) or None, libaom's reason). ``stats``: an int32 array of
     ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``);
-    ``stage_ms``: a float64 array of 4 that gets the wall ms of the tiles'
-    syntax and reconstruction, of deblocking, of CDEF and of loop
-    restoration."""
+    ``stage_ms``: a float64 array of 6 that gets the wall ms of the tiles'
+    syntax and reconstruction, of deblocking, of CDEF, of loop
+    restoration, of superres and of film grain."""
     lib = load_av1_library()
     planes = 1 if info[3] else 3
     w, h, ss_x, ss_y = (int(info[k]) for k in (0, 1, 4, 5))
@@ -688,8 +694,8 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
         stats = np.zeros(AV1_STATS_SIZE, np.int32)
     if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
         raise ValueError(f"av1_decode: stats must be a contiguous int32 array of {AV1_STATS_SIZE}")
-    if stage_ms is not None and (stage_ms.dtype != np.float64 or stage_ms.size < 4 or not stage_ms.flags.c_contiguous):
-        raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 4")
+    if stage_ms is not None and (stage_ms.dtype != np.float64 or stage_ms.size < 6 or not stage_ms.flags.c_contiguous):
+        raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 6")
     msg = ctypes.create_string_buffer(256)
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
                             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -831,3 +837,54 @@ def av1_selfguided_filter(src: np.ndarray, ep: int, xqd) -> np.ndarray:
                                                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w):
         raise ValueError(f"av1_selfguided_filter: no parameter set {ep} or not two weights")
     return out
+
+
+def av1_convolve_horiz_rs(src: np.ndarray, width: int, x0_qn: int, x_step_qn: int) -> np.ndarray:
+    """Superres's upscaling filter (``av1_convolve_horiz_rs``) over the rows
+    of the uint8 array ``src``: ``width`` samples of each from position
+    ``x0_qn`` in steps of ``x_step_qn`` (1/16384 sample), ``src[:, 4]``
+    the sample before the first the 8 taps centre on (4 samples readable
+    before it, and after the last position) → [rows, width] uint8."""
+    lib = load_av1_library()
+    src = np.ascontiguousarray(src, np.uint8)
+    last = 4 + ((x0_qn + (width - 1) * x_step_qn) >> 14) + 4
+    if src.ndim != 2 or width < 1 or x_step_qn < 1 or x0_qn < 0 or last >= src.shape[1]:
+        raise ValueError(f"av1_convolve_horiz_rs: {width} samples from {x0_qn} by {x_step_qn} read past a "
+                         f"source of {src.shape}")
+    out = np.zeros((src.shape[0], width), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.av1_convolve_horiz_rs(ctypes.cast(src.ctypes.data + 4, u8p), src.shape[1], out.ctypes.data_as(u8p), width,
+                              width, src.shape[0], int(x0_qn), int(x_step_qn))
+    return out
+
+
+# the int32 fields of libaom's aom_film_grain_t (grain_params.h): name → (offset, count); the
+# 16-bit random_seed is the low half of the last
+AV1_GRAIN_FIELDS = {"apply_grain": (0, 1), "update_parameters": (1, 1), "scaling_points_y": (2, 28),
+                    "num_y_points": (30, 1), "scaling_points_cb": (31, 20), "num_cb_points": (51, 1),
+                    "scaling_points_cr": (52, 20), "num_cr_points": (72, 1), "scaling_shift": (73, 1),
+                    "ar_coeff_lag": (74, 1), "ar_coeffs_y": (75, 24), "ar_coeffs_cb": (99, 25),
+                    "ar_coeffs_cr": (124, 25), "ar_coeff_shift": (149, 1), "cb_mult": (150, 1),
+                    "cb_luma_mult": (151, 1), "cb_offset": (152, 1), "cr_mult": (153, 1), "cr_luma_mult": (154, 1),
+                    "cr_offset": (155, 1), "overlap_flag": (156, 1), "clip_to_restricted_range": (157, 1),
+                    "bit_depth": (158, 1), "chroma_scaling_from_luma": (159, 1), "grain_scale_shift": (160, 1),
+                    "random_seed": (161, 1)}
+AV1_GRAIN_SIZE = 162  # int32s: 648 bytes
+
+
+def av1_film_grain(params: np.ndarray, planes: list, ss_x: int, ss_y: int, mc_identity: bool) -> list:
+    """Film grain (``add_film_grain_run``) on copies of the uint8 planes
+    [Y, Cb, Cr] (Y of an even size, chroma of its subsampling): ``params``
+    int32 [``AV1_GRAIN_SIZE``] in libaom's ``aom_film_grain_t`` layout
+    (``AV1_GRAIN_FIELDS``, 8-bit) → the noised planes."""
+    lib = load_av1_library()
+    params = np.ascontiguousarray(params, np.int32)
+    y, cb, cr = (np.array(p, np.uint8, order="C") for p in planes)
+    h, w = y.shape
+    if params.shape != (AV1_GRAIN_SIZE,) or cb.shape != (h >> ss_y, w >> ss_x) or cr.shape != cb.shape:
+        raise ValueError(f"av1_film_grain: {AV1_GRAIN_SIZE} parameters and chroma of {h >> ss_y}x{w >> ss_x}")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if lib.av1_film_grain(params.ctypes.data, y.ctypes.data_as(u8p), cb.ctypes.data_as(u8p), cr.ctypes.data_as(u8p),
+                          h, w, w, cb.shape[1], ss_y, ss_x, int(mc_identity)):
+        raise ValueError("av1_film_grain: parameters out of their ranges, an odd size or no such subsampling")
+    return [y, cb, cr]

@@ -158,8 +158,8 @@ refusals (lossless, hierarchical and 12-bit JPEGs among them), an image
 over ``imdecode``'s size limits (where cv2 raises), and what cv2 decodes
 and this module does not: TIFF's compressions of ``TIFF_UNPORTED`` (NeXT,
 ThunderScan, SGI Log), JPEG 2000's HT code-blocks (``J2K_UNPORTED``) and
-the AVIF kinds of ``AVIF_UNPORTED`` (superres, film grain, 10/12-bit,
-grid and sequence files among them); no sniffed format is without a decoder
+the AVIF kinds of ``AVIF_UNPORTED`` (10/12-bit, grid and sequence files
+among them); no sniffed format is without a decoder
 (``FORMAT_NAMES`` is empty). ``None`` becomes the reference's own error
 response in the service. A JPEG, run-length BMP, HDR, GIF, TIFF, WebP,
 JPEG 2000 or AVIF decode raises when its host C++ cannot be built: a
@@ -2643,7 +2643,6 @@ def _j2k_reason(status: int, reason: str) -> str:
 # what cv2 5.0 decodes in an AVIF file and this module does not, by the
 # reason logged, with its ROADMAP item
 AVIF_UNPORTED = {
-    "superres and film grain": "A14.7b",
     "10/12-bit samples": "A14.7c",
     "grids": "A14.7c",
     "image sequences' first frame": "A14.7c",

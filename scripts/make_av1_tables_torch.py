@@ -43,7 +43,9 @@ How each table is found:
 
 * Loop restoration's CDFs come from the frame context like the mode
   CDFs; its self-guided tables (``av1_sgr_params``, ``av1_x_by_xplus1``,
-  ``av1_one_by_x``) are objects.
+  ``av1_one_by_x``) are objects, and so are superres's upscaling filter
+  (``av1_resize_filter_normative``) and film grain's
+  ``gaussian_sequence``.
 
 The transform tables grew the header from 112,348 to 620,891 bytes
 (+508,543), 420 kB of it the quantiser matrices.
@@ -298,6 +300,7 @@ def tables(lib: Library) -> list:
         out.append(("int16_t", scan, s))
     out += transform_tables(lib)
     out += restoration_tables(lib)
+    out += post_filter_tables(lib)
     return out
 
 
@@ -317,6 +320,20 @@ def restoration_tables(lib: Library) -> list:
     if obx.size != 25 or obx[0] != 4096 or (np.abs(obx - np.round(4096 / np.arange(1, 26))) > 0).any():
         raise SystemExit("av1_one_by_x: not round(4096 / n) for n of 1 to 25")
     return [("int32_t", "sgr_params", sgr), ("int32_t", "x_by_xplus1", xbx), ("int32_t", "one_by_x", obx)]
+
+
+def post_filter_tables(lib: Library) -> list:
+    """What runs after loop restoration: superres's normative upscaling
+    filter (``av1_resize_filter_normative``: 64 phases of 8 taps, each
+    summing to 128) and film grain's ``gaussian_sequence`` (2,048 samples
+    of [-2048, 2047], their mean near 0 and their deviation near 512)."""
+    rs = lib.object("av1_resize_filter_normative", "<i2").reshape(64, 8)
+    if not (rs.sum(1) == 128).all() or rs[0].tolist() != [0, 0, 0, 128, 0, 0, 0, 0]:
+        raise SystemExit("av1_resize_filter_normative: not 64 phases of 8 taps summing to 128 from the identity")
+    gs = lib.object("gaussian_sequence", "<i4")
+    if gs.size != 2048 or gs.min() < -2048 or gs.max() > 2047 or abs(gs.mean()) > 16 or not 400 < gs.std() < 600:
+        raise SystemExit("gaussian_sequence: not 2,048 samples of [-2048, 2047] about 0 with a deviation near 512")
+    return [("int16_t", "resize_filter_normative", rs), ("int32_t", "gaussian_sequence", gs)]
 
 
 # libaom's TX_SIZE order and each size's width and height

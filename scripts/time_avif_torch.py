@@ -12,13 +12,19 @@ quality-95 AVIF (4:2:0, BT.601 in full range, the in-loop filters off:
 ``scene0_avif_q95``) and as cv2's default AVIF (quality 50: 4:2:0, BT.601,
 deblocking and CDEF: ``scene0_avif_default``) and as cv2's default
 quality at speed 4 (the same with Wiener loop restoration on luma:
-``scene0_avif_restored``). For each, times, in turns,
+``scene0_avif_restored``) and as Pillow's 4:2:0 q60 AVIF with libaom's
+film-grain test vector 4 (``scene0_avif_grain``), and the largest
+committed superres frame (``avif_superres_case_cdef_lr``: 4:4:4, 311x256
+coded 249 wide (denominator 10), deblocked, CDEF, switchable loop restoration; the
+tests' own writer, ``tests/test_torch_avif_superres.py``). For each,
+times, in turns,
 with the median of ``--repeats`` runs each after one untimed (which builds
 ``csrc/av1.cpp``): ``decode_image`` (the boxes and the hand-over in
 Python, the AV1 decode on one host thread), the AV1 stream's decode alone
 (``native.av1_decode``), split into its stages as the decoder clocks them
 (the tiles' syntax and reconstruction, deblocking, CDEF, loop
-restoration: the medians of each over the same runs), and libavif's YUV to BGR alone
+restoration, superres, film grain: the medians of each over the same
+runs), and libavif's YUV to BGR alone
 (``native.avif_yuv_to_bgr`` of the decoded planes, with the sequence
 header's colour description), all checked equal to the committed cv2
 answer,
@@ -44,8 +50,10 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
-PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default", "scene0_avif_restored")
-STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef", "port_av1_lr")
+PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default", "scene0_avif_restored",
+            "scene0_avif_grain", "avif_superres_case_cdef_lr")
+STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef", "port_av1_lr", "port_av1_superres",
+          "port_av1_grain")
 
 
 def av1_stream(data: bytes) -> bytes:

@@ -670,18 +670,12 @@ def _refusals() -> dict:
     # subsampled chroma, every matrix and both ranges are decoded since
     # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py), and so
     # are the deblocking filter and CDEF (test_torch_avif_deblock.py,
-    # test_torch_avif_cdef.py) and loop restoration
+    # test_torch_avif_cdef.py), loop restoration
     # (test_torch_avif_restoration.py; the files once refused for them:
-    # FILTERED below): a frame is refused now only for superres or film
-    # grain
-    grain = pil_avif(img, quality=60, subsampling="4:2:0", speed=6,
-                     advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
-                               ("film-grain-test", "1")])
+    # FILTERED below), film grain and superres (test_torch_avif_grain.py,
+    # test_torch_avif_superres.py; GRAINED below): a frame is refused now
+    # only for what ROADMAP A14.7c ports
     return {
-        # a 4:2:0 frame with film grain, in a limited-range container
-        "limited": (avif_file(item_data(grain), w=48, h=32, color_props=[(ispe(48, 32), 0), (pixi(8, 8, 8), 0),
-                                                                          (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 0), 0)]),
-                    "superres and film grain (ROADMAP A14.7b)"),
         "10-bit": (cv2_avif(img.astype(np.uint16) * 4, depth=10), "10/12-bit samples (ROADMAP A14.7c)"),
         "grid": (_grid(), "grids (ROADMAP A14.7c)"),
         "sequence": (buf.getvalue(), "image sequences' first frame (ROADMAP A14.7c)"),
@@ -725,6 +719,31 @@ def _filtered() -> dict:
 FILTERED = _filtered()
 
 
+def _grained() -> dict:
+    """Files refused until film grain and superres were decoded."""
+    img = smooth(32, 48, 3, 30)
+    grain = pil_avif(img, quality=60, subsampling="4:2:0", speed=6,
+                     advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
+                               ("film-grain-test", "1")])
+    return {
+        # a 4:2:0 frame with film grain, in a limited-range container
+        "limited": avif_file(item_data(grain), w=48, h=32, color_props=[(ispe(48, 32), 0), (pixi(8, 8, 8), 0),
+                                                                         (av1c(0x00, 0x0C), 1), (colr(1, 13, 6, 0), 0)]),
+    }
+
+
+GRAINED = _grained()
+
+
+@pytest.mark.parametrize("name", list(GRAINED))
+def test_what_was_refused_for_superres_and_film_grain_decodes_as_cv2(name, tmp_path):
+    data = GRAINED[name]
+    assert answers(data) == "equal"
+    assert read_answers(data, tmp_path) == "equal"
+    stats = decode_stats(item_data(data))
+    assert stats[native.AV1_STATS["grain"][0]:native.AV1_STATS["grain"][1]].all()
+
+
 @pytest.mark.parametrize("name", list(FILTERED))
 def test_what_was_refused_for_its_in_loop_filters_decodes_as_cv2(name, tmp_path):
     data = FILTERED[name]
@@ -738,7 +757,6 @@ def test_what_was_refused_for_its_in_loop_filters_decodes_as_cv2(name, tmp_path)
 
 def test_what_the_port_does_not_decode_is_pinned():
     assert imcodec.AVIF_UNPORTED == {
-        "superres and film grain": "A14.7b",
         "10/12-bit samples": "A14.7c", "grids": "A14.7c", "image sequences' first frame": "A14.7c",
         "layered images (a1op, lsel)": "A14.7c", "a frame scaled to its ispe size": "A14.7c",
         "premultiplied alpha (prem)": "A14.7c"}

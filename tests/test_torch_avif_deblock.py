@@ -175,9 +175,9 @@ def _write_delta(w: SymbolWriter, delta: int, cdf):
 
 def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, dc_ctx: int, txs: int = 3) -> int:
     """One DCT_DCT transform of TX_32X32 (``txs`` 3; TX_16X16 with ``txs``
-    2) in plane type ``ptype``: ``coefs`` {scan index: (level 1 or 2,
-    sign)}, the last index under 5. Returns the sum of the levels (the
-    block's cul_level before its clip)."""
+    2, TX_4X4 with 0) in plane type ``ptype``: ``coefs`` {scan index:
+    (level 1 or 2, sign)}, the last index under 5. Returns the sum of the
+    levels (the block's cul_level before its clip)."""
     T = c_tables()
     side = 4 << txs
     scan = T["scan_data"][T["scan_start"][txs][0]:][:side * side]
@@ -186,8 +186,10 @@ def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, 
     eob_pt = {1: 1, 2: 2, 3: 3, 4: 3}[eob]
     if txs == 3:
         w.symbol(eob_pt - 1, T["eob_multi1024_cdfs"][qc][ptype][0], 11)
-    else:
+    elif txs == 2:
         w.symbol(eob_pt - 1, T["eob_multi256_cdfs"][qc][ptype][0], 9)
+    else:
+        w.symbol(eob_pt - 1, T["eob_multi16_cdfs"][qc][ptype][0], 5)
     if eob_pt == 3:
         w.symbol(eob - 3, T["eob_extra_cdfs"][qc][txs][ptype][0], 2)
     stride = side + 4
@@ -196,7 +198,9 @@ def write_coefficients_32x32(w: SymbolWriter, qc: int, ptype: int, coefs: dict, 
     for c in range(eob - 1, -1, -1):
         pos, level = int(scan[c]), coefs.get(c, (0, 0))[0]
         if c == eob - 1:
-            w.symbol(level - 1, T["coeff_base_eob_cdfs"][qc][txs][ptype][0 if c == 0 else 1], 3)
+            n = side * side  # get_lower_levels_ctx_eob
+            ctx = 0 if c == 0 else 1 if c <= n // 8 else 2 if c <= n // 4 else 3
+            w.symbol(level - 1, T["coeff_base_eob_cdfs"][qc][txs][ptype][ctx], 3)
         else:
             mag = sum(min(levels[at(pos) + o], 3) for o in (1, stride, stride + 1, 2 * stride, 2))
             ctx = 0 if pos == 0 else min((mag + 1) >> 1, 4) + int(nz[pos])
@@ -250,10 +254,11 @@ def _write_refsubexpfin(w: SymbolWriter, lo: int, hi: int, k: int, ref: int, val
 class _Restoration:
     """Loop restoration's unit coefficients as libaom writes them
     (loop_restoration_write_sb_coeffs): random per unit, the references
-    reset at each tile."""
+    reset at each tile; ``sizes`` the planes after superres, whose
+    ``denom`` scales a superblock's columns."""
 
-    def __init__(self, rs, types, unit, sizes, sets):
-        self.rs, self.types, self.unit, self.sets = rs, types, unit, list(sets)
+    def __init__(self, rs, types, unit, sizes, sets, denom=8):
+        self.rs, self.types, self.unit, self.sets, self.denom = rs, types, unit, list(sets), denom
         self.units = [(max((pw + unit[p] // 2) // unit[p], 1), max((ph + unit[p] // 2) // unit[p], 1))
                       for p, (pw, ph) in enumerate(sizes)]
         self.done = 0
@@ -269,9 +274,10 @@ class _Restoration:
             if not t:
                 continue
             size, (hu, vu) = self.unit[p], self.units[p]
-            mx, my = 4 >> (ss[0] if p else 0), 4 >> (ss[1] if p else 0)
-            c0, r0 = (c4 * mx + size - 1) // size, (r4 * my + size - 1) // size
-            c1, r1 = min(((c4 + sb4) * mx + size - 1) // size, hu), min(((r4 + sb4) * my + size - 1) // size, vu)
+            mx, my = (4 >> (ss[0] if p else 0)) * self.denom, 4 >> (ss[1] if p else 0)
+            dx = size * 8
+            c0, r0 = (c4 * mx + dx - 1) // dx, (r4 * my + size - 1) // size
+            c1, r1 = min(((c4 + sb4) * mx + dx - 1) // dx, hu), min(((r4 + sb4) * my + size - 1) // size, vu)
             for _ in range(r0, r1):
                 for _ in range(c0, c1):
                     self.write_unit(sw, p, t, T)
@@ -311,7 +317,7 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
                    deltas_enabled: bool = True, ref_deltas: dict = None, mode_deltas: dict = None,
                    delta_lf: str = None, delta_lf_res: int = 1, segments: dict = None, cdef=None,
                    skipped_unit=None, w: int = 256, h: int = 128, subsampling: str = "4:4:4", visible=None,
-                   tile_cols_log2: int = 0, lr=None) -> bytes:
+                   tile_cols_log2: int = 0, lr=None, superres=None) -> bytes:
     """A 4:4:4 key frame (reduced still-picture header, sRGB identity
     colours) of ``w`` x ``h`` (multiples of the superblock) in 32x32 blocks,
     each DC_PRED with a random DC and up to two of the next three
@@ -332,7 +338,13 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
     ``lr`` loop restoration: (lr_type of each plane as coded: 0 NONE, 1
     SWITCHABLE, 2 WIENER, 3 SGRPROJ; lr_unit_shift, 0-2 (0-1 with 128x128
     superblocks); lr_uv_shift; the self-guided sets the units take in
-    turn), random units drawn apart from the blocks."""
+    turn), random units drawn apart from the blocks; ``superres``
+    (denominator, upscaled width): the sequence enables superres and the
+    frame codes the denominator (9-16; 8 codes none), its blocks those of
+    the coded width (which ``visible`` no longer gives), the upscaled width
+    loop restoration's. ``q`` 0 writes a coded-lossless frame: each
+    block's planes in 4x4 Walsh-Hadamard transforms of random
+    coefficients, no deblocking, CDEF or delta q."""
     T = c_tables()
     rs = np.random.RandomState(seed)
     qc = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
@@ -354,19 +366,29 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
     cdef_index = rs.randint(0, 4, (h // 64, w // 64)) % (1 << (cdef[1] if cdef else 0))
     deltas_lf = rs.randint(-4, 5, (h // sb, w // sb, 4))
     vw, vh = visible or (w, h)
+    uw, denom = vw, 8  # the width after superres, the denominator
+    if superres is not None:
+        denom, uw = superres
+        vw = max(min(16, uw), (uw * 8 + denom // 2) // denom) if denom > 8 else uw  # av1_calculate_scaled_superres_size
+    lossless = q == 0
     assert w - 8 < vw <= w and h - 8 < vh <= h and w % 8 == 0 and h % 8 == 0
     sub = subsampling == "4:2:0"
     ss = (1, 1) if sub else (0, 0)
     seq = Bits().f(0 if sub else 1, 3).f(1, 1).f(1, 1).f(8, 5)  # profile 0 or 1, still, reduced header, level 4.0
-    seq.f((vw - 1).bit_length() - 1, 4).f((vh - 1).bit_length() - 1, 4).f(vw - 1, (vw - 1).bit_length())
+    seq.f((uw - 1).bit_length() - 1, 4).f((vh - 1).bit_length() - 1, 4).f(uw - 1, (uw - 1).bit_length())
     seq.f(vh - 1, (vh - 1).bit_length())
     seq.f(int(sb128), 1).f(0, 2)  # superblock size; no filter intra or intra edge filter
-    seq.f(0, 1).f(int(cdef is not None), 1).f(int(lr is not None), 1)  # no superres, CDEF or not, LR or not
+    seq.f(int(superres is not None), 1).f(int(cdef is not None), 1).f(int(lr is not None), 1)  # superres, CDEF, LR
     if sub:  # 8 bits, colour, BT.709 / sRGB / BT.709, full range, chroma position 0, one uv delta, no grain
         seq.f(0, 1).f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(1, 8).f(1, 1).f(0, 2).f(0, 1).f(0, 1)
     else:
         seq.f(0, 1).f(1, 1).f(1, 8).f(13, 8).f(0, 8).f(0, 1).f(0, 1)  # 8 bits, sRGB identity, one uv delta, no grain
-    head = Bits().f(1, 1).f(0, 1).f(0, 1)  # CDF updates off, no screen content tools, render size
+    head = Bits().f(1, 1).f(0, 1)  # CDF updates off, no screen content tools
+    if superres is not None:
+        head.f(int(denom > 8), 1)
+        if denom > 8:
+            head.f(denom - 9, 3)
+    head.f(0, 1)  # render size
     sb_cols, sb_rows = w // sb, h // sb
     assert not (tile_cols_log2 and segments) and tile_cols_log2 <= (sb_cols - 1).bit_length()
     head.f(1, 1)  # uniform tiles: 1 << tile_cols_log2 tile columns, one tile row
@@ -390,15 +412,19 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
                 head.f(int(v is not None), 1)
                 if v is not None:
                     head.f(_su(v, 1 + bits[j]), 1 + bits[j])
-    head.f(1, 1).f(0, 2)  # delta q present, res 0
-    head.f(int(delta_lf is not None), 1)
+    assert not (lossless and (segments or delta_lf or cdef))
+    if not lossless:
+        head.f(1, 1).f(0, 2)  # delta q present, res 0
+        head.f(int(delta_lf is not None), 1)
     if delta_lf is not None:
         head.f(delta_lf_res, 2).f(int(delta_lf == "multi"), 1)
-    head.f(levels[0], 6).f(levels[1], 6)
-    if levels[0] or levels[1]:
+    if not lossless:
+        head.f(levels[0], 6).f(levels[1], 6)
+    if not lossless and (levels[0] or levels[1]):
         head.f(levels[2], 6).f(levels[3], 6)
-    head.f(sharpness, 3).f(int(deltas_enabled), 1)
-    if deltas_enabled:
+    if not lossless:
+        head.f(sharpness, 3).f(int(deltas_enabled), 1)
+    if deltas_enabled and not lossless:
         update = bool(ref_deltas or mode_deltas)
         head.f(int(update), 1)
         if update:
@@ -414,7 +440,7 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
         for y, uv in strengths:
             head.f(y, 6).f(uv, 6)
     restoration = None
-    if lr is not None:
+    if lr is not None and not (lossless and denom == 8):  # lr_params are read unless the frame is all lossless
         types, unit_shift, uv_shift, sets = lr
         for t in types:
             head.f(t, 2)
@@ -429,10 +455,10 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
                 head.f(uv_shift, 1)
         luma_unit = (128 if sb128 else 64) << unit_shift
         chroma_unit = luma_unit >> (uv_shift if sub and any(types[1:]) else 0)
-        sizes = [(vw, vh)] + [((vw + ss[0]) >> ss[0], (vh + ss[1]) >> ss[1])] * 2
+        sizes = [(uw, vh)] + [((uw + ss[0]) >> ss[0], (vh + ss[1]) >> ss[1])] * 2
         restoration = _Restoration(np.random.RandomState(seed + 7919), types, (luma_unit, chroma_unit, chroma_unit),
-                                   sizes, sets)
-    head.f(0, 2)  # TX_MODE_LARGEST, the full transform sets
+                                   sizes, sets, denom)
+    head.f(0, 1 if lossless else 2)  # TX_MODE_LARGEST (ONLY_4X4 in a lossless frame), the full transform sets
     head.bits += [0] * (-len(head.bits) % 8)
     sw = SymbolWriter()
     ctx = {p: (np.zeros(w // (8 if p and sub else 4), int), np.zeros(h // (8 if p and sub else 4), int))
@@ -461,7 +487,7 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
             for i in range(cdef_bits - 1, -1, -1):
                 sw.bit((int(cdef_index[unit]) >> i) & 1)
             cdef_done.add(unit)
-        if r % (sb // 32) == 0 and c % (sb // 32) == 0:  # the superblock's first block: delta q and lf
+        if not lossless and r % (sb // 32) == 0 and c % (sb // 32) == 0:  # the superblock's first block: delta q, lf
             sbr, sbc = r // (sb // 32), c // (sb // 32)
             _write_delta(sw, int(delta_q[sbr, sbc]), T["delta_q_lf_cdfs"][0])
             if delta_lf == "single":
@@ -470,13 +496,19 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
                 for i in range(4):
                     _write_delta(sw, int(deltas_lf[sbr, sbc, i]), T["delta_q_lf_cdfs"][1 + i])
         sw.symbol(0, T["kf_y_mode_cdf"][0][0], 13)  # DC_PRED
-        sw.symbol(0, T["uv_mode_cdf"][1][0], 14)  # DC_PRED, CFL allowed
+        if lossless:  # is_cfl_allowed: not in a lossless block larger than its 4x4 transforms
+            sw.symbol(0, T["uv_mode_cdf"][0][0], 13)
+        else:
+            sw.symbol(0, T["uv_mode_cdf"][1][0], 14)  # DC_PRED, CFL allowed
         for p in range(3):
             k = 4 if p and sub else 8
             cols, rows = slice(k * c, k * c + k), slice(k * r, k * r + k)
             above, lft = ctx[p]
             if skip[r, c]:
                 above[cols], lft[rows] = 0, 0
+                continue
+            if lossless:
+                lossless_txbs(p, k, cols, rows, above, lft)
                 continue
             coef = dc[p][r][c]
             skip_ctx = 0 if p == 0 else 7 + int(above[cols].any()) + int(lft[rows].any())
@@ -488,6 +520,25 @@ def filtered_frame(seed: int, *, sb128: bool = False, q: int = 200, levels=(6, 5
             cul = write_coefficients_32x32(sw, qc, int(p > 0), coef, 1 if s < 0 else 2 if s else 0,
                                            2 if p and sub else 3)
             above[cols] = lft[rows] = min(cul, 7) | (8 if coef[0][1] else 16)
+
+    skip_contexts = ((1, 2, 2, 2, 3), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5), (2, 4, 4, 4, 5), (3, 5, 5, 5, 6))
+
+    def lossless_txbs(p, k, cols, rows, above, lft):  # a block's k x k 4x4 transforms in plane p, in raster order
+        for i in range(k):
+            for j in range(k):
+                a, l = above[cols.start + j], lft[rows.start + i]
+                coef = coefs() if rs.rand() < 0.5 else None
+                if p == 0:  # get_txb_ctx: the block is larger than its transforms
+                    skip_ctx = skip_contexts[min(a & 7, 4)][min(l & 7, 4)]
+                else:
+                    skip_ctx = 10 + int(a != 0) + int(l != 0)
+                sw.symbol(int(coef is None), T["txb_skip_cdfs"][0][0][skip_ctx], 2)
+                if coef is None:
+                    above[cols.start + j] = lft[rows.start + i] = 0
+                    continue
+                s = sign_of(a) + sign_of(l)
+                cul = write_coefficients_32x32(sw, 0, int(p > 0), coef, 1 if s < 0 else 2 if s else 0, 0)
+                above[cols.start + j] = lft[rows.start + i] = min(cul, 7) | (8 if coef[0][1] else 16)
 
     tiles = []
     for t, start in enumerate(tile_starts):

@@ -354,10 +354,10 @@ def test_every_type_set_unit_size_and_the_stripe_edges_are_reached():
 
 def test_loop_restoration_has_its_stage_time():
     stream = item_data(encoder_files()["cv2_scene_q50_speed4"])
-    ms = np.zeros(4)
+    ms = np.zeros(6)
     status, _, _ = native.av1_decode(stream, native.av1_info(stream)[1], stage_ms=ms)
     assert status == 0 and (ms >= 0).all() and ms[3] > 0
-    with pytest.raises(ValueError, match="array of 4"):
+    with pytest.raises(ValueError, match="array of 6"):
         native.av1_decode(stream, native.av1_info(stream)[1], stage_ms=np.zeros(3))
 
 

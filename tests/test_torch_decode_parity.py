@@ -397,15 +397,15 @@ def _refused():
     # test_torch_avif_deblock.py, test_torch_avif_cdef.py), and so are
     # frames whose loop restoration runs (test_torch_avif_restoration.py:
     # cv2's default quality at speed 4 of this photo-like image, once the
-    # case here), but not a frame with film grain, ``imcodec.AVIF_UNPORTED``:
-    # Pillow's 4:2:0 file with libaom's film grain test vector 1 is refused
-    # with a line naming A14.7b
-    from test_torch_avif import pil_avif, smooth
+    # case here) and frames with film grain or superres
+    # (test_torch_avif_grain.py, test_torch_avif_superres.py: Pillow's
+    # film-grain file, once the case here), but not more than 8 bits,
+    # ``imcodec.AVIF_UNPORTED``: cv2's 10-bit file is refused with a line
+    # naming A14.7c
+    from test_torch_avif import cv2_avif, smooth
 
-    grain = pil_avif(smooth(64, 96, 3, 9), quality=60, subsampling="4:2:0", speed=6,
-                     advanced=[("enable-cdef", "0"), ("enable-restoration", "0"), ("loopfilter-control", "0"),
-                               ("film-grain-test", "1")])
-    cases["avif"] = (grain, "superres and film grain (ROADMAP A14.7b)", True)
+    deep = cv2_avif(smooth(64, 96, 3, 9).astype(np.uint16) * 4, depth=10)
+    cases["avif"] = (deep, "10/12-bit samples (ROADMAP A14.7c)", True)
     # WebP is decoded since, lossless and lossy (tests/test_torch_webp.py,
     # tests/test_torch_webp_lossy.py)
     # TIFF is decoded since, JPEG-compressed too, but not the compressions
@@ -443,7 +443,7 @@ def test_what_is_still_refused_gives_none_and_a_log_line_naming_it(name, caplog)
     by the port: the known difference, held here so that it cannot grow
     unnoticed. A JPEG 2000 file is refused only for what
     ``imcodec.J2K_UNPORTED`` names (HT code-blocks here), an AVIF file only
-    for what ``imcodec.AVIF_UNPORTED`` names (film grain here).
+    for what ``imcodec.AVIF_UNPORTED`` names (10-bit samples here).
     No WebP is refused for its kind any more, and no format is left
     undecoded (``imcodec.FORMAT_NAMES`` is empty)."""
     data, reason, cv2_decodes = _refused()[name]

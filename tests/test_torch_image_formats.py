@@ -1385,7 +1385,8 @@ def write():
     from ``tests/test_torch_avif_lossy.py``'s, cv2's quality-95 4:2:0 one
     from ``tests/test_torch_avif_chroma.py``'s, cv2's and Pillow's default
     ones from ``tests/test_torch_avif_deblock.py``'s, cv2's speed-4 one
-    from ``tests/test_torch_avif_restoration.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
+    from ``tests/test_torch_avif_restoration.py``'s, Pillow's film-grain
+    one from ``tests/test_torch_avif_grain.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
     2 or 4 the columns cv2 does not write are stored as 0, as the port
     gives them."""
@@ -1488,13 +1489,17 @@ def write():
     import test_torch_avif_chroma as avif_chroma
     import test_torch_avif_deblock as avif_filtered
     import test_torch_avif_lossy as avif_lossy
+    import test_torch_avif_grain as avif_grain
     import test_torch_avif_restoration as avif_restored
+    import test_torch_avif_superres as avif_superres
 
     cases.update({f"avif_{k}": v for k, v in avif.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_lossy.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_chroma.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_filtered.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_restored.written_cases().items()})
+    cases.update({f"avif_{k}": v for k, v in avif_grain.written_cases().items()})
+    cases.update({f"avif_{k}": v for k, v in avif_superres.written_cases().items()})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(j2k.scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(avif.scene_payload(assets.load_scenes()["serving"][0]))
@@ -1502,6 +1507,7 @@ def write():
     cases.update(avif_chroma.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_filtered.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_restored.scene_payload(assets.load_scenes()["serving"][0]))
+    cases.update(avif_grain.scene_payload(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
         out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
@@ -1570,7 +1576,13 @@ def fuzz(rounds: int) -> int:
     mutations of each of its 7, 14,000 files a round) and the loop-restored
     bases of ``tests/test_torch_avif_restoration.py`` (Wiener, self-guided
     and switchable units in 4:4:4 and 4:2:0, both superblock sizes: 2,000
-    mutations of each of its 7, 14,000 files a round). Prints the counts;
+    mutations of each of its 7, 14,000 files a round) and the film-grain
+    bases of ``tests/test_torch_avif_grain.py`` (Pillow's test vectors in
+    4:2:0 and 4:4:4, regrained 4:2:2, chroma from luma and monochrome:
+    2,000 mutations of each of its 5, 10,000 files a round) and the
+    superres bases of ``tests/test_torch_avif_superres.py`` (4:4:4 and
+    4:2:0 with loop restoration, two tile columns, CDEF, coded lossless:
+    2,000 mutations of each of its 5, 10,000 files a round). Prints the counts;
     returns the number of files that differ (a TIFF, WebP, JPEG 2000 or
     AVIF file of a kind the port names as not decoded, which garbling can
     reach, is counted apart)."""
@@ -1592,11 +1604,14 @@ def fuzz(rounds: int) -> int:
     import test_torch_avif_chroma as avif_chroma
     import test_torch_avif_deblock as avif_filtered
     import test_torch_avif_lossy as avif_lossy
+    import test_torch_avif_grain as avif_grain
     import test_torch_avif_restoration as avif_restored
+    import test_torch_avif_superres as avif_superres
 
     files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = j2k_files = j2k_bad = 0
     avif_files = avif_bad = avif_lossy_files = avif_lossy_bad = avif_chroma_files = avif_chroma_bad = 0
     avif_filtered_files = avif_filtered_bad = avif_restored_files = avif_restored_bad = 0
+    avif_grain_files = avif_grain_bad = avif_superres_files = avif_superres_bad = 0
     webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
@@ -1660,12 +1675,17 @@ def fuzz(rounds: int) -> int:
         chroma_datas = avif_chroma.fuzz_files(r)
         filtered_datas = avif_filtered.fuzz_files(r)
         restored_datas = avif_restored.fuzz_files(r)
-        datas = avif.fuzz_files(r) + lossy_datas + chroma_datas + filtered_datas + restored_datas
+        grain_datas = avif_grain.fuzz_files(r)
+        superres_datas = avif_superres.fuzz_files(r)
+        tail = grain_datas + superres_datas  # counted apart, after the others
+        datas = avif.fuzz_files(r) + lossy_datas + chroma_datas + filtered_datas + restored_datas + tail
         avif_files += len(datas)
         avif_lossy_files += len(lossy_datas)
         avif_chroma_files += len(chroma_datas)
         avif_filtered_files += len(filtered_datas)
         avif_restored_files += len(restored_datas)
+        avif_grain_files += len(grain_datas)
+        avif_superres_files += len(superres_datas)
         files += len(datas)
         logging.disable(logging.NOTSET)  # "known" is told by the refusal's log line
         try:
@@ -1673,6 +1693,9 @@ def fuzz(rounds: int) -> int:
         finally:
             logging.disable(logging.WARNING)
         avif_bad += sum(a not in ("none", "equal", "known") for a in got)
+        got, got_tail = got[:len(got) - len(tail)], got[len(got) - len(tail):]
+        avif_grain_bad += sum(a not in ("none", "equal", "known") for a in got_tail[:len(grain_datas)])
+        avif_superres_bad += sum(a not in ("none", "equal", "known") for a in got_tail[len(grain_datas):])
         n_lossy, n_chroma, n_filtered = len(lossy_datas), len(chroma_datas), len(filtered_datas)
         n_restored = len(restored_datas)
         end_chroma = len(got) - n_filtered - n_restored
@@ -1681,6 +1704,7 @@ def fuzz(rounds: int) -> int:
         avif_chroma_bad += sum(a not in ("none", "equal", "known") for a in got[end_chroma - n_chroma:end_chroma])
         avif_filtered_bad += sum(a not in ("none", "equal", "known") for a in got[end_chroma:len(got) - n_restored])
         avif_restored_bad += sum(a not in ("none", "equal", "known") for a in got[len(got) - n_restored:])
+        got += got_tail
         bad += sum(a not in ("none", "equal", "known") for a in got)
         known += got.count("known")
         print(f"round {r + 1}: {files} files ({fax_files} fax TIFFs, {jpeg_files} JPEG TIFFs, {webp_files} WebPs, "
@@ -1689,7 +1713,9 @@ def fuzz(rounds: int) -> int:
               f"{avif_lossy_bad} of those differing, {avif_chroma_files} of the 4:2:0 and 4:2:2 bases, "
               f"{avif_chroma_bad} of those differing, {avif_filtered_files} of the deblocked and CDEF bases, "
               f"{avif_filtered_bad} of those differing, {avif_restored_files} of the loop-restored bases, "
-              f"{avif_restored_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
+              f"{avif_restored_bad} of those differing, {avif_grain_files} of the film-grain bases, "
+              f"{avif_grain_bad} of those differing, {avif_superres_files} of the superres bases, "
+              f"{avif_superres_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
               f"({known} TIFFs, WebPs, JPEG 2000 or AVIF files of a kind named as not decoded)", flush=True)
     return bad
 
