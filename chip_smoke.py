@@ -190,10 +190,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
     same with Wiener loop restoration on luma, the ``avif_restored_vs_cv2``
     count) and as Pillow's 4:2:0 q60 file with libaom's film-grain test
     vector 4 (the ``avif_grain_vs_cv2`` and ``avif_superres_vs_cv2``
-    counts), and each file (as data) against the PNG of cv2's pixels: the
-    same words exactly, with one ``ctc_topk`` launch each ("avif service",
-    "lossy avif service", "subsampled avif service", "default avif
-    service", "restored avif service", "grain avif service"); a
+    counts) and as the first frame of cv2's lossless animation (an
+    ``avis`` file: the ``avif_sequence_vs_cv2`` count, and the host ms of
+    its boxes' parse, the moov's sample tables included), and each file (as
+    data) against the PNG of cv2's pixels: the same words exactly, with one
+    ``ctc_topk`` launch each ("avif service", "lossy avif service",
+    "subsampled avif service", "default avif service", "restored avif
+    service", "grain avif service", "sequence avif service"); a
     grey PFM sent as data gets the in-process worker's error response (the
     JAX service's answer, held on the CPU by
     ``tests/test_torch_image_formats.py``), and sent by path the "Failed to
@@ -1517,7 +1520,7 @@ class Smoke:
                  "scene0_hdr_rle", "scene0_gif", "scene0_tiff_none", "scene0_tiff_lzw", "scene0_tiff_packbits",
                  "scene0_tiff_deflate") + fax_timed + jpeg_timed + ("scene0_webp", "scene0_webp_palette") + lossy_timed \
             + j2k_timed + ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default",
-                           "scene0_avif_restored", "scene0_avif_grain")
+                           "scene0_avif_restored", "scene0_avif_grain", "scene0_avif_sequence")
         bare_jpeg = self.assets.load_jpeg_cases()[0]["scene0"][0]  # phase 11's q95 4:2:0 scene0
         payloads = {**{n: cases[n][0] for n in timed}, "scene0_jpeg": bare_jpeg}
         fax = [0, 0]  # CCITT fax TIFF cases, of them None
@@ -1532,6 +1535,7 @@ class Smoke:
         avif_restored = [0, 0]  # of them loop-restored (cv2's, Pillow's, written), of them None
         avif_grain = [0, 0]  # of them with film grain (Pillow's test vectors, regrained streams), of them None
         avif_superres = [0, 0]  # of them upscaled by superres (written frames), of them None
+        avif_sequence = [0, 0]  # of them image sequences (cv2's, Pillow's, written tracks and samples), of them None
         ms = {n: [] for n in payloads}
         logging.disable(logging.WARNING)  # each refusal logs a line
         try:
@@ -1552,6 +1556,7 @@ class Smoke:
                 is_avif_restored = name.startswith("avif_restored_") or name == "scene0_avif_restored"
                 is_avif_grain = name.startswith("avif_grain_") or name == "scene0_avif_grain"
                 is_avif_superres = name.startswith("avif_superres_")
+                is_avif_sequence = name.startswith("avif_sequence_") or name == "scene0_avif_sequence"
                 j2k[0] += is_j2k
                 avif[0] += is_avif
                 avif_lossy[0] += is_avif_lossy
@@ -1560,6 +1565,7 @@ class Smoke:
                 avif_restored[0] += is_avif_restored
                 avif_grain[0] += is_avif_grain
                 avif_superres[0] += is_avif_superres
+                avif_sequence[0] += is_avif_sequence
                 fax[0] += is_fax
                 jpeg_tiff[0] += is_jpeg
                 lossy[0] += is_lossy
@@ -1580,6 +1586,7 @@ class Smoke:
                     avif_restored[1] += is_avif_restored
                     avif_grain[1] += is_avif_grain
                     avif_superres[1] += is_avif_superres
+                    avif_sequence[1] += is_avif_sequence
                 elif got is None or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"case {name}: the decode differs from cv2's")
             for _ in range(26):
@@ -1675,6 +1682,24 @@ class Smoke:
             raise AssertionError(f"scene0_avif_grain adds no grain to some plane or without overlap: {status} {why} "
                                  f"{grain_planes.tolist()}")
         avif_grain_png = encode_png(cases["scene0_avif_grain"][1])
+        # the scene as the first frame of cv2's lossless animation (two flat
+        # grey frames after it): its pixels are the lossless still's
+        avif_sequence_data = cases["scene0_avif_sequence"][0]
+        if sniff_format(avif_sequence_data) != "avif" or not (decode_image(avif_sequence_data)
+                                                             == cases["scene0_avif"][1]).all():
+            raise AssertionError("scene0_avif_sequence is not an AVIF that decodes to the lossless scene's pixels")
+        sequence_tracks = imcodec._avif_parse(avif_sequence_data)[2]
+        if avif_sequence_data[8:12] != b"avis" or not sequence_tracks or len(sequence_tracks[0].sizes) != 3:
+            raise AssertionError("scene0_avif_sequence is not an 'avis' file of one track of 3 samples")
+        parse_ms = []
+        for _ in range(26):
+            t1 = time.perf_counter()
+            imcodec._avif_parse(avif_sequence_data)
+            parse_ms.append((time.perf_counter() - t1) * 1e3)
+        print(json.dumps({"metric": "avif_sequence_moov_parse_ms", "value": statistics.median(parse_ms[1:]),
+                          "what": "host wall ms of the boxes' parse (ftyp, meta, the moov and its sample tables) "
+                          "of scene0_avif_sequence, median of 25 after one untimed", "card": card_line()}), flush=True)
+        avif_sequence_png = encode_png(cases["scene0_avif"][1])
         if not want_jpeg_tiff:
             raise AssertionError("the one-strip JPEG TIFF: no words in process")
         by_path = {}
@@ -1857,6 +1882,22 @@ class Smoke:
                                          "equal")
                 words["scene0_avif_grain"] = len(got_avif_grain["words"])
                 before = service_launches(c)
+                got_avif_sequence = c.send_request(req(avif_sequence_data))
+                self.launches["sequence avif service"] = launched_avif_sequence = launches_since(
+                    c, before, "sequence AVIF")
+                if launched_avif_sequence["ctc_topk"] != 1:
+                    raise AssertionError(f"the sequence AVIF request: {launched_avif_sequence}, not 1 ctc_topk launch")
+                want = c.send_request(req(avif_sequence_png))
+                if not got_avif_sequence.get("success") or not want.get("words"):
+                    raise AssertionError(f"sequence AVIF: {str(got_avif_sequence)[:200]} / {str(want)[:200]}")
+                check_words(got_avif_sequence["words"], want["words"], "cv2's lossless animation vs the PNG of its "
+                            "first frame")
+                if ([(w["text"], w["box"]) for w in got_avif_sequence["words"]]
+                        != [(w["text"], w["box"]) for w in want["words"]]):
+                    raise AssertionError("the sequence AVIF's words are not the PNG's: the texts and boxes must be "
+                                         "equal")
+                words["scene0_avif_sequence"] = len(got_avif_sequence["words"])
+                before = service_launches(c)
                 got = {name: c.send_request(req(data)) for name, data in others.items()}
                 self.launches["hdr gif service"] = launched_hdr_gif = launches_since(c, before, "HDR and GIF")
                 for name, data in others.items():
@@ -1917,6 +1958,10 @@ class Smoke:
             "avif_superres_vs_cv2": f"{avif_superres[0]} of them upscaled by superres (written frames of each "
             f"denominator 9-16 in 4:4:4 and 4:2:0, two tile columns, CDEF, loop restoration, coded lossless; "
             f"damaged), {avif_superres[1]} of them None",
+            "avif_sequence_vs_cv2": f"{avif_sequence[0]} of them image sequences' first frames (cv2's and "
+            f"Pillow's animations, lossless and lossy, alpha tracks, odd sizes; written moov boxes, sample tables, "
+            f"brands and tracks; samples of several frames, hidden key frames; the scene as cv2's lossless "
+            f"animation; damaged), {avif_sequence[1]} of them None",
             "scene0_avif_restored_lr_units [plane][none, wiener, sgrproj]": lr_units.tolist(),
             "scene0_avif_grain_planes [y, cb, cr]": grain_planes.tolist(),
             "cases_by_format": {k: {"cases": v[0], "none": v[1]} for k, v in sorted(counts.items())},
@@ -1935,8 +1980,9 @@ class Smoke:
             "launches_of_the_default_avif_request": launched_avif_default,
             "launches_of_the_restored_avif_request": launched_avif_restored,
             "launches_of_the_grain_avif_request": launched_avif_grain,
+            "launches_of_the_sequence_avif_request": launched_avif_sequence,
             "grey_pfm_answers": {k: v.get("error") for k, v in grey_pfm.items()},
-            "what": "host wall ms, median of 25 after one untimed, the thirty-four payloads in turns; "
+            "what": "host wall ms, median of 25 after one untimed, the thirty-five payloads in turns; "
             "ras_rle is byte-encoded, which cv2 5.0 refuses: its time is the refusal's; jpeg is phase 11's "
             "bare scene0 JPEG, tiff_jpeg_onestrip the same stream as a TIFF's one strip",
             "card": card_line()}), flush=True)

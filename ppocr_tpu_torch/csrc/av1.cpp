@@ -81,6 +81,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -192,8 +193,10 @@ struct SeqHeader {
     int timing_info_present = 0, equal_picture_interval = 0;
     int decoder_model_info_present = 0, buffer_delay_length = 0, buffer_removal_time_length = 0,
         frame_presentation_time_length = 0;
+    uint32_t timing[4] = {0, 0, 0, 0};  // display tick, time scale, ticks per picture, decoding tick
+    int display_model = 0;
     int op_count = 1;
-    int op_idc[32] = {0}, seq_level[32] = {0}, decoder_model_present[32] = {0};
+    int op_idc[32] = {0}, seq_level[32] = {0}, tier[32] = {0}, decoder_model_present[32] = {0};
     int width_bits = 0, height_bits = 0, max_width = 0, max_height = 0;
     int frame_id_numbers_present = 0, delta_frame_id_length = 0, frame_id_length = 0;
     int use_128 = 0, enable_filter_intra = 0, enable_intra_edge_filter = 0;
@@ -233,26 +236,26 @@ SeqHeader read_sequence_header(BitReader& rb) {
     } else {
         s.timing_info_present = rb.bit1();
         if (s.timing_info_present) {
-            rb.f(32);
-            rb.f(32);
+            s.timing[0] = rb.f(32);
+            s.timing[1] = rb.f(32);
             s.equal_picture_interval = rb.bit1();
-            if (s.equal_picture_interval && rb.uvlc() == UINT32_MAX)
+            if (s.equal_picture_interval && (s.timing[2] = rb.uvlc()) == UINT32_MAX)
                 fail(HEADER_ERROR, "num_ticks_per_picture_minus_1 of 2^32 - 1");
             s.decoder_model_info_present = rb.bit1();
             if (s.decoder_model_info_present) {
                 s.buffer_delay_length = rb.f(5) + 1;
-                rb.f(32);
+                s.timing[3] = rb.f(32);
                 s.buffer_removal_time_length = rb.f(5) + 1;
                 s.frame_presentation_time_length = rb.f(5) + 1;
             }
         }
-        int display_model = rb.bit1();
+        const int display_model = s.display_model = rb.bit1();
         s.op_count = rb.f(5) + 1;
         for (int i = 0; i < s.op_count; i++) {
             s.op_idc[i] = rb.f(12);
             s.seq_level[i] = rb.f(5);
             if (!valid_level(s.seq_level[i])) fail(HEADER_ERROR, "invalid seq_level_idx");
-            if (s.seq_level[i] > 7) rb.bit1();
+            if (s.seq_level[i] > 7) s.tier[i] = rb.bit1();
             if (s.decoder_model_info_present) {
                 s.decoder_model_present[i] = rb.bit1();
                 if (s.decoder_model_present[i]) {
@@ -356,7 +359,21 @@ bool same_sequence(const SeqHeader& a, const SeqHeader& b) {
            a.enable_cdef == b.enable_cdef && a.enable_restoration == b.enable_restoration &&
            a.bit_depth == b.bit_depth && a.mono == b.mono && a.cp == b.cp && a.tc == b.tc && a.mc == b.mc &&
            a.color_range == b.color_range && a.ss_x == b.ss_x && a.ss_y == b.ss_y &&
-           a.separate_uv_delta_q == b.separate_uv_delta_q && a.film_grain_present == b.film_grain_present;
+           a.separate_uv_delta_q == b.separate_uv_delta_q && a.film_grain_present == b.film_grain_present &&
+           a.frame_id_length == b.frame_id_length && a.delta_frame_id_length == b.delta_frame_id_length &&
+           a.enable_interintra == b.enable_interintra && a.enable_masked == b.enable_masked &&
+           a.enable_warped == b.enable_warped && a.enable_dual == b.enable_dual && a.enable_jnt == b.enable_jnt &&
+           a.enable_ref_frame_mvs == b.enable_ref_frame_mvs &&
+           a.chroma_sample_position == b.chroma_sample_position && a.timing_info_present == b.timing_info_present &&
+           a.equal_picture_interval == b.equal_picture_interval &&
+           !memcmp(a.timing, b.timing, sizeof a.timing) &&
+           a.decoder_model_info_present == b.decoder_model_info_present &&
+           a.buffer_delay_length == b.buffer_delay_length &&
+           a.buffer_removal_time_length == b.buffer_removal_time_length &&
+           a.frame_presentation_time_length == b.frame_presentation_time_length &&
+           a.display_model == b.display_model && a.op_count == b.op_count &&
+           !memcmp(a.op_idc, b.op_idc, sizeof a.op_idc) && !memcmp(a.seq_level, b.seq_level, sizeof a.seq_level) &&
+           !memcmp(a.tier, b.tier, sizeof a.tier);
 }
 
 // -- the frame header ----------------------------------------------------------------
@@ -384,6 +401,8 @@ static_assert(sizeof(FilmGrain) == 648, "aom_film_grain_t's layout");
 
 struct FrameHeader {
     int show_existing = 0, frame_type = KEY_FRAME, show_frame = 1, showable = 0, error_resilient = 1;
+    int show_idx = 0, frame_id = 0, order_hint = 0, refresh = 0xFF;  // frame_to_show_map_idx, refresh_frame_flags
+    int ref_order_hint[8] = {-1, -1, -1, -1, -1, -1, -1, -1};      // as read (error resilient), -1 unread
     int disable_cdf_update = 0, allow_screen_content_tools = 0, force_integer_mv = 0;
     int width = 0, height = 0, upscaled_width = 0, superres_denom = 8;
     int allow_intrabc = 0, disable_frame_end_update_cdf = 1;
@@ -495,14 +514,18 @@ void read_film_grain(BitReader& rb, const SeqHeader& s, FrameHeader& fh) {
     g.clip_to_restricted_range = rb.bit1();
 }
 
-// the uncompressed header of the first frame of a still picture (read_uncompressed_header)
+// the uncompressed header of a key frame, shown or not, or of a
+// show_existing_frame (read_uncompressed_header); the slots it refers to are
+// the decoder's to check
 FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id, int spatial_id) {
     FrameHeader fh;
     if (!s.reduced) {
         fh.show_existing = rb.bit1();
         if (fh.show_existing) {
-            rb.f(3);
-            fail(HEADER_ERROR, "Buffer does not contain a decoded frame");
+            fh.show_idx = rb.f(3);
+            if (s.decoder_model_info_present && !s.equal_picture_interval) rb.f(s.frame_presentation_time_length);
+            if (s.frame_id_numbers_present) fh.frame_id = rb.f(s.frame_id_length);
+            return fh;
         }
         fh.frame_type = rb.f(2);
         fh.show_frame = rb.bit1();
@@ -514,15 +537,14 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
         fh.error_resilient =
             (fh.frame_type == SWITCH_FRAME || (fh.frame_type == KEY_FRAME && fh.show_frame)) ? 1 : rb.bit1();
     }
-    if (fh.frame_type != KEY_FRAME || !fh.show_frame)
-        fail(UNPORTED, "image sequences' first frame");  // a frame that needs or makes references
+    if (fh.frame_type != KEY_FRAME) fail(UNPORTED, "inter and intra-only frames");
     fh.disable_cdf_update = rb.bit1();
     fh.allow_screen_content_tools = s.force_screen_content_tools == 2 ? rb.bit1() : s.force_screen_content_tools;
     if (fh.allow_screen_content_tools) fh.force_integer_mv = s.force_integer_mv == 2 ? rb.bit1() : s.force_integer_mv;
     fh.force_integer_mv = 1;  // FrameIsIntra
-    if (s.frame_id_numbers_present) rb.f(s.frame_id_length);
+    if (s.frame_id_numbers_present) fh.frame_id = rb.f(s.frame_id_length);
     int frame_size_override = s.reduced ? 0 : rb.bit1();
-    if (s.enable_order_hint) rb.f(s.order_hint_bits);
+    if (s.enable_order_hint) fh.order_hint = rb.f(s.order_hint_bits);
     // primary_ref_frame: PRIMARY_REF_NONE for an intra frame
     if (s.decoder_model_info_present) {
         if (rb.bit1()) {  // buffer_removal_time_present
@@ -534,7 +556,13 @@ FrameHeader read_frame_header(BitReader& rb, const SeqHeader& s, int temporal_id
             }
         }
     }
-    // refresh_frame_flags: all frames for a shown key frame
+    // refresh_frame_flags: all frames for a shown key frame; a hidden one
+    // names them, and an error-resilient one the order hints of the others
+    if (!fh.show_frame) {
+        fh.refresh = rb.f(8);
+        if (fh.refresh != 0xFF && fh.error_resilient && s.enable_order_hint)
+            for (int i = 0; i < 8; i++) fh.ref_order_hint[i] = rb.f(s.order_hint_bits);
+    }
     // frame_size(), superres_params(), render_size()
     if (frame_size_override) {
         fh.width = rb.f(s.width_bits) + 1;
@@ -2045,8 +2073,9 @@ enum {
 };
 
 struct Frame {
-    const SeqHeader& s;
-    const FrameHeader& fh;
+    const SeqHeader s;
+    const FrameHeader fh;
+    bool showable = false;  // a hidden frame not yet shown by show_existing_frame
     int num_planes, mi_rows, mi_cols, stride, rows;
     std::vector<uint8_t> plane[3];
     std::vector<BlockInfo> blocks;
@@ -4303,10 +4332,20 @@ struct Decoder {
     bool seq_ready = false, seq_changed = false;
     SeqHeader seq;
     int current_op = 0;
-    FrameHeader fh;
+    FrameHeader fh, first_fh;  // the frame's header; the first frame's, which av1_info reports
     bool have_frame = false;
-    Frame* frame = nullptr;
-    int frames_done = 0, next_start_tile = 0;
+    std::shared_ptr<Frame> frame, out;  // the frame being decoded; the frame output last (libaom outputs the last shown)
+    int next_start_tile = 0;
+    // libaom's reference slots as key frames fill them: the frame each holds
+    // (a placeholder of an error-resilient frame's order hint holds none),
+    // its frame id and order hint, and whether it may be referred to
+    struct Slot {
+        std::shared_ptr<Frame> frame;
+        bool filled = false, valid = false;
+        int id = 0, order_hint = 0;
+    } slots[8];
+    bool first_in_sequence = true;  // pbi->decoding_first_frame
+    int prev_frame_id = 0;
 
     // decoder_peek_si_internal: a key frame after a sequence header, or the
     // stream is refused before it is decoded
@@ -4385,6 +4424,83 @@ struct Decoder {
             if (!read_obu_header_and_size(data, n, h, payload, bytes_read, why)) fail(HEADER_ERROR, why);
         }
         if (!(got_seq && found_key) && !intra_only) fail(HEADER_ERROR, "no key frame after a sequence header");
+    }
+
+    // read_uncompressed_header for a key frame: a new sequence header
+    // starts a new coded video sequence; frame ids and the slots an
+    // error-resilient hidden frame names by order hint
+    void start_key_frame() {
+        if (seq_changed) {
+            seq_changed = false;
+            first_in_sequence = true;
+            for (Slot& sl : slots) sl = Slot();
+        }
+        if (fh.show_frame)
+            for (Slot& sl : slots) sl.valid = false;
+        if (seq.frame_id_numbers_present) {
+            if (!first_in_sequence && !fh.show_frame) {
+                const int n = seq.frame_id_length;
+                const int diff = fh.frame_id > prev_frame_id ? fh.frame_id - prev_frame_id
+                                                             : (1 << n) + fh.frame_id - prev_frame_id;
+                if (prev_frame_id == fh.frame_id || diff >= (1 << (n - 1)))
+                    fail(HEADER_ERROR, "Invalid value of current_frame_id");
+            }
+            const int id = fh.frame_id, d = 1 << seq.delta_frame_id_length;
+            for (Slot& sl : slots)
+                if (id - d > 0 ? (sl.id > id || sl.id < id - d) : (sl.id > id && sl.id < (1 << seq.frame_id_length) + id - d))
+                    sl.valid = false;
+            prev_frame_id = id;
+        }
+        for (int i = 0; i < 8; i++)
+            if (fh.ref_order_hint[i] >= 0 && !(slots[i].filled && slots[i].order_hint == fh.ref_order_hint[i])) {
+                slots[i].frame.reset();  // a neutral grey frame in libaom: never showable
+                slots[i].filled = true;
+                slots[i].order_hint = fh.ref_order_hint[i];
+            }
+    }
+
+    // update_frame_buffers: the decoded frame into the slots it refreshes
+    void refresh_slots() {
+        frame->showable = fh.showable;
+        for (int i = 0; i < 8; i++)
+            if ((fh.refresh >> i) & 1) {
+                slots[i].frame = frame;
+                slots[i].filled = slots[i].valid = true;
+                slots[i].id = fh.frame_id;
+                slots[i].order_hint = fh.order_hint;
+            }
+        first_in_sequence = false;
+    }
+
+    // the frame libaom outputs: film grain is added as it is output; one of
+    // another size than the first frame header's, which av1_info reports,
+    // libavif scales to the image's size
+    void output(const std::shared_ptr<Frame>& f) {
+        const FrameHeader& h = f->fh;
+        if (h.upscaled_width != first_fh.upscaled_width || h.height != first_fh.height)
+            fail(UNPORTED, "a frame scaled to its ispe size");
+        const double t0 = now_ms();
+        f->film_grain();
+        if (h.grain.apply_grain) stage_ms[5] += now_ms() - t0;
+        out = f;
+    }
+
+    // a show_existing_frame header: the frame in its slot, if it may be
+    // shown (a key frame once); every slot then holds it
+    void show_existing(bool obu_frame, BitReader& rb) {
+        if (seq_changed) fail(HEADER_ERROR, "New sequence header starts with a show existing frame.");
+        Slot& sl = slots[fh.show_idx];
+        if (!sl.filled) fail(HEADER_ERROR, "Buffer does not contain a decoded frame");
+        if (seq.frame_id_numbers_present && (fh.frame_id != sl.id || !sl.valid))
+            fail(HEADER_ERROR, "Reference buffer frame ID mismatch");
+        if (!sl.frame || !sl.frame->showable) fail(HEADER_ERROR, "Buffer does not contain a showable frame");
+        if (!obu_frame) check_trailing_bits(rb);
+        if (obu_frame) fail(HEADER_ERROR, "show_existing_frame in an OBU_FRAME");
+        std::shared_ptr<Frame> f = sl.frame;
+        f->showable = false;
+        for (Slot& other : slots) other = sl;
+        prev_frame_id = sl.id;
+        if (decode_tiles) output(f);
     }
 
     bool in_operating_point(const ObuHeader& h) const {
@@ -4569,17 +4685,24 @@ struct Decoder {
                     }
                     if (!seen_frame_header) {
                         if (!seq_ready) fail(HEADER_ERROR, "No sequence header");
-                        if (frames_done) fail(UNPORTED, "image sequences' first frame");  // a second frame
-                        if (seq_changed) seq_changed = false;  // a key frame starts the new sequence
                         fh = read_frame_header(rb, seq, h.temporal_id, h.spatial_id);
+                        if (fh.show_existing) {
+                            show_existing(h.type == OBU_FRAME, rb);
+                            if (!decode_tiles) return data - start;
+                            finished = true;
+                            decoded = rb.bytes_read();
+                            break;
+                        }
+                        start_key_frame();
                         if (h.type != OBU_FRAME) check_trailing_bits(rb);
                         frame_header_size = rb.bytes_read();
                         frame_header = data;
                         seen_frame_header = true;
                         check_frame_supported();
+                        if (!have_frame) first_fh = fh;
                         have_frame = true;
                         if (!decode_tiles) return data - start;
-                        frame = new Frame(seq, fh, stats);
+                        frame = std::make_shared<Frame>(seq, fh, stats);
                     } else {
                         if (frame_header_size > payload || memcmp(data, frame_header, frame_header_size))
                             fail(HEADER_ERROR, "a redundant frame header that differs");
@@ -4634,14 +4757,12 @@ struct Decoder {
                     const double t4 = now_ms();
                     if (frame->lr_on()) frame->restore();
                     const double t5 = now_ms();
-                    frame->film_grain();
-                    const double t6 = now_ms();
                     stage_ms[1] += t1 - t0;
                     stage_ms[2] += t3 - t2;
                     stage_ms[3] += (t2 - t1) + (t5 - t4);
                     if (fh.width != fh.upscaled_width) stage_ms[4] += t4 - t3;
-                    if (fh.grain.apply_grain) stage_ms[5] += t6 - t5;
-                    frames_done++;
+                    refresh_slots();
+                    if (fh.show_frame) output(frame);  // film grain's ms are counted there
                 }
             }
             if (decoded > payload) fail(HEADER_ERROR, "an OBU read past its size");
@@ -4663,10 +4784,8 @@ struct Decoder {
             if (!decode_tiles && have_frame) return;
             while (pos < n && data[pos] == 0) pos++;
         }
-        if (!frames_done) fail(DECODE_ERROR, "no frame decoded");
+        if (!out) fail(DECODE_ERROR, "no frame shown");
     }
-
-    ~Decoder() { delete frame; }
 };
 
 void set_msg(char* msg, int len, const std::string& s) {
@@ -4792,22 +4911,26 @@ int av1_film_grain(const void* params, uint8_t* luma, uint8_t* cb, uint8_t* cr, 
     return OK;
 }
 
-// Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples, Y of
-// width x height, then U and V of ((width + ss_x) >> ss_x) x ((height + ss_y)
-// >> ss_y). ``stats``: ST_COUNT tool counters; ``stage_ms`` (or null): the
-// wall ms of the tiles' syntax and reconstruction, of deblocking, of CDEF,
-// of loop restoration, of superres and of film grain. Returns a Status.
-int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* stats, double* stage_ms,
-               char* msg, int msg_len) {
+// Decode the stream into ``out``: the planes (1 or 3) of 8-bit samples of
+// the frame libaom outputs (the last one shown), Y of width x height, then U
+// and V of ((width + ss_x) >> ss_x) x ((height + ss_y) >> ss_y), into
+// ``out_size`` bytes at most; ``format`` gets its [mono, ss_x, ss_y] (a
+// later frame may start a sequence of another format). ``stats``: ST_COUNT
+// tool counters; ``stage_ms`` (or null): the wall ms of the tiles' syntax
+// and reconstruction, of deblocking, of CDEF, of loop restoration, of
+// superres and of film grain. Returns a Status.
+int av1_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int32_t* format, int32_t* stats,
+               double* stage_ms, char* msg, int msg_len) {
     Decoder d;
     d.stats = stats;
     d.decode_tiles = true;
     try {
         d.run(data, (size_t)n);
-        const Frame& fr = *d.frame;
-        const int w = d.fh.upscaled_width, h = d.fh.height;
-        const int cw = (w + d.seq.ss_x) >> d.seq.ss_x, ch = (h + d.seq.ss_y) >> d.seq.ss_y;
-        if ((int64_t)w * h + (int64_t)(fr.num_planes - 1) * cw * ch != out_size) fail(BAD_CALL, "an output of another size");
+        const Frame& fr = *d.out;
+        const int w = fr.fh.upscaled_width, h = fr.fh.height;
+        const int cw = (w + fr.s.ss_x) >> fr.s.ss_x, ch = (h + fr.s.ss_y) >> fr.s.ss_y;
+        if ((int64_t)w * h + (int64_t)(fr.num_planes - 1) * cw * ch > out_size) fail(BAD_CALL, "an output too small");
+        format[0] = fr.s.mono, format[1] = fr.s.ss_x, format[2] = fr.s.ss_y;
         for (int p = 0; p < fr.num_planes; p++) {
             const int pw = p ? cw : w, ph = p ? ch : h;
             uint8_t* o = out + (p ? (size_t)w * h + (size_t)(p - 1) * cw * ch : 0);

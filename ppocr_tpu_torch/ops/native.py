@@ -635,7 +635,7 @@ def load_av1_library() -> ctypes.CDLL:
             lib.av1_info.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32p, ctypes.c_char_p, ctypes.c_int]
             lib.av1_decode.restype = ctypes.c_int
             lib.av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                                       i32p, ctypes.POINTER(ctypes.c_double), ctypes.c_char_p, ctypes.c_int]
+                                       i32p, i32p, ctypes.POINTER(ctypes.c_double), ctypes.c_char_p, ctypes.c_int]
             lib.av1_inverse_transform.restype = ctypes.c_int
             lib.av1_inverse_transform.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                                                   ctypes.c_int]
@@ -680,16 +680,18 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
                stage_ms: Optional[np.ndarray] = None):
     """Decode a stream whose headers ``av1_info`` read → (status, the uint8
     planes [Y] or [Y, U, V] (U and V of ((height + ss_y) >> ss_y, (width +
-    ss_x) >> ss_x)) or None, libaom's reason). ``stats``: an int32 array of
+    ss_x) >> ss_x)) of the frame libaom outputs (the last shown, of the
+    first frame's size) or None, libaom's reason). ``info``'s mono, ss_x
+    and ss_y are set to the output frame's (a later key frame may start a
+    sequence of another format). ``stats``: an int32 array of
     ``AV1_STATS_SIZE`` that gets the tool counters (``AV1_STATS``);
     ``stage_ms``: a float64 array of 6 that gets the wall ms of the tiles'
     syntax and reconstruction, of deblocking, of CDEF, of loop
     restoration, of superres and of film grain."""
     lib = load_av1_library()
-    planes = 1 if info[3] else 3
-    w, h, ss_x, ss_y = (int(info[k]) for k in (0, 1, 4, 5))
-    cw, ch = (w + ss_x) >> ss_x, (h + ss_y) >> ss_y
-    out = np.empty(w * h + (planes - 1) * cw * ch, np.uint8)
+    w, h = int(info[0]), int(info[1])
+    out = np.empty(3 * w * h, np.uint8)
+    fmt = np.zeros(3, np.int32)
     if stats is None:
         stats = np.zeros(AV1_STATS_SIZE, np.int32)
     if stats.dtype != np.int32 or stats.size < AV1_STATS_SIZE or not stats.flags.c_contiguous:
@@ -698,14 +700,18 @@ def av1_decode(stream: bytes, info: np.ndarray, stats: Optional[np.ndarray] = No
         raise ValueError("av1_decode: stage_ms must be a contiguous float64 array of 6")
     msg = ctypes.create_string_buffer(256)
     status = lib.av1_decode(stream, len(stream), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+                            fmt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                             None if stage_ms is None else stage_ms.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
                             msg, len(msg))
     if status == 4:
-        raise ValueError(f"av1_decode: a {planes}-plane {w}x{h} output the stream does not describe")
+        raise ValueError(f"av1_decode: a {w}x{h} output the stream does not describe")
     if status:
         return status, None, msg.value.decode(errors="replace")
-    chroma = out[w * h:].reshape(planes - 1, ch, cw)
+    info[3], info[4], info[5] = fmt
+    planes, ss_x, ss_y = 1 if fmt[0] else 3, int(fmt[1]), int(fmt[2])
+    cw, ch = (w + ss_x) >> ss_x, (h + ss_y) >> ss_y
+    chroma = out[w * h:w * h + (planes - 1) * cw * ch].reshape(planes - 1, ch, cw)
     return 0, [out[:w * h].reshape(h, w), *chroma], ""
 
 

@@ -171,6 +171,7 @@ missing compiler is not a bad image.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import ctypes.util
 import logging
@@ -2645,12 +2646,13 @@ def _j2k_reason(status: int, reason: str) -> str:
 AVIF_UNPORTED = {
     "10/12-bit samples": "A14.7c",
     "grids": "A14.7c",
-    "image sequences' first frame": "A14.7c",
+    "inter and intra-only frames": "A14.7c",
     "layered images (a1op, lsel)": "A14.7c",
     "a frame scaled to its ispe size": "A14.7c",
     "premultiplied alpha (prem)": "A14.7c",
 }
 _AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+_AVIF_IMAGE_COUNT_LIMIT = 12 * 3600 * 60  # AVIF_DEFAULT_IMAGE_COUNT_LIMIT: the samples of a track
 # the properties libavif parses; any other is opaque, and an opaque one
 # marked essential hides its item
 _AVIF_PARSED = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi", b"a1op", b"lsel",
@@ -2746,7 +2748,7 @@ class _AvifItem:
         self.thumb_for = self.aux_for = self.prem_by = 0
 
     def prop(self, kind: bytes):
-        return next((v for k, v, _ in self.props if k == kind), None)
+        return _avif_find(self.props, kind)
 
     def skipped(self) -> bool:  # avifDecoderItemShouldBeSkipped
         return (not self.size or self.unsupported_essential or self.type not in (b"av01", b"grid")
@@ -2799,6 +2801,8 @@ def _avif_property(kind: bytes, s: _AvifStream):
         if not 1 <= n <= 4:
             raise _Refused(f"libavif refuses it: Box[pixi] contains unsupported plane count [{n}]")
         depths = [s.uint(1) for _ in range(n)]
+        if not all(1 <= d <= 16 for d in depths):
+            raise _Refused(f"libavif refuses it: Box[pixi] has a plane depth of {depths}")
         if any(d != depths[0] for d in depths):
             raise _Refused("libavif refuses it: Box[pixi] contains mismatched plane depths")
         return depths
@@ -2980,11 +2984,15 @@ def _avif_iprp(meta: _AvifMeta, s: _AvifStream):
         s.pos = end
 
 
-def _avif_children(data: bytes, start: int, end: int, what: str):
-    """The child boxes of ``data[start:end]``, each inside it."""
-    s = _AvifStream(data, start, end, what)
-    while s.left() >= 1:
-        s.pos = s.box_header()[2]
+def _avif_hdlr(b: _AvifStream) -> bytes:
+    """avifParseHandlerBox → the handler type."""
+    b.version(0)
+    if b.uint(4) != 0:
+        raise _Refused("libavif refuses it: Box[hdlr] contains a pre_defined value that is nonzero")
+    kind = b.take(4)
+    b.take(12)
+    b.string()
+    return kind
 
 
 def _avif_meta(meta: _AvifMeta, data: bytes, start: int, end: int):
@@ -2999,13 +3007,8 @@ def _avif_meta(meta: _AvifMeta, data: bytes, start: int, end: int):
         if first:
             if kind != b"hdlr":
                 raise _Refused("libavif refuses it: Box[meta] does not have a Box[hdlr] as its first child box")
-            b.version(0)
-            if b.uint(4) != 0:
-                raise _Refused("libavif refuses it: Box[hdlr] contains a pre_defined value that is nonzero")
-            if b.take(4) != b"pict":
+            if _avif_hdlr(b) != b"pict":
                 raise _Refused("libavif refuses it: Box[hdlr] handler_type is not 'pict'")
-            b.take(12)
-            b.string()
             first = False
             seen.add(kind)
         elif kind in (b"hdlr", b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref"):
@@ -3031,14 +3034,250 @@ def _avif_meta(meta: _AvifMeta, data: bytes, start: int, end: int):
         raise _Refused("libavif refuses it: Box[meta] has no child boxes")
 
 
+class _AvifTrack:
+    """avifTrack: what libavif keeps of a trak box."""
+
+    def __init__(self):
+        self.id = self.width = self.height = 0
+        self.aux_for = self.prem_by = 0
+        self.chunks = []  # chunk offsets (stco, co64)
+        self.to_chunk = []  # (first chunk, samples per chunk) (stsc)
+        self.all_size = 0  # stsz's sample_size: every sample's, where not 0
+        self.sizes = []  # stsz's entry sizes
+        self.formats = []  # (format, properties) of each stsd entry
+        self.stbl = False
+
+    def props(self):  # avifSampleTableGetProperties: the first av01 entry's
+        return next((p for f, p in self.formats if f == b"av01"), None)
+
+    def qualifies(self) -> bool:  # a track libavif takes for colour or alpha (chunks come from its stbl)
+        return self.id and self.chunks and any(f == b"av01" for f, _ in self.formats)
+
+
+_AVIF_VISUAL_SAMPLE_ENTRY = 78  # VISUALSAMPLEENTRY_SIZE: the entry's fields before its boxes
+
+
+def _avif_full(data: bytes, start: int, end: int, what: str, enforce=None):
+    s = _AvifStream(data, start, end, what)
+    return s, s.version(enforce)[0]
+
+
+def _avif_stbl(t: _AvifTrack, data: bytes, start: int, end: int):
+    """avifParseSampleTableBox: each table read whole, an stsd's av01 entry's
+    properties after its 78 bytes of fields."""
+    if t.stbl:
+        raise _Refused("libavif refuses it: Duplicate Box[stbl] for a single track detected")
+    t.stbl = True
+    s = _AvifStream(data, start, end, "stbl")
+    while s.left() >= 1:
+        kind, bstart, bend = s.box_header()
+        if kind in (b"stco", b"co64"):
+            b, _ = _avif_full(data, bstart, bend, kind.decode(), 0)
+            t.chunks += [b.uint(8 if kind == b"co64" else 4) for _ in range(b.uint(4))]
+        elif kind == b"stsc":
+            b, _ = _avif_full(data, bstart, bend, "stsc", 0)
+            for i in range(b.uint(4)):
+                first, per_chunk, _description = b.uint(4), b.uint(4), b.uint(4)
+                if i == 0 and first != 1:
+                    raise _Refused(f"libavif refuses it: Box[stsc] does not begin with chunk 1 [{first}]")
+                if i and first <= t.to_chunk[-1][0]:
+                    raise _Refused("libavif refuses it: Box[stsc] chunks are not strictly increasing")
+                t.to_chunk.append((first, per_chunk))
+        elif kind == b"stsz":
+            b, _ = _avif_full(data, bstart, bend, "stsz", 0)
+            all_size, count = b.uint(4), b.uint(4)
+            if all_size:
+                t.all_size = all_size
+            else:
+                t.sizes += [b.uint(4) for _ in range(count)]
+        elif kind == b"stss":
+            b, _ = _avif_full(data, bstart, bend, "stss", 0)
+            b.take(4 * b.uint(4))  # sample 0 is taken as a sync sample whatever this says
+        elif kind == b"stts":
+            b, _ = _avif_full(data, bstart, bend, "stts", 0)
+            b.take(8 * b.uint(4))
+        elif kind == b"stsd":
+            b, version = _avif_full(data, bstart, bend, "stsd")
+            if version > 1:
+                raise _Refused(f"libavif refuses it: Box[stsd] version {version}")
+            for _ in range(b.uint(4)):
+                fmt, estart, eend = b.box_header()
+                props = []
+                if fmt == b"av01":
+                    if eend - estart < _AVIF_VISUAL_SAMPLE_ENTRY:
+                        raise _Refused("libavif refuses it: Not enough bytes to parse VisualSampleEntry")
+                    c = _AvifStream(data, estart + _AVIF_VISUAL_SAMPLE_ENTRY, eend, "ipco")
+                    while c.left() >= 1:
+                        pkind, pstart, pend = c.box_header()
+                        # a track's auxiliary type is its auxi box, read as an
+                        # item's auxC is; its auxC is opaque
+                        parsed = pkind in _AVIF_PARSED and pkind != b"auxC"
+                        value = _avif_property(b"auxC" if pkind == b"auxi" else pkind, _AvifStream(
+                            data, pstart, pend, pkind.decode("latin-1"))) if parsed or pkind == b"auxi" else None
+                        props.append((pkind, value, 0))
+                        c.pos = pend
+                t.formats.append((fmt, props))
+                b.pos = eend
+        s.pos = bend
+
+
+def _avif_trak(data: bytes, start: int, end: int) -> _AvifTrack:
+    """avifParseTrackBox: tkhd (required, once), a meta box, mdia (mdhd,
+    hdlr, minf's stbl), tref (auxl, prem) and edts (elst) by libavif's
+    rules; what it does not read is skipped."""
+    t = _AvifTrack()
+    s = _AvifStream(data, start, end, "trak")
+    seen = set()
+    duration, repeats = 0, False
+    while s.left() >= 1:
+        kind, bstart, bend = s.box_header()
+        if kind in (b"tkhd", b"edts") and kind in seen:
+            raise _Refused(f"libavif refuses it: Box[trak] contains a duplicate unique box of type '{kind.decode()}'")
+        seen.add(kind)
+        if kind == b"tkhd":
+            b, version = _avif_full(data, bstart, bend, "tkhd")
+            if version not in (0, 1):
+                raise _Refused(f"libavif refuses it: Box[tkhd] has an unsupported version [{version}]")
+            n = 8 if version == 1 else 4
+            b.take(2 * n)  # creation and modification times
+            track_id = b.uint(4)
+            b.take(4)
+            duration = b.uint(n)
+            if duration == (1 << 8 * n) - 1:
+                duration = -1  # indefinite
+            b.take(52)  # reserved, layer, group, volume, reserved, matrix
+            t.width, t.height = b.uint(4) >> 16, b.uint(4) >> 16
+            if not t.width or not t.height:
+                raise _Refused(f"libavif refuses it: Track ID [{track_id}] has an invalid size "
+                               f"[{t.width}x{t.height}]")
+            if t.width > (16384 * 16384) // t.height or t.width > 32768 or t.height > 32768:
+                raise _Refused(f"libavif refuses it: Track ID [{track_id}] dimensions are too large "
+                               f"[{t.width}x{t.height}]")
+            t.id = track_id
+        elif kind == b"meta":
+            _avif_meta(_AvifMeta(), data, bstart, bend)
+        elif kind == b"mdia":
+            m = _AvifStream(data, bstart, bend, "mdia")
+            while m.left() >= 1:
+                mkind, mstart, mend = m.box_header()
+                if mkind == b"mdhd":
+                    b, version = _avif_full(data, mstart, mend, "mdhd")
+                    if version not in (0, 1):
+                        raise _Refused(f"libavif refuses it: Box[mdhd] has an unsupported version [{version}]")
+                    b.take(16 if version == 0 else 28)
+                elif mkind == b"hdlr":
+                    _avif_hdlr(_AvifStream(data, mstart, mend, "hdlr"))
+                elif mkind == b"minf":
+                    f = _AvifStream(data, mstart, mend, "minf")
+                    while f.left() >= 1:
+                        fkind, fstart, fend = f.box_header()
+                        if fkind == b"stbl":
+                            _avif_stbl(t, data, fstart, fend)
+                        f.pos = fend
+                m.pos = mend
+        elif kind == b"tref":
+            r = _AvifStream(data, bstart, bend, "tref")
+            while r.left() >= 1:
+                rkind, rstart, rend = r.box_header()
+                if rkind in (b"auxl", b"prem"):
+                    to_id = r.uint(4)  # the first of its track IDs
+                    if rend - rstart < 4:
+                        raise _Refused(f"libavif refuses it: Box[tref] holds a {rkind.decode()} box under 4 bytes")
+                    if rkind == b"auxl":
+                        t.aux_for = to_id
+                    else:
+                        t.prem_by = to_id
+                r.pos = rend
+        elif kind == b"edts":
+            e = _AvifStream(data, bstart, bend, "edts")
+            elst = False
+            while e.left() >= 1:
+                ekind, estart, eend = e.box_header()
+                if ekind == b"elst":
+                    if elst:
+                        raise _Refused("libavif refuses it: More than one [elst] Box was found.")
+                    elst = True
+                    b = _AvifStream(data, estart, eend, "elst")
+                    version, flags = b.version()
+                    repeats = flags & 1
+                    if repeats:
+                        count = b.uint(4)
+                        if count != 1:
+                            raise _Refused(f"libavif refuses it: Box[elst] contains an entry_count != 1 [{count}]")
+                        if version not in (0, 1):
+                            raise _Refused(f"libavif refuses it: Box[elst] has an unsupported version [{version}]")
+                        if not b.uint(8 if version == 1 else 4):
+                            raise _Refused("libavif refuses it: Box[elst] Invalid value for segment_duration (0).")
+                e.pos = eend
+            if not elst:
+                raise _Refused("libavif refuses it: Box[edts] contains no [elst] Box.")
+        s.pos = bend
+    if b"tkhd" not in seen:
+        raise _Refused("libavif refuses it: Box[trak] does not contain a mandatory [tkhd] box")
+    if repeats and duration == 0:  # the repetition count of a repeating edit list
+        raise _Refused("libavif refuses it: Invalid track duration 0.")
+    return t
+
+
+def _avif_moov(data: bytes, start: int, end: int) -> list:
+    """avifParseMovieBox: every trak, in order (mvhd is not read); a moov
+    without one refuses the file."""
+    s = _AvifStream(data, start, end, "moov")
+    tracks = []
+    while s.left() >= 1:
+        kind, bstart, bend = s.box_header()
+        if kind == b"trak":
+            tracks.append(_avif_trak(data, bstart, bend))
+        s.pos = bend
+    if not tracks:
+        raise _Refused("libavif refuses it: moov box does not contain any tracks")
+    return tracks
+
+
+def _avif_sample0(t: _AvifTrack, size_hint: int):
+    """avifCodecDecodeInputFillFromSampleTable over every sample (the
+    image count limit, chunks of 0 samples, sizes the table lacks, samples
+    past the end of the data) → the first sample's (offset, size); then
+    the check of avifDecoderReset that no sample is empty."""
+    firsts = [first for first, _ in t.to_chunk]
+    counts = []
+    for k in range(len(t.chunks)):  # avifGetSampleCountOfChunk: the last entry at or before chunk k + 1
+        at = bisect.bisect_right(firsts, k + 1)
+        count = t.to_chunk[at - 1][1] if at else 0
+        if count == 0:
+            raise _Refused("libavif refuses it: Sample table contains a chunk with 0 samples")
+        counts.append(count)
+    if sum(counts) > _AVIF_IMAGE_COUNT_LIMIT:
+        raise _Refused("libavif refuses it: Exceeded avifDecoder's imageCountLimit")
+    index = 0
+    first = None
+    for offset, count in zip(t.chunks, counts):
+        if t.all_size:
+            sizes = [t.all_size]
+            end = offset + count * t.all_size
+        else:
+            if index + count > len(t.sizes):
+                raise _Refused("libavif refuses it: Truncated sample table")
+            sizes = t.sizes[index:index + count]
+            end = offset + sum(sizes)
+            index += count
+        if end > size_hint:
+            raise _Refused("libavif refuses it: Exceeded avifIO's sizeHint, possibly truncated data")
+        if first is None:
+            first = (offset, sizes[0])
+        if 0 in sizes:
+            raise _Refused("libavif refuses it: a sample of 0 bytes")
+    return first
+
+
 def _avif_parse(data: bytes):
     """avifParse over the whole file: the top-level boxes until ftyp and
     what its brands need (meta for 'avif', moov for 'avis') are seen →
-    (meta, major brand, whether a moov box was seen)."""
+    (meta, major brand, the moov's tracks: None without a moov)."""
     pos = 0
     ftyp = None
     meta = None
-    moov = False
+    moov = None
     needs_meta = needs_moov = False
     while True:
         if pos > len(data):
@@ -3066,9 +3305,11 @@ def _avif_parse(data: bytes):
             meta = _AvifMeta()
             _avif_meta(meta, data, start, end)
         elif kind == b"moov":
-            moov = True
-        if ftyp is not None and (not needs_meta or meta is not None) and (not needs_moov or moov):
-            return meta, ftyp[0], moov
+            if moov is not None:
+                raise _Refused("libavif refuses it: a second moov box")
+            moov = _avif_moov(data, start, end)
+        if ftyp is not None and (not needs_meta or meta is not None) and (not needs_moov or moov is not None):
+            return meta or _AvifMeta(), ftyp[0], moov
     if ftyp is None:
         raise _Refused("libavif refuses it: no ftyp box")
     raise _Refused("libavif refuses it: the data ends before the meta (or moov) box (truncated data)")
@@ -3077,7 +3318,7 @@ def _avif_parse(data: bytes):
 AVIF_SIGNATURE_SIZE = 500  # grfmt_avif.cpp: the bytes cv2's AVIF signature check parses
 
 
-def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
+def _avif_signature(data: bytes, reads) -> bool:
     """cv2 takes a file for AVIF when avifDecoderParse over its first 500
     bytes (an IO that fails a read past them and gives a short one across
     them; a file under 500 bytes padded with spaces, as imdecode's
@@ -3085,8 +3326,10 @@ def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
     data. The full parse succeeded, so what is left to fail is a read that
     starts past the window: a top-level box header before the boxes the
     brands need are complete, or, when those boxes end inside the window and
-    the primary item has no nclx colour box, the item data libavif reads for
-    the sequence header's colour description.
+    the image has no nclx colour box, the data libavif reads for the
+    sequence header's colour description: ``reads``, the primary item's
+    extents or the colour track's first sample as (offset, length), None
+    where nothing is read.
 
     A top-level box of size 0 runs to the end of what the IO holds: for
     ftyp, meta and moov that is the window's end (cv2 sets the IO's size
@@ -3119,7 +3362,7 @@ def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
                 if kind == b"meta":
                     _avif_meta(_AvifMeta(), sig, start, end)
                 if kind == b"moov":
-                    _avif_children(sig, start, end, "moov")
+                    _avif_moov(sig, start, end)
             except _Refused:
                 return False
         if kind in (b"ftyp", b"meta", b"moov") and end > window:
@@ -3131,9 +3374,7 @@ def _avif_signature(data: bytes, meta: _AvifMeta, color: _AvifItem) -> bool:
         pos = end
         if needs_meta is not None and (not needs_meta or b"meta" in seen) and (not needs_moov or b"moov" in seen):
             break
-    if color.idat or any(k == b"colr" and v[0] == "nclx" for k, v, _ in color.props):
-        return True
-    for off, length in color.extents:
+    for off, length in reads or ():
         if off > window:
             return False
         if off + length > window:
@@ -3197,17 +3438,46 @@ def _decode_av1(stream: bytes, what: str, size, max_area: int = 0) -> tuple:
     return planes, info
 
 
+def _avif_find(props, kind: bytes):  # avifPropertyArrayFind: the first property of its kind
+    return next((v for k, v, _ in props if k == kind), None)
+
+
+def _avif_nclx(props):
+    """avifReadColorProperties: at most one colr of each type (nclx, ICC) →
+    the nclx values or None."""
+    colrs = [v[0] for k, v, _ in props if k == b"colr"]
+    if colrs.count("nclx") > 1 or colrs.count("icc") > 1:
+        raise _Refused("libavif refuses it: more than one colr box of a type")
+    return next((v for k, v, _ in props if k == b"colr" and v[0] == "nclx"), None)
+
+
+def _avif_track_source(data: bytes, tracks: list):
+    """avifDecoderReset's tracks: the first track with a sample table, an
+    ID, chunks and an av01 entry that is no auxiliary track is the colour
+    track, the first such track whose auxl names it the alpha track; each
+    one's sample table is checked whole → (colour track, its first
+    sample, alpha track or None, its first sample)."""
+    color = next((t for t in tracks if t.qualifies() and not t.aux_for), None)
+    if color is None:
+        raise _Refused("libavif refuses it: Failed to find AV1 color track")
+    alpha = next((t for t in tracks if t.qualifies() and t.aux_for == color.id
+                  and _avif_find(t.props(), b"auxi") in (None,) + _AVIF_ALPHA_URNS), None)
+    samples = [_avif_sample0(t, len(data)) for t in (color, alpha) if t is not None]
+    return color, samples[0], alpha, samples[1] if alpha is not None else None
+
+
 def _decode_avif(data: bytes) -> np.ndarray:
     """OpenCV 5.0's grfmt_avif.cpp over libavif 1.4.2 and libaom 3.14.1:
-    the boxes by libavif's rules (strict checks off), the primary item and
-    its alpha item, cv2's channel count from the av1C (one for a
-    monochrome one, whose Y plane is taken as it is), then libavif's YUV
-    to BGR (``native.avif_yuv_to_bgr``); the alpha item is decoded, and a
-    bad one refuses the file, but dropped."""
-    meta, major, moov = _avif_parse(data)
-    if major == b"avis" or (major != b"avif" and moov):
-        raise _avif_unported("image sequences' first frame")
-    for item in meta.items.values():  # avifDecoderReset harvests every image item's ispe
+    the boxes by libavif's rules (strict checks off), then the source
+    libavif picks: the tracks (an image sequence: the colour track's
+    first sample, at the size of its tkhd, and its alpha track's) where
+    the major brand is 'avis', or is not 'avif' and the moov box holds a
+    track, else the primary item and its alpha item; cv2's channel count
+    from the av1C (one for a monochrome one, whose Y plane is taken as it
+    is), then libavif's YUV to BGR (``native.avif_yuv_to_bgr``); the alpha
+    frame is decoded, and a bad one refuses the file, but dropped."""
+    meta, major, tracks = _avif_parse(data)
+    for item in meta.items.values():  # avifDecoderParse harvests every image item's ispe
         if item.skipped():
             continue
         ispe = item.prop(b"ispe")
@@ -3216,42 +3486,67 @@ def _decode_avif(data: bytes) -> np.ndarray:
                 raise _Refused(f"libavif refuses it: Item ID [{item.id}] is missing a mandatory ispe property")
         elif not ispe[0] or not ispe[1] or ispe[0] > 32768 or ispe[1] > 32768 or ispe[0] * ispe[1] > 16384 * 16384:
             raise _Refused(f"libavif refuses it: Item ID [{item.id}] has an ispe of {ispe[0]}x{ispe[1]}")
-    color = next((it for it in meta.items.values() if not it.skipped() and it.id == meta.primary), None)
-    if color is None:
-        raise _Refused("libavif refuses it: Primary item not found")
-    if not _avif_signature(data, meta, color):
-        raise _Refused("cv2 does not take it for AVIF: its signature check needs a read past the first "
-                       f"{AVIF_SIGNATURE_SIZE} bytes")
-    if color.type == b"grid":
-        raise _avif_unported("grids")
-    alpha = next((it for it in meta.items.values() if not it.skipped() and it.aux_for == color.id
-                  and it.prop(b"auxC") in _AVIF_ALPHA_URNS), None)
-    av1c = _avif_check_properties(color)
-    if alpha is not None:
-        _avif_check_properties(alpha)
-    ispe = color.prop(b"ispe")
-    if ispe is None:
-        raise _Refused("libavif refuses it: the primary item has no ispe property")
-    width, height = ispe
+    if major == b"avis" or (major != b"avif" and tracks):
+        track, sample, alpha_track, alpha_sample = _avif_track_source(data, tracks)
+        props = track.props()
+        nclx = _avif_nclx(props)
+        if not _avif_signature(data, None if nclx else [sample]):
+            raise _Refused("cv2 does not take it for AVIF: its signature check needs a read past the first "
+                           f"{AVIF_SIGNATURE_SIZE} bytes")
+        av1c = _avif_find(props, b"av1C")
+        if av1c is None:
+            raise _Refused("libavif refuses it: the colour track is missing its av1C property")
+        width, height = track.width, track.height
+        color = (data[sample[0]:sum(sample)], "color track's first sample")  # inside the data: the table's check
+        # the alpha frame, scaled to its track's size, must match the colour frame
+        alpha = None if alpha_track is None else (data[alpha_sample[0]:sum(alpha_sample)],
+                                                   "alpha track's first sample", (alpha_track.width, alpha_track.height))
+        premultiplied = alpha_track is not None and track.prem_by == alpha_track.id
+    else:
+        color_item = next((it for it in meta.items.values() if not it.skipped() and it.id == meta.primary), None)
+        if color_item is None:
+            raise _Refused("libavif refuses it: Primary item not found")
+        nclx = _avif_nclx(color_item.props)
+        if not _avif_signature(data, None if color_item.idat or nclx else color_item.extents):
+            raise _Refused("cv2 does not take it for AVIF: its signature check needs a read past the first "
+                           f"{AVIF_SIGNATURE_SIZE} bytes")
+        if color_item.type == b"grid":
+            raise _avif_unported("grids")
+        alpha_item = next((it for it in meta.items.values() if not it.skipped() and it.aux_for == color_item.id
+                           and it.prop(b"auxC") in _AVIF_ALPHA_URNS), None)
+        av1c = _avif_check_properties(color_item)
+        if alpha_item is not None:
+            _avif_check_properties(alpha_item)
+        ispe = color_item.prop(b"ispe")
+        if ispe is None:
+            raise _Refused("libavif refuses it: the primary item has no ispe property")
+        width, height = ispe
+        if alpha_item is not None and alpha_item.prop(b"ispe") not in (None, ispe):
+            raise _Refused("libavif refuses it: the alpha item's ispe differs from the color item's")
+        for item in (color_item, alpha_item):
+            if item is not None and ((item.prop(b"a1op") or 0) != 0 or item.prop(b"lsel") not in (None, 0xFFFF)):
+                raise _avif_unported("layered images (a1op, lsel)")
+        color = (_avif_item_data(meta, color_item, data), "color item")
+        # libavif scales an alpha plane of another size; its samples are dropped
+        alpha = None if alpha_item is None else (_avif_item_data(meta, alpha_item, data), "alpha item", None)
+        premultiplied = alpha_item is not None and color_item.prem_by == alpha_item.id
     _check_size(width, height)
-    if alpha is not None and alpha.prop(b"ispe") not in (None, ispe):
-        raise _Refused("libavif refuses it: the alpha item's ispe differs from the color item's")
-    for item in (color, alpha):
-        if item is not None and ((item.prop(b"a1op") or 0) != 0 or item.prop(b"lsel") not in (None, 0xFFFF)):
-            raise _avif_unported("layered images (a1op, lsel)")
     if av1c["depth"] != 8:
         raise _avif_unported("10/12-bit samples")
     if av1c["mono"] and alpha is not None:  # cv2 reads two channels, which it cannot convert
-        raise _Refused("a monochrome av1C with an alpha item (cv2 asserts on two channels)")
-    planes, info = _decode_av1(_avif_item_data(meta, color, data), "color item", (width, height))
-    if alpha is not None:  # libavif scales an alpha plane of another size; its samples are dropped
-        _decode_av1(_avif_item_data(meta, alpha, data), "alpha item", None, 4 * width * height)
-        if color.prem_by == alpha.id:
+        raise _Refused("a monochrome av1C with alpha (cv2 asserts on two channels)")
+    planes, info = _decode_av1(color[0], color[1], (width, height))
+    if alpha is not None:
+        if alpha[2] in (None, (width, height)):
+            _decode_av1(alpha[0], alpha[1], alpha[2], 4 * width * height)
+        else:
+            _decode_av1(alpha[0], alpha[1], None, 1 << 62)
+            raise _Refused("libavif refuses it: the alpha track's size differs from the colour track's")
+        if premultiplied:
             raise _avif_unported("premultiplied alpha (prem)")
     if av1c["mono"]:  # cv2 reads one channel: the Y plane as it is
         return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, -1))
     # libavif's CICP: the colr nclx box where there is one, else the sequence header's
-    nclx = next((v for k, v, _ in color.props if k == b"colr" and v[0] == "nclx"), None)
     primaries, matrix, full_range = ((nclx[1], nclx[3], nclx[4]) if nclx is not None
                                      else (int(info[6]), int(info[8]), int(info[9])))
     from ..ops import native  # built with csrc/av1.cpp, loaded by the decode above

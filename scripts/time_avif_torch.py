@@ -13,7 +13,9 @@ quality-95 AVIF (4:2:0, BT.601 in full range, the in-loop filters off:
 deblocking and CDEF: ``scene0_avif_default``) and as cv2's default
 quality at speed 4 (the same with Wiener loop restoration on luma:
 ``scene0_avif_restored``) and as Pillow's 4:2:0 q60 AVIF with libaom's
-film-grain test vector 4 (``scene0_avif_grain``), and the largest
+film-grain test vector 4 (``scene0_avif_grain``) and as the first frame
+of cv2's lossless animation (an ``avis`` file of three frames: the AV1
+stream is the colour track's first sample; ``scene0_avif_sequence``), and the largest
 committed superres frame (``avif_superres_case_cdef_lr``: 4:4:4, 311x256
 coded 249 wide (denominator 10), deblocked, CDEF, switchable loop restoration; the
 tests' own writer, ``tests/test_torch_avif_superres.py``). For each,
@@ -31,7 +33,9 @@ answer,
 and, where cv2 5.0.0 (the version the port replays) imports,
 ``cv2.imdecode`` at cv2's own thread count and at
 ``cv2.setNumThreads(1)``; another cv2 (or none) is named in the output and
-not timed. Prints one JSON line, the payloads by name.
+not timed. Prints one JSON line, the payloads by name, then one line of
+the sequence's boxes' parse alone (``imcodec._avif_parse``: ftyp, meta,
+the moov and its sample tables), the median of ``--repeats`` runs.
 """
 
 from __future__ import annotations
@@ -51,14 +55,20 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 
 PAYLOADS = ("scene0_avif", "scene0_avif_lossy", "scene0_avif_q95", "scene0_avif_default", "scene0_avif_restored",
-            "scene0_avif_grain", "avif_superres_case_cdef_lr")
+            "scene0_avif_grain", "scene0_avif_sequence", "avif_superres_case_cdef_lr")
 STAGES = ("port_av1_tiles", "port_av1_deblock", "port_av1_cdef", "port_av1_lr", "port_av1_superres",
           "port_av1_grain")
 
 
 def av1_stream(data: bytes) -> bytes:
     """The primary item's bytes of a file as libavif writes it (iloc
-    version 0, 4-byte offsets and lengths, item 1 first)."""
+    version 0, 4-byte offsets and lengths, item 1 first); of an image
+    sequence, the colour track's first sample."""
+    if data[8:12] == b"avis":
+        from ppocr_tpu_torch.utils import imcodec
+
+        _, (offset, size), _, _ = imcodec._avif_track_source(data, imcodec._avif_parse(data)[2])
+        return data[offset:offset + size]
     at = data.index(b"iloc") + 4
     off, length = struct.unpack(">II", data[at + 14:at + 22])
     return data[off:off + length]
@@ -138,6 +148,16 @@ def main(argv=None) -> int:
     result["host"] = {"machine": platform.machine(), "processor": platform.processor(), "cpus": os.cpu_count(),
                       "python": platform.python_version()}
     print(json.dumps({"avif_host_ms": result}))
+    from ppocr_tpu_torch import assets
+    from ppocr_tpu_torch.utils import imcodec
+
+    data = assets.load_image_cases()["scene0_avif_sequence"][0]
+    parse = []
+    for _ in range(args.repeats + 1):
+        t = time.perf_counter()
+        imcodec._avif_parse(data)
+        parse.append((time.perf_counter() - t) * 1e3)
+    print(json.dumps({"avif_sequence_moov_parse_ms": statistics.median(parse[1:]), "bytes": len(data)}))
     return 0
 
 

@@ -660,12 +660,18 @@ def _grid() -> bytes:
                      iref=full_box(b"iref", 0, 0, box(b"dimg", struct.pack(">HHHH", 1, 2, 2, 3))))
 
 
-def _refusals() -> dict:
+def _sequence() -> bytes:
+    """Pillow's lossless 4:4:4 sequence of two frames, once refused."""
     img = smooth(32, 48, 3, 30)
-    color, c4, a4, _ = _streams()
     frames = [Image.fromarray(img), Image.fromarray(255 - img)]
     buf = io.BytesIO()
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], quality=100, subsampling="4:4:4")
+    return buf.getvalue()
+
+
+def _refusals() -> dict:
+    img = smooth(32, 48, 3, 30)
+    color, c4, a4, _ = _streams()
     prem = full_box(b"iref", 0, 0, box(b"auxl", struct.pack(">HHH", 2, 1, 1)) + box(b"prem", struct.pack(">HHH", 1, 1, 2)))
     # subsampled chroma, every matrix and both ranges are decoded since
     # (tests/test_torch_avif_chroma.py, test_torch_avif_colour.py), and so
@@ -673,12 +679,13 @@ def _refusals() -> dict:
     # test_torch_avif_cdef.py), loop restoration
     # (test_torch_avif_restoration.py; the files once refused for them:
     # FILTERED below), film grain and superres (test_torch_avif_grain.py,
-    # test_torch_avif_superres.py; GRAINED below): a frame is refused now
+    # test_torch_avif_superres.py; GRAINED below), and image sequences'
+    # first frames (test_torch_avif_sequence.py, which holds the refusal of
+    # inter and intra-only frames; SEQUENCE below): a frame is refused now
     # only for what ROADMAP A14.7c ports
     return {
         "10-bit": (cv2_avif(img.astype(np.uint16) * 4, depth=10), "10/12-bit samples (ROADMAP A14.7c)"),
         "grid": (_grid(), "grids (ROADMAP A14.7c)"),
-        "sequence": (buf.getvalue(), "image sequences' first frame (ROADMAP A14.7c)"),
         "scaled": (avif_file(color, w=13, h=8), "a frame scaled to its ispe size (ROADMAP A14.7c)"),
         "prem": (avif_file(c4, a4, w=12, h=8, iref=prem), "premultiplied alpha (prem) (ROADMAP A14.7c)"),
         "a1op": (avif_file(color, w=12, h=8, color_props=COLOR_PROPS(12, 8) + [(box(b"a1op", b"\x01"), 1)]),
@@ -733,6 +740,12 @@ def _grained() -> dict:
 
 
 GRAINED = _grained()
+SEQUENCE = _sequence()
+
+
+def test_what_was_refused_as_a_sequence_decodes_as_cv2(tmp_path):
+    assert answers(SEQUENCE) == "equal"
+    assert read_answers(SEQUENCE, tmp_path) == "equal"
 
 
 @pytest.mark.parametrize("name", list(GRAINED))
@@ -757,10 +770,12 @@ def test_what_was_refused_for_its_in_loop_filters_decodes_as_cv2(name, tmp_path)
 
 def test_what_the_port_does_not_decode_is_pinned():
     assert imcodec.AVIF_UNPORTED == {
-        "10/12-bit samples": "A14.7c", "grids": "A14.7c", "image sequences' first frame": "A14.7c",
+        "10/12-bit samples": "A14.7c", "grids": "A14.7c", "inter and intra-only frames": "A14.7c",
         "layered images (a1op, lsel)": "A14.7c", "a frame scaled to its ispe size": "A14.7c",
         "premultiplied alpha (prem)": "A14.7c"}
-    assert {reason.split(" (ROADMAP")[0] for _, reason in REFUSALS.values()} == set(imcodec.AVIF_UNPORTED)
+    # the refusal of inter and intra-only frames is held in test_torch_avif_sequence.py
+    assert {reason.split(" (ROADMAP")[0] for _, reason in REFUSALS.values()} == (
+        set(imcodec.AVIF_UNPORTED) - {"inter and intra-only frames"})
     assert imcodec.sniff_format(BASES["noise"]) == imcodec.sniff_format(CONTAINERS["major_mif1"][0]) == "avif"
     assert not imcodec.FORMAT_NAMES
 

@@ -1376,9 +1376,11 @@ def write():
     and 4:2:2 streams, lossless and lossy, screen content, options, mutated
     and cut files), of ``tests/test_torch_avif_deblock.py`` (deblocked
     and CDEF-filtered files of cv2 and Pillow, the written frames, mutated
-    and cut files) and of ``tests/test_torch_avif_restoration.py``
+    and cut files), of ``tests/test_torch_avif_restoration.py``
     (loop-restored files of cv2 and Pillow, the written frames, edge
-    sizes, mutated and cut files), damaged PNGs (decoded and refused) and the first
+    sizes, mutated and cut files) and of ``tests/test_torch_avif_sequence.py``
+    (image sequences of cv2 and Pillow, the written tracks and samples of
+    several frames, mutated and cut files), damaged PNGs (decoded and refused) and the first
     serving scene as each timing payload (the JPEG 2000 ones from
     ``tests/test_torch_jpeg2000.py``'s ``scene_payloads``, the lossless AVIF
     from ``tests/test_torch_avif.py``'s ``scene_payload``, the lossy one
@@ -1386,7 +1388,8 @@ def write():
     from ``tests/test_torch_avif_chroma.py``'s, cv2's and Pillow's default
     ones from ``tests/test_torch_avif_deblock.py``'s, cv2's speed-4 one
     from ``tests/test_torch_avif_restoration.py``'s, Pillow's film-grain
-    one from ``tests/test_torch_avif_grain.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
+    one from ``tests/test_torch_avif_grain.py``'s, cv2's lossless
+    animation from ``tests/test_torch_avif_sequence.py``'s), each beside cv2's decode (a grey PFM's is [H, W]) or a
     flag that cv2 gave ``None``. Of a PAM of DEPTH
     2 or 4 the columns cv2 does not write are stored as 0, as the port
     gives them."""
@@ -1491,6 +1494,7 @@ def write():
     import test_torch_avif_lossy as avif_lossy
     import test_torch_avif_grain as avif_grain
     import test_torch_avif_restoration as avif_restored
+    import test_torch_avif_sequence as avif_sequence
     import test_torch_avif_superres as avif_superres
 
     cases.update({f"avif_{k}": v for k, v in avif.written_cases().items()})
@@ -1500,6 +1504,7 @@ def write():
     cases.update({f"avif_{k}": v for k, v in avif_restored.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_grain.written_cases().items()})
     cases.update({f"avif_{k}": v for k, v in avif_superres.written_cases().items()})
+    cases.update({f"avif_{k}": v for k, v in avif_sequence.written_cases().items()})
     cases.update(scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(j2k.scene_payloads(assets.load_scenes()["serving"][0]))
     cases.update(avif.scene_payload(assets.load_scenes()["serving"][0]))
@@ -1508,6 +1513,7 @@ def write():
     cases.update(avif_filtered.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_restored.scene_payload(assets.load_scenes()["serving"][0]))
     cases.update(avif_grain.scene_payload(assets.load_scenes()["serving"][0]))
+    cases.update(avif_sequence.scene_payload(assets.load_scenes()["serving"][0]))
     out = {}
     for name, data in cases.items():
         out[f"{name}/bytes"] = np.frombuffer(data, np.uint8)
@@ -1582,7 +1588,11 @@ def fuzz(rounds: int) -> int:
     2,000 mutations of each of its 5, 10,000 files a round) and the
     superres bases of ``tests/test_torch_avif_superres.py`` (4:4:4 and
     4:2:0 with loop restoration, two tile columns, CDEF, coded lossless:
-    2,000 mutations of each of its 5, 10,000 files a round). Prints the counts;
+    2,000 mutations of each of its 5, 10,000 files a round) and the image
+    sequence bases of ``tests/test_torch_avif_sequence.py`` (cv2's and
+    Pillow's sequences, alpha tracks, a primary item before the moov,
+    chunks in co64, a hidden key frame: 2,000 mutations of each of its 7
+    and every cut of the small ones). Prints the counts;
     returns the number of files that differ (a TIFF, WebP, JPEG 2000 or
     AVIF file of a kind the port names as not decoded, which garbling can
     reach, is counted apart)."""
@@ -1606,12 +1616,14 @@ def fuzz(rounds: int) -> int:
     import test_torch_avif_lossy as avif_lossy
     import test_torch_avif_grain as avif_grain
     import test_torch_avif_restoration as avif_restored
+    import test_torch_avif_sequence as avif_sequence
     import test_torch_avif_superres as avif_superres
 
     files = bad = known = fax_files = jpeg_files = webp_files = lossy_files = j2k_files = j2k_bad = 0
     avif_files = avif_bad = avif_lossy_files = avif_lossy_bad = avif_chroma_files = avif_chroma_bad = 0
     avif_filtered_files = avif_filtered_bad = avif_restored_files = avif_restored_bad = 0
     avif_grain_files = avif_grain_bad = avif_superres_files = avif_superres_bad = 0
+    avif_sequence_files = avif_sequence_bad = 0
     webp_bases = webp.fuzz_bases()
     for r in range(rounds):
         tiffs = []
@@ -1677,7 +1689,8 @@ def fuzz(rounds: int) -> int:
         restored_datas = avif_restored.fuzz_files(r)
         grain_datas = avif_grain.fuzz_files(r)
         superres_datas = avif_superres.fuzz_files(r)
-        tail = grain_datas + superres_datas  # counted apart, after the others
+        sequence_datas = avif_sequence.fuzz_files(r)
+        tail = grain_datas + superres_datas + sequence_datas  # counted apart, after the others
         datas = avif.fuzz_files(r) + lossy_datas + chroma_datas + filtered_datas + restored_datas + tail
         avif_files += len(datas)
         avif_lossy_files += len(lossy_datas)
@@ -1686,6 +1699,7 @@ def fuzz(rounds: int) -> int:
         avif_restored_files += len(restored_datas)
         avif_grain_files += len(grain_datas)
         avif_superres_files += len(superres_datas)
+        avif_sequence_files += len(sequence_datas)
         files += len(datas)
         logging.disable(logging.NOTSET)  # "known" is told by the refusal's log line
         try:
@@ -1695,7 +1709,11 @@ def fuzz(rounds: int) -> int:
         avif_bad += sum(a not in ("none", "equal", "known") for a in got)
         got, got_tail = got[:len(got) - len(tail)], got[len(got) - len(tail):]
         avif_grain_bad += sum(a not in ("none", "equal", "known") for a in got_tail[:len(grain_datas)])
-        avif_superres_bad += sum(a not in ("none", "equal", "known") for a in got_tail[len(grain_datas):])
+        n_superres = len(superres_datas)
+        avif_superres_bad += sum(a not in ("none", "equal", "known")
+                                 for a in got_tail[len(grain_datas):len(grain_datas) + n_superres])
+        avif_sequence_bad += sum(a not in ("none", "equal", "known")
+                                 for a in got_tail[len(grain_datas) + n_superres:])
         n_lossy, n_chroma, n_filtered = len(lossy_datas), len(chroma_datas), len(filtered_datas)
         n_restored = len(restored_datas)
         end_chroma = len(got) - n_filtered - n_restored
@@ -1715,7 +1733,8 @@ def fuzz(rounds: int) -> int:
               f"{avif_filtered_bad} of those differing, {avif_restored_files} of the loop-restored bases, "
               f"{avif_restored_bad} of those differing, {avif_grain_files} of the film-grain bases, "
               f"{avif_grain_bad} of those differing, {avif_superres_files} of the superres bases, "
-              f"{avif_superres_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
+              f"{avif_superres_bad} of those differing, {avif_sequence_files} of the image sequence bases, "
+              f"{avif_sequence_bad} of those differing), {bad} differ from cv2 {cv2.__version__} "
               f"({known} TIFFs, WebPs, JPEG 2000 or AVIF files of a kind named as not decoded)", flush=True)
     return bad
 
